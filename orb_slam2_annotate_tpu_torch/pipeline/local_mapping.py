@@ -1,0 +1,250 @@
+"""Local mapping: keyframe insertion, recent-point culling, triangulation
+and local BA (port of pipeline/local_mapping.py; fuse, depth points and
+keyframe culling are not part of this slice).
+
+The reference's ``.at[]`` writes that route filler indices to a dump row
+(K) or column (P) keep that dump slot here explicitly: torch raises on an
+out-of-range index where JAX drops the write.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..geometry import lie
+from ..geometry.camera import CameraModel, project
+from ..geometry.twoview import triangulate_dlt
+from ..ops import matching
+from ..ops.sorting import nanmedian, stable_topk
+from ..solvers import ba_core
+from ..worldmap import map_state as ms
+from .frame import Frame
+from .tracking import inv_sigma2
+
+SCALE = 1.2
+N_LEVELS = 8
+LBA_ITERS_ROBUST = 4
+LBA_ITERS_FINAL = 6
+
+
+def insert_keyframe_from_frame(m: ms.MapState, frame: Frame, slot: int, R, t, obs,
+                               frame_id: int, timestamp: float) -> ms.MapState:
+    """Insert the tracked frame as a keyframe into the free slot `slot`."""
+    return ms.insert_keyframe(m, slot, R, t, frame_id, timestamp, frame.xy, frame.ur,
+                              frame.depth, frame.octave, frame.angle, frame.desc, frame.valid,
+                              torch.where(frame.valid, obs, -1))
+
+
+def cull_recent_mappoints(m: ms.MapState) -> ms.MapState:
+    """Drop recent points (created within the last 4 keyframes) with a low
+    found/visible ratio and at most 2 observations."""
+    age = (m.n_kf - 1) - m.mp_first_kf
+    recent = m.mp_valid & (m.mp_first_kf >= 0) & (age <= 4)
+    found_ratio = m.mp_found.float() / torch.clamp_min(m.mp_visible.float(), 1.0)
+    bad = recent & (found_ratio < 0.15) & (ms.mp_observation_counts(m) <= 2)
+    obs = m.kf_obs
+    obs_bad = (obs >= 0) & bad[torch.clamp(obs, 0, m.P - 1).long()]
+    return m.replace(mp_valid=m.mp_valid & ~bad, kf_obs=torch.where(obs_bad, -1, obs))
+
+
+def _fundamental_between(cam: CameraModel, R1, t1, R2, t2):
+    """F12 with x1^T F12 x2 = 0 for pixel coordinates."""
+    R12 = R1 @ R2.T
+    t12 = -R12 @ t2 + t1
+    Kinv = torch.linalg.inv(cam.K(R1.device))
+    return Kinv.T @ (lie.hat(t12) @ R12) @ Kinv
+
+
+def _kf_frame(m: ms.MapState, s) -> Frame:
+    return Frame(xy=m.kf_xy[s], xy_raw=m.kf_xy[s], ur=m.kf_ur[s], depth=m.kf_depth[s],
+                 octave=m.kf_octave[s], angle=m.kf_angle[s],
+                 response=torch.zeros_like(m.kf_angle[s]), desc=m.kf_desc[s],
+                 valid=m.kf_feat_valid[s])
+
+
+def _median_depth(m: ms.MapState, s, R, t) -> torch.Tensor:
+    obs = m.kf_obs[s]
+    has = (obs >= 0) & m.kf_feat_valid[s]
+    z = (m.mp_pos[torch.clamp(obs, 0, m.P - 1).long()] @ R.T + t)[:, 2]
+    return torch.nan_to_num(nanmedian(torch.where(has, z, torch.full_like(z, float("nan")))),
+                            nan=1.0)
+
+
+def create_new_mappoints(m: ms.MapState, cam: CameraModel, slot: int,
+                         n_neighbors: int = 20) -> ms.MapState:
+    """Triangulate new points between the new keyframe and its best covisible
+    neighbours that pass the baseline / median-depth gate; each unmatched
+    feature keeps its largest-parallax valid pair."""
+    K, P, N = m.K, m.P, m.N
+    dev = m.device
+    n_neighbors = min(n_neighbors, K - 1)
+    w_row = ms.covis_row(m, slot)
+    R1, t1 = m.kf_R[slot], m.kf_t[slot]
+    c1 = -R1.T @ t1
+    med_depth_s = _median_depth(m, slot, R1, t1)
+    cam_c = -torch.einsum("kij,ki->kj", m.kf_R, m.kf_t)
+    base_ok = torch.linalg.norm(cam_c - c1, dim=-1) / torch.clamp_min(med_depth_s, 1e-6) > 0.01
+    w_slot = torch.where(m.kf_valid & base_ok, w_row, -1)
+    w_slot[slot] = -1
+    _, nbrs = stable_topk(w_slot, n_neighbors)
+    nbr_ok = w_slot[nbrs] > 0
+
+    f1 = _kf_frame(m, slot)
+    has1 = m.kf_obs[slot] >= 0
+    inv_s2 = inv_sigma2(torch.arange(N_LEVELS, device=dev))
+    Kc = cam.K(dev)
+    P1 = Kc @ torch.cat([R1, t1[:, None]], dim=1)
+    x1 = m.kf_xy[slot]
+    oct1 = m.kf_octave[slot].float()
+    s2_1 = SCALE ** (2.0 * oct1)
+
+    idxs, goods, Xs, cosps = [], [], [], []
+    for i, nb in enumerate(nbrs.tolist()):
+        R2, t2 = m.kf_R[nb], m.kf_t[nb]
+        c2 = -R2.T @ t2
+        ok_baseline = torch.linalg.norm(c2 - c1) / torch.clamp_min(
+            _median_depth(m, nb, R2, t2), 1e-6) > 0.01
+        res = matching.search_for_triangulation(f1, _kf_frame(m, nb), _fundamental_between(
+            cam, R1, t1, R2, t2), inv_s2, inv_s2, exclude1=has1, exclude2=m.kf_obs[nb] >= 0)
+        idx = torch.where(res.matched & ok_baseline & nbr_ok[i], res.idx, -1)
+        idxs.append(idx)
+
+        # triangulate and gate this neighbour's pairs
+        idc = torch.clamp_min(idx, 0).long()
+        P2 = Kc @ torch.cat([R2, t2[:, None]], dim=1)
+        x2 = m.kf_xy[nb, idc]
+        X = triangulate_dlt(P1, P2, x1, x2)
+        xc1 = X @ R1.T + t1
+        xc2 = X @ R2.T + t2
+        e1 = ((project(cam, xc1) - x1) ** 2).sum(1)
+        e2 = ((project(cam, xc2) - x2) ** 2).sum(1)
+        oct2 = m.kf_octave[nb, idc].float()
+        r1v, r2v = X - c1, X - c2
+        d1, d2 = torch.linalg.norm(r1v, dim=1), torch.linalg.norm(r2v, dim=1)
+        cosp = (r1v * r2v).sum(1) / torch.clamp_min(d1 * d2, 1e-9)
+        ratio_d = d1 / torch.clamp_min(d2, 1e-9)
+        ratio_o = (SCALE ** oct1) / (SCALE ** oct2)
+        scale_ok = (ratio_d < ratio_o * SCALE * 1.5) & (ratio_d * SCALE * 1.5 > ratio_o)
+        good = ((idx >= 0) & torch.isfinite(X).all(1) & (xc1[:, 2] > 0) & (xc2[:, 2] > 0)
+                & (e1 < 5.991 * s2_1) & (e2 < 5.991 * (SCALE ** (2.0 * oct2)))
+                & (cosp < 0.9998) & scale_ok)
+        goods.append(good)
+        Xs.append(X)
+        cosps.append(cosp)
+    idxs, good_all = torch.stack(idxs), torch.stack(goods)
+    X_all, cosp_all = torch.stack(Xs), torch.stack(cosps)
+
+    best_nb = torch.argmin(torch.where(good_all, cosp_all, torch.full_like(cosp_all, float("inf"))),
+                           dim=0)
+    good = good_all.any(0)
+    best_idx = torch.gather(idxs, 0, best_nb[None])[0]
+    X = X_all[best_nb, torch.arange(N, device=dev)]
+    nb_sel = nbrs[best_nb]
+
+    slots = ms.free_mp_slots(m, N)
+    take = good & ~m.mp_valid[slots]
+    new_ids = torch.where(take, slots.to(torch.int32), -1)
+
+    def put(a, v):
+        return a.index_put((slots,), torch.where(take.reshape((-1,) + (1,) * (v.dim() - 1)), v,
+                                                 a[slots]))
+
+    kf_obs = m.kf_obs.clone()
+    kf_obs[slot] = torch.where(take, new_ids, m.kf_obs[slot])
+    lin = nb_sel * N + torch.clamp_min(best_idx, 0).long()
+    kf_obs = kf_obs.reshape(-1).scatter_reduce(0, lin, new_ids, "amax").reshape(K, N)
+    n_kf1 = (m.n_kf - 1).expand(N)
+    return m.replace(mp_pos=put(m.mp_pos, X), mp_valid=m.mp_valid.index_put(
+        (slots,), m.mp_valid[slots] | take), mp_first_kf=put(m.mp_first_kf, n_kf1.to(torch.int32)),
+        mp_visible=put(m.mp_visible, torch.ones_like(m.mp_visible[slots])),
+        mp_found=put(m.mp_found, torch.ones_like(m.mp_found[slots])), kf_obs=kf_obs)
+
+
+def local_bundle_adjustment(m: ms.MapState, cam: CameraModel, slot: int, n_opt: int = 16,
+                            n_fixed: int = 16) -> ms.MapState:
+    """Covisible-window BA: the new keyframe + its best covisible keyframes
+    move, other observers of their points are fixed."""
+    K, P, N = m.K, m.P, m.N
+    dev = m.device
+    n_opt, n_fixed = min(n_opt, K), min(n_fixed, K)
+    w_slot = torch.where(m.kf_valid, ms.covis_row(m, slot), -1)
+    w_slot[slot] = -1
+    _, nb = stable_topk(w_slot, n_opt - 1)
+    slot_t = torch.tensor([slot], device=dev)
+    opt_kfs = torch.cat([slot_t, nb])
+    opt_ok = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), w_slot[nb] > 0])
+    pts_mask = ms.point_mask_rows(m, opt_kfs, opt_ok) & m.mp_valid
+
+    all_ok = (m.kf_obs >= 0) & m.kf_feat_valid & m.kf_valid[:, None]
+    sees_local = (pts_mask[torch.clamp(m.kf_obs, 0, P - 1).long()] & all_ok).any(1)
+    is_opt = torch.zeros(K, dtype=torch.int32, device=dev).scatter_reduce(
+        0, opt_kfs, opt_ok.to(torch.int32), "amax").bool()
+    fixed_cand = sees_local & m.kf_valid & ~is_opt
+    _, fx = stable_topk(fixed_cand.to(torch.int32), n_fixed)
+    fx_ok = fixed_cand[fx]
+
+    cams_all = torch.cat([opt_kfs, fx])
+    cams_ok = torch.cat([opt_ok, fx_ok])
+    cam_fixed = torch.cat([torch.zeros(n_opt, dtype=torch.bool, device=dev),
+                           torch.ones(n_fixed, dtype=torch.bool, device=dev)])
+    C = n_opt + n_fixed
+    no_frontier = ~fx_ok.any()
+    big = torch.iinfo(torch.int32).max
+    oldest = torch.argmin(torch.where(opt_ok, m.kf_frame_id[opt_kfs], big))
+    cam_fixed = cam_fixed.clone()
+    cam_fixed[oldest] = cam_fixed[oldest] | no_frontier
+
+    P_BA = min(2048, P)
+    _, psel = stable_topk(pts_mask.to(torch.int32), P_BA)
+    psel_ok = pts_mask[psel]
+    g2l = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    g2l[psel] = torch.where(psel_ok, torch.arange(P_BA, dtype=torch.int32, device=dev), -1)
+
+    obs_grid = m.kf_obs[cams_all]
+    feat_ok = m.kf_feat_valid[cams_all] & cams_ok[:, None]
+    pt_loc = torch.where(feat_ok & (obs_grid >= 0), g2l[torch.clamp(obs_grid, 0, P - 1).long()], -1)
+    e_valid = feat_ok & (pt_loc >= 0)
+    prob = ba_core.GridBA(
+        R=m.kf_R[cams_all], t=m.kf_t[cams_all], points=m.mp_pos[psel],
+        cam_fixed=cam_fixed | ~cams_ok, cam_valid=cams_ok, pt_valid=psel_ok, pt_loc=pt_loc,
+        uv=m.kf_xy[cams_all], ur=m.kf_ur[cams_all],
+        inv_sigma2=inv_sigma2(m.kf_octave[cams_all]), edge_valid=e_valid)
+    R1, t1, X1, inl1, _ = ba_core.bundle_adjust_grid(cam, prob, iters=LBA_ITERS_ROBUST)
+    prob2 = dataclasses.replace(prob, R=R1, t=t1, points=X1, edge_valid=e_valid & inl1)
+    R2, t2, X2, inl2, _ = ba_core.bundle_adjust_grid(cam, prob2, iters=LBA_ITERS_FINAL)
+
+    # write back poses, points and observations; filler entries go to a dump row
+    upd_cam = cams_ok & ~cam_fixed
+    cam_tgt = torch.where(upd_cam, cams_all, K)
+    kf_R = torch.cat([m.kf_R, m.kf_R[:1]]).index_put((cam_tgt,), R2)[:K]
+    kf_t = torch.cat([m.kf_t, m.kf_t[:1]]).index_put((cam_tgt,), t2)[:K]
+    pt_tgt = torch.where(psel_ok, psel, P)
+    mp_pos = torch.cat([m.mp_pos, m.mp_pos[:1]]).index_put((pt_tgt,), X2)[:P]
+    obs_rows = torch.where(e_valid & ~inl2, -1, m.kf_obs[cams_all])
+    obs_tgt = torch.where(cams_ok, cams_all, K)
+    kf_obs = torch.cat([m.kf_obs, m.kf_obs[:1]]).index_put((obs_tgt,), obs_rows)[:K]
+    return m.replace(kf_R=kf_R, kf_t=kf_t, mp_pos=mp_pos, kf_obs=kf_obs)
+
+
+def window_touched_points(m: ms.MapState, slot: int) -> torch.Tensor:
+    """[P] mask of points observed by the new keyframe's covisible window (24)."""
+    n_win = min(24, m.K)
+    w_slot = torch.where(m.kf_valid, ms.covis_row(m, slot), -1)
+    w_slot[slot] = -1
+    _, nb = stable_topk(w_slot, n_win - 1)
+    kfs = torch.cat([torch.tensor([slot], device=m.device), nb])
+    ok = torch.cat([torch.ones(1, dtype=torch.bool, device=m.device), w_slot[nb] > 0])
+    return ms.point_mask_rows(m, kfs, ok)
+
+
+def keyframe_chain(m: ms.MapState, cam: CameraModel, frame: Frame, slot: int, R, t, obs,
+                   frame_id: int, timestamp: float) -> ms.MapState:
+    """The per-keyframe mapping chain of this slice: insert -> recent-point
+    cull -> triangulate -> local BA -> windowed stats refresh."""
+    m = insert_keyframe_from_frame(m, frame, slot, R, t, obs, frame_id, timestamp)
+    m = cull_recent_mappoints(m)
+    m = create_new_mappoints(m, cam, slot)
+    m = local_bundle_adjustment(m, cam, slot)
+    return ms.update_mappoint_stats_touched(m, window_touched_points(m, slot))

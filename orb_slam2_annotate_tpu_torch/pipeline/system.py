@@ -1,0 +1,331 @@
+"""System facade, monocular synchronous path (port of pipeline/system.py).
+
+Sequences frame build, two-view initialization, the tracking step, the
+keyframe policy and the keyframe chain on an explicit ``device``.  Each
+stage is a ``torch.profiler.record_function`` span (frontend/extract,
+init/mono, tracking/step, mapping/keyframe), which costs nothing unless a
+profiler is recording.
+
+This slice supports exactly one configuration (``mono_slice_config``): a
+monocular sensor without loop closing, relocalization, keyframe culling,
+fuse, pipelining or point sharding.  Any other setting raises
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..geometry.camera import CameraModel
+from ..ops import matching
+from ..ops.extractor import ExtractorConfig
+from ..ops.orb import OrbTables
+from ..solvers import initializer
+from ..worldmap import map_state as ms
+from . import local_mapping as lm
+from . import policy
+from . import tracking as tk
+from .frame import Frame, make_frame_mono
+
+
+@dataclasses.dataclass
+class SlamConfig:
+    """The reference's SlamConfig fields with the same defaults."""
+
+    sensor: str = "mono"
+    n_features: int = 1024
+    n_levels: int = 8
+    scale: float = 1.2
+    max_kf: int = 256
+    max_mp: int = 16384
+    max_frames_between_kf: int = 20
+    min_frames_between_kf: int = 1
+    kf_ref_ratio: float = 0.8
+    min_inliers_track: int = 15
+    min_inliers_local: int = 30
+    init_min_matches: int = 100
+    seed: int = 0
+    verbose: bool = False
+    enable_fuse: bool = False
+    stats_in_triangulate: bool | None = None
+    enable_cull: bool = True
+    enable_local_ba: bool = True
+    enable_loop_closing: bool = True
+    enable_relocalization: bool = True
+    enable_kf_culling: bool = True
+    shard_points: bool = False
+    async_depth: int = 0
+
+    @property
+    def extractor(self) -> ExtractorConfig:
+        return ExtractorConfig(n_features=self.n_features, n_levels=self.n_levels, scale=self.scale)
+
+
+# the settings this slice implements; every other value raises
+SLICE_SETTINGS = dict(sensor="mono", enable_loop_closing=False, enable_relocalization=False,
+                      enable_kf_culling=False, enable_fuse=False, stats_in_triangulate=None,
+                      enable_cull=True, enable_local_ba=True, async_depth=0, shard_points=False)
+
+
+def mono_slice_config(**kw) -> SlamConfig:
+    """A SlamConfig with this slice's settings, plus sizes from `kw`."""
+    return SlamConfig(**{**SLICE_SETTINGS, **kw})
+
+
+@dataclasses.dataclass
+class FrameRecord:
+    frame_id: int
+    timestamp: float
+    ref_kf_slot: int
+    R_cr: np.ndarray
+    t_cr: np.ndarray
+    lost: bool
+
+
+class System:
+    """Monocular SLAM engine on one torch device."""
+
+    def __init__(self, cam: CameraModel, config: SlamConfig | None = None, device="cpu"):
+        cfg = config or SlamConfig()
+        unsupported = {k: getattr(cfg, k) for k, v in SLICE_SETTINGS.items() if getattr(cfg, k) != v}
+        if unsupported:
+            raise NotImplementedError(f"not in this slice of the port: {unsupported}")
+        self.cam = cam
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.tab = OrbTables().to(self.device)
+        self.map = ms.empty_map(cfg.max_kf, cfg.max_mp, cfg.n_features, device=self.device)
+        self.state = "NO_IMAGES"
+        self.frame_id = -1
+        self.records: list[FrameRecord] = []
+        self._rng = np.random.RandomState(cfg.seed)
+        self._gen = torch.Generator(device=self.device)
+        self._kf_valid_host = np.zeros(cfg.max_kf, bool)
+        self._mp_upper = 0
+        self.last_frame: Optional[Frame] = None
+        self.last_obs = None
+        self.R = torch.eye(3, device=self.device)
+        self.t = torch.zeros(3, device=self.device)
+        self.vel = None
+        self.ref_kf = 0
+        self.last_kf_frame = -999
+        self.ref_tracked = 0
+        self._last_n_local = 0
+        self._peak_n_local = 0
+        self._init_frame: Optional[Frame] = None
+        self._pose_np = None
+        self._rel_np = None
+        self._cur_ts = 0.0
+
+    def track_mono(self, image: np.ndarray, timestamp: float):
+        """image [H,W] grayscale uint8 or float32.  Returns 4x4 Tcw or None."""
+        img = np.asarray(image)
+        if img.dtype != np.uint8:
+            img = img.astype(np.float32)
+        with record_function("frontend/extract"):
+            frame = make_frame_mono(torch.from_numpy(img).to(self.device), self.cam, self.tab,
+                                    self.cfg.extractor)
+        return self._track(frame, timestamp)
+
+    def reset(self):
+        self.__init__(self.cam, self.cfg, self.device)
+
+    # ------------------------------------------------------------------
+
+    def _track(self, frame: Frame, timestamp: float):
+        self.frame_id += 1
+        self._cur_ts = timestamp
+        if self.state in ("NO_IMAGES", "NOT_INITIALIZED"):
+            with record_function("init/mono"):
+                ok = self._initialize_mono(frame, timestamp)
+            if not ok:
+                self._record(lost=True)
+                return None
+            self.state = "OK"
+            self._record()
+            return self._pose44()
+
+        has_vel = self.vel is not None
+        vel_R, vel_t = self.vel if has_vel else (torch.eye(3, device=self.device),
+                                                 torch.zeros(3, device=self.device))
+        with record_function("tracking/step"):
+            step = tk.track_frame(self.cam, self.map, frame, self.last_frame, self.last_obs,
+                                  self.R, self.t, vel_R, vel_t, has_vel, self.ref_kf)
+        if self.cfg.verbose:
+            print(f"  [track] f{self.frame_id}: pre={step.n_pre} local={step.n_local} "
+                  f"local_kf={step.n_local_kf} ref_tracked={self.ref_tracked}")
+        if step.n_pre < self.cfg.min_inliers_track or step.n_local < self.cfg.min_inliers_local:
+            self.state = "LOST"
+            self.vel = None
+            self._record(lost=True)
+            self._maybe_auto_reset()
+            return None
+
+        self.map = self.map.replace(mp_visible=step.mp_visible, mp_found=step.mp_found)
+        self._last_n_local = step.n_local
+        self._peak_n_local = max(self._peak_n_local, step.n_local)
+        self.state = "OK"
+        host = torch.cat([step.R.reshape(9), step.t, step.R_cr.reshape(9), step.t_cr]).cpu().numpy()
+        self._pose_np = (host[:9].reshape(3, 3), host[9:12])
+        self._rel_np = (host[12:21].reshape(3, 3), host[21:24])
+        self.vel = (step.vel_R, step.vel_t)
+        self.R, self.t = step.R, step.t
+        self.last_frame = frame
+        self.last_obs = step.obs
+        if self._need_keyframe(step.n_local):
+            with record_function("mapping/keyframe"):
+                self._create_keyframe(frame, timestamp, step.obs)
+        self._record()
+        return self._pose44()
+
+    def _ensure_capacity(self):
+        """Double the keyframe or map-point capacity before it runs out."""
+        if self._kf_valid_host.all():
+            new_K = 2 * self.map.K
+            self.map = ms.grow_map(self.map, new_K=new_K)
+            self._kf_valid_host = np.concatenate(
+                [self._kf_valid_host, np.zeros(new_K - len(self._kf_valid_host), bool)])
+        n = self.map.N
+        self._mp_upper += 2 * n
+        if self._mp_upper + 2 * n > self.map.P:
+            self._mp_upper = self.n_mappoints
+            if self._mp_upper + 2 * n > self.map.P:
+                self.map = ms.grow_map(self.map, new_P=2 * self.map.P)
+
+    def _maybe_auto_reset(self):
+        """Lost right after initialization (<= 5 keyframes): start over, as
+        the reference does (System::Reset clears the records too)."""
+        if self.state == "LOST" and 0 < self.n_keyframes <= 5:
+            self.reset()
+
+    def _need_keyframe(self, n_tracked: int) -> bool:
+        return policy.need_new_keyframe(
+            self.frame_id - self.last_kf_frame, n_tracked, self._peak_n_local,
+            min_frames=self.cfg.min_frames_between_kf, max_frames=self.cfg.max_frames_between_kf,
+            ref_ratio=self.cfg.kf_ref_ratio, min_track=self.cfg.min_inliers_track)
+
+    def _create_keyframe(self, frame: Frame, timestamp: float, obs: torch.Tensor):
+        self._ensure_capacity()
+        slot = int(np.argmin(self._kf_valid_host))
+        self.map = lm.keyframe_chain(self.map, self.cam, frame, slot, self.R, self.t, obs,
+                                     self.frame_id, timestamp)
+        self._kf_valid_host[slot] = True
+        self.R = self.map.kf_R[slot]
+        self.t = self.map.kf_t[slot]
+        self.last_obs = self.map.kf_obs[slot]
+        self.ref_kf = slot
+        self._pose_np = None
+        self._rel_np = None
+        self.last_kf_frame = self.frame_id
+        self.ref_tracked = self._last_n_local
+        self._peak_n_local = 0
+
+    def _initialize_mono(self, frame: Frame, timestamp: float) -> bool:
+        n_feat = int(frame.valid.sum())
+        if self._init_frame is None:
+            if n_feat >= self.cfg.init_min_matches:
+                self._init_frame = frame
+                self._init_ts = timestamp
+                self._init_fid = self.frame_id
+            self.state = "NOT_INITIALIZED"
+            return False
+        if n_feat < self.cfg.init_min_matches:
+            self._init_frame = None
+            return False
+        f0 = self._init_frame
+        res = matching.search_for_initialization(f0, frame, window=100.0)
+        if int(res.count) < self.cfg.init_min_matches:
+            self._init_frame = None
+            return False
+        x2 = frame.xy[torch.clamp_min(res.idx, 0).long()]
+        self._gen.manual_seed(int(self._rng.randint(2**31)))
+        samples = initializer.sample_minimal_sets(self._gen, res.matched, 200)
+        init = initializer.initialize_from_samples(samples, f0.xy, x2, res.matched,
+                                                   self.cam.K(self.device), 1.0,
+                                                   min_parallax_deg=2.5)
+        if not bool(init.success):
+            return False
+        self.map, obs1 = policy.build_mono_init_map(self.map, self.cam, f0, frame, init, res.idx,
+                                                    self._init_fid, self._init_ts, self.frame_id,
+                                                    timestamp)
+        self.R = self.map.kf_R[1]
+        self.t = self.map.kf_t[1]
+        self.last_frame = frame
+        self.last_obs = obs1
+        self.vel = None
+        self.ref_kf = 1
+        self._kf_valid_host[:2] = True
+        self._pose_np = None
+        self._rel_np = None
+        self.last_kf_frame = self.frame_id
+        self.ref_tracked = int(init.n_good)
+        self._init_frame = None
+        return True
+
+    # ---- bookkeeping ---------------------------------------------------
+
+    def _pose44(self) -> np.ndarray:
+        T = np.eye(4, dtype=np.float32)
+        if self._pose_np is not None:
+            T[:3, :3], T[:3, 3] = self._pose_np
+        else:
+            T[:3, :3] = self.R.cpu().numpy()
+            T[:3, 3] = self.t.cpu().numpy()
+        return T
+
+    def _record(self, lost: bool = False):
+        if lost or self.state != "OK":
+            self.records.append(FrameRecord(self.frame_id, self._cur_ts, self.ref_kf,
+                                            np.eye(3, dtype=np.float32),
+                                            np.zeros(3, np.float32), True))
+            return
+        if self._rel_np is not None:
+            Rcr, tcr = self._rel_np
+        else:
+            Rcr, tcr = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+        self.records.append(FrameRecord(self.frame_id, self._cur_ts, self.ref_kf,
+                                        np.asarray(Rcr, np.float32).copy(),
+                                        np.asarray(tcr, np.float32).copy(), False))
+
+    def frame_trajectory(self):
+        """[(frame_id, 4x4 Tcw or None)] through the current keyframe poses."""
+        kf_R = self.map.kf_R.cpu().numpy()
+        kf_t = self.map.kf_t.cpu().numpy()
+        out = []
+        for rec in self.records:
+            if rec.lost:
+                out.append((rec.frame_id, None))
+                continue
+            Rr, tr = kf_R[rec.ref_kf_slot], kf_t[rec.ref_kf_slot]
+            T = np.eye(4, dtype=np.float32)
+            T[:3, :3] = rec.R_cr @ Rr
+            T[:3, 3] = rec.R_cr @ tr + rec.t_cr
+            out.append((rec.frame_id, T))
+        return out
+
+    def keyframe_trajectory(self):
+        """[(frame_id, 4x4 Tcw)] of the valid keyframes, by frame id."""
+        v = self.map.kf_valid.cpu().numpy()
+        fids = self.map.kf_frame_id.cpu().numpy()
+        kf_R = self.map.kf_R.cpu().numpy()
+        kf_t = self.map.kf_t.cpu().numpy()
+        out = []
+        for s in np.argsort(fids):
+            if v[s]:
+                T = np.eye(4, dtype=np.float32)
+                T[:3, :3], T[:3, 3] = kf_R[s], kf_t[s]
+                out.append((int(fids[s]), T))
+        return out
+
+    @property
+    def n_keyframes(self) -> int:
+        return int(self._kf_valid_host.sum())
+
+    @property
+    def n_mappoints(self) -> int:
+        return int(self.map.mp_valid.sum())

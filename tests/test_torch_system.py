@@ -1,0 +1,165 @@
+"""The whole monocular slice of the port against the JAX System, plus the
+package-level rules: no jax import, numpy copies that agree with the
+reference, CPU tensors taking the plain twins without touching the launch
+counters, and the slice's configuration guard.
+
+Slice tolerance: both systems reach OK; the port tracks >= 70% of frames,
+its keyframe count is within +-2 of the reference's, and its Sim3-aligned
+ATE is <= max(1.5 x ATE_jax, ATE_jax + 0.01 m) and < 0.08 m.  RANSAC draws
+differ (torch.Generator vs jax.random), so the runs are compared by outcome.
+"""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from orb_slam2_annotate_tpu.geometry import CameraModel
+from orb_slam2_annotate_tpu.io import evaluation as jeval
+from orb_slam2_annotate_tpu.io import synthetic as jsyn
+from orb_slam2_annotate_tpu.ops import orb as jorb
+from orb_slam2_annotate_tpu.pipeline import SlamConfig, System
+from orb_slam2_annotate_tpu_torch import convert, kernels
+from orb_slam2_annotate_tpu_torch.geometry.camera import CameraModel as TCam
+from orb_slam2_annotate_tpu_torch.io import evaluation as teval
+from orb_slam2_annotate_tpu_torch.io import synthetic as tsyn
+from orb_slam2_annotate_tpu_torch.kernels import fast_nms, hamming, orb_describe, pose_lm
+from orb_slam2_annotate_tpu_torch.ops import orb as torb
+from orb_slam2_annotate_tpu_torch.pipeline import System as TSystem
+from orb_slam2_annotate_tpu_torch.pipeline import mono_slice_config
+
+# Tier-1 runs several pytest workers on one host, and torch's default of one
+# intra-op thread per core in each of them oversubscribes it: the port's
+# tests took twice as long.  Every worker collects this file, so one thread
+# per worker applies to all of them; the ops here are too small to gain
+# from more.
+torch.set_num_threads(1)
+
+ARGS = dict(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=320, height=240)
+CAM = CameraModel.create(**ARGS)
+TCAM = TCam.create(**ARGS)
+N_FRAMES = 30
+SIZES = dict(n_features=512, n_levels=4, max_kf=64, max_mp=8192, max_frames_between_kf=8,
+             init_min_matches=60)
+
+
+def ate(slam, poses):
+    traj = dict(slam.frame_trajectory())
+    ids = [k for k, T in traj.items() if T is not None]
+    est = np.stack([-traj[k][:3, :3].T @ traj[k][:3, 3] for k in ids])
+    gt = np.stack([-poses[k][0].T @ poses[k][1] for k in ids])
+    return jeval.ate_rmse(est, gt, with_scale=True)[0], len(ids)
+
+
+def test_slice_matches_jax_system():
+    scene = jsyn.PlaneScene(seed=1)
+    poses = jsyn.orbit_trajectory(N_FRAMES, step=0.06)
+    images = [scene.render(CAM, R, t, h=240, w=320)[0] for R, t in poses]
+    ref = System(CAM, SlamConfig(enable_loop_closing=False, enable_relocalization=False,
+                                 enable_kf_culling=False, enable_fuse=False, async_depth=0,
+                                 shard_points=False, **SIZES))
+    port = TSystem(TCAM, mono_slice_config(**SIZES), device="cpu")
+    for k, img in enumerate(images):
+        ref.track_mono(img, k / 30.0)
+        port.track_mono(img, k / 30.0)
+    assert ref.state == "OK" and port.state == "OK"
+    ate_j, n_j = ate(ref, poses)
+    ate_t, n_t = ate(port, poses)
+    assert n_t >= 0.7 * N_FRAMES, f"port tracked {n_t}/{N_FRAMES} (reference {n_j})"
+    assert abs(port.n_keyframes - ref.n_keyframes) <= 2
+    assert port.n_mappoints > 100
+    assert ate_t <= max(1.5 * ate_j, ate_j + 0.01), (ate_t, ate_j)
+    assert ate_t < 0.08
+
+
+def test_port_never_imports_jax():
+    code = ("import sys, orb_slam2_annotate_tpu_torch, orb_slam2_annotate_tpu_torch.pipeline, "
+            "orb_slam2_annotate_tpu_torch.io, orb_slam2_annotate_tpu_torch.convert, "
+            "orb_slam2_annotate_tpu_torch.kernels; assert 'jax' not in sys.modules")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=str(__import__("pathlib").Path(
+        __file__).resolve().parents[1]))
+
+
+def test_tf32_off_at_import():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+@pytest.mark.parametrize("k", [0, 7, 19])
+def test_synthetic_render_bit_identical(k):
+    R, t = jsyn.orbit_trajectory(20, step=0.06)[k]
+    Rt, tt = tsyn.orbit_trajectory(20, step=0.06)[k]
+    np.testing.assert_array_equal(Rt, R)
+    np.testing.assert_array_equal(tt, t)
+    img_j, dep_j = jsyn.PlaneScene(seed=1).render(CAM, R, t, h=240, w=320)
+    img_t, dep_t = tsyn.PlaneScene(seed=1).render(TCAM, R, t, h=240, w=320)
+    np.testing.assert_array_equal(img_t, img_j)
+    np.testing.assert_array_equal(dep_t, dep_j)
+
+
+def test_evaluation_copy_agrees():
+    rng = np.random.RandomState(0)
+    gt = rng.randn(40, 3)
+    est = 0.7 * gt @ np.linalg.qr(rng.randn(3, 3))[0].T + 0.3 + rng.randn(40, 3) * 0.01
+    for a, b in zip(teval.ate_rmse(est, gt), jeval.ate_rmse(est, gt)):
+        np.testing.assert_array_equal(a, b)
+    Ts = [np.eye(4) for _ in range(5)]
+    for i, T in enumerate(Ts):
+        T[:3, 3] = [i * 0.1, 0.0, rng.rand() * 0.01]
+    assert teval.rpe(Ts, Ts[::-1]) == jeval.rpe(Ts, Ts[::-1])
+
+
+def test_orb_tables_from_reference():
+    tab = convert.orb_tables_from_numpy(jorb.PATTERN, jorb.ROT_OFFSETS)
+    ref = torb.OrbTables()
+    for name in ("grid_x", "grid_y", "circ_mask", "rot_offsets"):
+        assert torch.equal(getattr(tab, name), getattr(ref, name))
+    np.testing.assert_array_equal(tab.grid_x.numpy(), jorb.GRID_X)
+    np.testing.assert_array_equal(tab.circ_mask.numpy(), jorb.CIRC_MASK)
+    assert tab.brief_half == jorb.BRIEF_HALF
+
+
+def test_wrappers_take_plain_path_on_cpu():
+    for w in kernels.WRAPPERS:
+        w.launches = 0
+    rng = np.random.RandomState(1)
+    img = torch.from_numpy((rng.rand(64, 80) * 255).astype(np.float32))
+    s, h = fast_nms.fast_nms(img, 7.0, 20.0, 19)
+    s_p, h_p = fast_nms.fast_nms_plain(img, 7.0, 20.0, 19)
+    assert torch.equal(s, s_p) and torch.equal(h, h_p)
+    tab = torb.OrbTables()
+    pyr = img[None].contiguous()
+    kps = torch.tensor([[30.0, 30.0], [40.0, 33.0]])
+    args = (pyr, pyr, torch.tensor([[64, 80]], dtype=torch.int32), kps,
+            torch.zeros(2, dtype=torch.int32), torch.ones(2, dtype=torch.bool), tab)
+    for a, b in zip(orb_describe.orb_describe(*args), orb_describe.orb_describe_plain(*args)):
+        assert torch.equal(a, b)
+    d = torch.from_numpy(rng.randint(-2**31, 2**31, (8, 16)).astype(np.int32))
+    mask = torch.ones(8, 8, dtype=torch.bool)
+    for a, b in zip(hamming.hamming_match(d, d, mask, 134, 1.0, True),
+                    hamming.hamming_match_plain(d, d, mask, 134, 1.0, True)):
+        assert torch.equal(a, b)
+    q = d.reshape(2, 4, 16)
+    assert torch.equal(hamming.hamming_pairwise_batched(q, q),
+                       hamming.hamming_pairwise_batched_plain(q, q))
+    xw = torch.from_numpy(rng.rand(16, 3).astype(np.float32) + [0, 0, 4]).float()
+    edges = (xw, torch.rand(16, 2) * 100, torch.full((16,), -1.0), torch.ones(16))
+    m = torch.ones(16, dtype=torch.bool)
+    R, t = torch.eye(3), torch.zeros(3)
+    for a, b in zip(pose_lm.pose_linearize(TCAM, R, t, *edges, m, True),
+                    pose_lm.pose_linearize_plain(TCAM, R, t, *edges, m, True)):
+        assert torch.equal(a, b)
+    assert torch.equal(pose_lm.pose_costs(TCAM, R[None], t[None], *edges, m),
+                       pose_lm.pose_costs_plain(TCAM, R[None], t[None], *edges, m))
+    assert all(w.launches == 0 for w in kernels.WRAPPERS)
+
+
+@pytest.mark.parametrize("change", [dict(sensor="rgbd"), dict(enable_loop_closing=True),
+                                    dict(enable_relocalization=True), dict(enable_kf_culling=True),
+                                    dict(enable_fuse=True), dict(async_depth=2)])
+def test_other_configurations_raise(change):
+    with pytest.raises(NotImplementedError):
+        TSystem(TCAM, mono_slice_config(**{**SIZES, **change}))
