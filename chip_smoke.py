@@ -5,20 +5,30 @@
 
 Phases (any failure exits non-zero):
   1. print the card's name and power limit; require CUDA;
-  2. build every CUDA kernel of the slice from csrc/ with nvcc;
-  3. compare each kernel with its plain torch twin on the card, at the
+  2. build every CUDA kernel from csrc/ with nvcc, one process per source,
+     all started together;
+  3. compare kernels 1-5 with their plain torch twins on the card, at the
      shapes of the main path (PlaneScene seed 1, VGA, 8 levels, 1024
-     keypoints), and time both with CUDA events;
-  4. run the monocular slice through ``System.track_mono`` on 48 frames at
+     keypoints, the trained 16384-word vocabulary), and time both with
+     CUDA events;
+  4. run the monocular System (``mono_slice_config``: relocalization and
+     keyframe culling on) through ``System.track_mono`` on 48 frames at
      VGA / 1024 features / 8 levels, with every launch counter reset just
      before, and check tracking state, keyframes, map points, ATE and that
-     every kernel was launched.
+     kernels 1-5 were launched;
+  5. a kidnapped run at the same width: a 64-frame sweep, then a jump back
+     to frame 4 and three frames from there, counters reset just before;
+     check that the jump frame is tracked after a relocalization, that all
+     six kernels were launched, the final state and the ATE; then compare
+     kernel 6 with its twin on the inputs the relocalization gave it
+     (8 candidates x 256 hypotheses x 1024 points) and time both.
 The line before the last is a JSON object with per-kernel results; the
 last line is the device summary.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import statistics
@@ -30,6 +40,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 N_FRAMES = 48
 ATE_BOUND = 0.08   # m, Sim3-aligned; tests/test_e2e_mono.py's bound
+# phase 5: sweep, then jump back (the JAX System relocalizes on this sequence)
+KIDNAP_SWEEP, KIDNAP_STEP, KIDNAP_JUMP = 64, 0.08, 4
 SOURCES = {
     "fast_nms": ("orb_slam2_annotate_tpu_torch/csrc/fast_nms.cu",
                  "orb_slam2_annotate_tpu/ops/fast.py:40"),
@@ -43,6 +55,10 @@ SOURCES = {
                        "orb_slam2_annotate_tpu/solvers/pose_opt.py:49"),
     "pose_costs": ("orb_slam2_annotate_tpu_torch/csrc/pose_lm.cu",
                    "orb_slam2_annotate_tpu/solvers/pose_opt.py:112"),
+    "assign_words": ("orb_slam2_annotate_tpu_torch/csrc/assign_words.cu",
+                     "orb_slam2_annotate_tpu/worldmap/vocabulary.py:81"),
+    "pnp_score": ("orb_slam2_annotate_tpu_torch/csrc/pnp_score.cu",
+                  "orb_slam2_annotate_tpu/solvers/pnp.py:90"),
 }
 
 
@@ -91,6 +107,22 @@ def slice_setup():
     return cam, poses, frames, depths, cfg
 
 
+def ate_of(slam, gt, seq):
+    """Sim3-aligned ATE over the tracked frames; gt[seq[k]] is frame k's pose."""
+    import numpy as np
+
+    from orb_slam2_annotate_tpu_torch.io import evaluation
+
+    traj = dict(slam.frame_trajectory())
+    ids = [k for k, T in traj.items() if T is not None]
+    if len(ids) < 3:
+        fail(f"only {len(ids)} tracked frames")
+    est_c = np.stack([-traj[k][:3, :3].T @ traj[k][:3, 3] for k in ids])
+    gt_c = np.stack([-gt[seq[k]][0].T @ gt[seq[k]][1] for k in ids])
+    return evaluation.ate_rmse(est_c.astype(np.float64), gt_c.astype(np.float64),
+                               with_scale=True)[0], len(ids)
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()
@@ -104,14 +136,19 @@ def main():
     sys.path.insert(0, ROOT)
     import orb_slam2_annotate_tpu_torch  # noqa: F401  (sets TF32 off)
     from orb_slam2_annotate_tpu_torch import kernels
-    from orb_slam2_annotate_tpu_torch.io import evaluation
+    from orb_slam2_annotate_tpu_torch.io import synthetic
     from orb_slam2_annotate_tpu_torch.kernels import _build
+    from orb_slam2_annotate_tpu_torch.kernels import assign_words as k5
     from orb_slam2_annotate_tpu_torch.kernels import fast_nms as k1
     from orb_slam2_annotate_tpu_torch.kernels import hamming as k3
     from orb_slam2_annotate_tpu_torch.kernels import orb_describe as k2
+    from orb_slam2_annotate_tpu_torch.kernels import pnp_score as k6
     from orb_slam2_annotate_tpu_torch.kernels import pose_lm as k4
     from orb_slam2_annotate_tpu_torch.ops import extractor, matching, orb, pyramid
     from orb_slam2_annotate_tpu_torch.pipeline import System
+    from orb_slam2_annotate_tpu_torch.pipeline.loop_closing import TRAINED_VOCAB
+    from orb_slam2_annotate_tpu_torch.solvers import pnp as pnp_mod
+    from orb_slam2_annotate_tpu_torch.worldmap import vocabulary
 
     if "jax" in sys.modules:
         fail("the port imported jax")
@@ -120,8 +157,8 @@ def main():
 
     # ---- phase 2: build
     t0 = time.perf_counter()
-    for name in _build.SOURCES:
-        _build.load(name)
+    with concurrent.futures.ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        list(pool.map(_build.load, _build.SOURCES))
     print(f"build: {time.perf_counter() - t0:.1f} s  per source {json.dumps(_build.BUILD_SECONDS)}")
 
     # ---- phase 3: kernels vs plain twins at main-path shapes
@@ -261,41 +298,112 @@ def main():
     record("pose_costs", float((ck - cp).abs().max()), time_ms(lambda: k4.pose_costs(*argsc)),
            time_ms(lambda: k4.pose_costs_plain(*argsc)))
 
-    # ---- phase 4: the slice through System.track_mono
+    # kernel 5: the 1024 descriptors of frame 4 against the trained vocabulary
+    vocab = vocabulary.load_vocabulary(TRAINED_VOCAB, device=dev)
+    args5 = (cur.desc, vocab.words, cur.valid)
+    w_k = k5.assign_words(*args5)
+    w_p = k5.assign_words_plain(*args5, vocab.signs)
+    torch.cuda.synchronize()
+    if vocab.n_words != 16384 or not torch.equal(w_k, w_p):
+        fail(f"assign_words differs from its plain twin ({int((w_k != w_p).sum())} rows)")
+    record("assign_words", int((w_k - w_p).abs().max()), time_ms(lambda: k5.assign_words(*args5)),
+           time_ms(lambda: k5.assign_words_plain(*args5, vocab.signs)))
+
+    def drive(name, slam, images, counted):
+        """One main-path run: counters zeroed just before, read just after;
+        fails unless every kernel in `counted` was launched."""
+        for w in kernels.WRAPPERS:
+            w.launches = 0
+        torch.cuda.synchronize()
+        out, frame_s = [], []
+        for k, img in enumerate(images):
+            t0 = time.perf_counter()
+            out.append(slam.track_mono(img, k / 30.0))
+            torch.cuda.synchronize()
+            frame_s.append(time.perf_counter() - t0)
+        launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
+        print(f"launches in the {name} run: {json.dumps(launches)}")
+        print(f"{name}: frame wall time median {1e3 * statistics.median(frame_s):.2f} ms, "
+              f"max {1e3 * max(frame_s):.2f} ms (frame {frame_s.index(max(frame_s))})")
+        idle = [n for n in counted if launches[n] == 0]
+        if idle:
+            fail(f"{name}: kernels never launched: {idle}")
+        return out, frame_s, launches
+
+    # ---- phase 4: the mono System through System.track_mono
     slam = System(cam, slice_cfg, device="cuda")
-    for w in kernels.WRAPPERS:
-        w.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for k, img in enumerate(frames):
-        slam.track_mono(img, k / 30.0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
-    traj = dict(slam.frame_trajectory())
-    ids = [k for k, T in traj.items() if T is not None]
-    if len(ids) < 3:
-        fail(f"only {len(ids)} tracked frames")
-    est_c = np.stack([-traj[k][:3, :3].T @ traj[k][:3, 3] for k in ids])
-    gt_c = np.stack([-poses[k][0].T @ poses[k][1] for k in ids])
-    ate = evaluation.ate_rmse(est_c.astype(np.float64), gt_c.astype(np.float64), with_scale=True)[0]
+    _, frame_s, launches4 = drive("slice", slam, frames, [n for n in SOURCES if n != "pnp_score"])
+    wall = sum(frame_s)
+    ate, n_tracked = ate_of(slam, poses, range(N_FRAMES))
     print(f"slice: {N_FRAMES} frames in {wall:.2f} s = {N_FRAMES / wall:.2f} frames/s, "
-          f"ATE {ate:.5f} m, tracked {len(ids)}/{N_FRAMES}, keyframes {slam.n_keyframes}, "
+          f"ATE {ate:.5f} m, tracked {n_tracked}/{N_FRAMES}, keyframes {slam.n_keyframes} "
+          f"(culled {int(slam.map.n_kf) - slam.n_keyframes}), "
           f"map points {slam.n_mappoints}, state {slam.state}, card {card}")
-    print(f"launches in the slice run: {json.dumps(launches)}")
-    checks = {"state OK": slam.state == "OK", "tracked >= 70%": len(ids) >= 0.7 * N_FRAMES,
+    checks = {"state OK": slam.state == "OK", "tracked >= 70%": n_tracked >= 0.7 * N_FRAMES,
               "keyframes >= 3": slam.n_keyframes >= 3, "map points > 100": slam.n_mappoints > 100,
-              f"ATE < {ATE_BOUND}": ate < ATE_BOUND,
-              "every kernel launched": all(v > 0 for v in launches.values())}
+              f"ATE < {ATE_BOUND}": ate < ATE_BOUND}
     bad = [k for k, v in checks.items() if not v]
     if bad:
         fail(f"slice checks failed: {bad}")
+    slice_out = {"frames_per_s": N_FRAMES / wall, "ate_m": ate, "tracked": n_tracked,
+                 "keyframes": slam.n_keyframes}
+
+    # ---- phase 5: kidnapped run; the jump frame must relocalize
+    t0 = time.perf_counter()
+    scene = synthetic.PlaneScene(seed=1)
+    gt5 = synthetic.orbit_trajectory(KIDNAP_SWEEP, step=KIDNAP_STEP)
+    seq = list(range(KIDNAP_SWEEP)) + [KIDNAP_JUMP + i for i in range(4)]
+    images5 = [np.clip(scene.render(cam, *gt5[f], h=480, w=640)[0], 0, 255).astype(np.uint8)
+               for f in seq]
+    print(f"render: {len(seq)} frames in {time.perf_counter() - t0:.1f} s (host numpy)")
+    slam5 = System(cam, slice_cfg, device="cuda")
+    relocs, captured = [], {}
+    try_reloc = slam5._try_relocalize
+    slam5._try_relocalize = lambda f: relocs.append((slam5.frame_id, try_reloc(f))) or relocs[-1][1]
+    real_score = pnp_mod.pnp_score
+
+    def keep_inputs(*a):
+        # the relocalization's own kernel-6 inputs, for the comparison below
+        captured.setdefault("args", tuple(x.clone() if torch.is_tensor(x) else x for x in a))
+        return real_score(*a)
+
+    pnp_mod.pnp_score = keep_inputs
+    try:
+        out5, frame_s5, launches5 = drive("kidnap", slam5, images5, list(SOURCES))
+    finally:
+        pnp_mod.pnp_score = real_score
+    ate5, n5 = ate_of(slam5, gt5, seq)
+    print(f"kidnap: {len(seq)} frames in {sum(frame_s5):.2f} s, jump frame "
+          f"{1e3 * frame_s5[KIDNAP_SWEEP]:.2f} ms, relocalizations (frame, success) {relocs}, "
+          f"ATE {ate5:.5f} m, tracked {n5}/{len(seq)}, keyframes {slam5.n_keyframes} "
+          f"(culled {int(slam5.map.n_kf) - slam5.n_keyframes}), "
+          f"state {slam5.state}, observation overflow {slam5.observation_overflow}, card {card}")
+    checks = {"jump frame relocalized": (KIDNAP_SWEEP, True) in relocs,
+              "jump frame returns a pose": out5[KIDNAP_SWEEP] is not None,
+              "state OK": slam5.state == "OK", f"ATE < {ATE_BOUND}": ate5 < ATE_BOUND}
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"kidnap checks failed: {bad}")
+    args6 = captured["args"]
+    if tuple(args6[0].shape[:2]) != (8, 256) or args6[2].shape[1] != slice_cfg.n_features:
+        fail(f"pnp_score inputs of shape {tuple(args6[0].shape)} / {tuple(args6[2].shape)}")
+    c_k = k6.pnp_score(*args6)
+    c_p = k6.pnp_score_plain(*args6)
+    torch.cuda.synchronize()
+    if not torch.equal(c_k, c_p):
+        fail(f"pnp_score differs from its plain twin ({int((c_k != c_p).sum())} hypotheses)")
+    record("pnp_score", int((c_k - c_p).abs().max()), time_ms(lambda: k6.pnp_score(*args6)),
+           time_ms(lambda: k6.pnp_score_plain(*args6)))
 
     kern = [{"name": n, "route": "cuda", "source": SOURCES[n][0], "replaces": SOURCES[n][1],
-             "launches": launches[n], **results[n]} for n in SOURCES]
-    print(json.dumps({"kernels": kern, "slice": {"frames_per_s": N_FRAMES / wall, "ate_m": ate,
-                                                  "tracked": len(ids), "keyframes": slam.n_keyframes,
-                                                  "card": card}}))
+             "launches": launches4[n] + launches5[n],
+             "launches_by_phase": {"slice": launches4[n], "kidnap": launches5[n]}, **results[n]}
+            for n in SOURCES]
+    print(json.dumps({"kernels": kern, "slice": slice_out,
+                      "kidnap": {"ate_m": ate5, "tracked": n5, "frames": len(seq),
+                                 "jump_frame_ms": 1e3 * frame_s5[KIDNAP_SWEEP],
+                                 "keyframes": slam5.n_keyframes, "relocalizations": relocs},
+                      "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

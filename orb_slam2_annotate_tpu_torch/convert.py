@@ -16,9 +16,11 @@ import torch
 from .geometry.camera import CameraModel
 from .ops.orb import OrbTables, rotated_offsets
 from .pipeline.frame import Frame
+from .pipeline.local_mapping import CullInfo
 from .worldmap.map_state import MapState
+from .worldmap.vocabulary import KeyFrameDatabase, Vocabulary
 
-_DESC_FIELDS = ("desc", "kf_desc", "mp_desc")
+_DESC_FIELDS = ("desc", "kf_desc", "mp_desc", "words")
 
 
 def _to_torch(name: str, a, device) -> torch.Tensor:
@@ -56,6 +58,27 @@ def map_state_from_numpy(d: dict, device="cpu") -> MapState:
 
 def map_state_to_numpy(m: MapState) -> dict:
     return {f.name: _to_numpy(f.name, getattr(m, f.name)) for f in dataclasses.fields(MapState)}
+
+
+def vocabulary_from_numpy(d: dict, device="cpu") -> Vocabulary:
+    return Vocabulary(_to_torch("words", d["words"], device), _to_torch("idf", d["idf"], device))
+
+
+def vocabulary_to_numpy(v: Vocabulary) -> dict:
+    return {"words": _to_numpy("words", v.words), "idf": _to_numpy("idf", v.idf)}
+
+
+def database_from_numpy(d: dict, device="cpu") -> KeyFrameDatabase:
+    return KeyFrameDatabase(_to_torch("bows", d["bows"], device))
+
+
+def cull_info_from_numpy(d: dict, device="cpu") -> CullInfo:
+    return CullInfo(**{f.name: _to_torch(f.name, d[f.name], device)
+                       for f in dataclasses.fields(CullInfo)})
+
+
+def cull_info_to_numpy(c: CullInfo) -> dict:
+    return {f.name: _to_numpy(f.name, getattr(c, f.name)) for f in dataclasses.fields(CullInfo)}
 
 
 def orb_tables_from_numpy(pattern: np.ndarray, rot_offsets: np.ndarray | None = None) -> OrbTables:

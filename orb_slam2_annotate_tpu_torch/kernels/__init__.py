@@ -4,9 +4,10 @@ Each wrapper takes its plain torch twin for CPU tensors and launches its
 kernel for CUDA tensors (or raises); ``<wrapper>.launches`` counts launches.
 """
 
-from . import fast_nms, hamming, orb_describe, pose_lm
+from . import assign_words, fast_nms, hamming, orb_describe, pnp_score, pose_lm
 
 WRAPPERS = (fast_nms.fast_nms, orb_describe.orb_describe, hamming.hamming_match,
-            hamming.hamming_pairwise_batched, pose_lm.pose_linearize, pose_lm.pose_costs)
+            hamming.hamming_pairwise_batched, pose_lm.pose_linearize, pose_lm.pose_costs,
+            assign_words.assign_words, pnp_score.pnp_score)
 
-__all__ = ["fast_nms", "hamming", "orb_describe", "pose_lm", "WRAPPERS"]
+__all__ = ["assign_words", "fast_nms", "hamming", "orb_describe", "pnp_score", "pose_lm", "WRAPPERS"]

@@ -25,7 +25,8 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # every source in csrc/ with its own flags: --fmad=false where float results
 # decide bits or must round like the plain torch twin
 SOURCES = {"fast_nms": ("--fmad=false",), "orb_describe": ("--fmad=false",),
-           "hamming": (), "pose_lm": ("--fmad=false",)}
+           "hamming": (), "pose_lm": ("--fmad=false",), "assign_words": (),
+           "pnp_score": ("--fmad=false",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: dict[str, float] = {}

@@ -1,6 +1,6 @@
-"""Local mapping: keyframe insertion, recent-point culling, triangulation
-and local BA (port of pipeline/local_mapping.py; fuse, depth points and
-keyframe culling are not part of this slice).
+"""Local mapping: keyframe insertion, recent-point culling, triangulation,
+local BA and keyframe culling (port of pipeline/local_mapping.py; fuse and
+depth points are not ported yet).
 
 The reference's ``.at[]`` writes that route filler indices to a dump row
 (K) or column (P) keep that dump slot here explicitly: torch raises on an
@@ -239,12 +239,98 @@ def window_touched_points(m: ms.MapState, slot: int) -> torch.Tensor:
     return ms.point_mask_rows(m, kfs, ok)
 
 
+@dataclasses.dataclass
+class CullInfo:
+    """Reparenting data for frame records whose reference keyframe was culled."""
+
+    slots: torch.Tensor    # [max_cull] int32 dropped slots
+    ok: torch.Tensor       # [max_cull] bool
+    new_ref: torch.Tensor  # [max_cull] int32 surviving replacement slot
+    R_rel: torch.Tensor    # [max_cull,3,3]  Trel = T_old * T_new^-1
+    t_rel: torch.Tensor    # [max_cull,3]
+
+    @staticmethod
+    def zeros(max_cull: int = 4, device=None) -> "CullInfo":
+        z = torch.zeros(max_cull, dtype=torch.int32, device=device)
+        return CullInfo(z, torch.zeros(max_cull, dtype=torch.bool, device=device), z,
+                        torch.zeros((max_cull, 3, 3), device=device),
+                        torch.zeros((max_cull, 3), device=device))
+
+
+def cull_keyframes(m: ms.MapState, protect_slot: int, max_cull: int = 4,
+                   update_stats: bool = True) -> tuple[ms.MapState, CullInfo]:
+    """Redundant-keyframe culling: a keyframe of `protect_slot`'s covisible
+    window (24) whose points are >= 90% seen by at least 3 other keyframes at
+    the same or a finer scale is dropped, up to `max_cull`, most redundant
+    first; the 3 newest keyframes and `protect_slot` stay, and nothing is
+    dropped while the map holds 8 keyframes or fewer."""
+    K, P, N = m.K, m.P, m.N
+    dev = m.device
+    C_WIN = min(24, K)
+    obs_kf, obs_ft, _, obs_mask = ms.observation_table(m)
+    obs_oct = m.kf_octave[obs_kf.long(), obs_ft.long()]                 # [P, MAX_OBS]
+
+    w_slot = torch.where(m.kf_valid, ms.covis_row(m, protect_slot), -1)
+    w_slot[protect_slot] = -1
+    _, win = stable_topk(w_slot, C_WIN)
+    win_ok = w_slot[win] > 0
+    obs_w = m.kf_obs[win]                                               # [C_WIN, N]
+    pid = torch.clamp(obs_w, 0, P - 1).long()
+    has = (obs_w >= 0) & m.kf_feat_valid[win] & win_ok[:, None]
+    fine = obs_mask[pid] & (obs_oct[pid] <= m.kf_octave[win][..., None] + 1) & (
+        obs_kf[pid] != win[:, None, None])                              # [C_WIN, N, MAX_OBS]
+    red = has & (fine.sum(-1) >= 3)
+    ratio_win = red.sum(1) / torch.clamp_min(has.sum(1), 1)
+    # window ratios back to [K]; invalid window entries go to the dump row K
+    ratio = torch.zeros(K + 1, device=dev).index_put((torch.where(win_ok, win, K),),
+                                                     ratio_win)[:K]
+
+    fid = m.kf_frame_id
+    order = torch.argsort(-torch.where(m.kf_valid, fid, -1), stable=True)
+    newest = torch.zeros(K, dtype=torch.bool, device=dev)
+    newest[order[:3]] = True
+    cand = m.kf_valid & ~newest & (ratio >= 0.9)
+    cand[protect_slot] = False
+    cand &= m.kf_valid.sum() > 8
+
+    score = torch.where(cand, ratio, -1.0)
+    _, drop = stable_topk(score, max_cull)
+    drop_ok = score[drop] > 0
+    kf_valid = m.kf_valid.clone()
+    kf_valid[drop] = torch.where(drop_ok, False, m.kf_valid[drop])
+    row_clear = torch.zeros(K, dtype=torch.bool, device=dev)
+    row_clear[drop] = drop_ok                                           # top-k slots are distinct
+    kf_obs = torch.where(row_clear[:, None], -1, m.kf_obs)
+
+    # new reference: the strongest surviving covisible keyframe, else the newest survivor
+    W_drop = torch.where(kf_valid[None, :], ms.covis_rows(m, drop, drop_ok), -1)
+    newest_valid = torch.argmax(torch.where(kf_valid, fid, -1))
+    ref = torch.argmax(W_drop, dim=1)
+    ref = torch.where(W_drop.gather(1, ref[:, None])[:, 0] > 0, ref, newest_valid)
+    R_old, t_old = m.kf_R[drop], m.kf_t[drop]
+    R_new, t_new = m.kf_R[ref], m.kf_t[ref]
+    R_rel = R_old @ R_new.transpose(1, 2)
+    t_rel = t_old - (R_rel @ t_new[:, :, None])[:, :, 0]
+    info = CullInfo(drop.to(torch.int32), drop_ok, ref.to(torch.int32), R_rel, t_rel)
+
+    m = m.replace(kf_valid=kf_valid, kf_obs=kf_obs)
+    if update_stats:
+        m = ms.update_mappoint_stats(m)
+    return m, info
+
+
 def keyframe_chain(m: ms.MapState, cam: CameraModel, frame: Frame, slot: int, R, t, obs,
-                   frame_id: int, timestamp: float) -> ms.MapState:
-    """The per-keyframe mapping chain of this slice: insert -> recent-point
-    cull -> triangulate -> local BA -> windowed stats refresh."""
+                   frame_id: int, timestamp: float,
+                   do_kf_cull: bool = True) -> tuple[ms.MapState, CullInfo]:
+    """The per-keyframe mapping chain: insert -> recent-point cull ->
+    triangulate -> local BA -> (keyframe cull) -> windowed stats refresh.
+    Returns the map and the CullInfo (all zero when culling is off)."""
     m = insert_keyframe_from_frame(m, frame, slot, R, t, obs, frame_id, timestamp)
     m = cull_recent_mappoints(m)
     m = create_new_mappoints(m, cam, slot)
     m = local_bundle_adjustment(m, cam, slot)
-    return ms.update_mappoint_stats_touched(m, window_touched_points(m, slot))
+    if do_kf_cull:
+        m, info = cull_keyframes(m, slot, update_stats=False)
+    else:
+        info = CullInfo.zeros(device=m.device)
+    return ms.update_mappoint_stats_touched(m, window_touched_points(m, slot)), info

@@ -1,14 +1,16 @@
 """System facade, monocular synchronous path (port of pipeline/system.py).
 
-Sequences frame build, two-view initialization, the tracking step, the
-keyframe policy and the keyframe chain on an explicit ``device``.  Each
-stage is a ``torch.profiler.record_function`` span (frontend/extract,
-init/mono, tracking/step, mapping/keyframe), which costs nothing unless a
-profiler is recording.
+Sequences frame build, two-view initialization, the tracking step with
+relocalization, the keyframe policy, the keyframe chain with keyframe
+culling, and the keyframe database on an explicit ``device``.  Each stage
+is a ``torch.profiler.record_function`` span (frontend/extract, init/mono,
+tracking/step, tracking/relocalize, mapping/keyframe), which costs nothing
+unless a profiler is recording.
 
-This slice supports exactly one configuration (``mono_slice_config``): a
-monocular sensor without loop closing, relocalization, keyframe culling,
-fuse, pipelining or point sharding.  Any other setting raises
+The port runs the monocular sensor synchronously, with relocalization and
+keyframe culling on or off (``mono_slice_config`` turns both on, as the
+reference's defaults do).  Loop closing, fuse, pipelining, point sharding
+and the RGB-D / stereo sensors are not ported: they raise
 ``NotImplementedError``.
 """
 
@@ -31,6 +33,7 @@ from . import local_mapping as lm
 from . import policy
 from . import tracking as tk
 from .frame import Frame, make_frame_mono
+from .loop_closing import LoopCloser, LoopCloserConfig
 
 
 @dataclasses.dataclass
@@ -66,14 +69,15 @@ class SlamConfig:
         return ExtractorConfig(n_features=self.n_features, n_levels=self.n_levels, scale=self.scale)
 
 
-# the settings this slice implements; every other value raises
-SLICE_SETTINGS = dict(sensor="mono", enable_loop_closing=False, enable_relocalization=False,
-                      enable_kf_culling=False, enable_fuse=False, stats_in_triangulate=None,
-                      enable_cull=True, enable_local_ba=True, async_depth=0, shard_points=False)
+# the settings the port implements; every other value raises
+SLICE_SETTINGS = dict(sensor="mono", enable_loop_closing=False, enable_fuse=False,
+                      stats_in_triangulate=None, enable_cull=True, enable_local_ba=True,
+                      async_depth=0, shard_points=False)
 
 
 def mono_slice_config(**kw) -> SlamConfig:
-    """A SlamConfig with this slice's settings, plus sizes from `kw`."""
+    """A SlamConfig with the port's settings (relocalization and keyframe
+    culling on, the reference's defaults), plus sizes and toggles from `kw`."""
     return SlamConfig(**{**SLICE_SETTINGS, **kw})
 
 
@@ -94,7 +98,7 @@ class System:
         cfg = config or SlamConfig()
         unsupported = {k: getattr(cfg, k) for k, v in SLICE_SETTINGS.items() if getattr(cfg, k) != v}
         if unsupported:
-            raise NotImplementedError(f"not in this slice of the port: {unsupported}")
+            raise NotImplementedError(f"not ported yet: {unsupported}")
         self.cam = cam
         self.cfg = cfg
         self.device = torch.device(device)
@@ -121,6 +125,13 @@ class System:
         self._pose_np = None
         self._rel_np = None
         self._cur_ts = 0.0
+        # the keyframe database (BoW rows) that relocalization queries
+        self.loop_closer = LoopCloser(cam, cfg.max_kf, LoopCloserConfig(fix_scale=False),
+                                      seed=cfg.seed + 1, device=self.device) \
+            if cfg.enable_relocalization else None
+        self.frames_since_reloc = 0
+        # reset() keeps the mode, as the reference's does
+        self._localization_only = getattr(self, "_localization_only", False)
 
     def track_mono(self, image: np.ndarray, timestamp: float):
         """image [H,W] grayscale uint8 or float32.  Returns 4x4 Tcw or None."""
@@ -131,6 +142,13 @@ class System:
             frame = make_frame_mono(torch.from_numpy(img).to(self.device), self.cam, self.tab,
                                     self.cfg.extractor)
         return self._track(frame, timestamp)
+
+    def activate_localization_mode(self):
+        """Track against the frozen map: no keyframes are made."""
+        self._localization_only = True
+
+    def deactivate_localization_mode(self):
+        self._localization_only = False
 
     def reset(self):
         self.__init__(self.cam, self.cfg, self.device)
@@ -151,8 +169,14 @@ class System:
             return self._pose44()
 
         has_vel = self.vel is not None
-        vel_R, vel_t = self.vel if has_vel else (torch.eye(3, device=self.device),
-                                                 torch.zeros(3, device=self.device))
+        eye, zero = torch.eye(3, device=self.device), torch.zeros(3, device=self.device)
+        vel_R, vel_t = self.vel if has_vel else (eye, zero)
+        if self.last_frame is None or self.last_obs is None:
+            # no previous frame: the motion model cannot run
+            self.last_frame = frame
+            self.last_obs = torch.full((frame.xy.shape[0],), -1, dtype=torch.int32,
+                                       device=self.device)
+            has_vel = False
         with record_function("tracking/step"):
             step = tk.track_frame(self.cam, self.map, frame, self.last_frame, self.last_obs,
                                   self.R, self.t, vel_R, vel_t, has_vel, self.ref_kf)
@@ -160,11 +184,17 @@ class System:
             print(f"  [track] f{self.frame_id}: pre={step.n_pre} local={step.n_local} "
                   f"local_kf={step.n_local_kf} ref_tracked={self.ref_tracked}")
         if step.n_pre < self.cfg.min_inliers_track or step.n_local < self.cfg.min_inliers_local:
-            self.state = "LOST"
-            self.vel = None
-            self._record(lost=True)
-            self._maybe_auto_reset()
-            return None
+            if not (step.n_pre < self.cfg.min_inliers_track and self._try_relocalize(frame)):
+                self._lose()
+                self._maybe_auto_reset()
+                return None
+            # relocalized: run the step again from the recovered pose
+            with record_function("tracking/step"):
+                step = tk.track_frame(self.cam, self.map, frame, self.last_frame, self.last_obs,
+                                      self.R, self.t, eye, zero, False, self.ref_kf)
+            if step.n_local < self.cfg.min_inliers_local:
+                self._lose()
+                return None
 
         self.map = self.map.replace(mp_visible=step.mp_visible, mp_found=step.mp_found)
         self._last_n_local = step.n_local
@@ -177,11 +207,16 @@ class System:
         self.R, self.t = step.R, step.t
         self.last_frame = frame
         self.last_obs = step.obs
-        if self._need_keyframe(step.n_local):
+        if not self._localization_only and self._need_keyframe(step.n_local):
             with record_function("mapping/keyframe"):
                 self._create_keyframe(frame, timestamp, step.obs)
         self._record()
         return self._pose44()
+
+    def _lose(self):
+        self.state = "LOST"
+        self.vel = None
+        self._record(lost=True)
 
     def _ensure_capacity(self):
         """Double the keyframe or map-point capacity before it runs out."""
@@ -190,6 +225,8 @@ class System:
             self.map = ms.grow_map(self.map, new_K=new_K)
             self._kf_valid_host = np.concatenate(
                 [self._kf_valid_host, np.zeros(new_K - len(self._kf_valid_host), bool)])
+            if self.loop_closer is not None:
+                self.loop_closer.grow_db(new_K)
         n = self.map.N
         self._mp_upper += 2 * n
         if self._mp_upper + 2 * n > self.map.P:
@@ -212,9 +249,17 @@ class System:
     def _create_keyframe(self, frame: Frame, timestamp: float, obs: torch.Tensor):
         self._ensure_capacity()
         slot = int(np.argmin(self._kf_valid_host))
-        self.map = lm.keyframe_chain(self.map, self.cam, frame, slot, self.R, self.t, obs,
-                                     self.frame_id, timestamp)
+        # +1: the keyframe this chain inserts is not in _kf_valid_host yet
+        do_kf_cull = self.cfg.enable_kf_culling and self.n_keyframes + 1 > 8
+        self.map, cull_info = lm.keyframe_chain(self.map, self.cam, frame, slot, self.R, self.t,
+                                                obs, self.frame_id, timestamp,
+                                                do_kf_cull=do_kf_cull)
         self._kf_valid_host[slot] = True
+        if self.loop_closer is not None:
+            # writes the keyframe's BoW row; the loop candidates wait for loop closing
+            self.loop_closer.dispatch_detection(self.map, slot)
+        if do_kf_cull:
+            self._apply_cull_info(cull_info)
         self.R = self.map.kf_R[slot]
         self.t = self.map.kf_t[slot]
         self.last_obs = self.map.kf_obs[slot]
@@ -224,6 +269,59 @@ class System:
         self.last_kf_frame = self.frame_id
         self.ref_tracked = self._last_n_local
         self._peak_n_local = 0
+
+    def _apply_cull_info(self, info: lm.CullInfo):
+        """Fold culled slots into the host mirror and re-reference the frame
+        records of culled keyframes."""
+        ok = info.ok.cpu().numpy()
+        if not ok.any():
+            return
+        slots = info.slots.cpu().numpy()[ok]
+        self._kf_valid_host[slots] = False
+        self._reparent_records(slots, info.new_ref.cpu().numpy()[ok], info.R_rel.cpu().numpy()[ok],
+                               info.t_rel.cpu().numpy()[ok])
+
+    def _reparent_records(self, culled, new_refs, R_rels, t_rels):
+        """Re-express the records of culled reference keyframes relative to
+        their replacements: Tcr' = Tcr Trel."""
+        by_slot = {int(c): (int(nr), R_rels[i], t_rels[i])
+                   for i, (c, nr) in enumerate(zip(culled, new_refs))}
+        for rec in self.records:
+            if rec.lost or rec.ref_kf_slot not in by_slot:
+                continue
+            new_ref, R_rel, t_rel = by_slot[rec.ref_kf_slot]
+            rec.t_cr = rec.R_cr @ t_rel + rec.t_cr
+            rec.R_cr = rec.R_cr @ R_rel
+            rec.ref_kf_slot = new_ref
+
+    def _try_relocalize(self, frame: Frame) -> bool:
+        """Relocalize against the BoW candidates (PnP RANSAC seeded with the
+        frame id), then refine the winner with one local-map track; success
+        needs >= 50 inliers."""
+        if self.loop_closer is None or self.n_keyframes < 2:
+            return False
+        lc = self.loop_closer
+        self._gen.manual_seed(self.frame_id)
+        with record_function("tracking/relocalize"):
+            cand = tk.relocalize_candidates(self.cam, self.map, frame, lc.vocab, lc.db.bows,
+                                            self._gen)
+            slot = int(cand.best_slot)
+            if slot < 0:
+                return False
+            res2 = tk.track_local_map(self.cam, self.map, frame, cand.R, cand.t, cand.obs)
+            n_inliers = int(res2.n_inliers)
+        if n_inliers < 50:
+            return False
+        self.R, self.t = res2.R, res2.t
+        self.last_frame = frame
+        self.last_obs = res2.obs
+        self.vel = None
+        self.ref_kf = slot
+        self.state = "OK"
+        self.frames_since_reloc = 0
+        if self.cfg.verbose:
+            print(f"  [reloc] recovered against kf slot {slot} ({n_inliers} inliers)")
+        return True
 
     def _initialize_mono(self, frame: Frame, timestamp: float) -> bool:
         n_feat = int(frame.valid.sum())
@@ -253,6 +351,8 @@ class System:
         self.map, obs1 = policy.build_mono_init_map(self.map, self.cam, f0, frame, init, res.idx,
                                                     self._init_fid, self._init_ts, self.frame_id,
                                                     timestamp)
+        # as in the reference, the two bootstrap keyframes get no BoW row: their
+        # zero rows score 0.5 against every query (ROADMAP.md §3)
         self.R = self.map.kf_R[1]
         self.t = self.map.kf_t[1]
         self.last_frame = frame
@@ -321,6 +421,12 @@ class System:
                 T[:3, :3], T[:3, 3] = kf_R[s], kf_t[s]
                 out.append((int(fids[s]), T))
         return out
+
+    @property
+    def observation_overflow(self):
+        """(points over MAX_OBS observations, observations dropped)."""
+        n, d = ms.observation_overflow(self.map)
+        return int(n), int(d)
 
     @property
     def n_keyframes(self) -> int:

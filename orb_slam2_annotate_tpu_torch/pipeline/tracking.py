@@ -2,7 +2,8 @@
 widen-retry, reference-keyframe fallback, local map + pose refinement.
 
 The reference's ``lax.cond`` fallbacks are Python branches on an inlier
-count read once per stage.  Relocalization is not part of this slice.
+count read once per stage.  Relocalization runs its candidates batched
+(``relocalize_candidates``).
 """
 
 from __future__ import annotations
@@ -146,6 +147,55 @@ def track_local_map(cam: CameraModel, m: MapState, frame: Frame, R, t, obs,
     found = ((obs >= 0) & inlier).to(torch.int32)
     mp_found = m.mp_found.index_add(0, torch.clamp(obs, 0, P - 1).long(), found)
     return LocalMapTrack(R2, t2, obs, n, n_local_kf, mp_visible, mp_found)
+
+
+@dataclasses.dataclass
+class RelocCandidates:
+    """The winner of one relocalization attempt over all BoW candidates."""
+
+    best_slot: torch.Tensor   # 0-d int (-1 = no candidate)
+    best_score: torch.Tensor  # 0-d int32 PnP inliers of the winner
+    R: torch.Tensor           # [3,3]
+    t: torch.Tensor           # [3]
+    obs: torch.Tensor         # [N] map-point ids from the winning match
+
+
+def relocalize_candidates(cam: CameraModel, m: MapState, frame: Frame, vocab, db_bows,
+                          gen: torch.Generator, n_hyp: int = 256) -> RelocCandidates:
+    """BoW candidates with covisibility-accumulated scores, then per
+    candidate a descriptor match (kernel 3), PnP RANSAC over all candidates
+    at once (kernels 6 and 4) and the reference's gates: the candidate
+    qualifies, >= 15 matches, a successful PnP with >= 15 inliers.  The
+    candidates that fail the first two gates (one read of 8 flags) skip the
+    LM polish: their score is -1 whatever it would give."""
+    from ..solvers import pnp
+    from ..worldmap import vocabulary as voc
+
+    N = frame.xy.shape[0]
+    bow = voc.bow_vector(vocab, frame.desc, frame.valid)
+    slots, ok = voc.detect_relocalization_candidates(voc.KeyFrameDatabase(db_bows), bow,
+                                                     m.kf_valid, ms.covisibility(m))
+    kf_obs, kf_desc = m.kf_obs[slots], m.kf_desc[slots]                  # [C,N], [C,N,16]
+    kf_has = (kf_obs >= 0) & m.kf_feat_valid[slots] & m.mp_valid[torch.clamp(kf_obs, 0, m.P - 1).long()]
+    obss = []
+    for obs_kf, desc, has in zip(kf_obs, kf_desc, kf_has):
+        res = matching.match_masked(desc, frame.desc, has[:, None] & frame.valid[None, :],
+                                    max_dist=matching.TH_LOW, ratio=0.75)
+        obss.append(_scatter_max_ids(N, torch.clamp_min(res.idx, 0),
+                                     torch.where(res.matched & has, obs_kf, -1)))
+    obs = torch.stack(obss)                                               # [C,N]
+    pvalid = (obs >= 0) & frame.valid[None, :]
+    n_matches = pvalid.sum(1)
+    gate = ok & (n_matches >= 15)
+    samples = pnp.sample_pnp_sets(gen, pvalid, n_hyp)
+    r = pnp.pnp_from_samples(cam, samples, m.mp_pos[torch.clamp(obs, 0, m.P - 1).long()], frame.xy,
+                             pvalid, min_inliers=15,
+                             polish=torch.nonzero(gate).flatten().tolist())
+    scores = torch.where(gate & r.success, r.n_inliers, -1).to(torch.int32)
+    best = torch.argmax(scores)
+    found = scores[best] > 0
+    return RelocCandidates(best_slot=torch.where(found, slots[best], -1), best_score=scores[best],
+                           R=r.R[best], t=r.t[best], obs=obs[best])
 
 
 @dataclasses.dataclass

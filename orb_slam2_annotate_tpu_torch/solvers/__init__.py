@@ -1,3 +1,3 @@
-from . import ba_core, initializer, pose_opt
+from . import ba_core, initializer, pnp, pose_opt
 
-__all__ = ["ba_core", "initializer", "pose_opt"]
+__all__ = ["ba_core", "initializer", "pnp", "pose_opt"]

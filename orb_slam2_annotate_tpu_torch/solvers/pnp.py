@@ -1,0 +1,103 @@
+"""Batched PnP RANSAC for relocalization (port of solvers/pnp.py).
+
+Every hypothesis is a 6-point DLT (null vector of the 13x12 system by SVD,
+scale and sign from the determinant, projection onto SO(3)); all hypotheses
+of all candidates are scored by kernel 6 (``kernels/pnp_score``), and each
+candidate's best is polished by the pose-only LM (kernel 4).  As for the
+initializer, sampling and solving are split: ``sample_pnp_sets`` draws the
+minimal sets from a ``torch.Generator`` and ``pnp_from_samples`` is the
+deterministic core, testable on ``jax.random``'s own draws.  The DLT SVDs
+are plain ``torch.linalg`` calls, batched over every hypothesis.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..geometry.camera import CameraModel
+from ..kernels.pnp_score import pnp_score
+from . import pose_opt
+
+
+@dataclasses.dataclass
+class PnPResult:
+    success: torch.Tensor    # [C] bool
+    R: torch.Tensor          # [C,3,3]
+    t: torch.Tensor          # [C,3]
+    inliers: torch.Tensor    # [C,N] bool
+    n_inliers: torch.Tensor  # [C] int
+
+
+def dlt_pnp(xw: torch.Tensor, xn: torch.Tensor):
+    """Linear PnP from 6 points, batched: world [...,6,3], normalised camera
+    coordinates [...,6,2] -> (R [...,3,3], t [...,3])."""
+    X = torch.cat([xw, torch.ones_like(xw[..., :1])], dim=-1)            # [...,6,4]
+    z = torch.zeros_like(X)
+    u, v = xn[..., 0:1], xn[..., 1:2]
+    r1 = torch.cat([X, z, -u * X], dim=-1)                                 # [...,6,12]
+    r2 = torch.cat([z, X, -v * X], dim=-1)
+    A = torch.cat([r1, r2, torch.zeros_like(r1[..., :1, :])], dim=-2)     # [...,13,12]
+    Vt = torch.linalg.svd(A, full_matrices=False).Vh
+    P = Vt[..., -1, :].reshape(*Vt.shape[:-2], 3, 4)
+    M = P[..., :3]
+    det = torch.linalg.det(M)
+    s = torch.sign(det) * torch.abs(det) ** (1.0 / 3.0)
+    s = torch.where(torch.abs(s) < 1e-12, 1e-12, s)
+    M = M / s[..., None, None]
+    t = P[..., 3] / s[..., None]
+    U, _, Vt2 = torch.linalg.svd(M)
+    R = U @ Vt2
+    return R * torch.sign(torch.linalg.det(R))[..., None, None], t
+
+
+def sample_pnp_sets(gen: torch.Generator, valid: torch.Tensor, n_hyp: int = 256) -> torch.Tensor:
+    """[C, n_hyp, 6] distinct indices per set, uniform over the valid entries
+    of each row of valid [C, N].  A row with fewer than 6 valid entries
+    draws from all N (its candidate cannot pass the caller's gates)."""
+    C, N = valid.shape
+    enough = valid.sum(1, keepdim=True) >= 6
+    probs = torch.where(enough, valid, True).to(torch.float32)
+    probs = probs[:, None, :].expand(C, n_hyp, N).reshape(C * n_hyp, N)
+    return torch.multinomial(probs, 6, replacement=False, generator=gen).reshape(C, n_hyp, 6)
+
+
+def pnp_from_samples(cam: CameraModel, samples: torch.Tensor, xw: torch.Tensor, uv: torch.Tensor,
+                     valid: torch.Tensor, chi2_th: float = 5.991, min_inliers: int = 10,
+                     polish=None) -> PnPResult:
+    """samples [C,S,6], xw [C,N,3] world points, uv [N,2] undistorted pixels,
+    valid [C,N].  ``polish`` lists the candidates to polish with the LM
+    (all by default); the others keep their best DLT pose and fail."""
+    C, S, _ = samples.shape
+    N = xw.shape[1]
+    dev = xw.device
+    xn = torch.stack([(uv[:, 0] - cam.cx) / cam.fx, (uv[:, 1] - cam.cy) / cam.fy], dim=1)
+    samples = samples.long()
+    ci = torch.arange(C, device=dev)[:, None, None]
+    Rs, ts = dlt_pnp(xw[ci, samples], xn[samples])                        # [C,S,3,3], [C,S,3]
+    ns = pnp_score(Rs.contiguous(), ts.contiguous(), xw.contiguous(), uv.contiguous(),
+                   valid.contiguous(), cam.fx, cam.fy, cam.cx, cam.cy, chi2_th * 4.0)
+    best = torch.argmax(ns, dim=1)                                         # first maximum
+    cr = torch.arange(C, device=dev)
+    R, t, n_best = Rs[cr, best], ts[cr, best], ns[cr, best]
+    inliers = torch.zeros((C, N), dtype=torch.bool, device=dev)
+    n = torch.zeros(C, dtype=torch.int64, device=dev)
+    ok = torch.zeros(C, dtype=torch.bool, device=dev)
+    R, t = R.clone(), t.clone()
+    for c in (range(C) if polish is None else polish):
+        obs = pose_opt.PoseObs(xw=xw[c], uv=uv, ur=torch.full((N,), -1.0, device=dev),
+                               inv_sigma2=torch.ones(N, device=dev), valid=valid[c])
+        R[c], t[c], inliers[c], n[c] = pose_opt.optimize_pose(cam, R[c], t[c], obs)
+        ok[c] = (n_best[c] >= min_inliers) & (n[c] >= min_inliers)
+    return PnPResult(ok, R, t, inliers, n)
+
+
+def pnp_ransac(gen: torch.Generator, cam: CameraModel, xw: torch.Tensor, uv: torch.Tensor,
+               valid: torch.Tensor, n_hyp: int = 256, chi2_th: float = 5.991,
+               min_inliers: int = 10) -> PnPResult:
+    """One correspondence set: xw [N,3], uv [N,2], valid [N].  Returns a
+    PnPResult without the candidate axis."""
+    samples = sample_pnp_sets(gen, valid[None], n_hyp)
+    r = pnp_from_samples(cam, samples, xw[None], uv, valid[None], chi2_th, min_inliers)
+    return PnPResult(r.success[0], r.R[0], r.t[0], r.inliers[0], r.n_inliers[0])

@@ -1,3 +1,3 @@
-from . import map_state
+from . import map_state, vocabulary
 
-__all__ = ["map_state"]
+__all__ = ["map_state", "vocabulary"]

@@ -151,6 +151,28 @@ def observation_matrix(m: MapState) -> torch.Tensor:
     return _scatter_max_bool(K * P, lin, valid).reshape(K, P)
 
 
+def covisibility(m: MapState, O: torch.Tensor | None = None) -> torch.Tensor:
+    """W[K,K] int32 shared-point counts, diagonal zeroed.  The reference's
+    int8 product becomes a float32 product of the 0/1 matrix (torch has no
+    integer matmul on CUDA): exact, as counts stay below 2^24 and TF32 is off."""
+    if O is None:
+        O = observation_matrix(m)
+    Of = O.to(torch.float32)
+    W = (Of @ Of.T).to(torch.int32)
+    return W.fill_diagonal_(0)
+
+
+def spanning_tree_parents(m: MapState, W: torch.Tensor | None = None) -> torch.Tensor:
+    """parent[k] = earlier slot with the most shared points (-1 for roots)."""
+    if W is None:
+        W = covisibility(m)
+    ar = torch.arange(m.K, device=m.device)
+    earlier = (ar[None, :] < ar[:, None]) & m.kf_valid[None, :]
+    Wm = torch.where(earlier, W, -1)
+    has = Wm.max(1).values > 0
+    return torch.where(has & m.kf_valid, torch.argmax(Wm, dim=1), -1).to(torch.int32)
+
+
 def point_mask_rows(m: MapState, rows: torch.Tensor, rows_ok: torch.Tensor) -> torch.Tensor:
     """[P] bool: union of the points observed by keyframe slots `rows`."""
     obs = m.kf_obs[rows]
@@ -214,8 +236,8 @@ def _geometry_from_table(m: MapState, pos, obs_kf, obs_ft, obs_mask):
     """Normal + scale-invariance band for points with tables [Q, MAX_OBS]."""
     # -R t, as the JAX package computes it (its map_state.py:417 transposes
     # kf_R before an einsum that already contracts the first index); the
-    # camera centre is -R^T t.  Kept for parity: ROADMAP.md §3 lists the
-    # fault, to be fixed in both packages at once.
+    # camera centre is -R^T t.  Kept for parity with the reference, which
+    # stays as it is (ROADMAP.md §3).
     cam_centers = -torch.einsum("kij,kj->ki", m.kf_R, m.kf_t)
     centers = cam_centers[obs_kf.long()]
     dirs = pos[:, None, :] - centers
@@ -291,3 +313,11 @@ def update_mappoint_stats(m: MapState) -> MapState:
 def mp_observation_counts(m: MapState) -> torch.Tensor:
     """n_obs[P]: number of keyframes observing each point."""
     return observation_matrix(m).sum(0).to(torch.int32)
+
+
+def observation_overflow(m: MapState):
+    """(points with more than MAX_OBS observations, observations the
+    MAX_OBS table drops), both 0-d."""
+    n_obs = mp_observation_counts(m)
+    over = m.mp_valid & (n_obs > MAX_OBS)
+    return over.sum(), torch.where(over, n_obs - MAX_OBS, 0).sum()

@@ -196,7 +196,9 @@ def test_keyframe_chain(state):
                                       stats_in_triangulate=False, do_fuse=False, do_local_ba=True,
                                       do_kf_cull=False)
     m, f = convert.map_state_from_numpy(nd(slam.map)), convert.frame_from_numpy(nd(frame))
-    got = tlm.keyframe_chain(m, TCAM, f, int(slot), T(step.R), T(step.t), T(step.obs), 14, 14 / 30.0)
+    got, info = tlm.keyframe_chain(m, TCAM, f, int(slot), T(step.R), T(step.t), T(step.obs), 14,
+                                   14 / 30.0, do_kf_cull=False)
+    assert not info.ok.any() and not info.R_rel.any()
     assert_ba_map(got, ref, int(slot), skip=STATS)
     # the stats refresh, against the reference's refresh of the same map
     touched = tlm.window_touched_points(got, int(slot))

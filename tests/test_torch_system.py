@@ -1,7 +1,7 @@
 """The whole monocular slice of the port against the JAX System, plus the
 package-level rules: no jax import, numpy copies that agree with the
 reference, CPU tensors taking the plain twins without touching the launch
-counters, and the slice's configuration guard.
+counters, the configuration guard, and localization mode.
 
 Slice tolerance: both systems reach OK; the port tracks >= 70% of frames,
 its keyframe count is within +-2 of the reference's, and its Sim3-aligned
@@ -25,7 +25,8 @@ from orb_slam2_annotate_tpu_torch import convert, kernels
 from orb_slam2_annotate_tpu_torch.geometry.camera import CameraModel as TCam
 from orb_slam2_annotate_tpu_torch.io import evaluation as teval
 from orb_slam2_annotate_tpu_torch.io import synthetic as tsyn
-from orb_slam2_annotate_tpu_torch.kernels import fast_nms, hamming, orb_describe, pose_lm
+from orb_slam2_annotate_tpu_torch.kernels import (assign_words, fast_nms, hamming, orb_describe,
+                                                  pnp_score, pose_lm)
 from orb_slam2_annotate_tpu_torch.ops import orb as torb
 from orb_slam2_annotate_tpu_torch.pipeline import System as TSystem
 from orb_slam2_annotate_tpu_torch.pipeline import mono_slice_config
@@ -57,8 +58,9 @@ def test_slice_matches_jax_system():
     scene = jsyn.PlaneScene(seed=1)
     poses = jsyn.orbit_trajectory(N_FRAMES, step=0.06)
     images = [scene.render(CAM, R, t, h=240, w=320)[0] for R, t in poses]
-    ref = System(CAM, SlamConfig(enable_loop_closing=False, enable_relocalization=False,
-                                 enable_kf_culling=False, enable_fuse=False, async_depth=0,
+    # the reference's defaults minus loop closing: relocalization and
+    # keyframe culling on, on both sides
+    ref = System(CAM, SlamConfig(enable_loop_closing=False, enable_fuse=False, async_depth=0,
                                  shard_points=False, **SIZES))
     port = TSystem(TCAM, mono_slice_config(**SIZES), device="cpu")
     for k, img in enumerate(images):
@@ -154,12 +156,48 @@ def test_wrappers_take_plain_path_on_cpu():
         assert torch.equal(a, b)
     assert torch.equal(pose_lm.pose_costs(TCAM, R[None], t[None], *edges, m),
                        pose_lm.pose_costs_plain(TCAM, R[None], t[None], *edges, m))
+    valid = torch.tensor([True, False] * 4)
+    assert torch.equal(assign_words.assign_words(d, q[0], valid),
+                       assign_words.assign_words_plain(d, q[0], valid))
+    Rs, ts = R.expand(2, 3, 3, 3), t.expand(2, 3, 3)
+    sargs = (Rs, ts, xw.expand(2, 16, 3), edges[1], m.expand(2, 16), 250.0, 250.0, 160.0, 120.0,
+             23.964)
+    assert torch.equal(pnp_score.pnp_score(*sargs), pnp_score.pnp_score_plain(*sargs))
     assert all(w.launches == 0 for w in kernels.WRAPPERS)
 
 
 @pytest.mark.parametrize("change", [dict(sensor="rgbd"), dict(enable_loop_closing=True),
-                                    dict(enable_relocalization=True), dict(enable_kf_culling=True),
+                                    dict(sensor="stereo"), dict(shard_points=True),
                                     dict(enable_fuse=True), dict(async_depth=2)])
 def test_other_configurations_raise(change):
     with pytest.raises(NotImplementedError):
         TSystem(TCAM, mono_slice_config(**{**SIZES, **change}))
+
+
+@pytest.mark.parametrize("toggles", [dict(enable_relocalization=False, enable_kf_culling=False),
+                                     dict(enable_relocalization=True, enable_kf_culling=False),
+                                     dict(enable_relocalization=False, enable_kf_culling=True)])
+def test_toggles_take_either_value(toggles):
+    slam = TSystem(TCAM, mono_slice_config(**{**SIZES, **toggles}))
+    assert (slam.loop_closer is not None) == toggles["enable_relocalization"]
+    assert mono_slice_config().enable_relocalization and mono_slice_config().enable_kf_culling
+
+
+def test_localization_mode_adds_no_keyframes():
+    scene = tsyn.PlaneScene(seed=1)
+    poses = tsyn.orbit_trajectory(36, step=0.06)
+    slam = TSystem(TCAM, mono_slice_config(**SIZES), device="cpu")
+    track = lambda k: slam.track_mono(scene.render(TCAM, *poses[k], h=240, w=320)[0], k / 30.0)
+    for k in range(14):
+        track(k)
+    assert slam.state == "OK" and slam.n_keyframes >= 2
+    n_kf, kf_R = slam.n_keyframes, slam.map.kf_R.clone()
+    slam.activate_localization_mode()
+    tracked = [track(k) is not None for k in range(14, 26)]
+    assert all(tracked) and slam.n_keyframes == n_kf
+    assert torch.equal(slam.map.kf_valid, torch.from_numpy(slam._kf_valid_host))
+    assert torch.equal(slam.map.kf_R, kf_R)
+    slam.deactivate_localization_mode()
+    for k in range(26, 36):
+        track(k)
+    assert slam.n_keyframes > n_kf
