@@ -10,26 +10,39 @@ Phases (any failure exits non-zero):
   3. compare kernels 1-5 with their plain torch twins on the card, at the
      shapes of the main path (PlaneScene seed 1, VGA, 8 levels, 1024
      keypoints, the trained 16384-word vocabulary), and time both with
-     CUDA events;
+     CUDA events; kernel 4 (the whole pose LM) on 1024 synthetic edges,
+     once mono and once half stereo;
   4. run the monocular System (``mono_slice_config``: relocalization and
      keyframe culling on) through ``System.track_mono`` on 48 frames at
      VGA / 1024 features / 8 levels, with every launch counter reset just
-     before, and check tracking state, keyframes, map points, ATE and that
-     kernels 1-5 were launched;
+     before, and check tracking state, keyframes, map points, ATE, that
+     kernels 1-5 were launched and that kernel 4 was launched once per
+     ``optimize_pose`` call; then compare kernel 4 with its twin on the
+     edges of one real local-map call and time both;
   5. a kidnapped run at the same width: a 64-frame sweep, then a jump back
      to frame 4 and three frames from there, counters reset just before;
      check that the jump frame is tracked after a relocalization, that all
-     six kernels were launched, the final state and the ATE; then compare
-     kernel 6 with its twin on the inputs the relocalization gave it
-     (8 candidates x 256 hypotheses x 1024 points) and time both.
-The line before the last is a JSON object with per-kernel results; the
-last line is the device summary.  Imports nothing of JAX.
+     six kernels were launched (kernel 4 once per ``optimize_pose`` call
+     plus once per relocalization polish), the final state and the ATE;
+     then compare kernels 6 and 4 with their twins on the inputs the
+     relocalization gave them (8 candidates x 256 hypotheses x 1024 points;
+     the batch of polished candidates) and time kernel 6 and its twin.
+Kernel times are one CUDA-event pair around 100 back-to-back calls after a
+warm-up, divided by the count.  Each kernel's bound is the larger of its
+bytes (inputs read once, outputs written once) over 3.35 TB/s and its
+operations over 67 T/s (f32 outside the tensor cores, the H100 SXM data
+sheet; 32-bit integer work is counted at the same rate), from the shapes and
+data of this run.  The line before the last is a JSON object with
+per-kernel results; the last line is the device summary.  Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -42,24 +55,33 @@ N_FRAMES = 48
 ATE_BOUND = 0.08   # m, Sim3-aligned; tests/test_e2e_mono.py's bound
 # phase 5: sweep, then jump back (the JAX System relocalizes on this sequence)
 KIDNAP_SWEEP, KIDNAP_STEP, KIDNAP_JUMP = 64, 0.08, 4
+# kernel name: (source, the JAX code it replaces, its wrapper's __name__)
 SOURCES = {
     "fast_nms": ("orb_slam2_annotate_tpu_torch/csrc/fast_nms.cu",
-                 "orb_slam2_annotate_tpu/ops/fast.py:40"),
+                 "orb_slam2_annotate_tpu/ops/fast.py:40", "fast_nms"),
     "orb_describe": ("orb_slam2_annotate_tpu_torch/csrc/orb_describe.cu",
-                     "orb_slam2_annotate_tpu/ops/orb.py:256"),
+                     "orb_slam2_annotate_tpu/ops/orb.py:256", "orb_describe"),
     "hamming_match": ("orb_slam2_annotate_tpu_torch/csrc/hamming.cu",
-                      "orb_slam2_annotate_tpu/ops/matching.py:77"),
+                      "orb_slam2_annotate_tpu/ops/matching.py:77", "hamming_match"),
     "hamming_pairwise_batched": ("orb_slam2_annotate_tpu_torch/csrc/hamming.cu",
-                                 "orb_slam2_annotate_tpu/worldmap/map_state.py:397"),
-    "pose_linearize": ("orb_slam2_annotate_tpu_torch/csrc/pose_lm.cu",
-                       "orb_slam2_annotate_tpu/solvers/pose_opt.py:49"),
-    "pose_costs": ("orb_slam2_annotate_tpu_torch/csrc/pose_lm.cu",
-                   "orb_slam2_annotate_tpu/solvers/pose_opt.py:112"),
+                                 "orb_slam2_annotate_tpu/worldmap/map_state.py:397",
+                                 "hamming_pairwise_batched"),
+    "pose_lm_solve": ("orb_slam2_annotate_tpu_torch/csrc/pose_lm.cu",
+                      "orb_slam2_annotate_tpu/solvers/pose_opt.py:134", "optimize_pose_batched"),
     "assign_words": ("orb_slam2_annotate_tpu_torch/csrc/assign_words.cu",
-                     "orb_slam2_annotate_tpu/worldmap/vocabulary.py:81"),
+                     "orb_slam2_annotate_tpu/worldmap/vocabulary.py:81", "assign_words"),
     "pnp_score": ("orb_slam2_annotate_tpu_torch/csrc/pnp_score.cu",
-                  "orb_slam2_annotate_tpu/solvers/pnp.py:90"),
+                  "orb_slam2_annotate_tpu/solvers/pnp.py:90", "pnp_score"),
 }
+PEAK_OPS = 67e12      # /s: f32 outside the tensor cores (H100 SXM); 32-bit integer work alike
+PEAK_BYTES = 3.35e12  # /s: HBM3
+# operations per unit of work, counted from each kernel's source
+FAST_OPS_PER_PIXEL = 605       # 16 differences, 2 arcs x 16 starts x (1 + 8 x 2) + 16 maxima, NMS
+DESCRIBE_OPS_PER_KP = 10150    # 961 x 6 moment terms, 961 x 4 variance terms, 512 compares
+DESCRIBE_BYTES_PER_KP = 8021   # 961-float patch, 1024 blurred samples, keypoint in, angle + desc out
+HAMMING_OPS_PER_PAIR = 48      # 16 x (xor, popcount, add)
+PNP_OPS_PER_REPROJECTION = 33  # 18 for R x + t, 2 divisions, 13 for the residual and the test
+POSE_OPS_PROJECT, POSE_OPS_ROW, POSE_OPS_COST, POSE_OPS_RECLASS = 45, 66, 35, 30
 
 
 def fail(msg: str):
@@ -67,21 +89,40 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Median CUDA-event time of one call, after one warm-up call."""
+def time_ms(fn, reps: int = 100) -> float:
+    """CUDA-event time of one call: one event pair around `reps`
+    back-to-back calls after a warm-up call, divided by `reps`."""
     import torch
 
     fn()
-    times = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def bound(nbytes: float, ops: float):
+    """(least time in ms, what bounds it) for this work on the card."""
+    t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * ops / PEAK_OPS
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pose_lm_work(xw, ur, valid, rounds: int = 4, iters: int = 5):
+    """(bytes, operations) of one optimize_pose_batched call on these edges:
+    every pass runs over the valid edges (the mask is a subset)."""
+    B, N = valid.shape
+    n_valid = float(valid.sum())
+    stereo = float(((ur >= 0) & valid).sum())
+    rows = 2 * n_valid + stereo
+    lin = POSE_OPS_PROJECT * n_valid + POSE_OPS_ROW * rows + POSE_OPS_COST * n_valid
+    ops = rounds * iters * (lin + 3 * POSE_OPS_COST * n_valid) + rounds * POSE_OPS_RECLASS * n_valid
+    shared = 1 if ur.dim() == 1 else B
+    nbytes = B * N * (12 + 1) + shared * N * (8 + 4 + 4) + B * (48 + N + 48 + 4)
+    return nbytes, ops
 
 
 def slice_setup():
@@ -148,6 +189,7 @@ def main():
     from orb_slam2_annotate_tpu_torch.pipeline import System
     from orb_slam2_annotate_tpu_torch.pipeline.loop_closing import TRAINED_VOCAB
     from orb_slam2_annotate_tpu_torch.solvers import pnp as pnp_mod
+    from orb_slam2_annotate_tpu_torch.solvers import pose_opt
     from orb_slam2_annotate_tpu_torch.worldmap import vocabulary
 
     if "jax" in sys.modules:
@@ -169,9 +211,12 @@ def main():
     tab = orb.OrbTables().to(dev)
     results = {}
 
-    def record(name, err, ms, plain_ms):
-        results[name] = {"max_abs_err": float(err), "ms": float(ms), "plain_ms": float(plain_ms)}
-        print(f"kernel {name}: max_abs_err {err} kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+    def record(name, err, ms, plain_ms, nbytes, ops, **extra):
+        bound_ms, bound_by = bound(nbytes, ops)
+        results[name] = {"max_abs_err": float(err), "ms": float(ms), "plain_ms": float(plain_ms),
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, **extra}
+        print(f"kernel {name}: max_abs_err {err} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+              f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes:.4g} B, {ops:.4g} ops) {extra or ''}")
 
     # kernel 1: every level of frame 0
     fast_args = (cfg.th_fast_lo, cfg.th_fast_hi, cfg.margin)
@@ -188,7 +233,9 @@ def main():
                    float((h_k.float() - h_p.float()).abs().max()))
     run_k = lambda: [k1.fast_nms(lv, *fast_args) for lv in levels]
     run_p = lambda: [k1.fast_nms_plain(lv, *fast_args) for lv in levels]
-    record("fast_nms", err1, time_ms(run_k), time_ms(run_p))
+    pixels = sum(lv.numel() for lv in levels)
+    record("fast_nms", err1, time_ms(run_k), time_ms(run_p, 10), 9 * pixels,
+           FAST_OPS_PER_PIXEL * pixels)
 
     # kernel 2: the frame's 1024 keypoints
     budgets = pyramid.features_per_level(cfg.n_features, cfg.n_levels, cfg.scale)
@@ -209,8 +256,10 @@ def main():
     frac = float(same_bin[valid].float().mean())
     if ang_err > 1e-4 or frac < 0.995 or not torch.equal(d_k[same_bin], d_p[same_bin]):
         fail(f"orb_describe: angle err {ang_err}, same-bin fraction {frac}")
+    n_kp = xy_l.shape[0]
     record("orb_describe", ang_err, time_ms(lambda: k2.orb_describe(*args2)),
-           time_ms(lambda: k2.orb_describe_plain(*args2)))
+           time_ms(lambda: k2.orb_describe_plain(*args2)), DESCRIBE_BYTES_PER_KP * n_kp,
+           DESCRIBE_OPS_PER_KP * n_kp)
 
     # kernel 3: matches with real window masks between frames
     feats = [extractor.extract(torch.from_numpy(f).to(dev), tab, cfg) for f in frames[:5]]
@@ -235,8 +284,10 @@ def main():
                     fail(f"hamming_match differs ({dd.shape[0]}x1024, mutual={mutual})")
                 err3 = max(err3, int((ik - ip).abs().max()), int((sk - sp).abs().max()))
     args3 = (d1, cur.desc, mask_4k, matching.TH_HIGH, 0.8, False)
+    N1, N2 = mask_4k.shape
     record("hamming_match", err3, time_ms(lambda: k3.hamming_match(*args3)),
-           time_ms(lambda: k3.hamming_match_plain(*args3)))
+           time_ms(lambda: k3.hamming_match_plain(*args3)), N1 * N2 + 64 * (N1 + N2) + 8 * N1,
+           HAMMING_OPS_PER_PAIR * float(mask_4k.sum()) + N1 * N2)
     gen = torch.Generator(device=dev).manual_seed(0)
     pick = torch.randint(0, d1.shape[0], (4096, 32), generator=gen, device=dev)
     q = d1[pick].contiguous()                                         # [4096, 32, 16]
@@ -245,10 +296,45 @@ def main():
     torch.cuda.synchronize()
     if not torch.equal(pk, pp):
         fail("hamming_pairwise_batched differs from its plain twin")
-    record("hamming_pairwise_batched", int((pk - pp).abs().max()), time_ms(lambda: k3.hamming_pairwise_batched(q, q)),
-           time_ms(lambda: k3.hamming_pairwise_batched_plain(q, q)))
+    Q, M = q.shape[:2]
+    record("hamming_pairwise_batched", int((pk - pp).abs().max()),
+           time_ms(lambda: k3.hamming_pairwise_batched(q, q)),
+           time_ms(lambda: k3.hamming_pairwise_batched_plain(q, q), 10),
+           2 * q.numel() * 4 + Q * M * M * 4, HAMMING_OPS_PER_PAIR * Q * M * M)
 
-    # kernel 4: 1024 edges from frame 0's keypoints back-projected with the exact depth
+    # kernel 4: the whole pose LM against its twin, at the tolerances
+    # tests/test_torch_pose_opt.py holds the twin to against JAX
+    def check_pose_lm(what, args):
+        """R and t within 1e-4; inlier masks differ on <= 1% of edges, only
+        where chi2 is within 1% of its gate; n within 1%.  Returns max |dR|, |dt|."""
+        got = k4.optimize_pose_batched(*args)
+        ref = k4.optimize_pose_batched_plain(*args)
+        torch.cuda.synchronize()
+        c4, xw4, uv4, ur4, is4 = args[0], args[3], args[4], args[5], args[6]
+        err = max(float((got[0] - ref[0]).abs().max()), float((got[1] - ref[1]).abs().max()))
+        worst_frac, worst_dn = 0.0, 0
+        for b in range(xw4.shape[0]):
+            per = lambda a, shared_dim: a if a.dim() == shared_dim else a[b]
+            diff = got[2][b] != ref[2][b]
+            r, _, _, _ = k4.residual_jac(c4, got[0][b], got[1][b], xw4[b], per(uv4, 2), per(ur4, 1))
+            gate = torch.where(per(ur4, 1) >= 0, k4.CHI2_STEREO, k4.CHI2_MONO)
+            near = ((r * r).sum(0) * per(is4, 1) / gate - 1.0).abs() < 0.01
+            frac = float(diff.float().mean())
+            n_k, n_p = int(got[3][b]), int(ref[3][b])
+            worst_frac, worst_dn = max(worst_frac, frac), max(worst_dn, abs(n_k - n_p))
+            if frac > 0.01 or bool((diff & ~near).any()) or abs(n_k - n_p) > math.ceil(0.01 * n_p):
+                fail(f"pose_lm_solve ({what}, problem {b}): masks differ on {frac:.4f} of edges "
+                     f"({int((diff & ~near).sum())} away from the gate), n {n_k} vs {n_p}")
+        if err > 1e-4:
+            fail(f"pose_lm_solve ({what}): R or t differs from the plain twin by {err:.3g}")
+        print(f"pose_lm_solve vs plain, {what}: B {xw4.shape[0]}, max |dR|,|dt| {err:.3g}, "
+              f"masks differ on {worst_frac:.4f} of edges at most, n by {worst_dn}")
+        return err
+
+    # 1024 edges from frame 0's keypoints back-projected with the exact depth,
+    # 8 start poses around the truth; mono, and every other edge stereo
+    # (0.08 m baseline)
+    from orb_slam2_annotate_tpu_torch.geometry import lie
     f0 = feats[0]
     dep = torch.from_numpy(depths[0]).to(dev)
     xi = f0.xy[:, 0].round().long().clamp(0, 639)
@@ -258,45 +344,28 @@ def main():
     t_gt = torch.from_numpy(poses[0][1]).to(dev)
     xc = torch.stack([(f0.xy[:, 0] - cam.cx) / cam.fx * z, (f0.xy[:, 1] - cam.cy) / cam.fy * z, z], 1)
     xw = ((xc - t_gt) @ R_gt).contiguous()
-    noise = torch.randn(1024, 2, generator=gen, device=dev)
-    uv = (f0.xy + noise).contiguous()
-    ur = torch.full((1024,), -1.0, device=dev)
+    noise = torch.randn(1024, 3, generator=gen, device=dev)
+    uv = (f0.xy + noise[:, :2]).contiguous()
     isg = (1.0 / 1.2 ** (2.0 * f0.octave.float())).contiguous()
-    mask = (f0.valid & (z > 0)).contiguous()
-    from orb_slam2_annotate_tpu_torch.geometry import lie
-    xi_pert = torch.tensor([[0.01, -0.02, 0.015, 0.002, -0.003, 0.001]], device=dev)
-    Rs, ts = lie.se3_retract(R_gt.expand(3, 3, 3), t_gt.expand(3, 3),
-                             xi_pert * torch.tensor([[1.0], [0.5], [2.0]], device=dev))
-    # Each entry of H, g and the cost is a sum over the edges taken in another
-    # order: it must agree within 1e-4 of the sum of its terms' magnitudes
-    # (Huber weights <= 1, so unit weights bound them from above).
-    r, J, _, _ = k4.residual_jac(cam, Rs[0], ts[0], xw, uv, ur)
-    Jw = J.abs() * (isg * mask)[None, None, :]
-    bounds = (torch.einsum("rin,rjn->ij", Jw, J.abs()), torch.einsum("rin,rn->i", Jw, r.abs()))
-    err4, worst4 = 0.0, 0.0
-    for robust in (True, False):
-        Hk, gk, ck = k4.pose_linearize(cam, Rs[0], ts[0], xw, uv, ur, isg, mask, robust)
-        Hp, gp, cp = k4.pose_linearize_plain(cam, Rs[0], ts[0], xw, uv, ur, isg, mask, robust)
-        torch.cuda.synchronize()
-        for a, b, mag in ((Hk, Hp, bounds[0]), (gk, gp, bounds[1]), (ck, cp, cp.abs())):
-            diff = (a - b).abs()
-            err4 = max(err4, float(diff.max()))
-            worst4 = max(worst4, float((diff / mag.clamp_min(1e-12)).max()))
-    print(f"pose_linearize: largest |kernel - plain| / sum of |terms| {worst4:.3g}")
-    if worst4 > 1e-4:
-        fail(f"pose_linearize: an entry differs by {worst4:.3g} of its terms' magnitude")
-    args4 = (cam, Rs[0], ts[0], xw, uv, ur, isg, mask, True)
-    record("pose_linearize", err4, time_ms(lambda: k4.pose_linearize(*args4)),
-           time_ms(lambda: k4.pose_linearize_plain(*args4)))
-    argsc = (cam, Rs, ts, xw, uv, ur, isg, mask)
-    ck = k4.pose_costs(*argsc)
-    cp = k4.pose_costs_plain(*argsc)
-    torch.cuda.synchronize()
-    rel = float(((ck - cp).abs() / cp.abs().clamp_min(1e-12)).max())
-    if rel > 1e-4:
-        fail(f"pose_costs relative error {rel}")
-    record("pose_costs", float((ck - cp).abs().max()), time_ms(lambda: k4.pose_costs(*argsc)),
-           time_ms(lambda: k4.pose_costs_plain(*argsc)))
+    valid = (f0.valid & (z > 0)).contiguous()
+    xi_pert = torch.tensor([0.01, -0.02, 0.015, 0.002, -0.003, 0.001], device=dev)
+    scales = torch.tensor([1.0, 0.5, 2.0, -1.0, 1.5, -0.5, 0.75, -2.0], device=dev)
+    R8, t8 = lie.se3_retract(R_gt.expand(8, 3, 3), t_gt.expand(8, 3), scales[:, None] * xi_pert)
+    R8, t8 = R8.contiguous(), t8.contiguous()
+    cam_st = dataclasses.replace(cam, bf=cam.fx * 0.08)
+    ur_mono = torch.full((1024,), -1.0, device=dev)
+    ur_st = torch.where(torch.arange(1024, device=dev) % 2 == 0,
+                        uv[:, 0] - cam_st.bf / z.clamp_min(1e-3) + noise[:, 2], ur_mono)
+    args_b1 = (cam, R8[:1], t8[:1], xw[None], uv, ur_mono, isg, valid[None])
+    args_b8 = (cam, R8, t8, xw.expand(8, -1, -1).contiguous(), uv, ur_mono, isg,
+               valid.expand(8, -1).contiguous())
+    err4 = max(check_pose_lm("synthetic mono", args_b1),
+               check_pose_lm("synthetic half stereo", (cam_st, *args_b1[1:5], ur_st, *args_b1[6:])),
+               check_pose_lm("synthetic mono, 8 start poses", args_b8))
+    pose_b8 = {"ms_b1_synthetic": time_ms(lambda: k4.optimize_pose_batched(*args_b1)),
+               "ms_b8": time_ms(lambda: k4.optimize_pose_batched(*args_b8)),
+               "bound_ms_b8": bound(*pose_lm_work(args_b8[3], ur_mono, args_b8[7]))[0]}
+    print(f"pose_lm_solve synthetic: {json.dumps(pose_b8)}")
 
     # kernel 5: the 1024 descriptors of frame 4 against the trained vocabulary
     vocab = vocabulary.load_vocabulary(TRAINED_VOCAB, device=dev)
@@ -306,8 +375,11 @@ def main():
     torch.cuda.synchronize()
     if vocab.n_words != 16384 or not torch.equal(w_k, w_p):
         fail(f"assign_words differs from its plain twin ({int((w_k != w_p).sum())} rows)")
+    n_desc, n_words = float(cur.valid.sum()), vocab.words.shape[0]
     record("assign_words", int((w_k - w_p).abs().max()), time_ms(lambda: k5.assign_words(*args5)),
-           time_ms(lambda: k5.assign_words_plain(*args5, vocab.signs)))
+           time_ms(lambda: k5.assign_words_plain(*args5, vocab.signs), 20),
+           64 * (cur.desc.shape[0] + n_words) + 5 * cur.desc.shape[0],
+           HAMMING_OPS_PER_PAIR * n_desc * n_words)
 
     def drive(name, slam, images, counted):
         """One main-path run: counters zeroed just before, read just after;
@@ -332,21 +404,47 @@ def main():
 
     # ---- phase 4: the mono System through System.track_mono
     slam = System(cam, slice_cfg, device="cuda")
-    _, frame_s, launches4 = drive("slice", slam, frames, [n for n in SOURCES if n != "pnp_score"])
+    real_opt = pose_opt.optimize_pose
+    lm_calls, captured_lm = [0], {}
+
+    def count_opt(c_, R0, t0, obs, *a, **kw):
+        # counts optimize_pose calls; keeps the edges of one local-map call
+        # from the second half of the slice for the comparison below
+        lm_calls[0] += 1
+        if (sys._getframe(1).f_code.co_name == "track_local_map" and "args" not in captured_lm
+                and slam.frame_id >= N_FRAMES // 2):
+            captured_lm["args"] = (c_, R0[None].clone(), t0[None].clone(), obs.xw[None].clone(),
+                                   obs.uv.clone(), obs.ur.clone(), obs.inv_sigma2.clone(),
+                                   obs.valid[None].clone())
+        return real_opt(c_, R0, t0, obs, *a, **kw)
+
+    pose_opt.optimize_pose = count_opt
+    lm_calls[0] = 0
+    _, frame_s, launches4 = drive("slice", slam, frames,
+                                  [w for n, (_, _, w) in SOURCES.items() if n != "pnp_score"])
+    calls4 = lm_calls[0]
     wall = sum(frame_s)
     ate, n_tracked = ate_of(slam, poses, range(N_FRAMES))
     print(f"slice: {N_FRAMES} frames in {wall:.2f} s = {N_FRAMES / wall:.2f} frames/s, "
           f"ATE {ate:.5f} m, tracked {n_tracked}/{N_FRAMES}, keyframes {slam.n_keyframes} "
           f"(culled {int(slam.map.n_kf) - slam.n_keyframes}), "
-          f"map points {slam.n_mappoints}, state {slam.state}, card {card}")
+          f"map points {slam.n_mappoints}, state {slam.state}, optimize_pose calls {calls4}, "
+          f"card {card}")
     checks = {"state OK": slam.state == "OK", "tracked >= 70%": n_tracked >= 0.7 * N_FRAMES,
               "keyframes >= 3": slam.n_keyframes >= 3, "map points > 100": slam.n_mappoints > 100,
-              f"ATE < {ATE_BOUND}": ate < ATE_BOUND}
+              f"ATE < {ATE_BOUND}": ate < ATE_BOUND,
+              "one pose_lm_solve launch per optimize_pose": launches4["optimize_pose_batched"] == calls4,
+              "a local-map call captured": "args" in captured_lm}
     bad = [k for k, v in checks.items() if not v]
     if bad:
         fail(f"slice checks failed: {bad}")
     slice_out = {"frames_per_s": N_FRAMES / wall, "ate_m": ate, "tracked": n_tracked,
-                 "keyframes": slam.n_keyframes}
+                 "keyframes": slam.n_keyframes, "optimize_pose_calls": calls4}
+    args_lm = captured_lm["args"]
+    err4 = max(err4, check_pose_lm("captured local-map call", args_lm))
+    record("pose_lm_solve", err4, time_ms(lambda: k4.optimize_pose_batched(*args_lm)),
+           time_ms(lambda: k4.optimize_pose_batched_plain(*args_lm), 10),
+           *pose_lm_work(args_lm[3], args_lm[5], args_lm[7]), **pose_b8)
 
     # ---- phase 5: kidnapped run; the jump frame must relocalize
     t0 = time.perf_counter()
@@ -357,30 +455,43 @@ def main():
                for f in seq]
     print(f"render: {len(seq)} frames in {time.perf_counter() - t0:.1f} s (host numpy)")
     slam5 = System(cam, slice_cfg, device="cuda")
-    relocs, captured = [], {}
+    relocs, captured, polish_sizes = [], {}, []
     try_reloc = slam5._try_relocalize
     slam5._try_relocalize = lambda f: relocs.append((slam5.frame_id, try_reloc(f))) or relocs[-1][1]
-    real_score = pnp_mod.pnp_score
+    real_score, real_polish = pnp_mod.pnp_score, pnp_mod.optimize_pose_batched
 
     def keep_inputs(*a):
         # the relocalization's own kernel-6 inputs, for the comparison below
         captured.setdefault("args", tuple(x.clone() if torch.is_tensor(x) else x for x in a))
         return real_score(*a)
 
-    pnp_mod.pnp_score = keep_inputs
+    def keep_polish(*a):
+        # the relocalization's batch of polished candidates (one kernel-4 call)
+        polish_sizes.append(a[1].shape[0])
+        captured.setdefault("polish", tuple(x.clone() if torch.is_tensor(x) else x for x in a))
+        return real_polish(*a)
+
+    pnp_mod.pnp_score, pnp_mod.optimize_pose_batched = keep_inputs, keep_polish
+    lm_calls[0] = 0
     try:
-        out5, frame_s5, launches5 = drive("kidnap", slam5, images5, list(SOURCES))
+        out5, frame_s5, launches5 = drive("kidnap", slam5, images5, [w for _, _, w in SOURCES.values()])
     finally:
-        pnp_mod.pnp_score = real_score
+        pnp_mod.pnp_score, pnp_mod.optimize_pose_batched = real_score, real_polish
+        pose_opt.optimize_pose = real_opt
+    calls5 = lm_calls[0]
     ate5, n5 = ate_of(slam5, gt5, seq)
-    print(f"kidnap: {len(seq)} frames in {sum(frame_s5):.2f} s, jump frame "
-          f"{1e3 * frame_s5[KIDNAP_SWEEP]:.2f} ms, relocalizations (frame, success) {relocs}, "
-          f"ATE {ate5:.5f} m, tracked {n5}/{len(seq)}, keyframes {slam5.n_keyframes} "
-          f"(culled {int(slam5.map.n_kf) - slam5.n_keyframes}), "
+    print(f"kidnap: {len(seq)} frames in {sum(frame_s5):.2f} s = {len(seq) / sum(frame_s5):.2f} "
+          f"frames/s, jump frame {1e3 * frame_s5[KIDNAP_SWEEP]:.2f} ms, relocalizations "
+          f"(frame, success) {relocs}, polished batches {polish_sizes}, ATE {ate5:.5f} m, tracked "
+          f"{n5}/{len(seq)}, keyframes {slam5.n_keyframes} "
+          f"(culled {int(slam5.map.n_kf) - slam5.n_keyframes}), optimize_pose calls {calls5}, "
           f"state {slam5.state}, observation overflow {slam5.observation_overflow}, card {card}")
     checks = {"jump frame relocalized": (KIDNAP_SWEEP, True) in relocs,
               "jump frame returns a pose": out5[KIDNAP_SWEEP] is not None,
-              "state OK": slam5.state == "OK", f"ATE < {ATE_BOUND}": ate5 < ATE_BOUND}
+              "state OK": slam5.state == "OK", f"ATE < {ATE_BOUND}": ate5 < ATE_BOUND,
+              "a relocalization polish ran": len(polish_sizes) > 0,
+              "one pose_lm_solve launch per optimize_pose and per polish":
+                  launches5["optimize_pose_batched"] == calls5 + len(polish_sizes)}
     bad = [k for k, v in checks.items() if not v]
     if bad:
         fail(f"kidnap checks failed: {bad}")
@@ -392,17 +503,26 @@ def main():
     torch.cuda.synchronize()
     if not torch.equal(c_k, c_p):
         fail(f"pnp_score differs from its plain twin ({int((c_k != c_p).sum())} hypotheses)")
+    Rs6, ts6, xw6, uv6, v6 = args6[:5]
     record("pnp_score", int((c_k - c_p).abs().max()), time_ms(lambda: k6.pnp_score(*args6)),
-           time_ms(lambda: k6.pnp_score_plain(*args6)))
+           time_ms(lambda: k6.pnp_score_plain(*args6)),
+           4 * (Rs6.numel() + ts6.numel() + xw6.numel() + uv6.numel()) + v6.numel()
+           + 4 * Rs6.shape[0] * Rs6.shape[1],
+           PNP_OPS_PER_REPROJECTION * Rs6.shape[1] * float(v6.sum()))
+    err_polish = check_pose_lm("relocalization polish batch", captured["polish"])
+    results["pose_lm_solve"]["max_abs_err"] = max(results["pose_lm_solve"]["max_abs_err"], err_polish)
+    results["pose_lm_solve"]["reloc_batch"] = polish_sizes
 
-    kern = [{"name": n, "route": "cuda", "source": SOURCES[n][0], "replaces": SOURCES[n][1],
-             "launches": launches4[n] + launches5[n],
-             "launches_by_phase": {"slice": launches4[n], "kidnap": launches5[n]}, **results[n]}
-            for n in SOURCES]
+    kern = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
+             "launches": launches4[w] + launches5[w],
+             "launches_by_phase": {"slice": launches4[w], "kidnap": launches5[w]}, **results[n]}
+            for n, (src, rep, w) in SOURCES.items()]
     print(json.dumps({"kernels": kern, "slice": slice_out,
                       "kidnap": {"ate_m": ate5, "tracked": n5, "frames": len(seq),
+                                 "frames_per_s": len(seq) / sum(frame_s5),
                                  "jump_frame_ms": 1e3 * frame_s5[KIDNAP_SWEEP],
-                                 "keyframes": slam5.n_keyframes, "relocalizations": relocs},
+                                 "keyframes": slam5.n_keyframes, "relocalizations": relocs,
+                                 "optimize_pose_calls": calls5},
                       "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,8 +1,11 @@
-"""Kernel 4: pose-only LM linearization and batched Huber cost.
+"""Kernel 4: the whole pose-only LM (``optimize_pose``), batched over problems.
 
-``pose_linearize`` and ``pose_costs`` launch ``csrc/pose_lm.cu`` for CUDA
-tensors and run their plain twins for CPU tensors; each wrapper's
-``launches`` counts its kernel launches.
+``optimize_pose_batched`` launches ``csrc/pose_lm.cu`` (one CTA per
+problem, the whole 4 x 5 LM schedule in one launch) for CUDA tensors and
+runs its plain twin, ``optimize_pose_plain`` once per problem, for CPU
+tensors; ``optimize_pose_batched.launches`` counts its kernel launches.
+The twin is built from the steps below: ``pose_linearize_plain``,
+``pose_costs_plain``, ``solve6_spd`` and ``se3_retract``.
 """
 
 from __future__ import annotations
@@ -12,10 +15,13 @@ import functools
 
 import torch
 
+from ..geometry import lie
+from ..geometry.smallsolve import solve6_spd
 from . import _build
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
+MAX_N = 4096   # edges a problem may have: 30 B each in shared memory (csrc/pose_lm.cu)
 
 
 def residual_jac(cam, R, t, xw, uv, ur):
@@ -93,66 +99,103 @@ def pose_costs_plain(cam, Rs, ts, xw, uv, ur, inv_sigma2, mask):
                         for b in range(Rs.shape[0])])
 
 
+def optimize_pose_plain(cam, R0, t0, xw, uv, ur, inv_sigma2, valid, rounds: int = 4,
+                        iters_per_round: int = 5, lm_lambda0: float = 1e-3):
+    """One problem (xw [N,3], uv [N,2], ur, inv_sigma2, valid [N]): rounds x
+    iters LM iterations, each one linearization and a 3-value damping
+    ladder, chi2 reclassification between rounds.  Accept/reject is
+    ``torch.where`` on tensors, so the loop never reads the device.
+    Returns (R, t, inlier [N], n int32)."""
+    dev = xw.device
+    delta2_all = _delta2(ur)
+    ladder = torch.tensor([1.0, 8.0, 64.0], device=dev)
+    eye6 = torch.eye(6, device=dev)
+    R, t, inlier = R0, t0, valid
+    for round_idx in range(rounds):
+        robust = round_idx < 2
+        mask = valid & inlier
+        lam = torch.tensor(lm_lambda0, device=dev)
+        for _ in range(iters_per_round):
+            H, g, cost = pose_linearize_plain(cam, R, t, xw, uv, ur, inv_sigma2, mask, robust)
+            lams = lam * ladder
+            Hd = H + lams[:, None, None] * torch.diag(torch.diagonal(H)) + 1e-8 * eye6
+            dx = -solve6_spd(Hd, g.expand(3, 6))
+            R_a, t_a = lie.se3_retract(R.expand(3, 3, 3), t.expand(3, 3), dx)
+            cost_a = pose_costs_plain(cam, R_a, t_a, xw, uv, ur, inv_sigma2, mask)
+            improves = cost_a < cost
+            pick = torch.argmax(improves.to(torch.uint8))      # smallest improving lambda
+            any_imp = improves.any()
+            R = torch.where(any_imp, R_a[pick], R)
+            t = torch.where(any_imp, t_a[pick], t)
+            lam = torch.clamp(torch.where(any_imp, lams[pick] * 0.4, lam * 512.0), 1e-9, 1e6)
+        r, _, _, depth_ok = residual_jac(cam, R, t, xw, uv, ur)
+        chi2 = torch.sum(r * r, dim=0) * inv_sigma2
+        inlier = valid & (chi2 <= delta2_all) & depth_ok
+    return R, t, inlier, torch.sum(inlier, dtype=torch.int32)
+
+
+def _per_problem(a, b, shared_dim):
+    return a if a.dim() == shared_dim else a[b]
+
+
+def optimize_pose_batched_plain(cam, R0, t0, xw, uv, ur, inv_sigma2, valid, rounds: int = 4,
+                                iters_per_round: int = 5, lm_lambda0: float = 1e-3):
+    outs = [optimize_pose_plain(cam, R0[b], t0[b], xw[b], _per_problem(uv, b, 2),
+                                _per_problem(ur, b, 1), _per_problem(inv_sigma2, b, 1), valid[b],
+                                rounds, iters_per_round, lm_lambda0)
+            for b in range(xw.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
 @functools.cache
-def _fns():
-    lib = _build.load("pose_lm")
-    lin = lib.pose_linearize_launch
-    lin.argtypes = [ctypes.c_float] * 5 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 \
-        + [ctypes.c_void_p] * 2
-    lin.restype = ctypes.c_int
-    cost = lib.pose_cost_launch
-    cost.argtypes = [ctypes.c_float] * 5 + [ctypes.c_void_p] * 2 + [ctypes.c_int] \
-        + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-    cost.restype = ctypes.c_int
-    return lin, cost
+def _fn():
+    fn = _build.load("pose_lm").pose_lm_solve_launch
+    fn.argtypes = [ctypes.c_float] * 5 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 \
+        + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] \
+        + [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    return fn
 
 
-def _check_edges(xw, uv, ur, inv_sigma2, mask):
-    dev, N = xw.device, xw.shape[0]
-    for t, name, dt, shape in ((xw, "xw", torch.float32, (N, 3)), (uv, "uv", torch.float32, (N, 2)),
-                               (ur, "ur", torch.float32, (N,)),
-                               (inv_sigma2, "inv_sigma2", torch.float32, (N,)),
-                               (mask, "mask", torch.bool, (N,))):
-        _build.check_tensor(t, name, dt, shape, dev)
-    return dev, N
-
-
-def pose_linearize(cam, R, t, xw, uv, ur, inv_sigma2, mask, robust: bool):
+def optimize_pose_batched(cam, R0, t0, xw, uv, ur, inv_sigma2, valid, rounds: int = 4,
+                          iters_per_round: int = 5, lm_lambda0: float = 1e-3):
+    """B independent pose-only LM problems: R0 [B,3,3], t0 [B,3], xw [B,N,3],
+    valid [B,N] bool; uv [N,2] or [B,N,2], ur and inv_sigma2 [N] or [B,N]
+    (one array shared by all problems, or one per problem).  Returns
+    (R [B,3,3], t [B,3], inlier [B,N] bool, n [B] int32)."""
     if not xw.is_cuda:
-        return pose_linearize_plain(cam, R, t, xw, uv, ur, inv_sigma2, mask, robust)
-    dev, N = _check_edges(xw, uv, ur, inv_sigma2, mask)
-    R = R.contiguous()
-    t = t.contiguous()
-    _build.check_tensor(R, "R", torch.float32, (3, 3), dev)
-    _build.check_tensor(t, "t", torch.float32, (3,), dev)
-    out = torch.empty((43,), dtype=torch.float32, device=dev)
-    lin, _ = _fns()
-    err = lin(cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, R.data_ptr(), t.data_ptr(), xw.data_ptr(),
-              uv.data_ptr(), ur.data_ptr(), inv_sigma2.data_ptr(), mask.data_ptr(), N,
-              int(bool(robust)), out.data_ptr(), _build.stream_ptr(dev))
-    _build.check_launch(err, "pose_linearize")
-    pose_linearize.launches += 1
-    return out[:36].reshape(6, 6), out[36:42], out[42]
+        return optimize_pose_batched_plain(cam, R0, t0, xw, uv, ur, inv_sigma2, valid, rounds,
+                                           iters_per_round, lm_lambda0)
+    dev = xw.device
+    B, N = xw.shape[0], xw.shape[1]
+    if N > MAX_N:
+        raise ValueError(f"optimize_pose_batched: {N} edges, the kernel takes at most {MAX_N}")
+    R0, t0, xw, uv, ur, inv_sigma2, valid = (
+        a.contiguous() for a in (R0, t0, xw, uv, ur, inv_sigma2, valid))
+    f32 = torch.float32
+    _build.check_tensor(R0, "R0", f32, (B, 3, 3), dev)
+    _build.check_tensor(t0, "t0", f32, (B, 3), dev)
+    _build.check_tensor(xw, "xw", f32, (B, N, 3), dev)
+    _build.check_tensor(valid, "valid", torch.bool, (B, N), dev)
+    strides = []
+    for a, name, tail in ((uv, "uv", (2,)), (ur, "ur", ()), (inv_sigma2, "inv_sigma2", ())):
+        shared = a.dim() == 1 + len(tail)
+        _build.check_tensor(a, name, f32, (N, *tail) if shared else (B, N, *tail), dev)
+        strides.append(0 if shared else a.stride(0))
+    R = torch.empty((B, 3, 3), dtype=f32, device=dev)
+    t = torch.empty((B, 3), dtype=f32, device=dev)
+    inlier = torch.empty((B, N), dtype=torch.bool, device=dev)
+    n = torch.empty((B,), dtype=torch.int32, device=dev)
+    if B == 0:
+        return R, t, inlier, n
+    err = _fn()(cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, R0.data_ptr(), t0.data_ptr(),
+                xw.data_ptr(), uv.data_ptr(), ur.data_ptr(), inv_sigma2.data_ptr(),
+                valid.data_ptr(), B, N, *strides, rounds, iters_per_round, lm_lambda0,
+                R.data_ptr(), t.data_ptr(), inlier.data_ptr(), n.data_ptr(),
+                _build.stream_ptr(dev))
+    _build.check_launch(err, "pose_lm_solve")
+    optimize_pose_batched.launches += 1
+    return R, t, inlier, n
 
 
-def pose_costs(cam, Rs, ts, xw, uv, ur, inv_sigma2, mask):
-    if not xw.is_cuda:
-        return pose_costs_plain(cam, Rs, ts, xw, uv, ur, inv_sigma2, mask)
-    dev, N = _check_edges(xw, uv, ur, inv_sigma2, mask)
-    B = Rs.shape[0]
-    Rs = Rs.contiguous()
-    ts = ts.contiguous()
-    _build.check_tensor(Rs, "Rs", torch.float32, (B, 3, 3), dev)
-    _build.check_tensor(ts, "ts", torch.float32, (B, 3), dev)
-    out = torch.empty((B,), dtype=torch.float32, device=dev)
-    _, cost = _fns()
-    err = cost(cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, Rs.data_ptr(), ts.data_ptr(), B,
-               xw.data_ptr(), uv.data_ptr(), ur.data_ptr(), inv_sigma2.data_ptr(), mask.data_ptr(),
-               N, out.data_ptr(), _build.stream_ptr(dev))
-    _build.check_launch(err, "pose_costs")
-    pose_costs.launches += 1
-    return out
-
-
-pose_linearize.launches = 0
-pose_costs.launches = 0
+optimize_pose_batched.launches = 0

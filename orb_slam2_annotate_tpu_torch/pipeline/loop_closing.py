@@ -88,7 +88,7 @@ class LoopCloser:
     """The vocabulary and keyframe database, kept up to date on every keyframe."""
 
     def __init__(self, cam: CameraModel, max_kf: int, config: LoopCloserConfig | None = None,
-                 seed: int = 42, device="cpu"):
+                 seed: int = 42, device="cuda"):
         self.cam = cam
         self.cfg = config or LoopCloserConfig()
         self.device = torch.device(device)

@@ -94,7 +94,7 @@ class FrameRecord:
 class System:
     """Monocular SLAM engine on one torch device."""
 
-    def __init__(self, cam: CameraModel, config: SlamConfig | None = None, device="cpu"):
+    def __init__(self, cam: CameraModel, config: SlamConfig | None = None, device="cuda"):
         cfg = config or SlamConfig()
         unsupported = {k: getattr(cfg, k) for k, v in SLICE_SETTINGS.items() if getattr(cfg, k) != v}
         if unsupported:

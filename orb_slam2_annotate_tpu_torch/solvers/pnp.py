@@ -3,11 +3,12 @@
 Every hypothesis is a 6-point DLT (null vector of the 13x12 system by SVD,
 scale and sign from the determinant, projection onto SO(3)); all hypotheses
 of all candidates are scored by kernel 6 (``kernels/pnp_score``), and each
-candidate's best is polished by the pose-only LM (kernel 4).  As for the
-initializer, sampling and solving are split: ``sample_pnp_sets`` draws the
-minimal sets from a ``torch.Generator`` and ``pnp_from_samples`` is the
-deterministic core, testable on ``jax.random``'s own draws.  The DLT SVDs
-are plain ``torch.linalg`` calls, batched over every hypothesis.
+candidate's best is polished by the pose-only LM (kernel 4, all candidates
+in one launch).  As for the initializer, sampling and solving are split:
+``sample_pnp_sets`` draws the minimal sets from a ``torch.Generator`` and
+``pnp_from_samples`` is the deterministic core, testable on
+``jax.random``'s own draws.  The DLT SVDs are plain ``torch.linalg``
+calls, batched over every hypothesis.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 
 from ..geometry.camera import CameraModel
 from ..kernels.pnp_score import pnp_score
-from . import pose_opt
+from ..kernels.pose_lm import optimize_pose_batched
 
 
 @dataclasses.dataclass
@@ -68,7 +69,8 @@ def pnp_from_samples(cam: CameraModel, samples: torch.Tensor, xw: torch.Tensor, 
                      polish=None) -> PnPResult:
     """samples [C,S,6], xw [C,N,3] world points, uv [N,2] undistorted pixels,
     valid [C,N].  ``polish`` lists the candidates to polish with the LM
-    (all by default); the others keep their best DLT pose and fail."""
+    (all by default), all in one kernel-4 launch; the others keep their
+    best DLT pose and fail."""
     C, S, _ = samples.shape
     N = xw.shape[1]
     dev = xw.device
@@ -85,11 +87,14 @@ def pnp_from_samples(cam: CameraModel, samples: torch.Tensor, xw: torch.Tensor, 
     n = torch.zeros(C, dtype=torch.int64, device=dev)
     ok = torch.zeros(C, dtype=torch.bool, device=dev)
     R, t = R.clone(), t.clone()
-    for c in (range(C) if polish is None else polish):
-        obs = pose_opt.PoseObs(xw=xw[c], uv=uv, ur=torch.full((N,), -1.0, device=dev),
-                               inv_sigma2=torch.ones(N, device=dev), valid=valid[c])
-        R[c], t[c], inliers[c], n[c] = pose_opt.optimize_pose(cam, R[c], t[c], obs)
-        ok[c] = (n_best[c] >= min_inliers) & (n[c] >= min_inliers)
+    pick = cr if polish is None else torch.tensor(polish, dtype=torch.long, device=dev)
+    if len(pick):
+        # every polished candidate in one launch; uv, ur and inv_sigma2 are shared
+        R[pick], t[pick], inliers[pick], n_p = optimize_pose_batched(
+            cam, R[pick], t[pick], xw[pick], uv, torch.full((N,), -1.0, device=dev),
+            torch.ones(N, device=dev), valid[pick])
+        n[pick] = n_p.long()
+        ok[pick] = (n_best[pick] >= min_inliers) & (n_p >= min_inliers)
     return PnPResult(ok, R, t, inliers, n)
 
 

@@ -8,6 +8,8 @@ LAPACKs; a near-degenerate 6-point draw can differ more, so those are
 compared by outcome only);
 kernel 6's plain twin gives exactly the reference's inlier counts on the
 same hypotheses; the polished pose within 1e-4 and the same inlier set.
+The batched polish (all candidates in one kernel-4 call) equals the
+per-candidate ``optimize_pose`` loop it replaced exactly.
 ``pnp_ransac`` with the port's own draws is held to the reference test's
 outcome bounds (tests/test_loop_components.py:62).
 """
@@ -23,6 +25,7 @@ from orb_slam2_annotate_tpu.solvers import pnp as jpnp
 from orb_slam2_annotate_tpu_torch import convert
 from orb_slam2_annotate_tpu_torch.kernels import pnp_score as k6
 from orb_slam2_annotate_tpu_torch.solvers import pnp as tpnp
+from orb_slam2_annotate_tpu_torch.solvers import pose_opt as tpo
 
 torch.set_num_threads(1)
 
@@ -134,6 +137,31 @@ def test_pnp_from_samples(scene, seed):
     np.testing.assert_array_equal(got.inliers[0].numpy(), np.asarray(ref.inliers))
     np.testing.assert_allclose(got.R[0].numpy(), np.asarray(ref.R), atol=1e-4)
     np.testing.assert_allclose(got.t[0].numpy(), np.asarray(ref.t), atol=1e-4)
+
+
+@pytest.mark.parametrize("polish", [None, [0, 2]], ids=["all", "subset"])
+def test_pnp_from_samples_batched_equals_per_candidate_loop(scene, polish):
+    X, uv, valid, _, _, _ = scene
+    rng = np.random.RandomState(4)
+    N = len(X)
+    # three candidates: the scene, fewer valid points, perturbed world points
+    xw = T(np.stack([X, X, X + rng.randn(*X.shape).astype(np.float32) * 0.01]))
+    v = T(np.stack([valid, valid & (rng.rand(N) < 0.7), valid]))
+    samples = tpnp.sample_pnp_sets(torch.Generator().manual_seed(3), v, 64)
+    got = tpnp.pnp_from_samples(TCAM, samples, xw, T(uv), v, polish=polish)
+    # the loop the batch replaced: best DLT pose, then optimize_pose per candidate
+    ref = tpnp.pnp_from_samples(TCAM, samples, xw, T(uv), v, polish=[])
+    n_best = k6.pnp_score(ref.R[:, None].contiguous(), ref.t[:, None].contiguous(), xw, T(uv), v,
+                          TCAM.fx, TCAM.fy, TCAM.cx, TCAM.cy, 5.991 * 4.0)[:, 0]
+    for c in (range(3) if polish is None else polish):
+        obs = tpo.PoseObs(xw=xw[c], uv=T(uv), ur=torch.full((N,), -1.0),
+                          inv_sigma2=torch.ones(N), valid=v[c])
+        ref.R[c], ref.t[c], ref.inliers[c], ref.n_inliers[c] = tpo.optimize_pose(
+            TCAM, ref.R[c], ref.t[c], obs)
+        ref.success[c] = (n_best[c] >= 10) & (ref.n_inliers[c] >= 10)
+    for name in ("success", "R", "t", "inliers", "n_inliers"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    assert bool(got.success[0]) and int(got.n_inliers[0]) > 70
 
 
 def test_pnp_ransac_with_outliers(scene):

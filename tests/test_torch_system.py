@@ -9,6 +9,7 @@ ATE is <= max(1.5 x ATE_jax, ATE_jax + 0.01 m) and < 0.08 m.  RANSAC draws
 differ (torch.Generator vs jax.random), so the runs are compared by outcome.
 """
 
+import inspect
 import subprocess
 import sys
 
@@ -30,6 +31,7 @@ from orb_slam2_annotate_tpu_torch.kernels import (assign_words, fast_nms, hammin
 from orb_slam2_annotate_tpu_torch.ops import orb as torb
 from orb_slam2_annotate_tpu_torch.pipeline import System as TSystem
 from orb_slam2_annotate_tpu_torch.pipeline import mono_slice_config
+from orb_slam2_annotate_tpu_torch.pipeline.loop_closing import LoopCloser as TLoopCloser
 
 # Tier-1 runs several pytest workers on one host, and torch's default of one
 # intra-op thread per core in each of them oversubscribes it: the port's
@@ -151,11 +153,11 @@ def test_wrappers_take_plain_path_on_cpu():
     edges = (xw, torch.rand(16, 2) * 100, torch.full((16,), -1.0), torch.ones(16))
     m = torch.ones(16, dtype=torch.bool)
     R, t = torch.eye(3), torch.zeros(3)
-    for a, b in zip(pose_lm.pose_linearize(TCAM, R, t, *edges, m, True),
-                    pose_lm.pose_linearize_plain(TCAM, R, t, *edges, m, True)):
+    bargs = (TCAM, torch.stack([R, R]), torch.stack([t, t + 0.01]), xw.expand(2, 16, 3), *edges[1:],
+             m.expand(2, 16))
+    for a, b in zip(pose_lm.optimize_pose_batched(*bargs),
+                    pose_lm.optimize_pose_batched_plain(*bargs)):
         assert torch.equal(a, b)
-    assert torch.equal(pose_lm.pose_costs(TCAM, R[None], t[None], *edges, m),
-                       pose_lm.pose_costs_plain(TCAM, R[None], t[None], *edges, m))
     valid = torch.tensor([True, False] * 4)
     assert torch.equal(assign_words.assign_words(d, q[0], valid),
                        assign_words.assign_words_plain(d, q[0], valid))
@@ -166,19 +168,26 @@ def test_wrappers_take_plain_path_on_cpu():
     assert all(w.launches == 0 for w in kernels.WRAPPERS)
 
 
+@pytest.mark.parametrize("entry", [TSystem.__init__, TLoopCloser.__init__],
+                         ids=["System", "LoopCloser"])
+def test_entry_points_default_to_the_card(entry):
+    # read from the signature: nothing here touches a card
+    assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
 @pytest.mark.parametrize("change", [dict(sensor="rgbd"), dict(enable_loop_closing=True),
                                     dict(sensor="stereo"), dict(shard_points=True),
                                     dict(enable_fuse=True), dict(async_depth=2)])
 def test_other_configurations_raise(change):
     with pytest.raises(NotImplementedError):
-        TSystem(TCAM, mono_slice_config(**{**SIZES, **change}))
+        TSystem(TCAM, mono_slice_config(**{**SIZES, **change}), device="cpu")
 
 
 @pytest.mark.parametrize("toggles", [dict(enable_relocalization=False, enable_kf_culling=False),
                                      dict(enable_relocalization=True, enable_kf_culling=False),
                                      dict(enable_relocalization=False, enable_kf_culling=True)])
 def test_toggles_take_either_value(toggles):
-    slam = TSystem(TCAM, mono_slice_config(**{**SIZES, **toggles}))
+    slam = TSystem(TCAM, mono_slice_config(**{**SIZES, **toggles}), device="cpu")
     assert (slam.loop_closer is not None) == toggles["enable_relocalization"]
     assert mono_slice_config().enable_relocalization and mono_slice_config().enable_kf_culling
 

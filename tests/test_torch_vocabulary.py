@@ -162,7 +162,7 @@ def test_database_rows_and_growth(database):
     db = tvoc.KeyFrameDatabase.create(4, 16384).add(1, T(q))
     assert torch.equal(db.bows[1], T(q)) and float(db.bows.sum()) == pytest.approx(1.0, abs=1e-5)
     assert float(db.erase(1).bows.abs().sum()) == 0.0
-    lc = tlc.LoopCloser(None, 4)
+    lc = tlc.LoopCloser(None, 4, device="cpu")
     assert lc.vocab.n_words == 16384 and lc.db.bows.shape == (4, 16384)
     lc.grow_db(8)
     assert lc.db.bows.shape == (8, 16384) and float(lc.db.bows.abs().sum()) == 0.0

@@ -7,9 +7,10 @@ Runs chip_smoke.py's slice (its ``slice_setup``: VGA / 1024 features /
 8 levels, 48 frames) on cuda:0, times every ``track_mono`` call on the
 host clock (ending in a device synchronize), then records the frames from
 PROFILE_FROM on with ``torch.profiler``.  Prints per-stage span
-totals (the System's record_function spans), the top device kernels by
-total time, and the device busy share of the profiled window, with the
-card's name and power limit.
+totals and per-frame means (the System's record_function spans), the
+host-issued ``aten::mul`` calls per frame, the device time of each
+hand-written kernel, the top device kernels by total time, and the device
+busy share of the profiled window, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROFILE_FROM = 24   # frames before this one warm up; the rest are profiled
+# the __global__ functions of csrc/*.cu
+HAND_KERNELS = ("fast_nms_kernel", "orb_describe_kernel", "reset_keys", "match_rows", "match_finish",
+                "pairwise_batched", "pose_lm_solve", "assign_tile", "finish", "score")
 
 
 def main():
@@ -68,12 +72,21 @@ def main():
     # kernels only: CPU ops and the record_function spans also carry device time
     device_us = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-    print(f"profiled {len(frames) - PROFILE_FROM} frames: wall {wall * 1e3:.1f} ms, "
+    n_prof = len(frames) - PROFILE_FROM
+    print(f"profiled {n_prof} frames: wall {wall * 1e3:.1f} ms, "
           f"device kernel time {device_us / 1e3:.1f} ms, busy share {device_us / 1e3 / (wall * 1e3):.3f}")
     for name in ("frontend/extract", "tracking/step", "mapping/keyframe", "init/mono"):
         hit = [e for e in events if e.key == name]
         if hit:
-            print(f"span {name}: count {hit[0].count} host total {hit[0].cpu_time_total / 1e3:.1f} ms")
+            print(f"span {name}: count {hit[0].count} host total {hit[0].cpu_time_total / 1e3:.1f} ms, "
+                  f"{hit[0].cpu_time_total / 1e3 / n_prof:.1f} ms a profiled frame")
+    mul = [e for e in events if e.key == "aten::mul"]
+    if mul:
+        print(f"aten::mul: {mul[0].count} calls, {mul[0].count / n_prof:.1f} a profiled frame")
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.key.split("(")[0] in HAND_KERNELS:
+            print(f"hand kernel {e.key[:60]}: {e.count} launches, device "
+                  f"{e.self_device_time_total / 1e3:.3f} ms, {e.self_device_time_total / e.count:.2f} us each")
     print(events.table(sort_by="self_device_time_total", row_limit=20))
 
 
