@@ -10,20 +10,28 @@ Phases (any failure exits non-zero):
   3. compare kernels 1-5 with their plain torch twins on the card, at the
      shapes of the main path (PlaneScene seed 1, VGA, 8 levels, 1024
      keypoints, the trained 16384-word vocabulary), and time both with
-     CUDA events; kernel 4 (the whole pose LM) on 1024 synthetic edges,
-     once mono and once half stereo;
+     CUDA events: kernel 1 (a frame's whole pyramid, blur, FAST, NMS and
+     margin) on frame 0, all four stacks; kernel 3 with every gate kind:
+     window + octave band at B = 1 (4096 x 1024 and 1024 x 1024), the
+     initialization window, a dense mask, the epipolar gate at B = 20
+     (frame 0 against frames 1-20) and validity only at B = 8 with a shared
+     desc2; kernel 4 (the whole pose LM) on 1024 synthetic edges, once mono
+     and once half stereo;
   4. run the monocular System (``mono_slice_config``: relocalization and
      keyframe culling on) through ``System.track_mono`` on 48 frames at
      VGA / 1024 features / 8 levels, with every launch counter reset just
      before, and check tracking state, keyframes, map points, ATE, that
-     kernels 1-5 were launched and that kernel 4 was launched once per
-     ``optimize_pose`` call; then compare kernel 4 with its twin on the
-     edges of one real local-map call and time both;
+     kernels 1-5 were launched, kernel 1 once per frame, kernel 3 once per
+     matcher call and once per keyframe-chain triangulation, and kernel 4
+     once per ``optimize_pose`` call; then compare kernel 4 with its twin
+     on the edges of one real local-map call and time both;
   5. a kidnapped run at the same width: a 64-frame sweep, then a jump back
      to frame 4 and three frames from there, counters reset just before;
      check that the jump frame is tracked after a relocalization, that all
-     six kernels were launched (kernel 4 once per ``optimize_pose`` call
-     plus once per relocalization polish), the final state and the ATE;
+     six kernels were launched (kernel 1 once per frame, kernel 3 once per
+     matcher call and once per relocalization attempt, kernel 4 once per
+     ``optimize_pose`` call plus once per relocalization polish), the final
+     state and the ATE;
      then compare kernels 6 and 4 with their twins on the inputs the
      relocalization gave them (8 candidates x 256 hypotheses x 1024 points;
      the batch of polished candidates) and time kernel 6 and its twin.
@@ -55,6 +63,7 @@ N_FRAMES = 48
 ATE_BOUND = 0.08   # m, Sim3-aligned; tests/test_e2e_mono.py's bound
 # phase 5: sweep, then jump back (the JAX System relocalizes on this sequence)
 KIDNAP_SWEEP, KIDNAP_STEP, KIDNAP_JUMP = 64, 0.08, 4
+RELOC_MIN_INLIERS = 15   # the PnP gate of pipeline/tracking.py relocalize_candidates
 # kernel name: (source, the JAX code it replaces, its wrapper's __name__)
 SOURCES = {
     "fast_nms": ("orb_slam2_annotate_tpu_torch/csrc/fast_nms.cu",
@@ -80,6 +89,9 @@ FAST_OPS_PER_PIXEL = 605       # 16 differences, 2 arcs x 16 starts x (1 + 8 x 2
 DESCRIBE_OPS_PER_KP = 10150    # 961 x 6 moment terms, 961 x 4 variance terms, 512 compares
 DESCRIBE_BYTES_PER_KP = 8021   # 961-float patch, 1024 blurred samples, keypoint in, angle + desc out
 HAMMING_OPS_PER_PAIR = 48      # 16 x (xor, popcount, add)
+WINDOW_GATE_OPS = 9            # 2 differences, 2 products, a sum, a compare, 2 octave compares, and
+EPIPOLAR_GATE_OPS = 7          # 2 products, 2 sums, a square, a division, a compare
+BLUR_OPS_PER_PIXEL = 28        # 7 + 7 multiply-adds
 PNP_OPS_PER_REPROJECTION = 33  # 18 for R x + t, 2 divisions, 13 for the residual and the test
 POSE_OPS_PROJECT, POSE_OPS_ROW, POSE_OPS_COST, POSE_OPS_RECLASS = 45, 66, 35, 30
 
@@ -186,7 +198,7 @@ def main():
     from orb_slam2_annotate_tpu_torch.kernels import pnp_score as k6
     from orb_slam2_annotate_tpu_torch.kernels import pose_lm as k4
     from orb_slam2_annotate_tpu_torch.ops import extractor, matching, orb, pyramid
-    from orb_slam2_annotate_tpu_torch.pipeline import System
+    from orb_slam2_annotate_tpu_torch.pipeline import System, local_mapping, tracking
     from orb_slam2_annotate_tpu_torch.pipeline.loop_closing import TRAINED_VOCAB
     from orb_slam2_annotate_tpu_torch.solvers import pnp as pnp_mod
     from orb_slam2_annotate_tpu_torch.solvers import pose_opt
@@ -209,6 +221,7 @@ def main():
     print(f"render: {N_FRAMES} frames in {time.perf_counter() - t0:.1f} s (host numpy)")
     cfg = slice_cfg.extractor
     tab = orb.OrbTables().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
 
     def record(name, err, ms, plain_ms, nbytes, ops, **extra):
@@ -218,36 +231,39 @@ def main():
         print(f"kernel {name}: max_abs_err {err} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
               f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes:.4g} B, {ops:.4g} ops) {extra or ''}")
 
-    # kernel 1: every level of frame 0
+    # kernel 1: the whole pyramid of frame 0, all four stacks
     fast_args = (cfg.th_fast_lo, cfg.th_fast_hi, cfg.margin)
     image = torch.from_numpy(frames[0]).to(dev).float()
-    levels = pyramid.build_pyramid(image, cfg.n_levels, cfg.scale)
-    err1 = 0.0
-    for lv in levels:
-        s_k, h_k = k1.fast_nms(lv, *fast_args)
-        s_p, h_p = k1.fast_nms_plain(lv, *fast_args)
-        torch.cuda.synchronize()
-        if not (torch.equal(s_k, s_p) and torch.equal(h_k, h_p)):
-            fail(f"fast_nms differs from its plain twin at level {tuple(lv.shape)}")
-        err1 = max(err1, float((s_k - s_p).abs().max()),
-                   float((h_k.float() - h_p.float()).abs().max()))
-    run_k = lambda: [k1.fast_nms(lv, *fast_args) for lv in levels]
-    run_p = lambda: [k1.fast_nms_plain(lv, *fast_args) for lv in levels]
-    pixels = sum(lv.numel() for lv in levels)
-    record("fast_nms", err1, time_ms(run_k), time_ms(run_p, 10), 9 * pixels,
-           FAST_OPS_PER_PIXEL * pixels)
+    lt = pyramid.level_tables(480, 640, cfg.n_levels, cfg.scale, dev)
+    got1 = k1.fast_nms(image, lt, *fast_args)
+    ref1 = k1.fast_nms_frame_plain(image, lt, *fast_args)
+    torch.cuda.synchronize()
+    names1 = ("pyr3", "pyr3_blur", "score", "is_hi")
+    errs1 = {n: float((a.float() - b.float()).abs().max()) for n, a, b in zip(names1, got1, ref1)}
+    exact1 = all(torch.equal(a, b) for a, b in zip(got1, ref1))
+    if not exact1:
+        # the levels within 1e-4 (0-255 scale); the rest exact given the kernel's own levels
+        own = k1.detect_stack_plain(got1[0], lt, *fast_args)
+        if errs1["pyr3"] > 1e-4 or not all(torch.equal(a, b) for a, b in zip(got1[1:], own)):
+            fail(f"fast_nms differs from its frame-wide twin: {errs1}")
+    print(f"fast_nms vs frame-wide twin: bit-exact {exact1}, max abs err {json.dumps(errs1)}")
+    H0, W0 = 480, 640
+    pixels = sum(h * w for h, w in lt.shapes)
+    resize_ops = sum(2 * (h * W0 * ty + h * w * tx)
+                     for l, ((h, w), (ty, tx)) in enumerate(zip(lt.shapes, lt.taps)) if l > 0)
+    record("fast_nms", max(errs1.values()), time_ms(lambda: k1.fast_nms(image, lt, *fast_args)),
+           time_ms(lambda: k1.fast_nms_frame_plain(image, lt, *fast_args), 10),
+           4 * H0 * W0 + cfg.n_levels * H0 * W0 * (3 * 4 + 1),
+           resize_ops + (BLUR_OPS_PER_PIXEL + FAST_OPS_PER_PIXEL) * pixels, bit_exact=exact1,
+           launches_per_frame=1)
 
     # kernel 2: the frame's 1024 keypoints
+    pyr3, pyr3b, score1, is_hi1 = got1
     budgets = pyramid.features_per_level(cfg.n_features, cfg.n_levels, cfg.scale)
-    parts = [extractor.detect_level(lv, b, cfg, l) for l, (lv, b) in enumerate(zip(levels, budgets))]
+    parts = [extractor.select_level(score1[l, :h, :w], is_hi1[l, :h, :w], b, l)
+             for l, ((h, w), b) in enumerate(zip(lt.shapes, budgets))]
     xy_l, _, octv, valid = (torch.cat([p[i] for p in parts]) for i in range(4))
-    H0, W0 = levels[0].shape
-    pad3 = lambda ims: torch.stack([torch.nn.functional.pad(im, (0, W0 - im.shape[1], 0, H0 - im.shape[0]))
-                                    for im in ims])
-    pyr3 = pad3(levels)
-    pyr3b = pad3([pyramid.gaussian_blur(lv) for lv in levels])
-    level_hw = torch.tensor([list(lv.shape) for lv in levels], dtype=torch.int32, device=dev)
-    args2 = (pyr3, pyr3b, level_hw, xy_l.contiguous(), octv, valid, tab)
+    args2 = (pyr3, pyr3b, lt.level_hw, xy_l.contiguous(), octv, valid, tab)
     a_k, d_k = k2.orb_describe(*args2)
     a_p, d_p = k2.orb_describe_plain(*args2)
     torch.cuda.synchronize()
@@ -261,34 +277,88 @@ def main():
            time_ms(lambda: k2.orb_describe_plain(*args2)), DESCRIBE_BYTES_PER_KP * n_kp,
            DESCRIBE_OPS_PER_KP * n_kp)
 
-    # kernel 3: matches with real window masks between frames
-    feats = [extractor.extract(torch.from_numpy(f).to(dev), tab, cfg) for f in frames[:5]]
+    # kernel 3: every gate kind, integer outputs exactly equal to the twin
+    feats = [extractor.extract(torch.from_numpy(f).to(dev), tab, cfg) for f in frames[:21]]
     cur = feats[4]
     d1 = torch.cat([f.desc for f in feats[:4]])                       # 4096 "map points"
     xy1 = torch.cat([f.xy for f in feats[:4]])
     oc1 = torch.cat([f.octave for f in feats[:4]])
     ok1 = torch.cat([f.valid for f in feats[:4]])
-    radius = 15.0 * 1.2 ** oc1.float()
-    mask_4k = (matching.window_mask(xy1, cur.xy, radius) & matching.octave_mask(oc1, cur.octave)
-               & ok1[:, None] & cur.valid[None, :]).contiguous()
-    mask_1k = mask_4k[3072:].contiguous()
-    d1k = d1[3072:].contiguous()
-    err3 = 0
-    for dd, mm in ((d1, mask_4k), (d1k, mask_1k)):
-        for mutual in (False, True):
-            for mx, ratio in ((matching.TH_HIGH, 0.9), (matching.TH_LOW, 1.0)):
-                ik, sk = k3.hamming_match(dd, cur.desc, mm, mx, ratio, mutual)
-                ip, sp = k3.hamming_match_plain(dd, cur.desc, mm, mx, ratio, mutual)
-                torch.cuda.synchronize()
-                if not (torch.equal(ik, ip) and torch.equal(sk, sp)):
-                    fail(f"hamming_match differs ({dd.shape[0]}x1024, mutual={mutual})")
-                err3 = max(err3, int((ik - ip).abs().max()), int((sk - sp).abs().max()))
-    args3 = (d1, cur.desc, mask_4k, matching.TH_HIGH, 0.8, False)
-    N1, N2 = mask_4k.shape
-    record("hamming_match", err3, time_ms(lambda: k3.hamming_match(*args3)),
-           time_ms(lambda: k3.hamming_match_plain(*args3)), N1 * N2 + 64 * (N1 + N2) + 8 * N1,
-           HAMMING_OPS_PER_PAIR * float(mask_4k.sum()) + N1 * N2)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    radius = (15.0 * 1.2 ** oc1.float()).contiguous()
+    win_4k = k3.WindowGate(xy1, radius, cur.xy, oc1, cur.octave, -1, 1)
+    win_1k = k3.WindowGate(xy1[3072:], radius[3072:], cur.xy, oc1[3072:], cur.octave, -1, 1)
+    mask_1k = k3.gate_mask(win_1k).contiguous()
+    f0 = feats[0]
+    stack = lambda name: torch.stack([getattr(f, name) for f in feats[1:21]]).contiguous()
+    R0, t0 = (torch.from_numpy(a).to(dev) for a in poses[0])
+    Rs = torch.stack([torch.from_numpy(poses[k][0]) for k in range(1, 21)]).to(dev)
+    ts = torch.stack([torch.from_numpy(poses[k][1]) for k in range(1, 21)]).to(dev)
+    F12 = local_mapping._fundamental_between(cam, R0, t0, Rs, ts).contiguous()
+    inv_s2 = tracking.inv_sigma2(torch.arange(cfg.n_levels, device=dev)).contiguous()
+    ex1 = torch.rand(1024, generator=gen, device=dev) < 0.2
+    ex2 = torch.rand(20, 1024, generator=gen, device=dev) < 0.2
+    epi = k3.EpipolarGate(F12, f0.xy, stack("xy"), stack("octave"), inv_s2)
+    d8 = torch.stack([f.desc for f in feats[5:13]])
+    v8 = torch.stack([f.valid for f in feats[5:13]])
+    cases3 = {   # name: (desc1, desc2, row_valid, col_valid, gate, [(max_dist, ratio, mutual)])
+        "window+octave B=1 4096x1024": (d1, cur.desc, ok1, cur.valid, win_4k, None),
+        "window+octave B=1 1024x1024": (d1[3072:], cur.desc, ok1[3072:], cur.valid, win_1k, None),
+        "initialization window B=1": (f0.desc, cur.desc, f0.valid & (f0.octave == 0),
+                                      cur.valid & (cur.octave == 0),
+                                      k3.WindowGate(f0.xy, 100.0, cur.xy), [(matching.TH_LOW, 0.9, False)]),
+        "dense mask B=1 1024x1024": (d1[3072:], cur.desc, None, None, k3.MaskGate(mask_1k), None),
+        "epipolar B=20": (f0.desc, stack("desc"), f0.valid & ~ex1, stack("valid") & ~ex2, epi,
+                          [(matching.TH_LOW, 1.0, False), (matching.TH_LOW, 1.0, True)]),
+        "validity B=8 shared desc2": (d8, cur.desc, v8, cur.valid, None,
+                                      [(matching.TH_LOW, 0.75, False), (matching.TH_LOW, 0.75, True)]),
+    }
+    default3 = [(mx, ratio, mutual) for mutual in (False, True)
+                for mx, ratio in ((matching.TH_HIGH, 0.9), (matching.TH_LOW, 1.0))]
+    err3, n_matched3 = 0, {}
+    for name, (da, db, rva, cva, gate, params) in cases3.items():
+        for mx, ratio, mutual in params or default3:
+            ik, sk = k3.hamming_match(da, db, rva, cva, mx, ratio, mutual, gate)
+            ip, sp = k3.hamming_match_plain(da, db, rva, cva, mx, ratio, mutual, gate)
+            torch.cuda.synchronize()
+            if ik.shape != ip.shape or not (torch.equal(ik, ip) and torch.equal(sk, sp)):
+                fail(f"hamming_match differs from its twin: {name}, max_dist {mx}, ratio {ratio}, "
+                     f"mutual {mutual} ({int((ik != ip).sum())} rows)")
+            err3 = max(err3, int((ik - ip).abs().max()), int((sk - sp).abs().max()))
+            n_matched3[f"{name}, {mx}/{ratio}/{'mutual' if mutual else 'dedup'}"] = int((ik >= 0).sum())
+    print(f"hamming_match vs twin, matched rows per case: {json.dumps(n_matched3)}")
+
+    def match_work(da, db, rva, cva, gate):
+        """(bytes, operations) of one call: inputs read once, outputs written once, no mask."""
+        B = da.shape[0] if da.dim() == 3 else (db.shape[0] if db.dim() == 3 else 1)
+        N1, N2 = da.shape[-2], db.shape[-2]
+        rvv = torch.ones(N1, dtype=torch.bool, device=dev) if rva is None else rva
+        cvv = torch.ones(N2, dtype=torch.bool, device=dev) if cva is None else cva
+        valid_pairs = (rvv[..., :, None] & cvv[..., None, :]).expand(B, N1, N2)
+        gated = float((valid_pairs & k3.gate_mask(gate)).sum()) if gate is not None \
+            else float(valid_pairs.sum())
+        per_gate = WINDOW_GATE_OPS if isinstance(gate, k3.WindowGate) else (
+            EPIPOLAR_GATE_OPS if isinstance(gate, k3.EpipolarGate) else 0)
+        gate_bytes = sum(t.numel() * t.element_size() for t in (gate or ())
+                         if torch.is_tensor(t) and not isinstance(gate, k3.MaskGate))
+        nbytes = sum(t.numel() * t.element_size() for t in (da, db, rva, cva) if t is not None) \
+            + gate_bytes + 8 * B * N1
+        return nbytes, HAMMING_OPS_PER_PAIR * gated + per_gate * float(valid_pairs.sum()) + B * N1 * N2
+
+    def match_ms(name, reps=100):
+        da, db, rva, cva, gate, _ = cases3[name]
+        return time_ms(lambda: k3.hamming_match(da, db, rva, cva, matching.TH_HIGH, 0.8, False, gate),
+                       reps)
+
+    extra3 = {}
+    for key, name in (("1k", "window+octave B=1 1024x1024"), ("b20_epipolar", "epipolar B=20"),
+                      ("b8_shared", "validity B=8 shared desc2")):
+        extra3[f"ms_{key}"] = match_ms(name)
+        extra3[f"bound_ms_{key}"] = bound(*match_work(*cases3[name][:5]))[0]
+    main3 = cases3["window+octave B=1 4096x1024"]
+    record("hamming_match", err3, match_ms("window+octave B=1 4096x1024"),
+           time_ms(lambda: k3.hamming_match_plain(*main3[:4], matching.TH_HIGH, 0.8, False, main3[4]),
+                   10),
+           *match_work(*main3[:5]), **extra3)
     pick = torch.randint(0, d1.shape[0], (4096, 32), generator=gen, device=dev)
     q = d1[pick].contiguous()                                         # [4096, 32, 16]
     pk = k3.hamming_pairwise_batched(q, q)
@@ -304,14 +374,25 @@ def main():
 
     # kernel 4: the whole pose LM against its twin, at the tolerances
     # tests/test_torch_pose_opt.py holds the twin to against JAX
-    def check_pose_lm(what, args):
+    def check_pose_lm(what, args, min_inliers=0):
         """R and t within 1e-4; inlier masks differ on <= 1% of edges, only
-        where chi2 is within 1% of its gate; n within 1%.  Returns max |dR|, |dt|."""
+        where chi2 is within 1% of its gate; n within 1%.  A problem that both
+        leave below `min_inliers` inliers (a relocalization candidate the PnP
+        gate rejects, whose pose is never used and whose LM has no determined
+        optimum) is held to the mask and count checks only.  Returns max
+        |dR|, |dt| over the other problems."""
         got = k4.optimize_pose_batched(*args)
         ref = k4.optimize_pose_batched_plain(*args)
         torch.cuda.synchronize()
         c4, xw4, uv4, ur4, is4 = args[0], args[3], args[4], args[5], args[6]
-        err = max(float((got[0] - ref[0]).abs().max()), float((got[1] - ref[1]).abs().max()))
+        pose_err = torch.maximum((got[0] - ref[0]).abs().amax((1, 2)), (got[1] - ref[1]).abs().amax(1))
+        held = (got[3] >= min_inliers) | (ref[3] >= min_inliers)
+        err = float(pose_err[held].max()) if bool(held.any()) else 0.0
+        if not bool(held.all()):
+            loose = [(int(got[3][b]), int(ref[3][b]), float(pose_err[b]))
+                     for b in torch.nonzero(~held).flatten().tolist()]
+            print(f"pose_lm_solve vs plain, {what}: (n kernel, n twin, max |dR|,|dt|) of the "
+                  f"problems below {min_inliers} inliers in both: {loose}")
         worst_frac, worst_dn = 0.0, 0
         for b in range(xw4.shape[0]):
             per = lambda a, shared_dim: a if a.dim() == shared_dim else a[b]
@@ -335,7 +416,6 @@ def main():
     # 8 start poses around the truth; mono, and every other edge stereo
     # (0.08 m baseline)
     from orb_slam2_annotate_tpu_torch.geometry import lie
-    f0 = feats[0]
     dep = torch.from_numpy(depths[0]).to(dev)
     xi = f0.xy[:, 0].round().long().clamp(0, 639)
     yi = f0.xy[:, 1].round().long().clamp(0, 479)
@@ -418,11 +498,33 @@ def main():
                                    obs.valid[None].clone())
         return real_opt(c_, R0, t0, obs, *a, **kw)
 
+    # matcher calls, and the matcher launches inside each keyframe-chain
+    # triangulation and each relocalization attempt
+    real_match, real_tri = matching.match_gated, local_mapping.create_new_mappoints
+    real_reloc = tracking.relocalize_candidates
+    match_calls, tri_launches, reloc_launches = [0], [], []
+
+    def count_match(*a, **kw):
+        match_calls[0] += 1
+        return real_match(*a, **kw)
+
+    def matcher_launches_in(fn, into):
+        def run(*a, **kw):
+            n0 = k3.hamming_match.launches
+            out = fn(*a, **kw)
+            into.append(k3.hamming_match.launches - n0)
+            return out
+        return run
+
     pose_opt.optimize_pose = count_opt
+    matching.match_gated = count_match
+    local_mapping.create_new_mappoints = matcher_launches_in(real_tri, tri_launches)
+    tracking.relocalize_candidates = matcher_launches_in(real_reloc, reloc_launches)
     lm_calls[0] = 0
     _, frame_s, launches4 = drive("slice", slam, frames,
                                   [w for n, (_, _, w) in SOURCES.items() if n != "pnp_score"])
-    calls4 = lm_calls[0]
+    calls4, match_calls4, tri4 = lm_calls[0], match_calls[0], list(tri_launches)
+    print(f"slice: matcher calls {match_calls4}, matcher launches per triangulation {tri4}")
     wall = sum(frame_s)
     ate, n_tracked = ate_of(slam, poses, range(N_FRAMES))
     print(f"slice: {N_FRAMES} frames in {wall:.2f} s = {N_FRAMES / wall:.2f} frames/s, "
@@ -434,12 +536,17 @@ def main():
               "keyframes >= 3": slam.n_keyframes >= 3, "map points > 100": slam.n_mappoints > 100,
               f"ATE < {ATE_BOUND}": ate < ATE_BOUND,
               "one pose_lm_solve launch per optimize_pose": launches4["optimize_pose_batched"] == calls4,
+              "one fast_nms launch per frame": launches4["fast_nms"] == N_FRAMES,
+              "one hamming_match launch per matcher call": launches4["hamming_match"] == match_calls4,
+              "one matcher launch per triangulation": len(tri4) > 0 and set(tri4) == {1},
               "a local-map call captured": "args" in captured_lm}
     bad = [k for k, v in checks.items() if not v]
     if bad:
         fail(f"slice checks failed: {bad}")
     slice_out = {"frames_per_s": N_FRAMES / wall, "ate_m": ate, "tracked": n_tracked,
-                 "keyframes": slam.n_keyframes, "optimize_pose_calls": calls4}
+                 "keyframes": slam.n_keyframes, "map_points": slam.n_mappoints,
+                 "optimize_pose_calls": calls4, "matcher_calls": match_calls4,
+                 "triangulations": len(tri4)}
     args_lm = captured_lm["args"]
     err4 = max(err4, check_pose_lm("captured local-map call", args_lm))
     record("pose_lm_solve", err4, time_ms(lambda: k4.optimize_pose_batched(*args_lm)),
@@ -472,13 +579,18 @@ def main():
         return real_polish(*a)
 
     pnp_mod.pnp_score, pnp_mod.optimize_pose_batched = keep_inputs, keep_polish
-    lm_calls[0] = 0
+    lm_calls[0], match_calls[0] = 0, 0
+    reloc_launches.clear()
     try:
         out5, frame_s5, launches5 = drive("kidnap", slam5, images5, [w for _, _, w in SOURCES.values()])
     finally:
         pnp_mod.pnp_score, pnp_mod.optimize_pose_batched = real_score, real_polish
         pose_opt.optimize_pose = real_opt
-    calls5 = lm_calls[0]
+        matching.match_gated, local_mapping.create_new_mappoints = real_match, real_tri
+        tracking.relocalize_candidates = real_reloc
+    calls5, match_calls5 = lm_calls[0], match_calls[0]
+    print(f"kidnap: matcher calls {match_calls5}, matcher launches per relocalization attempt "
+          f"{reloc_launches}")
     ate5, n5 = ate_of(slam5, gt5, seq)
     print(f"kidnap: {len(seq)} frames in {sum(frame_s5):.2f} s = {len(seq) / sum(frame_s5):.2f} "
           f"frames/s, jump frame {1e3 * frame_s5[KIDNAP_SWEEP]:.2f} ms, relocalizations "
@@ -490,6 +602,10 @@ def main():
               "jump frame returns a pose": out5[KIDNAP_SWEEP] is not None,
               "state OK": slam5.state == "OK", f"ATE < {ATE_BOUND}": ate5 < ATE_BOUND,
               "a relocalization polish ran": len(polish_sizes) > 0,
+              "one fast_nms launch per frame": launches5["fast_nms"] == len(seq),
+              "one hamming_match launch per matcher call": launches5["hamming_match"] == match_calls5,
+              "one matcher launch per relocalization attempt":
+                  len(reloc_launches) > 0 and set(reloc_launches) == {1},
               "one pose_lm_solve launch per optimize_pose and per polish":
                   launches5["optimize_pose_batched"] == calls5 + len(polish_sizes)}
     bad = [k for k, v in checks.items() if not v]
@@ -509,7 +625,8 @@ def main():
            4 * (Rs6.numel() + ts6.numel() + xw6.numel() + uv6.numel()) + v6.numel()
            + 4 * Rs6.shape[0] * Rs6.shape[1],
            PNP_OPS_PER_REPROJECTION * Rs6.shape[1] * float(v6.sum()))
-    err_polish = check_pose_lm("relocalization polish batch", captured["polish"])
+    err_polish = check_pose_lm("relocalization polish batch", captured["polish"],
+                               min_inliers=RELOC_MIN_INLIERS)
     results["pose_lm_solve"]["max_abs_err"] = max(results["pose_lm_solve"]["max_abs_err"], err_polish)
     results["pose_lm_solve"]["reloc_batch"] = polish_sizes
 
@@ -522,7 +639,7 @@ def main():
                                  "frames_per_s": len(seq) / sum(frame_s5),
                                  "jump_frame_ms": 1e3 * frame_s5[KIDNAP_SWEEP],
                                  "keyframes": slam5.n_keyframes, "relocalizations": relocs,
-                                 "optimize_pose_calls": calls5},
+                                 "optimize_pose_calls": calls5, "matcher_calls": match_calls5},
                       "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

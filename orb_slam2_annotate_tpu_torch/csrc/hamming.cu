@@ -1,25 +1,48 @@
-// Bit-packed Hamming matching: (a) fused masked match, (b) batched all-pairs.
+// Bit-packed Hamming matching: (a) the batched, gate-fused matcher,
+// (b) batched all-pairs distances.
 //
-// Replaces (JAX reference): ops/hamming.py hamming_pairwise + masked_min2
-// and ops/matching.py match_masked (a); the vmapped pairwise Hamming of
-// worldmap/map_state.py _stats_from_table (b).
+// Replaces (JAX reference): ops/matching.py match_masked with the candidate
+// masks of window_mask / octave_mask / search_for_triangulation, over
+// ops/hamming.py hamming_pairwise + masked_min2 (a); the vmapped pairwise
+// Hamming of worldmap/map_state.py _stats_from_table (b).
 //
-// Bound: (a) reads the [N1,N2] candidate mask (4 MB at 4096x1024) once and
-// does N1*N2*16 XOR+popcount; the descriptors (64 B each) stay in L1/L2.
-// The reference materializes the [N1,N2] distance matrix and reduces it
-// three times; this kernel never writes it.
+// Bound of (a): the descriptors (64 B each), the gate inputs (a few words a
+// row or column) and the outputs are the bytes; 16 XOR + popcount + add per
+// gated pair are the operations.  No [N1,N2] tensor is read or written: the
+// gate (validity, circular window + octave band, or epipolar distance) is
+// evaluated per pair in registers.  At the main path's shapes (1024-4096
+// rows x 1024 columns, B = 1-20) both are a few microseconds or less, so
+// launches and host work decide the time: the design makes one launch per
+// call, however many problems the call batches.
 //
-// Design (a): launch 1 resets the per-column keys.  Launch 2 runs one block
-// per query row: each thread takes columns j = tid, tid+256, ...; masked
-// distances go to shared memory (unmasked read MAX_DIST = 512, as in the
-// reference) and to a per-column atomicMin of the packed key
-// (dist << 32 | row), which yields both the column minimum and the lowest
-// row attaining it.  Block reductions then give the best distance, its
-// first column index, and the second best (the minimum over every other
-// column, so ties give second == best).  Launch 3 applies the distance
-// gate, the ratio test and either the column-min dedup or the mutual
-// row-argmin check, one thread per row.  All outputs are integers, equal
-// to the plain torch version's.
+// Design (a), one launch: grid (row tiles, B).  A CTA takes ROWS query rows
+// of one problem and streams that problem's desc2 through shared memory in
+// tiles of NT columns, double-buffered with 16-byte cp.async (chunks
+// XOR-swizzled so that the per-thread 64-byte column reads hit distinct
+// banks); each desc2 word is read from L2 once per CTA, not once per row.
+// Thread t owns column t of every tile: for each of the CTA's rows it
+// evaluates the gate, counts bits with __popc, keeps a running
+// (best, first index, second) per row in registers, and keeps the column's
+// minimum over the CTA's rows of the packed key (dist << 32 | row) in a
+// register, so there is one global atomicMin per column per CTA (and none
+// where no row of the CTA is gated in).  Warp shuffles and one shared-memory
+// step then merge the per-thread row states.  Finishing needs the column
+// minima of the whole problem, which every CTA of it contributes: the last
+// CTA of each problem to arrive (an atomic ticket taken after
+// __threadfence(), the threadFenceReduction pattern) applies the distance
+// gate, the ratio test and the column-min dedup or the mutual check to all
+// rows of that problem, then resets the problem's column keys and ticket for
+// the next call.  A cooperative launch with a grid-wide sync would need
+// every CTA resident at once, which B = 20 problems of 64-128 CTAs each
+// are not.  The workspace (column keys, row states, tickets) belongs to the
+// device and is reused by every call on the stream.
+//
+// Bit for bit as the plain torch version (kernels/hamming.py): best is the
+// first column on ties; second is the minimum over every other column
+// (ties give second == best); ungated pairs read MAX_DIST = 512; the packed
+// key gives the lowest row on ties.  Gate arithmetic is written in the plain
+// version's order and compiled with --fmad=false, so a float compare decides
+// the same bit in both.
 //
 // Design (b): one block per point, one thread per (i, j) pair.
 
@@ -29,81 +52,229 @@
 #define NT 256
 #define WORDS 16
 #define MAX_DIST 512
+#define KEY_INIT (((unsigned long long)MAX_DIST) << 32)   // row 0 at MAX_DIST
+#define NO_DIST (MAX_DIST + 1)                              // "no column yet"
 
-__global__ void reset_keys(unsigned long long* colkey, int N2) {
-    int j = blockIdx.x * blockDim.x + threadIdx.x;
-    if (j < N2) colkey[j] = ((unsigned long long)MAX_DIST) << 32;   // row 0 at MAX_DIST
+enum { GATE_NONE = 0, GATE_WINDOW = 1, GATE_EPIPOLAR = 2, GATE_MASK = 3 };
+
+// Field order and types mirror kernels/hamming.py:_MatchArgs.  Batch strides
+// are in elements; 0 means the array is shared by every problem.  A null
+// validity pointer means "all valid".
+struct MatchArgs {
+    const int* d1; const int* d2; const uint8_t* rv; const uint8_t* cv;
+    long long s_d1, s_d2, s_rv, s_cv;
+    // window: proj_xy [N1,2], radius [N1] (or rad_scalar when null),
+    // pred_octave [N1]; shared with the epipolar gate: xy2 [N2,2], octave2 [N2]
+    const float* pxy; const float* rad; const int* poct; const float* xy2; const int* oct2;
+    long long s_pxy, s_rad, s_poct, s_xy2, s_oct2;
+    float rad_scalar; int lo, hi, use_oct;
+    // epipolar: F12 [3,3], xy1 [N1,2], inv_sigma2 [levels]
+    const float* F; const float* xy1; const float* isig2;
+    long long s_F, s_xy1;
+    // dense mask [N1,N2]
+    const uint8_t* mask; long long s_mask;
+    int B, N1, N2, gate, max_dist, mutual;
+    float ratio;
+    unsigned long long* colkey;   // [B,N2], KEY_INIT between calls
+    int* rowstate;                // [B,N1,3] best, first index, second
+    unsigned int* ticket;         // [B], 0 between calls
+    int* out;                     // [2,B,N1]: idx, then dist
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+    unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// 16-byte chunk p (0-3) of tile column c lives at chunk c*4 + (p ^ ((c>>1)&3))
+__device__ __forceinline__ int chunk_slot(int c, int p) { return c * 4 + (p ^ ((c >> 1) & 3)); }
+
+// merge (b, i, s) into (best, idx, second): lower distance, then lower index wins
+__device__ __forceinline__ void merge(int& best, int& idx, int& second, int b, int i, int s) {
+    if (b < best || (b == best && i < idx)) {
+        second = min(s, best);
+        best = b;
+        idx = i;
+    } else {
+        second = min(second, b);
+    }
 }
 
-__global__ void match_rows(const int* __restrict__ d1, const int* __restrict__ d2,
-                           const uint8_t* __restrict__ mask, int N2,
-                           unsigned long long* __restrict__ colkey,
-                           int* __restrict__ best_out, int* __restrict__ bidx_out,
-                           int* __restrict__ second_out) {
-    extern __shared__ int sd[];              // [N2] masked distances
-    __shared__ int q[WORDS];
-    __shared__ int rv[NT / 32], ri[NT / 32];
-    const int i = blockIdx.x, tid = threadIdx.x;
-    if (tid < WORDS) q[tid] = d1[i * WORDS + tid];
+template <int ROWS>
+__global__ void __launch_bounds__(NT) hamming_match_fused(const MatchArgs a) {
+    __shared__ __align__(16) int4 tile[2][NT * 4];
+    __shared__ __align__(16) int q[ROWS][WORDS];
+    __shared__ float rg[ROWS][4];                 // per-row gate terms
+    __shared__ int ro[ROWS];                      // per-row predicted octave
+    __shared__ int rok[ROWS];                     // row valid
+    __shared__ int red[NT / 32][ROWS][3];
+    __shared__ int any_row, is_last;
+
+    const int b = blockIdx.y, r0 = blockIdx.x * ROWS, tid = threadIdx.x;
+    const int N1 = a.N1, N2 = a.N2;
+    const int nrows = min(ROWS, N1 - r0);
+    const int* d2 = a.d2 + (size_t)b * a.s_d2;
+
+    if (tid == 0) any_row = 0;
     __syncthreads();
-    int bv = MAX_DIST + 1, bi = 0x7fffffff;
-    const uint8_t* mrow = mask + (size_t)i * N2;
-    for (int j = tid; j < N2; j += NT) {
-        int d = MAX_DIST;
-        if (mrow[j]) {
-            d = 0;
-            const int* b = d2 + (size_t)j * WORDS;
-#pragma unroll
-            for (int w = 0; w < WORDS; ++w) d += __popc((unsigned)(q[w] ^ b[w]));
-            atomicMin(&colkey[j], (((unsigned long long)d) << 32) | (unsigned)i);
+    for (int k = tid; k < ROWS * WORDS; k += NT) {
+        const int r = k / WORDS, w = k % WORDS;
+        q[r][w] = r < nrows ? a.d1[(size_t)b * a.s_d1 + (size_t)(r0 + r) * WORDS + w] : 0;
+    }
+    if (tid < ROWS) {
+        const int r = tid, i = r0 + r;
+        int ok = r < nrows;
+        if (ok && a.rv) ok = a.rv[(size_t)b * a.s_rv + i] != 0;
+        rok[r] = ok;
+        if (ok) atomicOr(&any_row, 1);
+        float g0 = 0.f, g1 = 0.f, g2 = 0.f, g3 = 0.f;
+        int po = 0;
+        if (ok && a.gate == GATE_WINDOW) {
+            const float* p = a.pxy + (size_t)b * a.s_pxy + (size_t)i * 2;
+            const float r_ = a.rad ? a.rad[(size_t)b * a.s_rad + i] : a.rad_scalar;
+            g0 = p[0];
+            g1 = p[1];
+            g2 = r_ * r_;
+            if (a.use_oct) po = a.poct[(size_t)b * a.s_poct + i];
+        } else if (ok && a.gate == GATE_EPIPOLAR) {
+            const float* F = a.F + (size_t)b * a.s_F;
+            const float* p = a.xy1 + (size_t)b * a.s_xy1 + (size_t)i * 2;
+            const float x = p[0], y = p[1];
+            g0 = x * F[0] + y * F[3] + F[6];           // [x, y, 1] @ F12, term by term
+            g1 = x * F[1] + y * F[4] + F[7];
+            g2 = x * F[2] + y * F[5] + F[8];
+            g3 = fmaxf(g0 * g0 + g1 * g1, 1e-12f);
         }
-        sd[j] = d;
-        if (d < bv) { bv = d; bi = j; }      // j increases: first index kept on ties
-    }
-    // block argmin of (value, index)
-    for (int o = 16; o > 0; o >>= 1) {
-        int ov = __shfl_down_sync(0xffffffffu, bv, o);
-        int oi = __shfl_down_sync(0xffffffffu, bi, o);
-        if (ov < bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
-    }
-    if ((tid & 31) == 0) { rv[tid >> 5] = bv; ri[tid >> 5] = bi; }
-    __syncthreads();
-    if (tid == 0) {
-        for (int w = 1; w < NT / 32; ++w)
-            if (rv[w] < rv[0] || (rv[w] == rv[0] && ri[w] < ri[0])) { rv[0] = rv[w]; ri[0] = ri[w]; }
+        rg[r][0] = g0; rg[r][1] = g1; rg[r][2] = g2; rg[r][3] = g3;
+        ro[r] = po;
     }
     __syncthreads();
-    const int best = rv[0], bidx = ri[0];
-    __syncthreads();
-    int sv = MAX_DIST;
-    for (int j = tid; j < N2; j += NT)
-        if (j != bidx) sv = min(sv, sd[j]);
-    for (int o = 16; o > 0; o >>= 1) sv = min(sv, __shfl_down_sync(0xffffffffu, sv, o));
-    if ((tid & 31) == 0) rv[tid >> 5] = sv;
-    __syncthreads();
-    if (tid == 0) {
-        int s = rv[0];
-        for (int w = 1; w < NT / 32; ++w) s = min(s, rv[w]);
-        best_out[i] = best;
-        bidx_out[i] = bidx;
-        second_out[i] = s;
-    }
-}
 
-__global__ void match_finish(const int* __restrict__ best, const int* __restrict__ bidx,
-                             const int* __restrict__ second,
-                             const unsigned long long* __restrict__ colkey, int N1,
-                             int max_dist, float ratio, int mutual,
-                             int* __restrict__ idx_out, int* __restrict__ dist_out) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= N1) return;
-    const int b = best[i], j = bidx[i];
-    bool ok = b <= max_dist && (float)b < ratio * (float)second[i];
-    const unsigned long long key = colkey[j];
-    if (mutual) ok = ok && (int)(key & 0xffffffffull) == i;
-    else ok = ok && b <= (int)(key >> 32);
-    idx_out[i] = ok ? j : -1;
-    dist_out[i] = ok ? b : MAX_DIST;
+    int best[ROWS], bidx[ROWS], second[ROWS];
+    if (!any_row) {
+        // no row of this CTA is valid: every pair reads MAX_DIST, so each row's
+        // best is MAX_DIST at column 0 and its second MAX_DIST
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) { best[r] = MAX_DIST; bidx[r] = 0; second[r] = MAX_DIST; }
+    } else {
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) { best[r] = NO_DIST; bidx[r] = 0x7fffffff; second[r] = NO_DIST; }
+        const int ntiles = (N2 + NT - 1) / NT;
+        auto load_tile = [&](int t, int buf) {
+            for (int k = tid; k < NT * 4; k += NT) {
+                const int c = k >> 2, p = k & 3, j = t * NT + c;
+                if (j < N2) cp_async16(&tile[buf][chunk_slot(c, p)], d2 + (size_t)j * WORDS + p * 4);
+            }
+        };
+        load_tile(0, 0);
+        cp_async_commit();
+        for (int t = 0; t < ntiles; ++t) {
+            if (t + 1 < ntiles) load_tile(t + 1, (t + 1) & 1);
+            cp_async_commit();
+            cp_async_wait1();
+            __syncthreads();
+            const int j = t * NT + tid;
+            if (j < N2) {
+                int c[WORDS];
+#pragma unroll
+                for (int p = 0; p < 4; ++p) {
+                    const int4 v = tile[t & 1][chunk_slot(tid, p)];
+                    c[4 * p] = v.x; c[4 * p + 1] = v.y; c[4 * p + 2] = v.z; c[4 * p + 3] = v.w;
+                }
+                const bool cok = a.cv ? a.cv[(size_t)b * a.s_cv + j] != 0 : true;
+                float x2 = 0.f, y2 = 0.f, thr = 0.f;
+                int o2 = 0;
+                if (a.gate == GATE_WINDOW || a.gate == GATE_EPIPOLAR) {
+                    const float* p = a.xy2 + (size_t)b * a.s_xy2 + (size_t)j * 2;
+                    x2 = p[0];
+                    y2 = p[1];
+                    if (a.gate == GATE_EPIPOLAR || a.use_oct) o2 = a.oct2[(size_t)b * a.s_oct2 + j];
+                    if (a.gate == GATE_EPIPOLAR) thr = 3.84f * (1.0f / a.isig2[o2]);
+                }
+                const uint8_t* mcol = a.gate == GATE_MASK
+                    ? a.mask + (size_t)b * a.s_mask + (size_t)r0 * N2 + j : nullptr;
+                unsigned long long ckey = KEY_INIT;
+#pragma unroll
+                for (int r = 0; r < ROWS; ++r) {
+                    bool g = rok[r] && cok;
+                    if (g) {
+                        if (a.gate == GATE_WINDOW) {
+                            const float dx = rg[r][0] - x2, dy = rg[r][1] - y2;
+                            g = dx * dx + dy * dy <= rg[r][2];
+                            if (a.use_oct) g = g && o2 >= ro[r] + a.lo && o2 <= ro[r] + a.hi;
+                        } else if (a.gate == GATE_EPIPOLAR) {
+                            const float v = rg[r][0] * x2 + rg[r][1] * y2 + rg[r][2];
+                            g = (v * v) / rg[r][3] < thr;
+                        } else if (a.gate == GATE_MASK) {
+                            g = mcol[(size_t)r * N2] != 0;
+                        }
+                    }
+                    int d = MAX_DIST;
+                    if (g) {
+                        d = 0;
+#pragma unroll
+                        for (int w = 0; w < WORDS; ++w) d += __popc((unsigned)(q[r][w] ^ c[w]));
+                        const unsigned long long key = (((unsigned long long)d) << 32) | (unsigned)(r0 + r);
+                        ckey = key < ckey ? key : ckey;
+                    }
+                    // this thread's columns arrive in increasing order
+                    if (d < best[r]) { second[r] = best[r]; best[r] = d; bidx[r] = j; }
+                    else second[r] = min(second[r], d);
+                }
+                if (ckey < KEY_INIT) atomicMin(&a.colkey[(size_t)b * N2 + j], ckey);
+            }
+            __syncthreads();   // the next iteration's load_tile refills this buffer
+        }
+    }
+
+    // merge the per-thread row states: warp shuffles, then across warps
+    const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+        for (int o = 16; o > 0; o >>= 1) {
+            const int ob = __shfl_down_sync(0xffffffffu, best[r], o);
+            const int oi = __shfl_down_sync(0xffffffffu, bidx[r], o);
+            const int os = __shfl_down_sync(0xffffffffu, second[r], o);
+            merge(best[r], bidx[r], second[r], ob, oi, os);
+        }
+        if (lane == 0) { red[warp][r][0] = best[r]; red[warp][r][1] = bidx[r]; red[warp][r][2] = second[r]; }
+    }
+    __syncthreads();
+    if (tid < nrows) {
+        int bb = red[0][tid][0], bi = red[0][tid][1], bs = red[0][tid][2];
+        for (int w = 1; w < NT / 32; ++w) merge(bb, bi, bs, red[w][tid][0], red[w][tid][1], red[w][tid][2]);
+        int* st = a.rowstate + ((size_t)b * N1 + r0 + tid) * 3;
+        st[0] = bb;
+        st[1] = bi;
+        st[2] = min(bs, MAX_DIST);   // the plain version's second: MAX_DIST if no other column
+    }
+
+    // the last CTA of problem b finishes all its rows
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) is_last = atomicAdd(&a.ticket[b], 1u) == gridDim.x - 1;
+    __syncthreads();
+    if (!is_last) return;
+    __threadfence();
+    int* idx_out = a.out + (size_t)b * N1;
+    int* dist_out = a.out + (size_t)a.B * N1 + (size_t)b * N1;
+    for (int i = tid; i < N1; i += NT) {
+        const int* st = a.rowstate + ((size_t)b * N1 + i) * 3;
+        const int bb = __ldcg(st), j = __ldcg(st + 1), bs = __ldcg(st + 2);
+        bool ok = bb <= a.max_dist && (float)bb < a.ratio * (float)bs;
+        if (ok) {
+            const unsigned long long key = __ldcg(&a.colkey[(size_t)b * N2 + j]);
+            if (a.mutual) ok = (int)(key & 0xffffffffull) == i;
+            else ok = bb <= (int)(key >> 32);
+        }
+        idx_out[i] = ok ? j : -1;
+        dist_out[i] = ok ? bb : MAX_DIST;
+    }
+    __syncthreads();
+    for (int j = tid; j < N2; j += NT) a.colkey[(size_t)b * N2 + j] = KEY_INIT;
+    if (tid == 0) a.ticket[b] = 0u;
 }
 
 __global__ void pairwise_batched(const int* __restrict__ a, const int* __restrict__ b,
@@ -120,21 +291,18 @@ __global__ void pairwise_batched(const int* __restrict__ a, const int* __restric
     }
 }
 
-extern "C" int hamming_match_launch(const int* d1, const int* d2, const uint8_t* mask,
-                                    int N1, int N2, int max_dist, float ratio, int mutual,
-                                    unsigned long long* colkey, int* best, int* bidx, int* second,
-                                    int* idx_out, int* dist_out, cudaStream_t stream) {
-    if (N1 == 0) return (int)cudaGetLastError();
-    const size_t smem = (size_t)N2 * sizeof(int);
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(match_rows, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)smem);
-        if (e != cudaSuccess) return (int)e;
+// Rows per CTA: 16 where that still gives at least two CTAs per SM of the
+// H100's 132, else 8 (more CTAs, each re-reading desc2 from L2).
+extern "C" int hamming_match_launch(const MatchArgs* a, cudaStream_t stream) {
+    if (a->B == 0 || a->N1 == 0) return (int)cudaGetLastError();
+    const long long ctas16 = (long long)((a->N1 + 15) / 16) * a->B;
+    if (ctas16 >= 264) {
+        dim3 grid((a->N1 + 15) / 16, a->B);
+        hamming_match_fused<16><<<grid, NT, 0, stream>>>(*a);
+    } else {
+        dim3 grid((a->N1 + 7) / 8, a->B);
+        hamming_match_fused<8><<<grid, NT, 0, stream>>>(*a);
     }
-    reset_keys<<<(N2 + NT - 1) / NT, NT, 0, stream>>>(colkey, N2);
-    match_rows<<<N1, NT, smem, stream>>>(d1, d2, mask, N2, colkey, best, bidx, second);
-    match_finish<<<(N1 + NT - 1) / NT, NT, 0, stream>>>(best, bidx, second, colkey, N1, max_dist,
-                                                         ratio, mutual, idx_out, dist_out);
     return (int)cudaGetLastError();
 }
 

@@ -25,7 +25,7 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # every source in csrc/ with its own flags: --fmad=false where float results
 # decide bits or must round like the plain torch twin
 SOURCES = {"fast_nms": ("--fmad=false",), "orb_describe": ("--fmad=false",),
-           "hamming": (), "pose_lm": ("--fmad=false",), "assign_words": (),
+           "hamming": ("--fmad=false",), "pose_lm": ("--fmad=false",), "assign_words": (),
            "pnp_score": ("--fmad=false",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -87,6 +87,8 @@ def check_tensor(t, name: str, dtype, shape: tuple, device) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The device's current CUDA stream as an int (PyTorch's raw accessor,
+    which makes no Stream object)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device.index)

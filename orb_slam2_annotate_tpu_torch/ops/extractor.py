@@ -1,6 +1,7 @@
 """End-to-end ORB extraction for one frame (port of ops/extractor.py):
-pyramid -> FAST + NMS + margin (kernel 1, per level) -> per-cell selection
--> IC angle + steered BRIEF (kernel 2, all levels) -> level-0 coordinates."""
+pyramid + blur + FAST + NMS + margin for every level (kernel 1, one launch)
+-> per-cell selection -> IC angle + steered BRIEF (kernel 2, all levels)
+-> level-0 coordinates."""
 
 from __future__ import annotations
 
@@ -37,37 +38,28 @@ class Features:
     valid: torch.Tensor
 
 
-def detect_level(img: torch.Tensor, budget: int, cfg: ExtractorConfig, level: int):
-    """Corners of one level: (xy [budget,2] level coords, resp, octave, valid)."""
-    score, is_hi = fast_nms(img, cfg.th_fast_lo, cfg.th_fast_hi, cfg.margin)
+def select_level(score: torch.Tensor, is_hi: torch.Tensor, budget: int, level: int):
+    """Corners of one level from its [h,w] score / is_hi: (xy [budget,2]
+    level coords, resp, octave, valid)."""
     xy, resp, valid = select.select_keypoints(score, is_hi, budget)
-    octave = torch.full((budget,), level, dtype=torch.int32, device=img.device)
+    octave = torch.full((budget,), level, dtype=torch.int32, device=score.device)
     return xy, resp, octave, valid
 
 
 def extract(image: torch.Tensor, tab: orb.OrbTables,
             cfg: ExtractorConfig = ExtractorConfig()) -> Features:
     """image: [H,W] grayscale in [0,255] (u8 or f32), on the device to run on."""
-    image = image.to(torch.float32)
+    image = image.to(torch.float32).contiguous()
     dev = image.device
-    levels = pyramid.build_pyramid(image, cfg.n_levels, cfg.scale)
+    lt = pyramid.level_tables(image.shape[0], image.shape[1], cfg.n_levels, cfg.scale, dev)
+    pyr3, pyr3_blur, score, is_hi = fast_nms(image, lt, cfg.th_fast_lo, cfg.th_fast_hi, cfg.margin)
     budgets = pyramid.features_per_level(cfg.n_features, cfg.n_levels, cfg.scale)
-    parts = [detect_level(img, b, cfg, l) for l, (img, b) in enumerate(zip(levels, budgets))]
+    parts = [select_level(score[l, :h, :w], is_hi[l, :h, :w], b, l)
+             for l, ((h, w), b) in enumerate(zip(lt.shapes, budgets))]
     xy_l, resp, octv, valid = (torch.cat([p[i] for p in parts]) for i in range(4))
+    ang, desc = orb_describe(pyr3, pyr3_blur, lt.level_hw, xy_l.contiguous(), octv, valid, tab)
 
-    H0, W0 = levels[0].shape
-
-    def pad3(ims):
-        return torch.stack([torch.nn.functional.pad(im, (0, W0 - im.shape[1], 0, H0 - im.shape[0]))
-                            for im in ims])
-
-    pyr3 = pad3(levels)
-    pyr3_blur = pad3([pyramid.gaussian_blur(img) for img in levels])
-    level_hw = torch.tensor([list(img.shape) for img in levels], dtype=torch.int32, device=dev)
-    ang, desc = orb_describe(pyr3, pyr3_blur, level_hw, xy_l.contiguous(), octv, valid, tab)
-
-    scales = pyramid.level_scales(cfg.n_levels, cfg.scale, device=dev)
-    feats = Features(xy_l * scales[octv.long()][:, None], resp, octv, ang, desc, valid)
+    feats = Features(xy_l * lt.scales[octv.long()][:, None], resp, octv, ang, desc, valid)
     n = feats.xy.shape[0]
     if n < cfg.n_features:
         pad = cfg.n_features - n

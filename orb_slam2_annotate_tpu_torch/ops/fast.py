@@ -1,8 +1,8 @@
 """FAST-9/16 score map and 3x3 NMS, plain torch (port of ops/fast.py).
 
 These are the plain twins of the ``fast_nms`` CUDA kernel
-(kernels/fast_nms.py), which fuses the score, the NMS and the margin mask
-into one launch per pyramid level.
+(kernels/fast_nms.py), which fuses the pyramid, the blur, the score, the
+NMS and the margin mask of every level into one launch per frame.
 """
 
 from __future__ import annotations

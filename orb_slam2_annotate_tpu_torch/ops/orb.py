@@ -1,7 +1,8 @@
 """Oriented binary descriptors: IC angle + steered BRIEF (port of ops/orb.py).
 
-The sampling pattern is the reference's asset ``ops/brief_pattern.npy``,
-read by file path (importing the JAX package would import jax).  The
+The sampling pattern is ``brief_pattern.npy`` beside this module, a
+byte-identical copy of the reference's asset (tests/test_torch_system.py
+checks it), read by file path with numpy.  The
 functions below are the plain twins of the ``orb_describe`` CUDA kernel
 (kernels/orb_describe.py).
 
@@ -24,8 +25,7 @@ N_BITS = 512
 DESC_WORDS = N_BITS // 32
 N_ANGLE_BINS = 32
 
-PATTERN_PATH = os.path.join(os.path.dirname(__file__), os.pardir, os.pardir,
-                            "orb_slam2_annotate_tpu", "ops", "brief_pattern.npy")
+PATTERN_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "brief_pattern.npy")
 
 
 def load_pattern() -> np.ndarray:

@@ -5,11 +5,16 @@ antialias=True)``: one contraction with a [H, h] and a [W, w] weight matrix
 from ``compute_weight_mat`` (jax/_src/image/scale.py).  The weights are
 recomputed here in float32 numpy with the same arithmetic;
 ``F.interpolate(antialias=True)`` gives other weights, and pixel drift flips
-FAST corners and BRIEF bits.  Both the resize and the blur stay plain torch.
+FAST corners and BRIEF bits.  Each weight matrix is a band (triangle taps),
+so the resize is kept as per-output tap offsets and weights
+(``level_tables``, made once per shape and device) and summed tap by tap
+(``resize_stack``): rows first, then columns, in the order kernel 1
+(kernels/fast_nms.py) sums them, so the two agree bit for bit.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -44,16 +49,99 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], w, f32(0.0)).astype(f32)
 
 
+def _band(in_size: int, out_size: int, level0: bool):
+    """(first tap [in_size] int32, taps [in_size, T] f32, T) of one axis:
+    output o reads inputs first[o] .. first[o] + T - 1 (the band of
+    ``resize_weights``' column o, zero-padded); entries beyond out_size are 0."""
+    if level0:
+        first, taps = np.arange(in_size, dtype=np.int32), np.ones((in_size, 1), np.float32)
+    else:
+        w = resize_weights(in_size, out_size)
+        nz = w != 0
+        any_nz = nz.any(axis=0)
+        first = np.where(any_nz, nz.argmax(axis=0), 0).astype(np.int32)
+        last = np.where(any_nz, in_size - 1 - nz[::-1].argmax(axis=0), 0)
+        n = int((last - first).max()) + 1
+        idx = np.minimum(first[:, None] + np.arange(n), in_size - 1)
+        taps = np.take_along_axis(w.T, idx, axis=1)
+        taps[first[:, None] + np.arange(n) > in_size - 1] = 0.0
+        if not np.array_equal((taps != 0).sum(1), nz.sum(0)):
+            raise AssertionError("resize weights are not one band per output")
+    f = np.zeros(in_size, np.int32)
+    t = np.zeros((in_size, taps.shape[1]), np.float32)
+    f[:out_size], t[:out_size] = first, taps
+    return f, t, taps.shape[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelTables:
+    """The constants of a frame's pyramid, made once per (H, W, levels,
+    scale, device): level l resizes the level-0 image with row taps
+    row_first[l, y] + k, weights row_w[l, y, k] for k < taps[l][0], and the
+    same for columns; level 0 is the identity (one tap of 1.0)."""
+
+    shapes: tuple            # ((h, w), ...) per level
+    taps: tuple              # ((row taps, column taps), ...) per level
+    level_hw: torch.Tensor   # [L,2] int32
+    n_taps: torch.Tensor     # [L,2] int32, `taps` on the device
+    row_first: torch.Tensor  # [L,H0] int32
+    row_w: torch.Tensor      # [L,H0,T] f32
+    col_first: torch.Tensor  # [L,W0] int32
+    col_w: torch.Tensor      # [L,W0,T] f32
+    scales: torch.Tensor     # [L] f32, scale**l
+
+
+@functools.lru_cache(maxsize=16)
+def _level_tables(height: int, width: int, n_levels: int, scale: float, device: str):
+    shapes = pyramid_shapes(height, width, n_levels, scale)
+    rows = [_band(height, h, l == 0) for l, (h, _) in enumerate(shapes)]
+    cols = [_band(width, w, l == 0) for l, (_, w) in enumerate(shapes)]
+    T = max(max(r[2] for r in rows), max(c[2] for c in cols))
+
+    def stack(parts, n):
+        first = np.stack([p[0] for p in parts])
+        w = np.zeros((n_levels, n, T), np.float32)
+        for l, p in enumerate(parts):
+            w[l, :, :p[2]] = p[1]
+        return torch.from_numpy(first).to(device), torch.from_numpy(w).to(device)
+
+    row_first, row_w = stack(rows, height)
+    col_first, col_w = stack(cols, width)
+    taps = tuple((r[2], c[2]) for r, c in zip(rows, cols))
+    i32 = torch.int32
+    return LevelTables(tuple(shapes), taps, torch.tensor(shapes, dtype=i32, device=device),
+                       torch.tensor(taps, dtype=i32, device=device), row_first, row_w, col_first,
+                       col_w, level_scales(n_levels, scale, device=device))
+
+
+def level_tables(height: int, width: int, n_levels: int, scale: float, device) -> LevelTables:
+    return _level_tables(height, width, n_levels, float(scale), str(torch.device(device)))
+
+
+def resize_stack(image: torch.Tensor, lt: LevelTables) -> torch.Tensor:
+    """[H0,W0] f32 -> [L,H0,W0] zero-padded levels, summed tap by tap in
+    kernel 1's order (rows, then columns; taps of weight 0 add +0)."""
+    H0, W0 = image.shape
+    out = image.new_zeros((len(lt.shapes), H0, W0))
+    for l, ((h, w), (ty, tx)) in enumerate(zip(lt.shapes, lt.taps)):
+        first = lt.row_first[l, :h].long()
+        tmp = torch.zeros((h, W0), dtype=image.dtype, device=image.device)
+        for k in range(ty):
+            tmp = tmp + lt.row_w[l, :h, k, None] * image[torch.clamp(first + k, max=H0 - 1)]
+        first = lt.col_first[l, :w].long()
+        acc = torch.zeros((h, w), dtype=image.dtype, device=image.device)
+        for k in range(tx):
+            acc = acc + lt.col_w[l, None, :w, k] * tmp[:, torch.clamp(first + k, max=W0 - 1)]
+        out[l, :h, :w] = acc
+    return out
+
+
 def build_pyramid(image: torch.Tensor, n_levels: int = 8, scale: float = 1.2):
     """Grayscale f32 [H,W] image -> list of n_levels tensors (level 0 first)."""
     h, w = image.shape
-    shapes = pyramid_shapes(h, w, n_levels, scale)
-    levels = [image]
-    for l in range(1, n_levels):
-        wh = torch.from_numpy(resize_weights(h, shapes[l][0])).to(image.device)
-        ww = torch.from_numpy(resize_weights(w, shapes[l][1])).to(image.device)
-        levels.append(wh.T @ image @ ww)
-    return levels
+    lt = level_tables(h, w, n_levels, scale, image.device)
+    pyr3 = resize_stack(image, lt)
+    return [image] + [pyr3[l, :lh, :lw] for l, (lh, lw) in enumerate(lt.shapes) if l > 0]
 
 
 @functools.lru_cache(maxsize=8)

@@ -50,14 +50,15 @@ def cull_recent_mappoints(m: ms.MapState) -> ms.MapState:
 
 
 def _fundamental_between(cam: CameraModel, R1, t1, R2, t2):
-    """F12 with x1^T F12 x2 = 0 for pixel coordinates."""
-    R12 = R1 @ R2.T
-    t12 = -R12 @ t2 + t1
+    """F12 with x1^T F12 x2 = 0 for pixel coordinates; R2 [...,3,3], t2 [...,3]."""
+    R12 = R1 @ R2.transpose(-1, -2)
+    t12 = -(R12 @ t2[..., None])[..., 0] + t1
     Kinv = torch.linalg.inv(cam.K(R1.device))
     return Kinv.T @ (lie.hat(t12) @ R12) @ Kinv
 
 
 def _kf_frame(m: ms.MapState, s) -> Frame:
+    """Keyframe slot `s` as a Frame; a tensor of slots gives batched fields."""
     return Frame(xy=m.kf_xy[s], xy_raw=m.kf_xy[s], ur=m.kf_ur[s], depth=m.kf_depth[s],
                  octave=m.kf_octave[s], angle=m.kf_angle[s],
                  response=torch.zeros_like(m.kf_angle[s]), desc=m.kf_desc[s],
@@ -65,9 +66,11 @@ def _kf_frame(m: ms.MapState, s) -> Frame:
 
 
 def _median_depth(m: ms.MapState, s, R, t) -> torch.Tensor:
+    """Median depth of the points keyframe(s) `s` observe at pose(s) R [...,3,3], t [...,3]."""
     obs = m.kf_obs[s]
     has = (obs >= 0) & m.kf_feat_valid[s]
-    z = (m.mp_pos[torch.clamp(obs, 0, m.P - 1).long()] @ R.T + t)[:, 2]
+    z = (m.mp_pos[torch.clamp(obs, 0, m.P - 1).long()] @ R.transpose(-1, -2)
+         + t[..., None, :])[..., 2]
     return torch.nan_to_num(nanmedian(torch.where(has, z, torch.full_like(z, float("nan")))),
                             nan=1.0)
 
@@ -100,27 +103,30 @@ def create_new_mappoints(m: ms.MapState, cam: CameraModel, slot: int,
     oct1 = m.kf_octave[slot].float()
     s2_1 = SCALE ** (2.0 * oct1)
 
-    idxs, goods, Xs, cosps = [], [], [], []
-    for i, nb in enumerate(nbrs.tolist()):
-        R2, t2 = m.kf_R[nb], m.kf_t[nb]
-        c2 = -R2.T @ t2
-        ok_baseline = torch.linalg.norm(c2 - c1) / torch.clamp_min(
-            _median_depth(m, nb, R2, t2), 1e-6) > 0.01
-        res = matching.search_for_triangulation(f1, _kf_frame(m, nb), _fundamental_between(
-            cam, R1, t1, R2, t2), inv_s2, inv_s2, exclude1=has1, exclude2=m.kf_obs[nb] >= 0)
-        idx = torch.where(res.matched & ok_baseline & nbr_ok[i], res.idx, -1)
-        idxs.append(idx)
+    # every neighbour in one matcher launch (kernel 3, B = n_neighbors)
+    R2s, t2s = m.kf_R[nbrs], m.kf_t[nbrs]                                # [NB,3,3], [NB,3]
+    c2s = -(R2s.transpose(1, 2) @ t2s[:, :, None])[:, :, 0]
+    ok_baseline = torch.linalg.norm(c2s - c1, dim=-1) / torch.clamp_min(
+        _median_depth(m, nbrs, R2s, t2s), 1e-6) > 0.01
+    f2 = _kf_frame(m, nbrs)
+    res = matching.search_for_triangulation(f1, f2, _fundamental_between(cam, R1, t1, R2s, t2s),
+                                            inv_s2, inv_s2, exclude1=has1,
+                                            exclude2=m.kf_obs[nbrs] >= 0)
+    idxs = torch.where(res.matched & (ok_baseline & nbr_ok)[:, None], res.idx, -1)   # [NB,N]
 
+    goods, Xs, cosps = [], [], []
+    for i in range(n_neighbors):
         # triangulate and gate this neighbour's pairs
+        R2, t2, c2, idx = R2s[i], t2s[i], c2s[i], idxs[i]
         idc = torch.clamp_min(idx, 0).long()
         P2 = Kc @ torch.cat([R2, t2[:, None]], dim=1)
-        x2 = m.kf_xy[nb, idc]
+        x2 = f2.xy[i, idc]
         X = triangulate_dlt(P1, P2, x1, x2)
         xc1 = X @ R1.T + t1
         xc2 = X @ R2.T + t2
         e1 = ((project(cam, xc1) - x1) ** 2).sum(1)
         e2 = ((project(cam, xc2) - x2) ** 2).sum(1)
-        oct2 = m.kf_octave[nb, idc].float()
+        oct2 = f2.octave[i, idc].float()
         r1v, r2v = X - c1, X - c2
         d1, d2 = torch.linalg.norm(r1v, dim=1), torch.linalg.norm(r2v, dim=1)
         cosp = (r1v * r2v).sum(1) / torch.clamp_min(d1 * d2, 1e-9)
@@ -133,7 +139,7 @@ def create_new_mappoints(m: ms.MapState, cam: CameraModel, slot: int,
         goods.append(good)
         Xs.append(X)
         cosps.append(cosp)
-    idxs, good_all = torch.stack(idxs), torch.stack(goods)
+    good_all = torch.stack(goods)
     X_all, cosp_all = torch.stack(Xs), torch.stack(cosps)
 
     best_nb = torch.argmin(torch.where(good_all, cosp_all, torch.full_like(cosp_all, float("inf"))),

@@ -19,9 +19,10 @@ from ..ops.orb import DESC_WORDS
 from ..worldmap import map_state as ms
 from ..worldmap import vocabulary as voc
 
-# the reference's trained 16384-word vocabulary, read by path with numpy
-TRAINED_VOCAB = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "orb_slam2_annotate_tpu", "worldmap", "trained_vocab.npz")
+# the trained 16384-word vocabulary (a byte-identical copy of the reference's
+# asset, checked by tests/test_torch_system.py), read by path with numpy
+TRAINED_VOCAB = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                             "worldmap", "trained_vocab.npz")
 
 
 @dataclasses.dataclass

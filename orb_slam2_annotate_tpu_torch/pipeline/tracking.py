@@ -68,9 +68,8 @@ def track_reference_keyframe(cam: CameraModel, m: MapState, frame: Frame, kf_id:
     then pose optimization from the last pose."""
     kf_obs = m.kf_obs[kf_id]
     kf_has = (kf_obs >= 0) & m.kf_feat_valid[kf_id] & m.mp_valid[torch.clamp(kf_obs, 0, m.P - 1).long()]
-    cand = kf_has[:, None] & frame.valid[None, :]
-    res = matching.match_masked(m.kf_desc[kf_id], frame.desc, cand, max_dist=matching.TH_LOW,
-                                ratio=0.7)
+    res = matching.match_gated(m.kf_desc[kf_id], frame.desc, kf_has, frame.valid,
+                               max_dist=matching.TH_LOW, ratio=0.7)
     ang2 = frame.angle[torch.clamp_min(res.idx, 0).long()]
     keep = matching.rotation_consistency(m.kf_angle[kf_id], ang2, res.matched)
     obs = _scatter_max_ids(frame.xy.shape[0], torch.clamp_min(res.idx, 0),
@@ -163,27 +162,24 @@ class RelocCandidates:
 def relocalize_candidates(cam: CameraModel, m: MapState, frame: Frame, vocab, db_bows,
                           gen: torch.Generator, n_hyp: int = 256) -> RelocCandidates:
     """BoW candidates with covisibility-accumulated scores, then per
-    candidate a descriptor match (kernel 3), PnP RANSAC over all candidates
-    at once (kernels 6 and 4) and the reference's gates: the candidate
-    qualifies, >= 15 matches, a successful PnP with >= 15 inliers.  The
-    candidates that fail the first two gates (one read of 8 flags) skip the
-    LM polish: their score is -1 whatever it would give."""
+    candidate a descriptor match (kernel 3, one launch for all of them), PnP
+    RANSAC over all candidates at once (kernels 6 and 4) and the reference's
+    gates: the candidate qualifies, >= 15 matches, a successful PnP with
+    >= 15 inliers.  The candidates that fail the first two gates (one read
+    of 8 flags) skip the LM polish: their score is -1 whatever it would give."""
     from ..solvers import pnp
     from ..worldmap import vocabulary as voc
 
-    N = frame.xy.shape[0]
     bow = voc.bow_vector(vocab, frame.desc, frame.valid)
     slots, ok = voc.detect_relocalization_candidates(voc.KeyFrameDatabase(db_bows), bow,
                                                      m.kf_valid, ms.covisibility(m))
     kf_obs, kf_desc = m.kf_obs[slots], m.kf_desc[slots]                  # [C,N], [C,N,16]
     kf_has = (kf_obs >= 0) & m.kf_feat_valid[slots] & m.mp_valid[torch.clamp(kf_obs, 0, m.P - 1).long()]
-    obss = []
-    for obs_kf, desc, has in zip(kf_obs, kf_desc, kf_has):
-        res = matching.match_masked(desc, frame.desc, has[:, None] & frame.valid[None, :],
-                                    max_dist=matching.TH_LOW, ratio=0.75)
-        obss.append(_scatter_max_ids(N, torch.clamp_min(res.idx, 0),
-                                     torch.where(res.matched & has, obs_kf, -1)))
-    obs = torch.stack(obss)                                               # [C,N]
+    # all candidates in one matcher launch, the frame's descriptors shared
+    res = matching.match_gated(kf_desc, frame.desc, kf_has, frame.valid, max_dist=matching.TH_LOW,
+                               ratio=0.75)                                # [C,N]
+    obs = torch.full(kf_obs.shape, -1, dtype=torch.int32, device=m.device).scatter_reduce(
+        1, torch.clamp_min(res.idx, 0).long(), torch.where(res.matched & kf_has, kf_obs, -1), "amax")
     pvalid = (obs >= 0) & frame.valid[None, :]
     n_matches = pvalid.sum(1)
     gate = ok & (n_matches >= 15)

@@ -4,7 +4,9 @@ IC angle, steered BRIEF, extraction) with the JAX package, at 320x240,
 
 Tolerances: given the same level images, the FAST score, is_hi, NMS,
 selected xy / resp / valid and the patches are exactly equal.  Pyramid
-and blur agree within 1e-3 on the 0-255 scale (summation order).  IC angles
+and blur agree within 1e-3 on the 0-255 scale (summation order), also as
+the padded [L,H0,W0] stacks of kernel 1's frame-wide twin, whose padding is
+exactly 0.  IC angles
 agree within 1e-4 rad; at least 99.5% of valid keypoints share the angle
 bin, and every keypoint whose bin agrees has a bit-identical descriptor.
 """
@@ -69,12 +71,12 @@ def test_fast_nms_select_exact(jax_levels, level):
     np.testing.assert_array_equal(hi_t.numpy(), np.asarray(hi_j))
     n_j = np.asarray(jfast.nms3x3(s_j))
     np.testing.assert_array_equal(tfast.nms3x3(s_t).numpy(), n_j)
-    # the wrapper's plain path (CPU tensor) = score -> NMS -> EDGE margin
+    # the kernel's plain per-level step = score -> NMS -> EDGE margin
     h, w = lj.shape
     yy, xx = np.mgrid[0:h, 0:w]
     ok = (yy >= 19) & (yy < h - 19) & (xx >= 19) & (xx < w - 19)
     score_j = np.where(ok, n_j, 0.0)
-    score_t, hi_w = tk1.fast_nms(T(lj), 7.0, 20.0, 19)
+    score_t, hi_w = tk1.fast_nms_plain(T(lj), 7.0, 20.0, 19)
     np.testing.assert_array_equal(score_t.numpy(), score_j)
     np.testing.assert_array_equal(hi_w.numpy(), np.asarray(hi_j))
     budget = jpyr.features_per_level(512, 4, 1.2)[level]
@@ -135,3 +137,73 @@ def test_extract_end_to_end(image):
     assert ok.mean() >= 0.98
     np.testing.assert_array_equal(ft.desc.numpy()[ok], d_j[ok])
     np.testing.assert_array_equal(ft.valid.numpy()[same_kp], np.asarray(fj.valid)[same_kp])
+
+
+@pytest.fixture(scope="module")
+def frame_stacks(image):
+    lt = tpyr.level_tables(240, 320, 4, 1.2, "cpu")
+    return lt, tk1.fast_nms_frame_plain(T(image), lt, 7.0, 20.0, 19)
+
+
+def test_level_tables_are_the_resize_bands():
+    """The per-output taps rebuild ``resize_weights`` exactly; level 0 is the identity."""
+    lt = tpyr.level_tables(240, 320, 4, 1.2, "cpu")
+    for l, ((h, w), (ty, tx)) in enumerate(zip(lt.shapes, lt.taps)):
+        for n_in, n_out, first, taps, t in ((240, h, lt.row_first, lt.row_w, ty),
+                                            (320, w, lt.col_first, lt.col_w, tx)):
+            dense = np.zeros((n_in, n_out), np.float32)
+            for o in range(n_out):
+                for k in range(t):
+                    i = int(first[l, o]) + k
+                    if i < n_in:
+                        dense[i, o] = taps[l, o, k]
+            want = np.eye(n_in, dtype=np.float32) if l == 0 else tpyr.resize_weights(n_in, n_out)
+            np.testing.assert_array_equal(dense, want)
+            assert not taps[l, n_out:].any()
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
+def test_frame_twin_levels_and_blur(jax_levels, frame_stacks, level):
+    """Kernel 1's frame-wide twin: each level and its blur against JAX's
+    build_pyramid / gaussian_blur.  Levels 1-3 end inside the padded stack,
+    so their blur must reflect at the level's own border, and every stack
+    is 0 beyond the level."""
+    lt, stacks = frame_stacks
+    pyr3, blur = stacks[0], stacks[1]
+    lj = jax_levels[level]
+    h, w = lj.shape
+    assert lt.shapes[level] == (h, w) and tuple(lt.level_hw[level].tolist()) == (h, w)
+    np.testing.assert_allclose(pyr3[level, :h, :w].numpy(), lj, atol=1e-3)
+    np.testing.assert_allclose(blur[level, :h, :w].numpy(),
+                               np.asarray(jpyr.gaussian_blur(jnp.asarray(lj))), atol=1e-3)
+    for st in stacks:
+        outside = st[level].clone()
+        outside[:h, :w] = 0
+        assert not outside.any()
+
+
+@pytest.fixture(scope="module")
+def stacks_from_jax_levels(jax_levels):
+    H0, W0 = jax_levels[0].shape
+    pyr3 = np.stack([np.pad(lv, ((0, H0 - lv.shape[0]), (0, W0 - lv.shape[1])))
+                     for lv in jax_levels])
+    lt = tpyr.level_tables(H0, W0, 4, 1.2, "cpu")
+    return tk1.detect_stack_plain(T(pyr3), lt, 7.0, 20.0, 19)
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
+def test_frame_twin_fast_exact_given_levels(jax_levels, stacks_from_jax_levels, level):
+    """Given JAX's levels, the twin's score and is_hi stacks equal JAX's
+    FAST score + NMS + EDGE margin exactly, and its blur stack is within
+    1e-3 of JAX's blur of each level."""
+    blur, score, is_hi = stacks_from_jax_levels
+    lj = jax_levels[level]
+    h, w = lj.shape
+    s_j, hi_j = jfast.fast_score_map(jnp.asarray(lj), 7.0, 20.0)
+    yy, xx = np.mgrid[0:h, 0:w]
+    ok = (yy >= 19) & (yy < h - 19) & (xx >= 19) & (xx < w - 19)
+    np.testing.assert_array_equal(score[level, :h, :w].numpy(),
+                                  np.where(ok, np.asarray(jfast.nms3x3(s_j)), 0.0))
+    np.testing.assert_array_equal(is_hi[level, :h, :w].numpy(), np.asarray(hi_j))
+    np.testing.assert_allclose(blur[level, :h, :w].numpy(),
+                               np.asarray(jpyr.gaussian_blur(jnp.asarray(lj))), atol=1e-3)

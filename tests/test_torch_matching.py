@@ -1,6 +1,9 @@
 """Parity of the port's Hamming distance, masked matcher, the four searches
 and the rotation-histogram check with the JAX package.  All outputs are
-integers or masks and must be exactly equal."""
+integers or masks and must be exactly equal.  The gated matcher's plain twin
+is held to JAX's ``match_masked`` on masks that JAX's own ``window_mask`` /
+``octave_mask`` / ``search_for_triangulation`` build, one problem at a time,
+while the port runs the problems batched."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -153,3 +156,103 @@ def test_search_for_triangulation(two_frames):
     assert int(np.sum(np.asarray(ref.idx) >= 0)) > 10
     eq(got.idx, ref.idx)
     eq(got.dist, ref.dist)
+
+
+def _gate_case(kind, n_batch=3):
+    """B problems sharing desc2 (as relocalization shares the frame's
+    descriptors): per problem a planted desc1, row validity, projections,
+    radii and predicted octaves.  Returns the port's arguments and, per
+    problem, the JAX candidate mask."""
+    d1s, rvs, pxys, rads, poks = [], [], [], [], []
+    d1, d2 = planted_descriptors()
+    rng = np.random.RandomState(11)
+    xy2 = rng.uniform(0, 200, (64, 2)).astype(np.float32)
+    oct2 = rng.randint(0, 4, 64).astype(np.int32)
+    cv = rng.rand(64) < 0.9
+    cv[[4, 5, 8, 9]] = True                 # keep the tied columns
+    true_col = np.asarray(jham.hamming_pairwise(jnp.asarray(d1), jnp.asarray(d2))).argmin(1)
+    for b in range(n_batch):
+        rows = np.roll(np.arange(96), 7 * b)
+        rows[:4] = [0, 1, 2, 3]             # the duplicate / tie rows in every problem
+        d1s.append(d1[rows])
+        rv = rng.rand(96) < 0.85
+        rv[:4] = True
+        rv[10] = False                      # a row with no candidate
+        rvs.append(rv)
+        pxys.append((xy2[true_col[rows]] + rng.randn(96, 2) * 20).astype(np.float32))
+        r = rng.uniform(5, 60, 96).astype(np.float32)
+        r[:4] = 1000.0
+        rads.append(r)
+        po = np.clip(oct2[true_col[rows]] + rng.randint(-1, 2, 96), 0, 3).astype(np.int32)
+        po[:4] = oct2[4]
+        poks.append(po)
+    d1b, rvb, pxyb, radb, pob = map(np.stack, (d1s, rvs, pxys, rads, poks))
+    masks = []
+    for b in range(n_batch):
+        m = np.asarray(jnp.asarray(rvb[b])[:, None] & jnp.asarray(cv)[None, :])
+        if kind.startswith("window"):
+            m = m & np.asarray(jm.window_mask(jnp.asarray(pxyb[b]), jnp.asarray(xy2),
+                                              jnp.asarray(radb[b])))
+        if kind == "window_octave":
+            m = m & np.asarray(jm.octave_mask(jnp.asarray(pob[b]), jnp.asarray(oct2), -1, 1))
+        if kind == "mask":
+            m = m & (rng.rand(96, 64) < 0.7)
+        masks.append(m)
+    if kind == "none":
+        gate = None
+    elif kind == "mask":
+        gate = tk3.MaskGate(T(np.stack(masks)))
+    else:
+        gate = tk3.WindowGate(T(pxyb), T(radb), T(xy2), *((T(pob), T(oct2), -1, 1)
+                                                          if kind == "window_octave" else ()))
+    return (T(d1b), T(d2), T(rvb), T(cv), gate), (d1b, d2, masks)
+
+
+@pytest.mark.parametrize("mutual", [False, True])
+@pytest.mark.parametrize("kind", ["none", "window", "window_octave", "mask"])
+def test_gated_batched_match_vs_jax(kind, mutual):
+    (d1, d2, rv, cv, gate), (d1b, d2n, masks) = _gate_case(kind)
+    got = tm.match_gated(d1, d2, rv, cv, jm.TH_HIGH, 0.9, mutual, gate)
+    assert got.idx.shape == (3, 96)
+    for b, m in enumerate(masks):
+        ref = jm.match_masked(jnp.asarray(d1b[b]), jnp.asarray(d2n), jnp.asarray(m), jm.TH_HIGH,
+                              0.9, mutual)
+        assert int(np.sum(np.asarray(ref.idx) >= 0)) > 5
+        eq(got.idx[b], ref.idx)
+        eq(got.dist[b], ref.dist)
+
+
+def test_rotation_consistency_batched_equals_per_row():
+    a1 = RNG.uniform(-np.pi, np.pi, (5, 200)).astype(np.float32)
+    offs = np.where(RNG.rand(5, 200) < 0.6, 0.4, np.where(RNG.rand(5, 200) < 0.5, -1.0, 2.0))
+    a2 = (a1 + offs * RNG.rand(5, 1) + RNG.randn(5, 200) * 0.02).astype(np.float32)
+    matched = RNG.rand(5, 200) < 0.8
+    got = tm.rotation_consistency(T(a1), T(a2), T(matched))
+    for b in range(5):
+        row = tm.rotation_consistency(T(a1[b]), T(a2[b]), T(matched[b]))
+        assert torch.equal(got[b], row)
+        eq(row, jm.rotation_consistency(jnp.asarray(a1[b]), jnp.asarray(a2[b]),
+                                        jnp.asarray(matched[b])))
+
+
+def test_search_for_triangulation_batched(two_frames):
+    """Three neighbours in one call (F12 and exclude2 per problem, the new
+    keyframe's arrays shared) against JAX's search, one neighbour at a time."""
+    fa, fb, ta, tb, poses = two_frames
+    inv_s2 = np.asarray(jlm._inv_sigma2(jnp.arange(8)))
+    ex1 = RNG.rand(512) < 0.2
+    ex2 = RNG.rand(3, 512) < 0.2
+    F12 = np.stack([np.asarray(jlm._fundamental_between(
+        CAM, jnp.asarray(poses[0][0]), jnp.asarray(poses[0][1]), jnp.asarray(poses[k][0]),
+        jnp.asarray(poses[k][1]))) for k in (3, 2, 1)])
+    tb3 = tlm.Frame(**{f: (v.expand(3, *v.shape).contiguous() if f != "response" else v)
+                       for f, v in vars(tb).items()})
+    got = tm.search_for_triangulation(ta, tb3, T(F12), T(inv_s2), T(inv_s2), T(ex1), T(ex2))
+    assert got.idx.shape == (3, 512)
+    for b in range(3):
+        ref = jm.search_for_triangulation(fa, fb, jnp.asarray(F12[b]), jnp.asarray(inv_s2),
+                                          jnp.asarray(inv_s2), jnp.asarray(ex1),
+                                          jnp.asarray(ex2[b]))
+        assert int(np.sum(np.asarray(ref.idx) >= 0)) > 10
+        eq(got.idx[b], ref.idx)
+        eq(got.dist[b], ref.dist)

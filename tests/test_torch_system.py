@@ -1,6 +1,6 @@
 """The whole monocular slice of the port against the JAX System, plus the
 package-level rules: no jax import, numpy copies that agree with the
-reference, CPU tensors taking the plain twins without touching the launch
+reference, asset files that are byte-identical copies, CPU tensors taking the plain twins without touching the launch
 counters, the configuration guard, and localization mode.
 
 Slice tolerance: both systems reach OK; the port tracks >= 70% of frames,
@@ -10,6 +10,7 @@ differ (torch.Generator vs jax.random), so the runs are compared by outcome.
 """
 
 import inspect
+import os
 import subprocess
 import sys
 
@@ -29,8 +30,10 @@ from orb_slam2_annotate_tpu_torch.io import synthetic as tsyn
 from orb_slam2_annotate_tpu_torch.kernels import (assign_words, fast_nms, hamming, orb_describe,
                                                   pnp_score, pose_lm)
 from orb_slam2_annotate_tpu_torch.ops import orb as torb
+from orb_slam2_annotate_tpu_torch.ops import pyramid as tpyr
 from orb_slam2_annotate_tpu_torch.pipeline import System as TSystem
 from orb_slam2_annotate_tpu_torch.pipeline import mono_slice_config
+from orb_slam2_annotate_tpu_torch.pipeline.loop_closing import TRAINED_VOCAB
 from orb_slam2_annotate_tpu_torch.pipeline.loop_closing import LoopCloser as TLoopCloser
 
 # Tier-1 runs several pytest workers on one host, and torch's default of one
@@ -116,6 +119,18 @@ def test_evaluation_copy_agrees():
     assert teval.rpe(Ts, Ts[::-1]) == jeval.rpe(Ts, Ts[::-1])
 
 
+@pytest.mark.parametrize("path", ["ops/brief_pattern.npy", "worldmap/trained_vocab.npz"])
+def test_assets_are_byte_identical_copies(path):
+    # the port reads its own copies of the reference's assets
+    root = __import__("pathlib").Path(__file__).resolve().parents[1]
+    got = (root / "orb_slam2_annotate_tpu_torch" / path).read_bytes()
+    assert got == (root / "orb_slam2_annotate_tpu" / path).read_bytes()
+    assert torb.PATTERN_PATH.endswith(os.path.join("orb_slam2_annotate_tpu_torch", "ops",
+                                                   "brief_pattern.npy"))
+    assert TRAINED_VOCAB.endswith(os.path.join("orb_slam2_annotate_tpu_torch", "worldmap",
+                                               "trained_vocab.npz"))
+
+
 def test_orb_tables_from_reference():
     tab = convert.orb_tables_from_numpy(jorb.PATTERN, jorb.ROT_OFFSETS)
     ref = torb.OrbTables()
@@ -131,9 +146,10 @@ def test_wrappers_take_plain_path_on_cpu():
         w.launches = 0
     rng = np.random.RandomState(1)
     img = torch.from_numpy((rng.rand(64, 80) * 255).astype(np.float32))
-    s, h = fast_nms.fast_nms(img, 7.0, 20.0, 19)
-    s_p, h_p = fast_nms.fast_nms_plain(img, 7.0, 20.0, 19)
-    assert torch.equal(s, s_p) and torch.equal(h, h_p)
+    lt = tpyr.level_tables(64, 80, 2, 1.2, "cpu")
+    for a, b in zip(fast_nms.fast_nms(img, lt, 7.0, 20.0, 19),
+                    fast_nms.fast_nms_frame_plain(img, lt, 7.0, 20.0, 19)):
+        assert torch.equal(a, b)
     tab = torb.OrbTables()
     pyr = img[None].contiguous()
     kps = torch.tensor([[30.0, 30.0], [40.0, 33.0]])
@@ -142,9 +158,9 @@ def test_wrappers_take_plain_path_on_cpu():
     for a, b in zip(orb_describe.orb_describe(*args), orb_describe.orb_describe_plain(*args)):
         assert torch.equal(a, b)
     d = torch.from_numpy(rng.randint(-2**31, 2**31, (8, 16)).astype(np.int32))
-    mask = torch.ones(8, 8, dtype=torch.bool)
-    for a, b in zip(hamming.hamming_match(d, d, mask, 134, 1.0, True),
-                    hamming.hamming_match_plain(d, d, mask, 134, 1.0, True)):
+    ok = torch.ones(8, dtype=torch.bool)
+    for a, b in zip(hamming.hamming_match(d, d, ok, ok, 134, 1.0, True),
+                    hamming.hamming_match_plain(d, d, ok, ok, 134, 1.0, True)):
         assert torch.equal(a, b)
     q = d.reshape(2, 4, 16)
     assert torch.equal(hamming.hamming_pairwise_batched(q, q),

@@ -24,8 +24,14 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROFILE_FROM = 24   # frames before this one warm up; the rest are profiled
 # the __global__ functions of csrc/*.cu
-HAND_KERNELS = ("fast_nms_kernel", "orb_describe_kernel", "reset_keys", "match_rows", "match_finish",
-                "pairwise_batched", "pose_lm_solve", "assign_tile", "finish", "score")
+HAND_KERNELS = ("pyramid_fast_nms", "orb_describe_kernel", "hamming_match_fused",
+                "pairwise_batched", "pose_lm_solve", "reset_keys", "assign_tile", "finish", "score")
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key's function name: no return type, template or arguments."""
+    name = key.split("(")[0].split("<")[0]
+    return name[5:] if name.startswith("void ") else name
 
 
 def main():
@@ -84,7 +90,7 @@ def main():
     if mul:
         print(f"aten::mul: {mul[0].count} calls, {mul[0].count / n_prof:.1f} a profiled frame")
     for e in events:
-        if e.device_type == DeviceType.CUDA and e.key.split("(")[0] in HAND_KERNELS:
+        if e.device_type == DeviceType.CUDA and kernel_name(e.key) in HAND_KERNELS:
             print(f"hand kernel {e.key[:60]}: {e.count} launches, device "
                   f"{e.self_device_time_total / 1e3:.3f} ms, {e.self_device_time_total / e.count:.2f} us each")
     print(events.table(sort_by="self_device_time_total", row_limit=20))
