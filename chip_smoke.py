@@ -11,24 +11,28 @@ Phases (any failure exits non-zero):
      shapes of the main path (PlaneScene seed 1, VGA, 8 levels, 1024
      keypoints, the trained 16384-word vocabulary), and time both with
      CUDA events: kernel 1 (a frame's whole pyramid, blur, FAST, NMS and
-     margin) on frame 0, all four stacks; kernel 3 with every gate kind:
+     margin) on frame 0, all four stacks; kernel 2 (a frame's selection,
+     angle and BRIEF, two launches) from kernel 1's stacks of frames 0 and
+     4, keypoints exact, angles and descriptors within the tolerances;
+     kernel 3 with every gate kind:
      window + octave band at B = 1 (4096 x 1024 and 1024 x 1024), the
      initialization window, a dense mask, the epipolar gate at B = 20
      (frame 0 against frames 1-20) and validity only at B = 8 with a shared
      desc2; kernel 4 (the whole pose LM) on 1024 synthetic edges, once mono
-     and once half stereo;
+     and once half stereo; kernel 5 exactly on the trained vocabulary, on
+     the vocabulary with every word duplicated and at N = 1000, W = 16383;
   4. run the monocular System (``mono_slice_config``: relocalization and
      keyframe culling on) through ``System.track_mono`` on 48 frames at
      VGA / 1024 features / 8 levels, with every launch counter reset just
      before, and check tracking state, keyframes, map points, ATE, that
-     kernels 1-5 were launched, kernel 1 once per frame, kernel 3 once per
+     kernels 1-5 were launched, kernels 1 and 2 once per frame, kernel 3 once per
      matcher call and once per keyframe-chain triangulation, and kernel 4
      once per ``optimize_pose`` call; then compare kernel 4 with its twin
      on the edges of one real local-map call and time both;
   5. a kidnapped run at the same width: a 64-frame sweep, then a jump back
      to frame 4 and three frames from there, counters reset just before;
      check that the jump frame is tracked after a relocalization, that all
-     six kernels were launched (kernel 1 once per frame, kernel 3 once per
+     six kernels were launched (kernels 1 and 2 once per frame, kernel 3 once per
      matcher call and once per relocalization attempt, kernel 4 once per
      ``optimize_pose`` call plus once per relocalization polish), the final
      state and the ATE;
@@ -36,13 +40,18 @@ Phases (any failure exits non-zero):
      relocalization gave them (8 candidates x 256 hypotheses x 1024 points;
      the batch of polished candidates) and time kernel 6 and its twin.
 Kernel times are one CUDA-event pair around 100 back-to-back calls after a
-warm-up, divided by the count.  Each kernel's bound is the larger of its
-bytes (inputs read once, outputs written once) over 3.35 TB/s and its
-operations over 67 T/s (f32 outside the tensor cores, the H100 SXM data
-sheet; 32-bit integer work is counted at the same rate), from the shapes and
-data of this run.  The line before the last is a JSON object with
-per-kernel results; the last line is the device summary.  Imports nothing
-of JAX.
+warm-up, divided by the count; the device kernels of one call (kernel 2:
+two, every other: one) are counted in torch.profiler's CUDA trace.  Each
+kernel's bound is the larger of its bytes (inputs read once, outputs
+written once) over 3.35 TB/s and its operations over the card's peak for
+their type (the H100 SXM data sheet):
+67 T/s for f32 outside the tensor cores, 32-bit integer work counted at the
+same rate; kernel 5's AND-popcounts at the 1,979 T/s int8 dense tensor rate
+(no 1-bit rate is published), from the shapes and data of this run.
+``library_ms`` is one PyTorch call (two where stated) computing the same
+function on the same inputs, where there is one.  The line before the last
+is a JSON object with per-kernel results; the last line is the device
+summary.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -83,11 +92,14 @@ SOURCES = {
                   "orb_slam2_annotate_tpu/solvers/pnp.py:90", "pnp_score"),
 }
 PEAK_OPS = 67e12      # /s: f32 outside the tensor cores (H100 SXM); 32-bit integer work alike
+PEAK_INT8_TC = 1.979e15  # /s: int8 dense tensor cores (H100 SXM); kernel 5's 1-bit products
 PEAK_BYTES = 3.35e12  # /s: HBM3
 # operations per unit of work, counted from each kernel's source
 FAST_OPS_PER_PIXEL = 605       # 16 differences, 2 arcs x 16 starts x (1 + 8 x 2) + 16 maxima, NMS
 DESCRIBE_OPS_PER_KP = 10150    # 961 x 6 moment terms, 961 x 4 variance terms, 512 compares
-DESCRIBE_BYTES_PER_KP = 8021   # 961-float patch, 1024 blurred samples, keypoint in, angle + desc out
+DESCRIBE_BYTES_PER_KP = 7940   # 961-float patch, 1024 blurred samples
+SLOT_BYTES = 85                # a keypoint out: xy, response, octave, angle, desc, valid
+SELECT_OPS_PER_PIXEL = 4       # the bonus add, s > 0, the select, the running maximum
 HAMMING_OPS_PER_PAIR = 48      # 16 x (xor, popcount, add)
 WINDOW_GATE_OPS = 9            # 2 differences, 2 products, a sum, a compare, 2 octave compares, and
 EPIPOLAR_GATE_OPS = 7          # 2 products, 2 sums, a square, a division, a compare
@@ -117,9 +129,44 @@ def time_ms(fn, reps: int = 100) -> float:
     return a.elapsed_time(b) / reps
 
 
-def bound(nbytes: float, ops: float):
-    """(least time in ms, what bounds it) for this work on the card."""
-    t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * ops / PEAK_OPS
+def device_kernels(fn, expected: int, reps: int = 5, sessions: int = 3) -> dict:
+    """The device kernels that one call of `fn` launches, read from
+    torch.profiler's CUDA trace: a traced warm-up step of `reps` calls,
+    discarded (kernels launched just as a trace starts can be missing from
+    it), then a counted step of `reps` calls.  Fails if the trace shows
+    more than `expected` kernels a call; a session that shows fewer lost
+    some, and is made again, up to `sessions` times.  Memory copies and sets
+    are listed but are not kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)]
+        kern = [n for n in names if not n.startswith(("Memcpy", "Memset"))]
+        if len(kern) > expected * reps:
+            fail(f"{expected} device kernels a call expected, {reps} calls show {names}")
+        if len(kern) == expected * reps:
+            return {"device_launches_per_call": expected, "device_ops": names[:len(names) // reps]}
+        print(f"device_kernels: {len(kern)} kernels in the trace of {reps} calls; again")
+    fail(f"{expected} device kernels a call expected, {reps} calls show {names}")
+
+
+def bound(nbytes: float, ops: float, tc_ops: float = 0.0):
+    """(least time in ms, what bounds it) for this work on the card: `ops` on
+    the CUDA cores, `tc_ops` on the int8 tensor cores (the two overlap)."""
+    t_bytes = 1e3 * nbytes / PEAK_BYTES
+    t_ops = max(1e3 * ops / PEAK_OPS, 1e3 * tc_ops / PEAK_INT8_TC)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -198,6 +245,8 @@ def main():
     from orb_slam2_annotate_tpu_torch.kernels import pnp_score as k6
     from orb_slam2_annotate_tpu_torch.kernels import pose_lm as k4
     from orb_slam2_annotate_tpu_torch.ops import extractor, matching, orb, pyramid
+    from orb_slam2_annotate_tpu_torch.ops import hamming as hamming_ops
+    from orb_slam2_annotate_tpu_torch.ops.orb import N_BITS
     from orb_slam2_annotate_tpu_torch.pipeline import System, local_mapping, tracking
     from orb_slam2_annotate_tpu_torch.pipeline.loop_closing import TRAINED_VOCAB
     from orb_slam2_annotate_tpu_torch.solvers import pnp as pnp_mod
@@ -224,12 +273,13 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
 
-    def record(name, err, ms, plain_ms, nbytes, ops, **extra):
-        bound_ms, bound_by = bound(nbytes, ops)
+    def record(name, err, ms, plain_ms, nbytes, ops, tc_ops=0.0, **extra):
+        bound_ms, bound_by = bound(nbytes, ops, tc_ops)
         results[name] = {"max_abs_err": float(err), "ms": float(ms), "plain_ms": float(plain_ms),
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, **extra}
         print(f"kernel {name}: max_abs_err {err} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes:.4g} B, {ops:.4g} ops) {extra or ''}")
+              f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes:.4g} B, {ops:.4g} ops, "
+              f"{tc_ops:.4g} tensor-core ops) {extra or ''}")
 
     # kernel 1: the whole pyramid of frame 0, all four stacks
     fast_args = (cfg.th_fast_lo, cfg.th_fast_hi, cfg.margin)
@@ -255,27 +305,41 @@ def main():
            time_ms(lambda: k1.fast_nms_frame_plain(image, lt, *fast_args), 10),
            4 * H0 * W0 + cfg.n_levels * H0 * W0 * (3 * 4 + 1),
            resize_ops + (BLUR_OPS_PER_PIXEL + FAST_OPS_PER_PIXEL) * pixels, bit_exact=exact1,
-           launches_per_frame=1)
+           **device_kernels(lambda: k1.fast_nms(image, lt, *fast_args), 1))
 
-    # kernel 2: the frame's 1024 keypoints
-    pyr3, pyr3b, score1, is_hi1 = got1
-    budgets = pyramid.features_per_level(cfg.n_features, cfg.n_levels, cfg.scale)
-    parts = [extractor.select_level(score1[l, :h, :w], is_hi1[l, :h, :w], b, l)
-             for l, ((h, w), b) in enumerate(zip(lt.shapes, budgets))]
-    xy_l, _, octv, valid = (torch.cat([p[i] for p in parts]) for i in range(4))
-    args2 = (pyr3, pyr3b, lt.level_hw, xy_l.contiguous(), octv, valid, tab)
-    a_k, d_k = k2.orb_describe(*args2)
-    a_p, d_p = k2.orb_describe_plain(*args2)
-    torch.cuda.synchronize()
-    ang_err = float((a_k - a_p).abs().max())
-    same_bin = orb.angle_bins(a_k) == orb.angle_bins(a_p)
-    frac = float(same_bin[valid].float().mean())
-    if ang_err > 1e-4 or frac < 0.995 or not torch.equal(d_k[same_bin], d_p[same_bin]):
-        fail(f"orb_describe: angle err {ang_err}, same-bin fraction {frac}")
-    n_kp = xy_l.shape[0]
-    record("orb_describe", ang_err, time_ms(lambda: k2.orb_describe(*args2)),
-           time_ms(lambda: k2.orb_describe_plain(*args2)), DESCRIBE_BYTES_PER_KP * n_kp,
-           DESCRIBE_OPS_PER_KP * n_kp)
+    # kernel 2: a frame's selection, angles and descriptors from kernel 1's
+    # stacks, frames 0 and 4: keypoints exact, angles and descriptors at the
+    # tolerances tests/test_torch_frontend.py holds the twin to against JAX
+    dt = k2.describe_tables(H0, W0, cfg.n_levels, cfg.scale, cfg.n_features, dev)
+    names2 = ("xy", "response", "octave", "angle", "desc", "valid")
+    ang_err, frac2 = 0.0, 1.0
+    for f in (0, 4):
+        stacks = got1 if f == 0 else k1.fast_nms(torch.from_numpy(frames[f]).to(dev).float(), lt,
+                                                 *fast_args)
+        got2 = k2.orb_describe(*stacks, dt, tab)
+        ref2 = k2.orb_describe_plain(*stacks, dt, tab)
+        torch.cuda.synchronize()
+        moved = [n for n, a, b in zip(names2, got2, ref2) if n not in ("angle", "desc")
+                 and not torch.equal(a, b)]
+        if moved:
+            fail(f"orb_describe, frame {f}: keypoints differ from the twin's in {moved}")
+        a_k, a_p = got2[3], ref2[3]
+        same_bin = orb.angle_bins(a_k) == orb.angle_bins(a_p)
+        frac = float(same_bin[ref2[5]].float().mean())
+        err = float((a_k - a_p).abs().max())
+        if err > 1e-4 or frac < 0.995 or not torch.equal(got2[4][same_bin], ref2[4][same_bin]):
+            fail(f"orb_describe, frame {f}: angle err {err}, same-bin fraction {frac}")
+        ang_err, frac2 = max(ang_err, err), min(frac2, frac)
+        print(f"orb_describe vs twin, frame {f}: keypoints exact, {int(ref2[5].sum())} valid, "
+              f"max angle err {err:.3g}, same bin {frac:.4f}")
+    sel_pixels = sum(gh * gw * cs * cs for (gh, gw), cs in zip(dt.grids, dt.cell_sizes))
+    n_valid2 = float(ref2[5].sum())
+    record("orb_describe", ang_err, time_ms(lambda: k2.orb_describe(*stacks, dt, tab)),
+           time_ms(lambda: k2.orb_describe_plain(*stacks, dt, tab), 10),
+           5 * sel_pixels + DESCRIBE_BYTES_PER_KP * n_valid2 + SLOT_BYTES * cfg.n_features,
+           SELECT_OPS_PER_PIXEL * sel_pixels + DESCRIBE_OPS_PER_KP * n_valid2,
+           keypoints_exact=True, same_bin_fraction=frac2,
+           **device_kernels(lambda: k2.orb_describe(*stacks, dt, tab), 2))
 
     # kernel 3: every gate kind, integer outputs exactly equal to the twin
     feats = [extractor.extract(torch.from_numpy(f).to(dev), tab, cfg) for f in frames[:21]]
@@ -358,7 +422,9 @@ def main():
     record("hamming_match", err3, match_ms("window+octave B=1 4096x1024"),
            time_ms(lambda: k3.hamming_match_plain(*main3[:4], matching.TH_HIGH, 0.8, False, main3[4]),
                    10),
-           *match_work(*main3[:5]), **extra3)
+           *match_work(*main3[:5]), **extra3,
+           **device_kernels(lambda: k3.hamming_match(*main3[:4], matching.TH_HIGH, 0.8, False,
+                                                     main3[4]), 1))
     pick = torch.randint(0, d1.shape[0], (4096, 32), generator=gen, device=dev)
     q = d1[pick].contiguous()                                         # [4096, 32, 16]
     pk = k3.hamming_pairwise_batched(q, q)
@@ -370,7 +436,14 @@ def main():
     record("hamming_pairwise_batched", int((pk - pp).abs().max()),
            time_ms(lambda: k3.hamming_pairwise_batched(q, q)),
            time_ms(lambda: k3.hamming_pairwise_batched_plain(q, q), 10),
-           2 * q.numel() * 4 + Q * M * M * 4, HAMMING_OPS_PER_PAIR * Q * M * M)
+           2 * q.numel() * 4 + Q * M * M * 4, HAMMING_OPS_PER_PAIR * Q * M * M,
+           **device_kernels(lambda: k3.hamming_pairwise_batched(q, q), 1),
+           library="torch.bmm of the +-1 forms [4096,32,512] x [4096,512,32] (TF32 off)")
+    qs = hamming_ops.unpack_signs(q.reshape(-1, q.shape[-1])).reshape(Q, M, N_BITS)
+    qst = qs.transpose(1, 2).contiguous()
+    if not torch.equal(((N_BITS - torch.bmm(qs, qst)) * 0.5).to(torch.int32), pk):
+        fail("hamming_pairwise_batched: the library formulation disagrees with the kernel")
+    results["hamming_pairwise_batched"]["library_ms"] = time_ms(lambda: torch.bmm(qs, qst))
 
     # kernel 4: the whole pose LM against its twin, at the tolerances
     # tests/test_torch_pose_opt.py holds the twin to against JAX
@@ -447,19 +520,42 @@ def main():
                "bound_ms_b8": bound(*pose_lm_work(args_b8[3], ur_mono, args_b8[7]))[0]}
     print(f"pose_lm_solve synthetic: {json.dumps(pose_b8)}")
 
-    # kernel 5: the 1024 descriptors of frame 4 against the trained vocabulary
+    # kernel 5: exact against its twin on the 1024 descriptors of frame 4 and
+    # the trained vocabulary, on that vocabulary with every word twice (the
+    # lower of two equal words must win) and at ragged N = 1000, W = 16383
     vocab = vocabulary.load_vocabulary(TRAINED_VOCAB, device=dev)
-    args5 = (cur.desc, vocab.words, cur.valid)
-    w_k = k5.assign_words(*args5)
-    w_p = k5.assign_words_plain(*args5, vocab.signs)
-    torch.cuda.synchronize()
-    if vocab.n_words != 16384 or not torch.equal(w_k, w_p):
-        fail(f"assign_words differs from its plain twin ({int((w_k != w_p).sum())} rows)")
+    if vocab.n_words != 16384:
+        fail(f"trained vocabulary of {vocab.n_words} words")
+    cases5 = {"trained 1024 x 16384": (cur.desc, vocab.words, cur.valid),
+              "duplicated words 1024 x 32768": (cur.desc, vocab.words.repeat_interleave(2, 0),
+                                                cur.valid),
+              "ragged 1000 x 16383": (cur.desc[:1000].contiguous(), vocab.words[:16383].contiguous(),
+                                      cur.valid[:1000].contiguous())}
+    err5 = 0
+    for name, args in cases5.items():
+        w_k = k5.assign_words(*args)
+        w_p = k5.assign_words_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(w_k, w_p):
+            fail(f"assign_words differs from its plain twin, {name} ({int((w_k != w_p).sum())} rows)")
+        err5 = max(err5, int((w_k - w_p).abs().max()))
+    print(f"assign_words vs twin: equal on {list(cases5)}")
+    args5 = cases5["trained 1024 x 16384"]
     n_desc, n_words = float(cur.valid.sum()), vocab.words.shape[0]
-    record("assign_words", int((w_k - w_p).abs().max()), time_ms(lambda: k5.assign_words(*args5)),
+    # one PyTorch formulation: the +-1 forms' product (TF32 off), then the argmin
+    sd, neg_sw = hamming_ops.unpack_signs(cur.desc), -vocab.signs.T.contiguous()
+    library5 = lambda: torch.argmin(sd @ neg_sw, 1)
+    if not torch.equal(torch.where(cur.valid, library5(), -1).to(torch.int32),
+                       k5.assign_words(*args5)):
+        fail("assign_words: the library formulation disagrees with the kernel")
+    record("assign_words", err5, time_ms(lambda: k5.assign_words(*args5)),
            time_ms(lambda: k5.assign_words_plain(*args5, vocab.signs), 20),
            64 * (cur.desc.shape[0] + n_words) + 5 * cur.desc.shape[0],
-           HAMMING_OPS_PER_PAIR * n_desc * n_words)
+           2 * n_desc * n_words, tc_ops=2 * N_BITS * n_desc * n_words,
+           **device_kernels(lambda: k5.assign_words(*args5), 1), cases=list(cases5),
+           library="torch.matmul of the +-1 forms [1024,512] x [512,16384], then torch.argmin "
+                   "(two calls, TF32 off)")
+    results["assign_words"]["library_ms"] = time_ms(library5)
 
     def drive(name, slam, images, counted):
         """One main-path run: counters zeroed just before, read just after;
@@ -537,6 +633,7 @@ def main():
               f"ATE < {ATE_BOUND}": ate < ATE_BOUND,
               "one pose_lm_solve launch per optimize_pose": launches4["optimize_pose_batched"] == calls4,
               "one fast_nms launch per frame": launches4["fast_nms"] == N_FRAMES,
+              "one orb_describe call per frame": launches4["orb_describe"] == N_FRAMES,
               "one hamming_match launch per matcher call": launches4["hamming_match"] == match_calls4,
               "one matcher launch per triangulation": len(tri4) > 0 and set(tri4) == {1},
               "a local-map call captured": "args" in captured_lm}
@@ -551,7 +648,8 @@ def main():
     err4 = max(err4, check_pose_lm("captured local-map call", args_lm))
     record("pose_lm_solve", err4, time_ms(lambda: k4.optimize_pose_batched(*args_lm)),
            time_ms(lambda: k4.optimize_pose_batched_plain(*args_lm), 10),
-           *pose_lm_work(args_lm[3], args_lm[5], args_lm[7]), **pose_b8)
+           *pose_lm_work(args_lm[3], args_lm[5], args_lm[7]), **pose_b8,
+           **device_kernels(lambda: k4.optimize_pose_batched(*args_lm), 1))
 
     # ---- phase 5: kidnapped run; the jump frame must relocalize
     t0 = time.perf_counter()
@@ -603,6 +701,7 @@ def main():
               "state OK": slam5.state == "OK", f"ATE < {ATE_BOUND}": ate5 < ATE_BOUND,
               "a relocalization polish ran": len(polish_sizes) > 0,
               "one fast_nms launch per frame": launches5["fast_nms"] == len(seq),
+              "one orb_describe call per frame": launches5["orb_describe"] == len(seq),
               "one hamming_match launch per matcher call": launches5["hamming_match"] == match_calls5,
               "one matcher launch per relocalization attempt":
                   len(reloc_launches) > 0 and set(reloc_launches) == {1},
@@ -624,7 +723,8 @@ def main():
            time_ms(lambda: k6.pnp_score_plain(*args6)),
            4 * (Rs6.numel() + ts6.numel() + xw6.numel() + uv6.numel()) + v6.numel()
            + 4 * Rs6.shape[0] * Rs6.shape[1],
-           PNP_OPS_PER_REPROJECTION * Rs6.shape[1] * float(v6.sum()))
+           PNP_OPS_PER_REPROJECTION * Rs6.shape[1] * float(v6.sum()),
+           **device_kernels(lambda: k6.pnp_score(*args6), 1))
     err_polish = check_pose_lm("relocalization polish batch", captured["polish"],
                                min_inliers=RELOC_MIN_INLIERS)
     results["pose_lm_solve"]["max_abs_err"] = max(results["pose_lm_solve"]["max_abs_err"], err_polish)

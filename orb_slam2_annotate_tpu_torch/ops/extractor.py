@@ -1,7 +1,8 @@
-"""End-to-end ORB extraction for one frame (port of ops/extractor.py):
-pyramid + blur + FAST + NMS + margin for every level (kernel 1, one launch)
--> per-cell selection -> IC angle + steered BRIEF (kernel 2, all levels)
--> level-0 coordinates."""
+"""End-to-end ORB extraction for one frame (port of ops/extractor.py), two
+wrapper calls: pyramid + blur + FAST + NMS + margin for every level
+(kernel 1, one launch), then per-cell selection + IC angle + steered BRIEF
+for every level, in level-0 coordinates and padded or cut to n_features
+(kernel 2, two launches)."""
 
 from __future__ import annotations
 
@@ -11,8 +12,8 @@ from typing import NamedTuple
 import torch
 
 from ..kernels.fast_nms import fast_nms
-from ..kernels.orb_describe import orb_describe
-from . import orb, pyramid, select
+from ..kernels.orb_describe import describe_tables, orb_describe
+from . import orb
 
 
 class ExtractorConfig(NamedTuple):
@@ -38,40 +39,12 @@ class Features:
     valid: torch.Tensor
 
 
-def select_level(score: torch.Tensor, is_hi: torch.Tensor, budget: int, level: int):
-    """Corners of one level from its [h,w] score / is_hi: (xy [budget,2]
-    level coords, resp, octave, valid)."""
-    xy, resp, valid = select.select_keypoints(score, is_hi, budget)
-    octave = torch.full((budget,), level, dtype=torch.int32, device=score.device)
-    return xy, resp, octave, valid
-
-
 def extract(image: torch.Tensor, tab: orb.OrbTables,
             cfg: ExtractorConfig = ExtractorConfig()) -> Features:
     """image: [H,W] grayscale in [0,255] (u8 or f32), on the device to run on."""
     image = image.to(torch.float32).contiguous()
-    dev = image.device
-    lt = pyramid.level_tables(image.shape[0], image.shape[1], cfg.n_levels, cfg.scale, dev)
-    pyr3, pyr3_blur, score, is_hi = fast_nms(image, lt, cfg.th_fast_lo, cfg.th_fast_hi, cfg.margin)
-    budgets = pyramid.features_per_level(cfg.n_features, cfg.n_levels, cfg.scale)
-    parts = [select_level(score[l, :h, :w], is_hi[l, :h, :w], b, l)
-             for l, ((h, w), b) in enumerate(zip(lt.shapes, budgets))]
-    xy_l, resp, octv, valid = (torch.cat([p[i] for p in parts]) for i in range(4))
-    ang, desc = orb_describe(pyr3, pyr3_blur, lt.level_hw, xy_l.contiguous(), octv, valid, tab)
-
-    feats = Features(xy_l * lt.scales[octv.long()][:, None], resp, octv, ang, desc, valid)
-    n = feats.xy.shape[0]
-    if n < cfg.n_features:
-        pad = cfg.n_features - n
-        feats = Features(
-            torch.cat([feats.xy, torch.zeros(pad, 2, device=dev)]),
-            torch.cat([feats.response, torch.zeros(pad, device=dev)]),
-            torch.cat([feats.octave, torch.zeros(pad, dtype=torch.int32, device=dev)]),
-            torch.cat([feats.angle, torch.zeros(pad, device=dev)]),
-            torch.cat([feats.desc, torch.zeros(pad, orb.DESC_WORDS, dtype=torch.int32, device=dev)]),
-            torch.cat([feats.valid, torch.zeros(pad, dtype=torch.bool, device=dev)]),
-        )
-    elif n > cfg.n_features:
-        feats = Features(*(getattr(feats, f.name)[: cfg.n_features]
-                           for f in dataclasses.fields(Features)))
-    return feats
+    H, W = image.shape
+    dt = describe_tables(H, W, cfg.n_levels, cfg.scale, cfg.n_features, image.device)
+    pyr3, pyr3_blur, score, is_hi = fast_nms(image, dt.lt, cfg.th_fast_lo, cfg.th_fast_hi,
+                                             cfg.margin)
+    return Features(*orb_describe(pyr3, pyr3_blur, score, is_hi, dt, tab))

@@ -49,11 +49,16 @@ def rotated_offsets(pattern: np.ndarray) -> np.ndarray:
     return out
 
 
+def circle_umax() -> np.ndarray:
+    """[HALF_PATCH + 1] int32: the patch circle's half-width at row offset |dy|."""
+    v = np.arange(HALF_PATCH + 1)
+    return np.floor(np.sqrt(np.maximum(HALF_PATCH**2 - v**2, 0)) + 0.5).astype(np.int32)
+
+
 def _circular_grids():
-    v = np.arange(-HALF_PATCH, HALF_PATCH + 1)
-    umax = np.floor(np.sqrt(np.maximum(HALF_PATCH**2 - v**2, 0)) + 0.5).astype(np.int32)
+    umax = circle_umax()
     Y, X = np.mgrid[-HALF_PATCH: HALF_PATCH + 1, -HALF_PATCH: HALF_PATCH + 1]
-    circ = (np.abs(X) <= umax[Y + HALF_PATCH]).astype(np.float32)
+    circ = (np.abs(X) <= umax[np.abs(Y)]).astype(np.float32)
     return X.astype(np.float32) * circ, Y.astype(np.float32) * circ, circ
 
 

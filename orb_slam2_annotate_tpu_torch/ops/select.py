@@ -1,5 +1,8 @@
 """Spatially uniform keypoint selection (port of ops/select.py): per-cell
-argmax (first index), then a stable top-k over the cell winners."""
+argmax (first index), then a stable top-k over the cell winners.
+
+This is the plain half of kernel 2's twin (``kernels/orb_describe.py``); on
+the card the kernel's first stage selects, and nothing here runs."""
 
 from __future__ import annotations
 
@@ -53,3 +56,11 @@ def select_keypoints(score: torch.Tensor, is_hi: torch.Tensor, budget: int,
         resp = torch.cat([resp, torch.zeros(pad, device=dev)])
         valid = torch.cat([valid, torch.zeros(pad, dtype=torch.bool, device=dev)])
     return xy, resp, valid
+
+
+def select_level(score: torch.Tensor, is_hi: torch.Tensor, budget: int, level: int):
+    """Corners of one level from its [h,w] score / is_hi: (xy [budget,2]
+    level coords, resp, octave, valid)."""
+    xy, resp, valid = select_keypoints(score, is_hi, budget)
+    octave = torch.full((budget,), level, dtype=torch.int32, device=score.device)
+    return xy, resp, octave, valid

@@ -2,9 +2,11 @@
 
 Words are [W, 16] int32 bit patterns (the reference's uint32 words viewed as
 int32, like every descriptor of the port).  Word assignment is kernel 5
-(``kernels/assign_words``); BoW vectors, L1 scores and candidate retrieval
-are plain torch.  Scoring is DBoW2's L1 score on L1-normalised TF-IDF
-vectors: s(v, w) = 1 - 0.5 * |v - w|_1.
+(``kernels/assign_words``): on the card one launch a call, whose 1-bit
+tensor-core pass finds each descriptor's nearest word without a distance
+matrix.  BoW vectors, L1 scores and candidate retrieval are plain torch.
+Scoring is DBoW2's L1 score on L1-normalised TF-IDF vectors:
+s(v, w) = 1 - 0.5 * |v - w|_1.
 """
 
 from __future__ import annotations

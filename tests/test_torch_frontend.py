@@ -115,8 +115,8 @@ def test_patches_angles_descriptors(jax_levels):
     ang_j = np.asarray(jorb.ic_angles_patches(p_j, jnp.asarray(valid), tab_j))
     desc_j = np.asarray(jorb.brief_descriptors_patches(pb_j, jnp.asarray(ang_j), jnp.asarray(valid),
                                                        tab_j)).view(np.int32)
-    ang_t, desc_t = tk2.orb_describe(T(pyr3), T(pyr3b), hw_t.to(torch.int32), T(xy), T(octv),
-                                     T(valid), tab_t)
+    ang_t, desc_t = tk2.describe_keypoints_plain(T(pyr3), T(pyr3b), hw_t.to(torch.int32), T(xy),
+                                                 T(octv), T(valid), tab_t)
     np.testing.assert_allclose(ang_t.numpy(), ang_j, atol=1e-4)
     same = (torb.angle_bins(ang_t) == torb.angle_bins(T(ang_j))).numpy()
     assert same[valid].mean() >= 0.995

@@ -147,14 +147,11 @@ def test_wrappers_take_plain_path_on_cpu():
     rng = np.random.RandomState(1)
     img = torch.from_numpy((rng.rand(64, 80) * 255).astype(np.float32))
     lt = tpyr.level_tables(64, 80, 2, 1.2, "cpu")
-    for a, b in zip(fast_nms.fast_nms(img, lt, 7.0, 20.0, 19),
-                    fast_nms.fast_nms_frame_plain(img, lt, 7.0, 20.0, 19)):
+    stacks = fast_nms.fast_nms(img, lt, 7.0, 20.0, 19)
+    for a, b in zip(stacks, fast_nms.fast_nms_frame_plain(img, lt, 7.0, 20.0, 19)):
         assert torch.equal(a, b)
     tab = torb.OrbTables()
-    pyr = img[None].contiguous()
-    kps = torch.tensor([[30.0, 30.0], [40.0, 33.0]])
-    args = (pyr, pyr, torch.tensor([[64, 80]], dtype=torch.int32), kps,
-            torch.zeros(2, dtype=torch.int32), torch.ones(2, dtype=torch.bool), tab)
+    args = (*stacks, orb_describe.describe_tables(64, 80, 2, 1.2, 64, "cpu"), tab)
     for a, b in zip(orb_describe.orb_describe(*args), orb_describe.orb_describe_plain(*args)):
         assert torch.equal(a, b)
     d = torch.from_numpy(rng.randint(-2**31, 2**31, (8, 16)).astype(np.int32))

@@ -8,14 +8,17 @@ Runs chip_smoke.py's slice (its ``slice_setup``: VGA / 1024 features /
 host clock (ending in a device synchronize), then records the frames from
 PROFILE_FROM on with ``torch.profiler``.  Prints per-stage span
 totals and per-frame means (the System's record_function spans), the
-host-issued ``aten::mul`` calls per frame, the device time of each
+host-issued ``aten::mul`` calls per frame, the aten ops (and ``aten::sort``
+calls) under ``frontend/extract``, the device time of each
 hand-written kernel, the top device kernels by total time, and the device
 busy share of the profiled window, with the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import glob
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -23,9 +26,26 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROFILE_FROM = 24   # frames before this one warm up; the rest are profiled
-# the __global__ functions of csrc/*.cu
-HAND_KERNELS = ("pyramid_fast_nms", "orb_describe_kernel", "hamming_match_fused",
-                "pairwise_batched", "pose_lm_solve", "reset_keys", "assign_tile", "finish", "score")
+
+
+def hand_kernels() -> set:
+    """The __global__ functions of the checkout's csrc/*.cu."""
+    names = set()
+    for path in glob.glob(os.path.join(ROOT, "orb_slam2_annotate_tpu_torch", "csrc", "*.cu")):
+        with open(path) as f:
+            names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+                                    f.read()))
+    return names
+
+
+def inside(event, span: str) -> bool:
+    """Whether a profiler event ran under the record_function span `span`."""
+    p = event.cpu_parent
+    while p is not None:
+        if p.name == span:
+            return True
+        p = p.cpu_parent
+    return False
 
 
 def kernel_name(key: str) -> str:
@@ -86,11 +106,16 @@ def main():
         if hit:
             print(f"span {name}: count {hit[0].count} host total {hit[0].cpu_time_total / 1e3:.1f} ms, "
                   f"{hit[0].cpu_time_total / 1e3 / n_prof:.1f} ms a profiled frame")
+    in_extract = [e for e in prof.events() if e.name.startswith("aten::")
+                  and inside(e, "frontend/extract")]
+    print(f"frontend/extract: {len(in_extract) / n_prof:.1f} aten ops a profiled frame (nested "
+          f"included), aten::sort {sum(e.name == 'aten::sort' for e in in_extract)}")
     mul = [e for e in events if e.key == "aten::mul"]
     if mul:
         print(f"aten::mul: {mul[0].count} calls, {mul[0].count / n_prof:.1f} a profiled frame")
+    hand = hand_kernels()
     for e in events:
-        if e.device_type == DeviceType.CUDA and kernel_name(e.key) in HAND_KERNELS:
+        if e.device_type == DeviceType.CUDA and kernel_name(e.key) in hand:
             print(f"hand kernel {e.key[:60]}: {e.count} launches, device "
                   f"{e.self_device_time_total / 1e3:.3f} ms, {e.self_device_time_total / e.count:.2f} us each")
     print(events.table(sort_by="self_device_time_total", row_limit=20))
