@@ -7,7 +7,7 @@ Phases (any failure exits non-zero):
   1. print the card's name and power limit; require CUDA;
   2. build every CUDA kernel from csrc/ with nvcc, one process per source,
      all started together;
-  3. compare kernels 1-5 with their plain torch twins on the card, at the
+  3. compare kernels 1-5 and 3b with their plain torch twins on the card, at the
      shapes of the main path (PlaneScene seed 1, VGA, 8 levels, 1024
      keypoints, the trained 16384-word vocabulary), and time both with
      CUDA events: kernel 1 (a frame's whole pyramid, blur, FAST, NMS and
@@ -18,36 +18,47 @@ Phases (any failure exits non-zero):
      window + octave band at B = 1 (4096 x 1024 and 1024 x 1024), the
      initialization window, a dense mask, the epipolar gate at B = 20
      (frame 0 against frames 1-20) and validity only at B = 8 with a shared
-     desc2; kernel 4 (the whole pose LM) on 1024 synthetic edges, once mono
-     and once half stereo; kernel 5 exactly on the trained vocabulary, on
-     the vocabulary with every word duplicated and at N = 1000, W = 16383;
+     desc2; kernel 3b (each map point's distinctive descriptor) exactly, on
+     random tables at Q = 4096 and on counts 0, 1, 2, 31, 32, tied medians
+     and repeated descriptors; kernel 4 (the whole pose LM) on 1024
+     synthetic edges, once mono and once half stereo; kernel 5 exactly on
+     the trained vocabulary, on the vocabulary with every word duplicated
+     and at N = 1000, W = 16383;
   4. run the monocular System (``mono_slice_config``: relocalization and
      keyframe culling on) through ``System.track_mono`` on 48 frames at
      VGA / 1024 features / 8 levels, with every launch counter reset just
      before, and check tracking state, keyframes, map points, ATE, that
      kernels 1-5 were launched, kernels 1 and 2 once per frame, kernel 3 once per
-     matcher call and once per keyframe-chain triangulation, and kernel 4
-     once per ``optimize_pose`` call; then compare kernel 4 with its twin
-     on the edges of one real local-map call and time both;
+     matcher call and once per keyframe-chain triangulation, kernel 3b once
+     per map-point stats refresh, and kernel 4 once per ``optimize_pose``
+     call; then compare kernel 3b with its twin on the table of one
+     keyframe-chain refresh, and kernel 4 on the edges of one real
+     local-map call, and time both;
   5. a kidnapped run at the same width: a 64-frame sweep, then a jump back
      to frame 4 and three frames from there, counters reset just before;
      check that the jump frame is tracked after a relocalization, that all
-     six kernels were launched (kernels 1 and 2 once per frame, kernel 3 once per
+     kernels were launched (kernels 1 and 2 once per frame, kernel 3 once per
      matcher call and once per relocalization attempt, kernel 4 once per
-     ``optimize_pose`` call plus once per relocalization polish), the final
-     state and the ATE;
+     ``optimize_pose`` call plus once per relocalization polish, kernel 6
+     once per relocalization attempt), the final state and the ATE;
      then compare kernels 6 and 4 with their twins on the inputs the
-     relocalization gave them (8 candidates x 256 hypotheses x 1024 points;
-     the batch of polished candidates) and time kernel 6 and its twin.
+     relocalization gave them (8 candidates x 256 hypotheses x 1024 points:
+     every output of kernel 6 bit for bit, so counts and each candidate's
+     best equal and the best R and t within 1e-5; the batch of polished
+     candidates) and time kernel 6 and its twin; print the observation
+     counts kernel 3b saw in the refreshes of phases 4 and 5.
 Kernel times are one CUDA-event pair around 100 back-to-back calls after a
-warm-up, divided by the count; the device kernels of one call (kernel 2:
-two, every other: one) are counted in torch.profiler's CUDA trace.  Each
+warm-up, divided by the count; kernels 3b and 6 also give ``graph_us``, the
+device time a call in a replay of 50 calls captured into one CUDA graph;
+the device kernels of one call (kernel 2:
+two, every other: one) are counted in a CUDA-graph capture of the call.  Each
 kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its operations over the card's peak for
 their type (the H100 SXM data sheet):
 67 T/s for f32 outside the tensor cores, 32-bit integer work counted at the
-same rate; kernel 5's AND-popcounts at the 1,979 T/s int8 dense tensor rate
-(no 1-bit rate is published), from the shapes and data of this run.
+same rate; the AND-popcounts of kernels 5 and 3b at the 1,979 T/s int8 dense
+tensor rate (no 1-bit rate is published), from the shapes and data of this
+run.
 ``library_ms`` is one PyTorch call (two where stated) computing the same
 function on the same inputs, where there is one.  The line before the last
 is a JSON object with per-kernel results; the last line is the device
@@ -81,15 +92,15 @@ SOURCES = {
                      "orb_slam2_annotate_tpu/ops/orb.py:256", "orb_describe"),
     "hamming_match": ("orb_slam2_annotate_tpu_torch/csrc/hamming.cu",
                       "orb_slam2_annotate_tpu/ops/matching.py:77", "hamming_match"),
-    "hamming_pairwise_batched": ("orb_slam2_annotate_tpu_torch/csrc/hamming.cu",
-                                 "orb_slam2_annotate_tpu/worldmap/map_state.py:397",
-                                 "hamming_pairwise_batched"),
+    "distinctive_descriptors": ("orb_slam2_annotate_tpu_torch/csrc/hamming.cu",
+                                "orb_slam2_annotate_tpu/worldmap/map_state.py:397",
+                                "distinctive_descriptors"),
     "pose_lm_solve": ("orb_slam2_annotate_tpu_torch/csrc/pose_lm.cu",
                       "orb_slam2_annotate_tpu/solvers/pose_opt.py:134", "optimize_pose_batched"),
     "assign_words": ("orb_slam2_annotate_tpu_torch/csrc/assign_words.cu",
                      "orb_slam2_annotate_tpu/worldmap/vocabulary.py:81", "assign_words"),
-    "pnp_score": ("orb_slam2_annotate_tpu_torch/csrc/pnp_score.cu",
-                  "orb_slam2_annotate_tpu/solvers/pnp.py:90", "pnp_score"),
+    "pnp_hypotheses": ("orb_slam2_annotate_tpu_torch/csrc/pnp_score.cu",
+                       "orb_slam2_annotate_tpu/solvers/pnp.py:87", "pnp_hypotheses"),
 }
 PEAK_OPS = 67e12      # /s: f32 outside the tensor cores (H100 SXM); 32-bit integer work alike
 PEAK_INT8_TC = 1.979e15  # /s: int8 dense tensor cores (H100 SXM); kernel 5's 1-bit products
@@ -105,6 +116,15 @@ WINDOW_GATE_OPS = 9            # 2 differences, 2 products, a sum, a compare, 2 
 EPIPOLAR_GATE_OPS = 7          # 2 products, 2 sums, a square, a division, a compare
 BLUR_OPS_PER_PIXEL = 28        # 7 + 7 multiply-adds
 PNP_OPS_PER_REPROJECTION = 33  # 18 for R x + t, 2 divisions, 13 for the residual and the test
+# a DLT hypothesis, counted from the function and not from the kernel's Jacobi
+# schedule: the 48 products of A's -u X and -v X entries; Sigma and V of the 13 x 12
+# A (Golub and Van Loan's 4 m n^2 + 8 n^3); det M (17), the cube root (10), the
+# scaling of P (12); U, Sigma, V of the 3 x 3 M (4 m^2 n + 8 m n^2 + 9 n^3 = 567),
+# R = U V^T (45), det R and the sign (26)
+PNP_DLT_OPS = 48 + (4 * 13 * 12 ** 2 + 8 * 12 ** 3) + 17 + 10 + 12 + 567 + 45 + 26
+DD_OPS_PER_PAIR = 4            # distinctive descriptor: the distance from the popcounts, a compare
+DD_BYTES_PER_ROW = 72          # an observed row read (64 B) and its two indices
+DD_BYTES_PER_POINT = 72        # the count in, the descriptor and its slot out
 POSE_OPS_PROJECT, POSE_OPS_ROW, POSE_OPS_COST, POSE_OPS_RECLASS = 45, 66, 35, 30
 
 
@@ -129,37 +149,74 @@ def time_ms(fn, reps: int = 100) -> float:
     return a.elapsed_time(b) / reps
 
 
-def device_kernels(fn, expected: int, reps: int = 5, sessions: int = 3) -> dict:
-    """The device kernels that one call of `fn` launches, read from
-    torch.profiler's CUDA trace: a traced warm-up step of `reps` calls,
-    discarded (kernels launched just as a trace starts can be missing from
-    it), then a counted step of `reps` calls.  Fails if the trace shows
-    more than `expected` kernels a call; a session that shows fewer lost
-    some, and is made again, up to `sessions` times.  Memory copies and sets
-    are listed but are not kernels."""
+def graph_us(fn, reps: int = 50) -> float:
+    """Device time of one call in microseconds: a warm-up call, then `reps`
+    calls captured into one CUDA graph, replayed once, then one CUDA-event
+    pair around a second replay, divided by `reps`.  No host work runs
+    between the kernels; the graph's gaps between launches are included."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
-    for _ in range(sessions):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for _ in range(2):
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
-        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-                 and not getattr(e, "is_user_annotation", False)]
-        kern = [n for n in names if not n.startswith(("Memcpy", "Memset"))]
-        if len(kern) > expected * reps:
-            fail(f"{expected} device kernels a call expected, {reps} calls show {names}")
-        if len(kern) == expected * reps:
-            return {"device_launches_per_call": expected, "device_ops": names[:len(names) // reps]}
-        print(f"device_kernels: {len(kern)} kernels in the trace of {reps} calls; again")
-    fail(f"{expected} device kernels a call expected, {reps} calls show {names}")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    return 1e3 * a.elapsed_time(b) / reps
+
+
+def device_kernels(fn, expected: int) -> dict:
+    """The device kernels that one call of `fn` launches: a warm-up call,
+    then one call captured into a CUDA graph, whose kernel nodes the CUDA
+    driver API's graph calls count and name (a short profiler trace can
+    lose every kernel in it; a capture records each launch and runs none).
+    Fails unless there are exactly `expected`.  Memory copies and sets are
+    listed but are not kernels."""
+    import ctypes
+
+    import torch
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(err, what):
+        if err != 0:
+            fail(f"device_kernels: {what} returned CUresult {err}")
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    kernels, others = [], []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:                      # CU_GRAPH_NODE_TYPE_KERNEL
+            others.append(kind.value)
+            continue
+        params = (ctypes.c_void_p * 16)()        # CUDA_KERNEL_NODE_PARAMS: the function first
+        check(cu.cuGraphKernelNodeGetParams(ctypes.c_void_p(node), params),
+              "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params[0])), "cuFuncGetName")
+        kernels.append(name.value.decode())
+    if len(kernels) != expected:
+        fail(f"{expected} device kernels a call expected, the captured call holds {kernels} "
+             f"(and {len(others)} other nodes)")
+    return {"device_launches_per_call": len(kernels), "device_ops": kernels,
+            "other_graph_nodes": others}
 
 
 def bound(nbytes: float, ops: float, tc_ops: float = 0.0):
@@ -207,6 +264,22 @@ def slice_setup():
     return cam, poses, frames, depths, cfg
 
 
+def kidnap_setup(cam):
+    """Phase 5's sequence: (ground-truth poses of the sweep, the frame index
+    of each image, the rendered uint8 images).  A 64-frame sweep, then a
+    jump back to frame 4 and three frames from there."""
+    import numpy as np
+
+    from orb_slam2_annotate_tpu_torch.io import synthetic
+
+    scene = synthetic.PlaneScene(seed=1)
+    gt = synthetic.orbit_trajectory(KIDNAP_SWEEP, step=KIDNAP_STEP)
+    seq = list(range(KIDNAP_SWEEP)) + [KIDNAP_JUMP + i for i in range(4)]
+    images = [np.clip(scene.render(cam, *gt[f], h=480, w=640)[0], 0, 255).astype(np.uint8)
+              for f in seq]
+    return gt, seq, images
+
+
 def ate_of(slam, gt, seq):
     """Sim3-aligned ATE over the tracked frames; gt[seq[k]] is frame k's pose."""
     import numpy as np
@@ -236,7 +309,6 @@ def main():
     sys.path.insert(0, ROOT)
     import orb_slam2_annotate_tpu_torch  # noqa: F401  (sets TF32 off)
     from orb_slam2_annotate_tpu_torch import kernels
-    from orb_slam2_annotate_tpu_torch.io import synthetic
     from orb_slam2_annotate_tpu_torch.kernels import _build
     from orb_slam2_annotate_tpu_torch.kernels import assign_words as k5
     from orb_slam2_annotate_tpu_torch.kernels import fast_nms as k1
@@ -251,7 +323,7 @@ def main():
     from orb_slam2_annotate_tpu_torch.pipeline.loop_closing import TRAINED_VOCAB
     from orb_slam2_annotate_tpu_torch.solvers import pnp as pnp_mod
     from orb_slam2_annotate_tpu_torch.solvers import pose_opt
-    from orb_slam2_annotate_tpu_torch.worldmap import vocabulary
+    from orb_slam2_annotate_tpu_torch.worldmap import map_state, vocabulary
 
     if "jax" in sys.modules:
         fail("the port imported jax")
@@ -425,25 +497,51 @@ def main():
            *match_work(*main3[:5]), **extra3,
            **device_kernels(lambda: k3.hamming_match(*main3[:4], matching.TH_HIGH, 0.8, False,
                                                      main3[4]), 1))
-    pick = torch.randint(0, d1.shape[0], (4096, 32), generator=gen, device=dev)
-    q = d1[pick].contiguous()                                         # [4096, 32, 16]
-    pk = k3.hamming_pairwise_batched(q, q)
-    pp = k3.hamming_pairwise_batched_plain(q, q)
-    torch.cuda.synchronize()
-    if not torch.equal(pk, pp):
-        fail("hamming_pairwise_batched differs from its plain twin")
-    Q, M = q.shape[:2]
-    record("hamming_pairwise_batched", int((pk - pp).abs().max()),
-           time_ms(lambda: k3.hamming_pairwise_batched(q, q)),
-           time_ms(lambda: k3.hamming_pairwise_batched_plain(q, q), 10),
-           2 * q.numel() * 4 + Q * M * M * 4, HAMMING_OPS_PER_PAIR * Q * M * M,
-           **device_kernels(lambda: k3.hamming_pairwise_batched(q, q), 1),
-           library="torch.bmm of the +-1 forms [4096,32,512] x [4096,512,32] (TF32 off)")
-    qs = hamming_ops.unpack_signs(q.reshape(-1, q.shape[-1])).reshape(Q, M, N_BITS)
-    qst = qs.transpose(1, 2).contiguous()
-    if not torch.equal(((N_BITS - torch.bmm(qs, qst)) * 0.5).to(torch.int32), pk):
-        fail("hamming_pairwise_batched: the library formulation disagrees with the kernel")
-    results["hamming_pairwise_batched"]["library_ms"] = time_ms(lambda: torch.bmm(qs, qst))
+    # kernel 3b: each point's distinctive descriptor, equal to the twin
+    # (descriptor and slot) on random tables at Q = 4096 (MAX_TOUCHED) over
+    # frames 0-20 as keyframes, and on the edge cases: every count from 0 to
+    # 32, medians all tied, descriptors repeated within a point
+    kf_desc3 = torch.stack([f.desc for f in feats]).contiguous()      # [21,1024,16]
+    K3, N3 = kf_desc3.shape[:2]
+    Q3 = 4096
+    rand_tab = (torch.randint(0, K3, (Q3, 32), generator=gen, device=dev, dtype=torch.int32),
+                torch.randint(0, N3, (Q3, 32), generator=gen, device=dev, dtype=torch.int32),
+                torch.randint(0, 33, (Q3,), generator=gen, device=dev, dtype=torch.int32))
+    e_kf = torch.randint(0, K3, (8, 32), generator=gen, device=dev, dtype=torch.int32)
+    e_ft = torch.randint(0, N3, (8, 32), generator=gen, device=dev, dtype=torch.int32)
+    e_kf[5], e_ft[5] = 3, 7                                           # one row 32 times: all tied
+    e_kf[6, :6] = e_kf[6, :3].repeat_interleave(2)                    # three rows twice each
+    e_ft[6, :6] = e_ft[6, :3].repeat_interleave(2)
+    e_kf[7, 1:], e_ft[7, 1:] = e_kf[7, :1], e_ft[7, :1]               # slot 0 repeated: all tied
+    edge_tab = (e_kf, e_ft, torch.tensor([0, 1, 2, 31, 32, 9, 6, 5], dtype=torch.int32, device=dev))
+
+    def check_distinctive(what, kf_desc, tab):
+        got = k3.distinctive_descriptors(kf_desc, *tab)
+        ref = k3.distinctive_descriptors_plain(kf_desc, *tab)
+        torch.cuda.synchronize()
+        bad = int((got[0] != ref[0]).any(1).sum()) + int((got[1] != ref[1]).sum())
+        if bad:
+            fail(f"distinctive_descriptors differs from its twin, {what}: {bad} differences")
+        print(f"distinctive_descriptors vs twin, {what}: Q {tab[0].shape[0]}, equal (descriptor "
+              f"and slot), slots used {int(ref[1].max())}")
+        return max(int((got[0] - ref[0]).abs().max()), int((got[1] - ref[1]).abs().max()))
+
+    def distinctive_work(tab):
+        """(bytes, CUDA-core operations, tensor-core operations) this table needs:
+        max(cnt, 1) observed rows a point, cnt^2 distances of 512 AND-popcounts."""
+        c = tab[2].double()
+        return (DD_BYTES_PER_POINT * c.numel() + DD_BYTES_PER_ROW * float(c.clamp_min(1).sum()),
+                DD_OPS_PER_PAIR * float((c * c).sum()), 2 * N_BITS * float((c * c).sum()))
+
+    err3b = max(check_distinctive("random tables", kf_desc3, rand_tab),
+                check_distinctive("counts 0, 1, 2, 31, 32, tied medians, repeated rows", kf_desc3,
+                                  edge_tab))
+    nb3, ops3, tc3 = distinctive_work(rand_tab)
+    record("distinctive_descriptors", err3b,
+           time_ms(lambda: k3.distinctive_descriptors(kf_desc3, *rand_tab)),
+           time_ms(lambda: k3.distinctive_descriptors_plain(kf_desc3, *rand_tab), 10),
+           nb3, ops3, tc3, graph_us=graph_us(lambda: k3.distinctive_descriptors(kf_desc3, *rand_tab)),
+           **device_kernels(lambda: k3.distinctive_descriptors(kf_desc3, *rand_tab), 1))
 
     # kernel 4: the whole pose LM against its twin, at the tolerances
     # tests/test_torch_pose_opt.py holds the twin to against JAX
@@ -612,14 +710,28 @@ def main():
             return out
         return run
 
+    # map-point stats refreshes (one kernel-3b launch each); the table of one
+    # from the second half of the slice is kept for the comparison below
+    real_stats, stats_calls, refresh_counts = map_state._stats_from_table, [0], []
+
+    def count_stats(m, pos, obs_kf, obs_ft, obs_cnt, obs_mask):
+        stats_calls[0] += 1
+        refresh_counts.append(obs_cnt.clone())
+        if "table" not in captured_lm and slam.frame_id >= N_FRAMES // 2:
+            captured_lm["table"] = (m.kf_desc.clone(), obs_kf.clone(), obs_ft.clone(), obs_cnt.clone())
+        return real_stats(m, pos, obs_kf, obs_ft, obs_cnt, obs_mask)
+
     pose_opt.optimize_pose = count_opt
     matching.match_gated = count_match
+    map_state._stats_from_table = count_stats
     local_mapping.create_new_mappoints = matcher_launches_in(real_tri, tri_launches)
     tracking.relocalize_candidates = matcher_launches_in(real_reloc, reloc_launches)
     lm_calls[0] = 0
     _, frame_s, launches4 = drive("slice", slam, frames,
-                                  [w for n, (_, _, w) in SOURCES.items() if n != "pnp_score"])
+                                  [w for n, (_, _, w) in SOURCES.items() if n != "pnp_hypotheses"])
     calls4, match_calls4, tri4 = lm_calls[0], match_calls[0], list(tri_launches)
+    stats4 = stats_calls[0]
+    counts4 = list(refresh_counts)
     print(f"slice: matcher calls {match_calls4}, matcher launches per triangulation {tri4}")
     wall = sum(frame_s)
     ate, n_tracked = ate_of(slam, poses, range(N_FRAMES))
@@ -636,14 +748,26 @@ def main():
               "one orb_describe call per frame": launches4["orb_describe"] == N_FRAMES,
               "one hamming_match launch per matcher call": launches4["hamming_match"] == match_calls4,
               "one matcher launch per triangulation": len(tri4) > 0 and set(tri4) == {1},
-              "a local-map call captured": "args" in captured_lm}
+              "one distinctive_descriptors launch per stats refresh":
+                  stats4 > 0 and launches4["distinctive_descriptors"] == stats4,
+              "a local-map call captured": "args" in captured_lm,
+              "a stats table captured": "table" in captured_lm}
     bad = [k for k, v in checks.items() if not v]
     if bad:
         fail(f"slice checks failed: {bad}")
     slice_out = {"frames_per_s": N_FRAMES / wall, "ate_m": ate, "tracked": n_tracked,
                  "keyframes": slam.n_keyframes, "map_points": slam.n_mappoints,
                  "optimize_pose_calls": calls4, "matcher_calls": match_calls4,
-                 "triangulations": len(tri4)}
+                 "triangulations": len(tri4), "stats_refreshes": stats4}
+    kf_desc_c, *table_c = captured_lm["table"]
+    err3b = max(err3b, check_distinctive("table of a keyframe-chain refresh", kf_desc_c, table_c))
+    results["distinctive_descriptors"]["max_abs_err"] = float(err3b)
+    results["distinctive_descriptors"]["captured"] = {
+        "Q": table_c[0].shape[0],
+        "ms": time_ms(lambda: k3.distinctive_descriptors(kf_desc_c, *table_c)),
+        "graph_us": graph_us(lambda: k3.distinctive_descriptors(kf_desc_c, *table_c)),
+        "bound_ms": bound(*distinctive_work(table_c))[0],
+        "counts_histogram": torch.bincount(table_c[2].long(), minlength=33).tolist()}
     args_lm = captured_lm["args"]
     err4 = max(err4, check_pose_lm("captured local-map call", args_lm))
     record("pose_lm_solve", err4, time_ms(lambda: k4.optimize_pose_batched(*args_lm)),
@@ -653,22 +777,18 @@ def main():
 
     # ---- phase 5: kidnapped run; the jump frame must relocalize
     t0 = time.perf_counter()
-    scene = synthetic.PlaneScene(seed=1)
-    gt5 = synthetic.orbit_trajectory(KIDNAP_SWEEP, step=KIDNAP_STEP)
-    seq = list(range(KIDNAP_SWEEP)) + [KIDNAP_JUMP + i for i in range(4)]
-    images5 = [np.clip(scene.render(cam, *gt5[f], h=480, w=640)[0], 0, 255).astype(np.uint8)
-               for f in seq]
+    gt5, seq, images5 = kidnap_setup(cam)
     print(f"render: {len(seq)} frames in {time.perf_counter() - t0:.1f} s (host numpy)")
     slam5 = System(cam, slice_cfg, device="cuda")
     relocs, captured, polish_sizes = [], {}, []
     try_reloc = slam5._try_relocalize
     slam5._try_relocalize = lambda f: relocs.append((slam5.frame_id, try_reloc(f))) or relocs[-1][1]
-    real_score, real_polish = pnp_mod.pnp_score, pnp_mod.optimize_pose_batched
+    real_hyp, real_polish = pnp_mod.pnp_hypotheses, pnp_mod.optimize_pose_batched
 
     def keep_inputs(*a):
         # the relocalization's own kernel-6 inputs, for the comparison below
         captured.setdefault("args", tuple(x.clone() if torch.is_tensor(x) else x for x in a))
-        return real_score(*a)
+        return real_hyp(*a)
 
     def keep_polish(*a):
         # the relocalization's batch of polished candidates (one kernel-4 call)
@@ -676,17 +796,27 @@ def main():
         captured.setdefault("polish", tuple(x.clone() if torch.is_tensor(x) else x for x in a))
         return real_polish(*a)
 
-    pnp_mod.pnp_score, pnp_mod.optimize_pose_batched = keep_inputs, keep_polish
+    pnp_mod.pnp_hypotheses, pnp_mod.optimize_pose_batched = keep_inputs, keep_polish
     lm_calls[0], match_calls[0] = 0, 0
     reloc_launches.clear()
     try:
         out5, frame_s5, launches5 = drive("kidnap", slam5, images5, [w for _, _, w in SOURCES.values()])
     finally:
-        pnp_mod.pnp_score, pnp_mod.optimize_pose_batched = real_score, real_polish
+        pnp_mod.pnp_hypotheses, pnp_mod.optimize_pose_batched = real_hyp, real_polish
         pose_opt.optimize_pose = real_opt
+        map_state._stats_from_table = real_stats
         matching.match_gated, local_mapping.create_new_mappoints = real_match, real_tri
         tracking.relocalize_candidates = real_reloc
     calls5, match_calls5 = lm_calls[0], match_calls[0]
+    # the observation counts kernel 3b saw on the main path, summed over the
+    # refreshes of each run (the median's cost grows with the count)
+    seen = {}
+    for run, tabs in (("slice", counts4), ("kidnap", refresh_counts[len(counts4):])):
+        hist = torch.stack([torch.bincount(c.long(), minlength=33) for c in tabs]).sum(0).tolist()
+        seen[run] = {"refreshes": len(tabs), "counts_histogram": hist,
+                     "max_count": max(i for i, n in enumerate(hist) if n) if any(hist) else 0}
+        print(f"{run}: distinctive_descriptors counts over {len(tabs)} refreshes: {hist}")
+    results["distinctive_descriptors"]["main_path_counts"] = seen
     print(f"kidnap: matcher calls {match_calls5}, matcher launches per relocalization attempt "
           f"{reloc_launches}")
     ate5, n5 = ate_of(slam5, gt5, seq)
@@ -705,26 +835,47 @@ def main():
               "one hamming_match launch per matcher call": launches5["hamming_match"] == match_calls5,
               "one matcher launch per relocalization attempt":
                   len(reloc_launches) > 0 and set(reloc_launches) == {1},
+              "one pnp_hypotheses launch per relocalization attempt":
+                  launches5["pnp_hypotheses"] == len(reloc_launches),
               "one pose_lm_solve launch per optimize_pose and per polish":
                   launches5["optimize_pose_batched"] == calls5 + len(polish_sizes)}
     bad = [k for k, v in checks.items() if not v]
     if bad:
         fail(f"kidnap checks failed: {bad}")
+    # kernel 6 on the relocalization's own inputs: counts equal on every
+    # hypothesis, so each candidate's first best is equal too; the best R and
+    # t within 1e-5; and, as the kernel and its twin sum in one order, every
+    # output bit for bit
     args6 = captured["args"]
-    if tuple(args6[0].shape[:2]) != (8, 256) or args6[2].shape[1] != slice_cfg.n_features:
-        fail(f"pnp_score inputs of shape {tuple(args6[0].shape)} / {tuple(args6[2].shape)}")
-    c_k = k6.pnp_score(*args6)
-    c_p = k6.pnp_score_plain(*args6)
+    samples6, xw6, uv6, v6 = args6[:4]
+    C6, S6 = samples6.shape[:2]
+    if (C6, S6) != (8, 256) or xw6.shape[1] != slice_cfg.n_features:
+        fail(f"pnp_hypotheses inputs of shape {tuple(samples6.shape)} / {tuple(xw6.shape)}")
+    got6 = k6.pnp_hypotheses(*args6)
+    ref6 = k6.pnp_hypotheses_plain(*args6)
     torch.cuda.synchronize()
-    if not torch.equal(c_k, c_p):
-        fail(f"pnp_score differs from its plain twin ({int((c_k != c_p).sum())} hypotheses)")
-    Rs6, ts6, xw6, uv6, v6 = args6[:5]
-    record("pnp_score", int((c_k - c_p).abs().max()), time_ms(lambda: k6.pnp_score(*args6)),
-           time_ms(lambda: k6.pnp_score_plain(*args6)),
-           4 * (Rs6.numel() + ts6.numel() + xw6.numel() + uv6.numel()) + v6.numel()
-           + 4 * Rs6.shape[0] * Rs6.shape[1],
-           PNP_OPS_PER_REPROJECTION * Rs6.shape[1] * float(v6.sum()),
-           **device_kernels(lambda: k6.pnp_score(*args6), 1))
+    if not torch.equal(got6[2], ref6[2]):
+        fail(f"pnp_hypotheses counts differ from the twin's on {int((got6[2] != ref6[2]).sum())} "
+             f"hypotheses")
+    top2 = torch.topk(ref6[2], 2, dim=1).values
+    if not torch.equal(got6[3], ref6[3]):
+        fail(f"pnp_hypotheses best differs: {got6[3].tolist()} vs {ref6[3].tolist()}")
+    cr6 = torch.arange(C6, device=dev)
+    err6 = max(float((got6[0][cr6, got6[3]] - ref6[0][cr6, ref6[3]]).abs().max()),
+               float((got6[1][cr6, got6[3]] - ref6[1][cr6, ref6[3]]).abs().max()))
+    if err6 > 1e-5:
+        fail(f"pnp_hypotheses: the best R or t differs from the twin's by {err6:.3g}")
+    if not all(torch.equal(a, b) for a, b in zip(got6, ref6)):
+        fail("pnp_hypotheses: R, t, counts or best not bit for bit the twin's")
+    print(f"pnp_hypotheses vs twin: every output bit-exact, best {got6[3].tolist()}, top two "
+          f"counts {top2.tolist()}")
+    record("pnp_hypotheses", err6, time_ms(lambda: k6.pnp_hypotheses(*args6)),
+           time_ms(lambda: k6.pnp_hypotheses_plain(*args6), 3),
+           8 * samples6.numel() + 4 * (xw6.numel() + uv6.numel()) + v6.numel()
+           + C6 * S6 * 4 * (9 + 3 + 1) + 8 * C6,
+           PNP_DLT_OPS * C6 * S6 + PNP_OPS_PER_REPROJECTION * S6 * float(v6.sum()),
+           graph_us=graph_us(lambda: k6.pnp_hypotheses(*args6)),
+           **device_kernels(lambda: k6.pnp_hypotheses(*args6), 1))
     err_polish = check_pose_lm("relocalization polish batch", captured["polish"],
                                min_inliers=RELOC_MIN_INLIERS)
     results["pose_lm_solve"]["max_abs_err"] = max(results["pose_lm_solve"]["max_abs_err"], err_polish)

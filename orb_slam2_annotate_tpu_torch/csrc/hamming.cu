@@ -1,10 +1,12 @@
-// Bit-packed Hamming matching: (a) the batched, gate-fused matcher,
-// (b) batched all-pairs distances.
+// Bit-packed Hamming: (a) the batched, gate-fused matcher, (b) each map
+// point's distinctive descriptor.
 //
 // Replaces (JAX reference): ops/matching.py match_masked with the candidate
 // masks of window_mask / octave_mask / search_for_triangulation, over
-// ops/hamming.py hamming_pairwise + masked_min2 (a); the vmapped pairwise
-// Hamming of worldmap/map_state.py _stats_from_table (b).
+// ops/hamming.py hamming_pairwise + masked_min2 (a); the descriptor half of
+// worldmap/map_state.py _stats_from_table (:386-405): the gather of each
+// point's observed descriptors, their vmapped pairwise Hamming distances,
+// the sort, the median and the argmin (b).
 //
 // Bound of (a): the descriptors (64 B each), the gate inputs (a few words a
 // row or column) and the outputs are the bytes; 16 XOR + popcount + add per
@@ -44,7 +46,26 @@
 // version's order and compiled with --fmad=false, so a float compare decides
 // the same bit in both.
 //
-// Design (b): one block per point, one thread per (i, j) pair.
+// Bound of (b): bytes.  A point needs its max(cnt, 1) observed rows (64 B
+// each, with their two indices), its count, and writes 68 bytes: at most
+// ~2.4 KB, 9.7 MB at Q = 4096 with every count 32 (~3 us at 3.35 TB/s).
+// The reference materialises the [Q,32,16] gather and the [Q,32,32]
+// distances and sorts them; (b) keeps all of it on chip.
+//
+// Design (b), one warp a point, lane i for observation i: lane i loads row
+// i straight from kf_desc through (obs_kf, obs_ft) into shared memory (rows
+// padded to 20 words, so the fragment loads below hit 32 distinct banks)
+// and counts its bits; the distances then reuse that buffer.  The 32 x 32
+// AND-popcounts are 16 mma.sync.m16n8k256.b1.and.popc (2 row blocks x 4
+// column blocks x 2 k-steps); d(i,j) = popc(i) + popc(j) - 2 popc(i AND j),
+// and columns j >= cnt read 2048, as in the reference.  The distances go
+// through shared memory so that lane i holds row i; it finds the element of
+// rank k = (cnt-1)/2 of its first cnt distances bit by bit: the largest v
+// below 1024 with at most k distances under v, 10 counts over the row
+// (10 ceil(cnt/8) 8 compares; rows i >= cnt read 2048).  A warp minimum of
+// med << 5 | i picks the first row of least median, as torch.argmin does
+// (best = 0 when cnt = 0), and 16 lanes copy its row out (again from
+// kf_desc, 64 bytes in L2).  Integer throughout: equal to the plain twin.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -277,18 +298,138 @@ __global__ void __launch_bounds__(NT) hamming_match_fused(const MatchArgs a) {
     if (tid == 0) a.ticket[b] = 0u;
 }
 
-__global__ void pairwise_batched(const int* __restrict__ a, const int* __restrict__ b,
-                                 int M, int* __restrict__ out) {
-    const int qi = blockIdx.x;
-    const int* A = a + (size_t)qi * M * WORDS;
-    const int* B = b + (size_t)qi * M * WORDS;
-    for (int p = threadIdx.x; p < M * M; p += blockDim.x) {
-        const int i = p / M, j = p % M;
-        int d = 0;
+#define DD_WARPS 4
+#define DD_NT (DD_WARPS * 32)
+#define MAX_OBS 32
+#define ROW_WORDS 20      // a staged row: 16 words + 4 of padding
+#define DIST_STRIDE 36    // a row of distances: 32 + 4 of padding; the rows, then
+                          // the distances, share one buffer of 32 x 36 words
+#define BIG 2048          // the reference's sentinel, > any distance
+#define MED_BITS 10       // distances are 0..512 < 2^10
+
+// D = popc(A AND B) + C for a 16x256 (row) by 256x8 (col) bit tile
+__device__ __forceinline__ void mma_and_popc(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                             unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(DD_NT) distinctive_descriptors_kernel(
+    const int* __restrict__ kf_desc, int K, int N, const int* __restrict__ obs_kf,
+    const int* __restrict__ obs_ft, const int* __restrict__ obs_cnt, int Q,
+    int* __restrict__ out_desc, int* __restrict__ out_best) {
+    __shared__ __align__(16) int buf[DD_WARPS][MAX_OBS * DIST_STRIDE];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int q = blockIdx.x * DD_WARPS + warp;
+    if (q >= Q) return;                                  // the whole warp
+    unsigned* rw = reinterpret_cast<unsigned*>(buf[warp]);
+    int* dw = buf[warp];
+    const int cnt = min(max(obs_cnt[q], 0), MAX_OBS);
+
+    // stage row `lane` (indices clamped, as the reference's gather clamps)
+    const int kf = min(max(obs_kf[(size_t)q * MAX_OBS + lane], 0), K - 1);
+    const int ft = min(max(obs_ft[(size_t)q * MAX_OBS + lane], 0), N - 1);
+    const size_t row = (size_t)kf * N + ft;
+    const int4* src = reinterpret_cast<const int4*>(kf_desc + row * WORDS);
+    int pc = 0;
 #pragma unroll
-        for (int w = 0; w < WORDS; ++w) d += __popc((unsigned)(A[i * WORDS + w] ^ B[j * WORDS + w]));
-        out[(size_t)qi * M * M + p] = d;
+    for (int p = 0; p < 4; ++p) {
+        const int4 v = __ldg(src + p);
+        reinterpret_cast<int4*>(rw + lane * ROW_WORDS)[p] = v;
+        pc += __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
     }
+    __syncwarp();
+
+    // popc(i AND j) for all 32 x 32 pairs: lane (g, t) of each fragment
+    // holds words t and t+4 of a row (A) or column (B) per 8-word k-step
+    const int g = lane >> 2, t = lane & 3;
+    int acc[2][4][4];
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mb][nb][e] = 0;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+        const int w = 8 * s + t;
+        unsigned a[2][4], b[4][2];
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb) {
+            const unsigned* lo = rw + (16 * mb + g) * ROW_WORDS;
+            const unsigned* hi = lo + 8 * ROW_WORDS;
+            a[mb][0] = lo[w]; a[mb][1] = hi[w]; a[mb][2] = lo[w + 4]; a[mb][3] = hi[w + 4];
+        }
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb) {
+            const unsigned* col = rw + (8 * nb + g) * ROW_WORDS;
+            b[nb][0] = col[w];
+            b[nb][1] = col[w + 4];
+        }
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+            for (int nb = 0; nb < 4; ++nb) mma_and_popc(acc[mb][nb], a[mb], b[nb][0], b[nb][1]);
+    }
+    __syncwarp();   // every fragment is read: the distances overwrite the rows
+    // d = popc(i) + popc(j) - 2 popc(i AND j); lane (g, t) holds rows g, g+8
+    // of each row block and columns 2t, 2t+1 of each column block
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = 16 * mb + g + 8 * h;
+            const int pr = __shfl_sync(0xffffffffu, pc, r);
+#pragma unroll
+            for (int nb = 0; nb < 4; ++nb) {
+                const int c0 = 8 * nb + 2 * t;
+                const int p0 = __shfl_sync(0xffffffffu, pc, c0);
+                const int p1 = __shfl_sync(0xffffffffu, pc, c0 + 1);
+                int2 d;
+                d.x = c0 < cnt ? pr + p0 - 2 * acc[mb][nb][2 * h] : BIG;
+                d.y = c0 + 1 < cnt ? pr + p1 - 2 * acc[mb][nb][2 * h + 1] : BIG;
+                *reinterpret_cast<int2*>(dw + r * DIST_STRIDE + c0) = d;
+            }
+        }
+    __syncwarp();
+
+    // lane i: the element of rank k = (cnt-1)/2 of row i's first cnt
+    // distances, the largest v with at most k of them below v, built from
+    // the high bit down; each step counts in blocks of 8 up to cnt (cnt is
+    // the same on every lane, and columns past cnt hold BIG, never below v)
+    int med = BIG;
+    if (lane < cnt) {
+        int d[MAX_OBS];
+#pragma unroll
+        for (int p = 0; p < MAX_OBS / 4; ++p) {
+            const int4 v = reinterpret_cast<const int4*>(dw + lane * DIST_STRIDE)[p];
+            d[4 * p] = v.x; d[4 * p + 1] = v.y; d[4 * p + 2] = v.z; d[4 * p + 3] = v.w;
+        }
+        const int k = (cnt - 1) >> 1;
+        int v = 0;
+#pragma unroll
+        for (int b = MED_BITS - 1; b >= 0; --b) {
+            const int trial = v + (1 << b);
+            int below = 0;
+#pragma unroll
+            for (int l0 = 0; l0 < MAX_OBS; l0 += 8) {
+                if (l0 < cnt) {
+#pragma unroll
+                    for (int l = l0; l < l0 + 8; ++l) below += d[l] < trial;
+                }
+            }
+            if (below <= k) v = trial;
+        }
+        med = v;
+    }
+    const int bkey = __reduce_min_sync(0xffffffffu, (med << 5) | lane);
+    const int bi = bkey & 31;
+    const size_t brow = __shfl_sync(0xffffffffu, row, bi);
+    if (lane < WORDS) out_desc[(size_t)q * WORDS + lane] = __ldg(kf_desc + brow * WORDS + lane);
+    if (lane == 0) out_best[q] = bi;
 }
 
 // Rows per CTA: 16 where that still gives at least two CTAs per SM of the
@@ -306,8 +447,11 @@ extern "C" int hamming_match_launch(const MatchArgs* a, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
-extern "C" int hamming_pairwise_batched_launch(const int* a, const int* b, int Q, int M, int* out,
-                                               cudaStream_t stream) {
-    if (Q > 0) pairwise_batched<<<Q, NT, 0, stream>>>(a, b, M, out);
+extern "C" int distinctive_descriptors_launch(const int* kf_desc, int K, int N, const int* obs_kf,
+                                              const int* obs_ft, const int* obs_cnt, int Q,
+                                              int* out_desc, int* out_best, cudaStream_t stream) {
+    if (Q > 0)
+        distinctive_descriptors_kernel<<<(Q + DD_WARPS - 1) / DD_WARPS, DD_NT, 0, stream>>>(
+            kf_desc, K, N, obs_kf, obs_ft, obs_cnt, Q, out_desc, out_best);
     return (int)cudaGetLastError();
 }

@@ -7,7 +7,7 @@ kernel for CUDA tensors (or raises); ``<wrapper>.launches`` counts launches.
 from . import assign_words, fast_nms, hamming, orb_describe, pnp_score, pose_lm
 
 WRAPPERS = (fast_nms.fast_nms, orb_describe.orb_describe, hamming.hamming_match,
-            hamming.hamming_pairwise_batched, pose_lm.optimize_pose_batched,
-            assign_words.assign_words, pnp_score.pnp_score)
+            hamming.distinctive_descriptors, pose_lm.optimize_pose_batched,
+            assign_words.assign_words, pnp_score.pnp_hypotheses)
 
 __all__ = ["assign_words", "fast_nms", "hamming", "orb_describe", "pnp_score", "pose_lm", "WRAPPERS"]

@@ -1,9 +1,9 @@
-"""Kernel 3: the batched, gate-fused Hamming matcher, and batched all-pairs
-Hamming.
+"""Kernel 3: the batched, gate-fused Hamming matcher, and each map point's
+distinctive descriptor.
 
-``hamming_match`` and ``hamming_pairwise_batched`` launch
+``hamming_match`` and ``distinctive_descriptors`` launch
 ``csrc/hamming.cu`` for CUDA tensors and run their plain twins
-(``hamming_match_plain``, ``hamming_pairwise_batched_plain``) for CPU
+(``hamming_match_plain``, ``distinctive_descriptors_plain``) for CPU
 tensors.  Each wrapper's ``launches`` counts its kernel launches.
 
 The matcher takes B problems at once: every array may carry a leading batch
@@ -133,9 +133,27 @@ def hamming_match_plain(desc1, desc2, row_valid, col_valid, max_dist: int, ratio
     return idx, dist
 
 
-def hamming_pairwise_batched_plain(a, b):
-    """a, b [Q,M,16] int32 -> [Q,M,M] int32."""
-    return hamming_pairwise(a, b).to(torch.int32)
+_OBS_LANES = 32    # the kernel's table width: one observation a lane of a warp
+_MED_BIG = 2048    # the reference's sentinel for unobserved slots
+
+
+def distinctive_descriptors_plain(kf_desc, obs_kf, obs_ft, obs_cnt):
+    """kf_desc [K,N,16] int32, obs_kf / obs_ft [Q,M] int32 (keyframe, feature)
+    of each point's observations, obs_cnt [Q] int32 in 0..M -> (desc [Q,16]
+    int32: the observed descriptor with the least median distance to the
+    others, best [Q] int32: its slot, the first on ties and 0 when cnt = 0)."""
+    M = obs_kf.shape[1]
+    descs = kf_desc[obs_kf.long(), obs_ft.long()]                      # [Q,M,16]
+    d = hamming_pairwise(descs, descs)                                 # [Q,M,M]
+    obs_mask = torch.arange(M, device=descs.device)[None, :] < obs_cnt[:, None]
+    dm = torch.where(obs_mask[:, None, :], d, _MED_BIG)
+    dsort = torch.sort(dm, dim=-1).values
+    med_idx = torch.clamp(torch.div(obs_cnt - 1, 2, rounding_mode="floor"), 0, M - 1)
+    mi = med_idx.long()[:, None, None].expand(-1, M, 1)
+    med = torch.gather(dsort, -1, mi)[..., 0]
+    med = torch.where(obs_mask, med, _MED_BIG)
+    best = torch.argmin(med, dim=1)                                    # first minimum
+    return descs[torch.arange(descs.shape[0], device=descs.device), best], best.to(torch.int32)
 
 
 # ---- the kernel ------------------------------------------------------------
@@ -167,10 +185,10 @@ def _fns():
     match = lib.hamming_match_launch
     match.argtypes = [ctypes.POINTER(_MatchArgs), _P]
     match.restype = ctypes.c_int
-    pair = lib.hamming_pairwise_batched_launch
-    pair.argtypes = [_P] * 2 + [ctypes.c_int] * 2 + [_P] * 2
-    pair.restype = ctypes.c_int
-    return match, pair
+    dd = lib.distinctive_descriptors_launch
+    dd.argtypes = [_P] + [ctypes.c_int] * 2 + [_P] * 3 + [ctypes.c_int] + [_P] * 3
+    dd.restype = ctypes.c_int
+    return match, dd
 
 
 _WORKSPACE: dict = {}   # device -> (colkey [>= B*N2] i64, rowstate [>= B*N1*3] i32, ticket [>= B] i32)
@@ -279,20 +297,27 @@ def hamming_match(desc1, desc2, row_valid, col_valid, max_dist: int, ratio: floa
     return (out[0], out[1]) if batch else (out[0, 0], out[1, 0])
 
 
-def hamming_pairwise_batched(a, b):
-    if not a.is_cuda:
-        return hamming_pairwise_batched_plain(a, b)
-    dev = a.device
-    Q, M = a.shape[0], a.shape[1]
-    _build.check_tensor(a, "a", torch.int32, (Q, M, DESC_WORDS), dev)
-    _build.check_tensor(b, "b", torch.int32, (Q, M, DESC_WORDS), dev)
-    out = torch.empty((Q, M, M), dtype=torch.int32, device=dev)
-    _, pair = _fns()
-    err = pair(a.data_ptr(), b.data_ptr(), Q, M, out.data_ptr(), _build.stream_ptr(dev))
-    _build.check_launch(err, "hamming_pairwise_batched")
-    hamming_pairwise_batched.launches += 1
-    return out
+def distinctive_descriptors(kf_desc, obs_kf, obs_ft, obs_cnt):
+    """One launch, one warp a point; see ``distinctive_descriptors_plain``."""
+    if not kf_desc.is_cuda:
+        return distinctive_descriptors_plain(kf_desc, obs_kf, obs_ft, obs_cnt)
+    dev = kf_desc.device
+    K, N, Q = kf_desc.shape[0], kf_desc.shape[1], obs_kf.shape[0]
+    _build.check_tensor(kf_desc, "kf_desc", torch.int32, (K, N, DESC_WORDS), dev)
+    _build.check_tensor(obs_kf, "obs_kf", torch.int32, (Q, _OBS_LANES), dev)
+    _build.check_tensor(obs_ft, "obs_ft", torch.int32, (Q, _OBS_LANES), dev)
+    _build.check_tensor(obs_cnt, "obs_cnt", torch.int32, (Q,), dev)
+    if kf_desc.data_ptr() % 16:
+        raise ValueError("distinctive_descriptors: kf_desc must be 16-byte aligned")
+    desc = torch.empty((Q, DESC_WORDS), dtype=torch.int32, device=dev)
+    best = torch.empty((Q,), dtype=torch.int32, device=dev)
+    _, dd = _fns()
+    err = dd(kf_desc.data_ptr(), K, N, obs_kf.data_ptr(), obs_ft.data_ptr(), obs_cnt.data_ptr(), Q,
+             desc.data_ptr(), best.data_ptr(), _build.stream_ptr(dev))
+    _build.check_launch(err, "distinctive_descriptors")
+    distinctive_descriptors.launches += 1
+    return desc, best
 
 
 hamming_match.launches = 0
-hamming_pairwise_batched.launches = 0
+distinctive_descriptors.launches = 0

@@ -264,8 +264,7 @@ class System:
         self.t = self.map.kf_t[slot]
         self.last_obs = self.map.kf_obs[slot]
         self.ref_kf = slot
-        self._pose_np = None
-        self._rel_np = None
+        self._rel_np = None          # this frame is the reference keyframe
         self.last_kf_frame = self.frame_id
         self.ref_tracked = self._last_n_local
         self._peak_n_local = 0
@@ -308,8 +307,9 @@ class System:
             slot = int(cand.best_slot)
             if slot < 0:
                 return False
-            res2 = tk.track_local_map(self.cam, self.map, frame, cand.R, cand.t, cand.obs)
-            n_inliers = int(res2.n_inliers)
+            with record_function("reloc/local_map"):
+                res2 = tk.track_local_map(self.cam, self.map, frame, cand.R, cand.t, cand.obs)
+                n_inliers = int(res2.n_inliers)
         if n_inliers < 50:
             return False
         self.R, self.t = res2.R, res2.t

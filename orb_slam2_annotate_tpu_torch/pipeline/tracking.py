@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.profiler import record_function
 
 from ..geometry import lie
 from ..geometry.camera import CameraModel, in_image, project
@@ -170,20 +171,24 @@ def relocalize_candidates(cam: CameraModel, m: MapState, frame: Frame, vocab, db
     from ..solvers import pnp
     from ..worldmap import vocabulary as voc
 
-    bow = voc.bow_vector(vocab, frame.desc, frame.valid)
-    slots, ok = voc.detect_relocalization_candidates(voc.KeyFrameDatabase(db_bows), bow,
-                                                     m.kf_valid, ms.covisibility(m))
-    kf_obs, kf_desc = m.kf_obs[slots], m.kf_desc[slots]                  # [C,N], [C,N,16]
-    kf_has = (kf_obs >= 0) & m.kf_feat_valid[slots] & m.mp_valid[torch.clamp(kf_obs, 0, m.P - 1).long()]
-    # all candidates in one matcher launch, the frame's descriptors shared
-    res = matching.match_gated(kf_desc, frame.desc, kf_has, frame.valid, max_dist=matching.TH_LOW,
-                               ratio=0.75)                                # [C,N]
-    obs = torch.full(kf_obs.shape, -1, dtype=torch.int32, device=m.device).scatter_reduce(
-        1, torch.clamp_min(res.idx, 0).long(), torch.where(res.matched & kf_has, kf_obs, -1), "amax")
-    pvalid = (obs >= 0) & frame.valid[None, :]
-    n_matches = pvalid.sum(1)
-    gate = ok & (n_matches >= 15)
-    samples = pnp.sample_pnp_sets(gen, pvalid, n_hyp)
+    with record_function("reloc/bow"):
+        bow = voc.bow_vector(vocab, frame.desc, frame.valid)
+        slots, ok = voc.detect_relocalization_candidates(voc.KeyFrameDatabase(db_bows), bow,
+                                                         m.kf_valid, ms.covisibility(m))
+    with record_function("reloc/match"):
+        kf_obs, kf_desc = m.kf_obs[slots], m.kf_desc[slots]              # [C,N], [C,N,16]
+        kf_has = (kf_obs >= 0) & m.kf_feat_valid[slots] & m.mp_valid[
+            torch.clamp(kf_obs, 0, m.P - 1).long()]
+        # all candidates in one matcher launch, the frame's descriptors shared
+        res = matching.match_gated(kf_desc, frame.desc, kf_has, frame.valid,
+                                   max_dist=matching.TH_LOW, ratio=0.75)   # [C,N]
+        obs = torch.full(kf_obs.shape, -1, dtype=torch.int32, device=m.device).scatter_reduce(
+            1, torch.clamp_min(res.idx, 0).long(), torch.where(res.matched & kf_has, kf_obs, -1),
+            "amax")
+        pvalid = (obs >= 0) & frame.valid[None, :]
+        gate = ok & (pvalid.sum(1) >= 15)
+    with record_function("reloc/sample"):
+        samples = pnp.sample_pnp_sets(gen, pvalid, n_hyp)
     r = pnp.pnp_from_samples(cam, samples, m.mp_pos[torch.clamp(obs, 0, m.P - 1).long()], frame.xy,
                              pvalid, min_inliers=15,
                              polish=torch.nonzero(gate).flatten().tolist())

@@ -1,14 +1,14 @@
 """Batched PnP RANSAC for relocalization (port of solvers/pnp.py).
 
-Every hypothesis is a 6-point DLT (null vector of the 13x12 system by SVD,
-scale and sign from the determinant, projection onto SO(3)); all hypotheses
-of all candidates are scored by kernel 6 (``kernels/pnp_score``), and each
+Every hypothesis is a 6-point DLT (null vector of the 13x12 system, scale
+and sign from the determinant, projection onto SO(3)).  Kernel 6
+(``kernels/pnp_score.pnp_hypotheses``) solves and scores all hypotheses
+of all candidates and picks each candidate's best in one launch, and each
 candidate's best is polished by the pose-only LM (kernel 4, all candidates
 in one launch).  As for the initializer, sampling and solving are split:
 ``sample_pnp_sets`` draws the minimal sets from a ``torch.Generator`` and
 ``pnp_from_samples`` is the deterministic core, testable on
-``jax.random``'s own draws.  The DLT SVDs are plain ``torch.linalg``
-calls, batched over every hypothesis.
+``jax.random``'s own draws.
 """
 
 from __future__ import annotations
@@ -16,10 +16,13 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.profiler import record_function
 
 from ..geometry.camera import CameraModel
-from ..kernels.pnp_score import pnp_score
+from ..kernels.pnp_score import dlt_pnp, pnp_hypotheses
 from ..kernels.pose_lm import optimize_pose_batched
+
+__all__ = ["PnPResult", "dlt_pnp", "sample_pnp_sets", "pnp_from_samples", "pnp_ransac"]
 
 
 @dataclasses.dataclass
@@ -29,28 +32,6 @@ class PnPResult:
     t: torch.Tensor          # [C,3]
     inliers: torch.Tensor    # [C,N] bool
     n_inliers: torch.Tensor  # [C] int
-
-
-def dlt_pnp(xw: torch.Tensor, xn: torch.Tensor):
-    """Linear PnP from 6 points, batched: world [...,6,3], normalised camera
-    coordinates [...,6,2] -> (R [...,3,3], t [...,3])."""
-    X = torch.cat([xw, torch.ones_like(xw[..., :1])], dim=-1)            # [...,6,4]
-    z = torch.zeros_like(X)
-    u, v = xn[..., 0:1], xn[..., 1:2]
-    r1 = torch.cat([X, z, -u * X], dim=-1)                                 # [...,6,12]
-    r2 = torch.cat([z, X, -v * X], dim=-1)
-    A = torch.cat([r1, r2, torch.zeros_like(r1[..., :1, :])], dim=-2)     # [...,13,12]
-    Vt = torch.linalg.svd(A, full_matrices=False).Vh
-    P = Vt[..., -1, :].reshape(*Vt.shape[:-2], 3, 4)
-    M = P[..., :3]
-    det = torch.linalg.det(M)
-    s = torch.sign(det) * torch.abs(det) ** (1.0 / 3.0)
-    s = torch.where(torch.abs(s) < 1e-12, 1e-12, s)
-    M = M / s[..., None, None]
-    t = P[..., 3] / s[..., None]
-    U, _, Vt2 = torch.linalg.svd(M)
-    R = U @ Vt2
-    return R * torch.sign(torch.linalg.det(R))[..., None, None], t
 
 
 def sample_pnp_sets(gen: torch.Generator, valid: torch.Tensor, n_hyp: int = 256) -> torch.Tensor:
@@ -74,27 +55,24 @@ def pnp_from_samples(cam: CameraModel, samples: torch.Tensor, xw: torch.Tensor, 
     C, S, _ = samples.shape
     N = xw.shape[1]
     dev = xw.device
-    xn = torch.stack([(uv[:, 0] - cam.cx) / cam.fx, (uv[:, 1] - cam.cy) / cam.fy], dim=1)
-    samples = samples.long()
-    ci = torch.arange(C, device=dev)[:, None, None]
-    Rs, ts = dlt_pnp(xw[ci, samples], xn[samples])                        # [C,S,3,3], [C,S,3]
-    ns = pnp_score(Rs.contiguous(), ts.contiguous(), xw.contiguous(), uv.contiguous(),
-                   valid.contiguous(), cam.fx, cam.fy, cam.cx, cam.cy, chi2_th * 4.0)
-    best = torch.argmax(ns, dim=1)                                         # first maximum
+    with record_function("reloc/hypotheses"):
+        Rs, ts, ns, best = pnp_hypotheses(samples.long().contiguous(), xw.contiguous(),
+                                          uv.contiguous(), valid.contiguous(), cam.fx, cam.fy,
+                                          cam.cx, cam.cy, chi2_th * 4.0)
     cr = torch.arange(C, device=dev)
     R, t, n_best = Rs[cr, best], ts[cr, best], ns[cr, best]
     inliers = torch.zeros((C, N), dtype=torch.bool, device=dev)
     n = torch.zeros(C, dtype=torch.int64, device=dev)
     ok = torch.zeros(C, dtype=torch.bool, device=dev)
-    R, t = R.clone(), t.clone()
     pick = cr if polish is None else torch.tensor(polish, dtype=torch.long, device=dev)
     if len(pick):
         # every polished candidate in one launch; uv, ur and inv_sigma2 are shared
-        R[pick], t[pick], inliers[pick], n_p = optimize_pose_batched(
-            cam, R[pick], t[pick], xw[pick], uv, torch.full((N,), -1.0, device=dev),
-            torch.ones(N, device=dev), valid[pick])
-        n[pick] = n_p.long()
-        ok[pick] = (n_best[pick] >= min_inliers) & (n_p >= min_inliers)
+        with record_function("reloc/polish"):
+            R[pick], t[pick], inliers[pick], n_p = optimize_pose_batched(
+                cam, R[pick], t[pick], xw[pick], uv, torch.full((N,), -1.0, device=dev),
+                torch.ones(N, device=dev), valid[pick])
+            n[pick] = n_p.long()
+            ok[pick] = (n_best[pick] >= min_inliers) & (n_p >= min_inliers)
     return PnPResult(ok, R, t, inliers, n)
 
 

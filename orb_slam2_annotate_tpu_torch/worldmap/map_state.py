@@ -14,7 +14,7 @@ import dataclasses
 
 import torch
 
-from ..kernels.hamming import hamming_pairwise_batched
+from ..kernels.hamming import distinctive_descriptors
 from ..ops.orb import DESC_WORDS
 from ..ops.sorting import stable_topk
 
@@ -256,17 +256,7 @@ def _geometry_from_table(m: MapState, pos, obs_kf, obs_ft, obs_mask):
 
 def _stats_from_table(m: MapState, pos, obs_kf, obs_ft, obs_cnt, obs_mask):
     """Distinctive descriptor (least median distance) + normal + depth band."""
-    descs = m.kf_desc[obs_kf.long(), obs_ft.long()].contiguous()      # [Q,32,16]
-    d = hamming_pairwise_batched(descs, descs)                         # [Q,32,32]
-    big = 2048
-    dm = torch.where(obs_mask[:, None, :], d, big)
-    dsort = torch.sort(dm, dim=-1).values
-    med_idx = torch.clamp(torch.div(obs_cnt - 1, 2, rounding_mode="floor"), 0, MAX_OBS - 1)
-    mi = med_idx.long()[:, None, None].expand(-1, MAX_OBS, 1)
-    med = torch.gather(dsort, -1, mi)[..., 0]
-    med = torch.where(obs_mask, med, big)
-    best = torch.argmin(med, dim=1)
-    new_desc = descs[torch.arange(descs.shape[0], device=descs.device), best]
+    new_desc, _ = distinctive_descriptors(m.kf_desc, obs_kf, obs_ft, obs_cnt)
     normal, min_d, max_d = _geometry_from_table(m, pos, obs_kf, obs_ft, obs_mask)
     return new_desc, normal, min_d, max_d
 

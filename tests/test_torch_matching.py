@@ -56,9 +56,18 @@ def planted_descriptors(n1=96, n2=64):
 def test_hamming_pairwise_and_bit_order():
     d1, d2 = planted_descriptors()
     eq(tham.hamming_pairwise(T(d1), T(d2)), jham.hamming_pairwise(jnp.asarray(d1), jnp.asarray(d2)))
-    eq(tk3.hamming_pairwise_batched(T(d1[:64].reshape(2, 32, 16)), T(d2.reshape(2, 32, 16))),
-       np.stack([np.asarray(jham.hamming_pairwise(jnp.asarray(a), jnp.asarray(b)))
-                 for a, b in zip(d1[:64].reshape(2, 32, 16), d2.reshape(2, 32, 16))]))
+    # the distinctive descriptor of two points observed in the 32 rows of
+    # d1[:32] and the 17 rows of d2[:17]: least median of JAX's distances
+    kf_desc = np.stack([d1[:32], d2[:32]])
+    obs_kf = np.repeat(np.arange(2, dtype=np.int32)[:, None], 32, 1)
+    obs_ft = np.tile(np.arange(32, dtype=np.int32), (2, 1))
+    cnt = np.array([32, 17], np.int32)
+    desc, best = tk3.distinctive_descriptors(T(kf_desc), T(obs_kf), T(obs_ft), T(cnt))
+    for q, c in enumerate(cnt):
+        rows = jnp.asarray(kf_desc[q, :c])
+        med = np.sort(np.asarray(jham.hamming_pairwise(rows, rows)), 1)[:, (c - 1) // 2]
+        assert int(best[q]) == int(np.argmin(med))
+        eq(desc[q], kf_desc[q, np.argmin(med)])
     words = np.zeros((6, 16), np.uint32)
     words[:, 15] = [0, 1, 0x80000000, 0xFFFFFFFF, 0x7FFFFFFF, 0xAAAAAAAA]
     zero = np.zeros((1, 16), np.uint32)

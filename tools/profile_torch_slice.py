@@ -1,12 +1,20 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's monocular slice goes, on one GPU.
 
-    python3 tools/profile_torch_slice.py
+    python3 tools/profile_torch_slice.py           # the slice
+    python3 tools/profile_torch_slice.py kidnap    # the kidnap run's jump frame
 
 Runs chip_smoke.py's slice (its ``slice_setup``: VGA / 1024 features /
 8 levels, 48 frames) on cuda:0, times every ``track_mono`` call on the
 host clock (ending in a device synchronize), then records the frames from
-PROFILE_FROM on with ``torch.profiler``.  Prints per-stage span
+PROFILE_FROM on with ``torch.profiler``.  With ``kidnap`` it runs
+chip_smoke.py's phase-5 sequence instead (``kidnap_setup``), twice with
+two Systems: the first run loads every kernel the relocalization uses (CUDA
+loads a kernel's code at its first launch, which would otherwise land in
+the jump frame), the second is timed and records the jump frame and the
+three after it; it prints the relocalization's stages (the ``reloc/*``
+spans) with their host time and the device time of the kernels inside
+them.  Prints per-stage span
 totals and per-frame means (the System's record_function spans), the
 host-issued ``aten::mul`` calls per frame, the aten ops (and ``aten::sort``
 calls) under ``frontend/extract``, the device time of each
@@ -16,6 +24,7 @@ busy share of the profiled window, with the card's name and power limit.
 
 from __future__ import annotations
 
+import concurrent.futures
 import glob
 import os
 import re
@@ -25,7 +34,9 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PROFILE_FROM = 24   # frames before this one warm up; the rest are profiled
+PROFILE_FROM = 24   # slice: frames before this one warm up; the rest are profiled
+RELOC_SPANS = ("tracking/relocalize", "reloc/bow", "reloc/match", "reloc/sample",
+               "reloc/hypotheses", "reloc/polish", "reloc/local_map")
 
 
 def hand_kernels() -> set:
@@ -62,15 +73,34 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("CUDA is not available")
     sys.path.insert(0, ROOT)
-    from chip_smoke import slice_setup
+    from chip_smoke import KIDNAP_SWEEP, kidnap_setup, slice_setup
+    from orb_slam2_annotate_tpu_torch.kernels import _build
     from orb_slam2_annotate_tpu_torch.pipeline import System
 
+    kidnap = sys.argv[1:] == ["kidnap"]
+    if sys.argv[1:] and not kidnap:
+        sys.exit(f"usage: {sys.argv[0]} [kidnap]")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     cam, _, frames, _, cfg = slice_setup()
+    profile_from = PROFILE_FROM
+    if kidnap:
+        _, _, frames = kidnap_setup(cam)
+        profile_from = KIDNAP_SWEEP
+    # every kernel built before the first frame: a kernel first used inside
+    # the profiled window (kernel 6 in the jump frame) would time its build
+    with concurrent.futures.ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        list(pool.map(_build.load, _build.SOURCES))
+    if kidnap:
+        warm = System(cam, cfg, device="cuda")
+        for k, img in enumerate(frames):
+            warm.track_mono(img, k / 30.0)
+        torch.cuda.synchronize()
+        del warm
     slam = System(cam, cfg, device="cuda")
 
     kinds = {"init": [], "track": [], "keyframe": []}
+    kinds_ms = {}
 
     def step(k):
         n_kf = slam.n_keyframes
@@ -81,12 +111,13 @@ def main():
         ms = 1e3 * (time.perf_counter() - t0)
         kind = "init" if was_init else ("keyframe" if slam.n_keyframes > n_kf else "track")
         kinds[kind].append(ms)
+        kinds_ms[k] = ms
 
-    for k in range(PROFILE_FROM):
+    for k in range(profile_from):
         step(k)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for k in range(PROFILE_FROM, len(frames)):
+        for k in range(profile_from, len(frames)):
             step(k)
         wall = time.perf_counter() - t0
     print(card)
@@ -98,7 +129,7 @@ def main():
     # kernels only: CPU ops and the record_function spans also carry device time
     device_us = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-    n_prof = len(frames) - PROFILE_FROM
+    n_prof = len(frames) - profile_from
     print(f"profiled {n_prof} frames: wall {wall * 1e3:.1f} ms, "
           f"device kernel time {device_us / 1e3:.1f} ms, busy share {device_us / 1e3 / (wall * 1e3):.3f}")
     for name in ("frontend/extract", "tracking/step", "mapping/keyframe", "init/mono"):
@@ -106,6 +137,15 @@ def main():
         if hit:
             print(f"span {name}: count {hit[0].count} host total {hit[0].cpu_time_total / 1e3:.1f} ms, "
                   f"{hit[0].cpu_time_total / 1e3 / n_prof:.1f} ms a profiled frame")
+    if kidnap:
+        print(f"jump frame {profile_from}: {kinds_ms[profile_from]:.2f} ms wall; state {slam.state}")
+        for name in RELOC_SPANS:
+            host = [e for e in events if e.key == name and e.device_type == DeviceType.CPU]
+            on_dev = [e for e in events if e.key == name and e.device_type == DeviceType.CUDA]
+            if host:
+                print(f"span {name}: count {host[0].count} host {host[0].cpu_time_total / 1e3:.3f} ms, "
+                      f"kernels inside {host[0].device_time_total / 1e3:.3f} ms, extent on the "
+                      f"device {sum(e.device_time_total for e in on_dev) / 1e3:.3f} ms")
     in_extract = [e for e in prof.events() if e.name.startswith("aten::")
                   and inside(e, "frontend/extract")]
     print(f"frontend/extract: {len(in_extract) / n_prof:.1f} aten ops a profiled frame (nested "
