@@ -7,7 +7,7 @@ Phases (any failure exits non-zero):
   1. print the card's name and power limit; require CUDA;
   2. build every CUDA kernel from csrc/ with nvcc, one process per source,
      all started together;
-  3. compare kernels 1-5 and 3b with their plain torch twins on the card, at the
+  3. compare kernels 1-5, 3b, 7 and 8 with their plain torch twins on the card, at the
      shapes of the main path (PlaneScene seed 1, VGA, 8 levels, 1024
      keypoints, the trained 16384-word vocabulary), and time both with
      CUDA events: kernel 1 (a frame's whole pyramid, blur, FAST, NMS and
@@ -46,10 +46,24 @@ Phases (any failure exits non-zero):
      every output of kernel 6 bit for bit, so counts and each candidate's
      best equal and the best R and t within 1e-5; the batch of polished
      candidates) and time kernel 6 and its twin; print the observation
-     counts kernel 3b saw in the refreshes of phases 4 and 5.
+     counts kernel 3b saw in the refreshes of phases 4 and 5;
+  6. a loop: ``SlamConfig()``'s own defaults (loop closing on, keyframe
+     culling off) through ``System.track_mono`` on RoomScene seed 2 along
+     ``circle_trajectory(180, radius=1.8, turns=1.04)`` at 320x240, 512
+     features, 4 levels (tests/test_e2e_loop.py's setting: the JAX System
+     closes no loop at the VGA width, tools/jax_loop_reference.py), counters
+     reset just before; check that a loop closes, that a global BA is
+     dispatched and folded, the tracked fraction, the final state, the ATE
+     against the JAX System's on the same cell, and the launches (kernel 7
+     once a Sim3 RANSAC, kernel 8 once an optimize_sim3, kernel 3 once a
+     guided match / projection count / SearchAndFuse); then compare kernels
+     7 and 8 with their twins on the inputs the loop gave them (the run's
+     first launch of each, and the closing attempt's last), and print the
+     per-frame wall times and each loop stage's.
 Kernel times are one CUDA-event pair around 100 back-to-back calls after a
 warm-up, divided by the count; kernels 3b and 6 also give ``graph_us``, the
-device time a call in a replay of 50 calls captured into one CUDA graph;
+device time a call in a replay of 50 calls captured into one CUDA graph (as
+do kernels 7 and 8);
 the device kernels of one call (kernel 2:
 two, every other: one) are counted in a CUDA-graph capture of the call.  Each
 kernel's bound is the larger of its bytes (inputs read once, outputs
@@ -84,6 +98,12 @@ ATE_BOUND = 0.08   # m, Sim3-aligned; tests/test_e2e_mono.py's bound
 # phase 5: sweep, then jump back (the JAX System relocalizes on this sequence)
 KIDNAP_SWEEP, KIDNAP_STEP, KIDNAP_JUMP = 64, 0.08, 4
 RELOC_MIN_INLIERS = 15   # the PnP gate of pipeline/tracking.py relocalize_candidates
+# phase 6: tests/test_e2e_loop.py's loop at its own 320x240 setting
+LOOP_FRAMES = 180
+# the JAX System on the same cell: closes one loop (frame 167), tracks 176/180,
+# ATE 0.043950252591681414 m over frame_trajectory() after the final fold
+# (python3 tools/jax_loop_reference.py --qvga, a CPU run)
+LOOP_ATE_JAX = 0.043950252591681414
 # kernel name: (source, the JAX code it replaces, its wrapper's __name__)
 SOURCES = {
     "fast_nms": ("orb_slam2_annotate_tpu_torch/csrc/fast_nms.cu",
@@ -101,7 +121,12 @@ SOURCES = {
                      "orb_slam2_annotate_tpu/worldmap/vocabulary.py:81", "assign_words"),
     "pnp_hypotheses": ("orb_slam2_annotate_tpu_torch/csrc/pnp_score.cu",
                        "orb_slam2_annotate_tpu/solvers/pnp.py:87", "pnp_hypotheses"),
+    "sim3_hypotheses": ("orb_slam2_annotate_tpu_torch/csrc/sim3.cu",
+                        "orb_slam2_annotate_tpu/solvers/sim3.py:96", "sim3_hypotheses"),
+    "sim3_lm_solve": ("orb_slam2_annotate_tpu_torch/csrc/sim3.cu",
+                      "orb_slam2_annotate_tpu/solvers/sim3.py:172", "sim3_lm_solve"),
 }
+LOOP_ONLY = ("sim3_hypotheses", "sim3_lm_solve")   # launched only with loop closing on
 PEAK_OPS = 67e12      # /s: f32 outside the tensor cores (H100 SXM); 32-bit integer work alike
 PEAK_INT8_TC = 1.979e15  # /s: int8 dense tensor cores (H100 SXM); kernel 5's 1-bit products
 PEAK_BYTES = 3.35e12  # /s: HBM3
@@ -126,6 +151,18 @@ DD_OPS_PER_PAIR = 4            # distinctive descriptor: the distance from the p
 DD_BYTES_PER_ROW = 72          # an observed row read (64 B) and its two indices
 DD_BYTES_PER_POINT = 72        # the count in, the descriptor and its slot out
 POSE_OPS_PROJECT, POSE_OPS_ROW, POSE_OPS_COST, POSE_OPS_RECLASS = 45, 66, 35, 30
+# kernel 7: a 3-point Horn counted from the function, not the Jacobi schedule:
+# centroids (18), M (27), Q (16), the 4x4 symmetric eigenproblem at SVD-level
+# work (9 n^3 = 576), R from q (30), scale and t (45); then both
+# reprojections of a valid pair (33 operations each, as kernel 6's)
+SIM3_HORN_OPS = 18 + 27 + 16 + 9 * 4 ** 3 + 30 + 45
+SIM3_OPS_PER_REPROJECTION = 33
+SIM3_PAIR_BYTES = 49             # x1, x2, uv1, uv2, both inverse sigma^2 (f32), valid
+SIM3_HYP_BYTES = 24 + 56         # the sampled triple in; s, R, t, count out
+# kernel 8, a valid pair in one LM iteration: both projections (66), 4
+# Jacobian rows of 7 (4 x 20) and their 28 + 7 products and sums (4 x 70),
+# the cost (20), three candidate costs (3 x 86), the inlier refresh (70)
+SIM3_LM_OPS_PER_PAIR = 66 + 4 * 20 + 4 * 70 + 20 + 3 * 86 + 70
 
 
 def fail(msg: str):
@@ -278,6 +315,89 @@ def kidnap_setup(cam):
     images = [np.clip(scene.render(cam, *gt[f], h=480, w=640)[0], 0, 255).astype(np.uint8)
               for f in seq]
     return gt, seq, images
+
+
+def loop_setup():
+    """Phase 6's cell: (camera, ground-truth poses, rendered uint8 frames,
+    config): SlamConfig()'s own defaults (loop closing on) at
+    tests/test_e2e_loop.py's sizes, keyframe culling off."""
+    import numpy as np
+
+    from orb_slam2_annotate_tpu_torch.geometry.camera import CameraModel
+    from orb_slam2_annotate_tpu_torch.io import synthetic
+    from orb_slam2_annotate_tpu_torch.pipeline import SlamConfig
+
+    cam = CameraModel.create(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=320, height=240)
+    scene = synthetic.RoomScene(seed=2)
+    poses = synthetic.circle_trajectory(LOOP_FRAMES, radius=1.8, turns=1.04)
+    frames = [np.clip(scene.render(cam, R, t, h=240, w=320)[0], 0, 255).astype(np.uint8)
+              for R, t in poses]
+    cfg = SlamConfig(n_features=512, n_levels=4, max_kf=64, max_mp=8192, max_frames_between_kf=4,
+                     init_min_matches=60, enable_kf_culling=False)
+    return cam, poses, frames, cfg
+
+
+def check_sim3_hypotheses(what, args, fix_scale):
+    """Kernel 7 against its twin: counts and best equal, s, R, t within
+    1e-5.  Returns (max |ds|, |dR|, |dt|, whether every output is bit-exact)."""
+    import torch
+
+    from orb_slam2_annotate_tpu_torch.kernels import sim3 as k7
+
+    got = k7.sim3_hypotheses(*args, fix_scale)
+    ref = k7.sim3_hypotheses_plain(*args, fix_scale)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[3], ref[3]) and torch.equal(got[4], ref[4])):
+        fail(f"sim3_hypotheses ({what}): counts differ on {int((got[3] != ref[3]).sum())} "
+             f"hypotheses, best {int(got[4])} vs {int(ref[4])}")
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:3], ref[:3]))
+    if not err <= 1e-5:
+        fail(f"sim3_hypotheses ({what}): s, R or t differs from the twin by {err:.3g}")
+    exact = all(torch.equal(a, b) for a, b in zip(got, ref))
+    print(f"sim3_hypotheses vs twin, {what}: H {args[0].shape[0]}, N {args[1].shape[0]}, fix_scale "
+          f"{fix_scale}: counts and best equal (best {int(ref[4])}, {int(ref[3].max())} inliers), "
+          f"max |ds|,|dR|,|dt| {err:.3g}, every output bit-exact {exact}")
+    return err, exact
+
+
+def check_sim3_lm(what, args):
+    """Kernel 8 against its twin at kernel 4's tolerances: s, R, t within
+    1e-4; inlier masks differ on <= 1% of pairs, only within 1% of the chi2
+    gate; n within 1%.  args as sim3_lm_solve's.  Returns max |ds|,|dR|,|dt|."""
+    import torch
+
+    from orb_slam2_annotate_tpu_torch.kernels import sim3 as k8
+
+    got = k8.sim3_lm_solve(*args)
+    ref = k8.sim3_lm_solve_plain(*args)
+    torch.cuda.synchronize()
+    x1, x2, uv1, uv2, valid, is1, is2 = args[:7]
+    fx, fy, cx, cy, fix_scale, th = args[10:16]
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:3], ref[:3]))
+    _, c_f, c_i, _ = k8.project_residuals(fx, fy, cx, cy, got[0], got[1], got[2], x1, x2, uv1, uv2,
+                                          is1, is2)
+    near = ((c_f / th - 1.0).abs() < 0.01) | ((c_i / th - 1.0).abs() < 0.01)
+    diff = got[3] != ref[3]
+    frac = float(diff.float().mean())
+    n_k, n_p = int(got[4]), int(ref[4])
+    if err > 1e-4 or frac > 0.01 or bool((diff & ~near).any()) or abs(n_k - n_p) > math.ceil(0.01 * n_p):
+        fail(f"sim3_lm_solve ({what}): max |ds|,|dR|,|dt| {err:.3g}, masks differ on {frac:.4f} "
+             f"({int((diff & ~near).sum())} away from the gate), n {n_k} vs {n_p}")
+    print(f"sim3_lm_solve vs twin, {what}: N {x1.shape[0]}, fix_scale {fix_scale}, s {float(got[0]):.6f}, "
+          f"max |ds|,|dR|,|dt| {err:.3g}, masks differ on {frac:.4f}, n {n_k} vs {n_p}")
+    return err
+
+
+def sim3_hyp_work(samples, valid):
+    """(bytes, operations) of one kernel-7 call."""
+    H, N = samples.shape[0], valid.shape[0]
+    return (H * SIM3_HYP_BYTES + N * SIM3_PAIR_BYTES + 8,
+            H * SIM3_HORN_OPS + 2 * SIM3_OPS_PER_REPROJECTION * H * float(valid.sum()))
+
+
+def sim3_lm_work(valid, iters):
+    """(bytes, operations) of one kernel-8 call."""
+    return valid.shape[0] * (SIM3_PAIR_BYTES + 1) + 64, iters * SIM3_LM_OPS_PER_PAIR * float(valid.sum())
 
 
 def ate_of(slam, gt, seq):
@@ -655,6 +775,66 @@ def main():
                    "(two calls, TF32 off)")
     results["assign_words"]["library_ms"] = time_ms(library5)
 
+    # kernel 7: every sampled triple's Sim3, its count and the first best;
+    # 1024 hypotheses x 1024 pairs with 25% outliers (tests/test_loop_components.py's
+    # case at full size), once with a near-collinear triple, once with 2
+    # valid pairs; counts and best bit for bit
+    from orb_slam2_annotate_tpu_torch.kernels import sim3 as k7
+    N7 = H7 = 1024
+    lo7 = torch.tensor([-2.0, -2.0, 3.0], device=dev)
+    hi7 = torch.tensor([2.0, 2.0, 8.0], device=dev)
+    box = lambda n: lo7 + (hi7 - lo7) * torch.rand(n, 3, generator=gen, device=dev)
+    proj7 = lambda x: torch.stack([cam.fx * x[:, 0] / x[:, 2] + cam.cx,
+                                   cam.fy * x[:, 1] / x[:, 2] + cam.cy], 1)
+    x1s = box(N7)
+    R7 = lie.so3_exp(torch.tensor([0.1, 0.3, -0.2], device=dev))
+    t7 = torch.tensor([0.5, -0.2, 0.8], device=dev)
+    out7 = (torch.rand(N7, generator=gen, device=dev) < 0.25)[:, None]
+    pairs7 = {}
+    for fix in (False, True):
+        x2t = (1.0 if fix else 1.4) * x1s @ R7.T + t7
+        pairs7[fix] = (x1s, torch.where(out7, box(N7), x2t).contiguous(),
+                       (proj7(x1s) + 0.5 * torch.randn(N7, 2, generator=gen, device=dev)).contiguous(),
+                       proj7(x2t).contiguous())
+    valid7 = torch.ones(N7, dtype=torch.bool, device=dev)
+    is1_7 = (1.2 ** (-2.0 * torch.randint(0, 8, (N7,), generator=gen, device=dev).float())).contiguous()
+    is2_7 = torch.ones(N7, device=dev)
+    consts7 = (cam.fx, cam.fy, cam.cx, cam.cy, 100.0)    # the loop closer's chi2 gate
+    samples7 = torch.multinomial(valid7.float().expand(H7, N7), 3, generator=gen)
+    samples_c = samples7.clone()
+    samples_c[0] = torch.tensor([1, 2, 3], device=dev)
+    x1c = x1s.clone()
+    x1c[2] = x1s[1] + 0.5 * (x1s[3] - x1s[1]) + 1e-4            # on the segment, 0.1 mm off
+    err7, exact7 = 0.0, True
+    for fix in (False, True):
+        x1f, x2f, uv1f, uv2f = pairs7[fix]
+        for what, smp, a1, v in (("25% outliers", samples7, x1f, valid7),
+                                 ("a near-collinear triple", samples_c, x1c, valid7),
+                                 ("2 valid pairs", samples7, x1f, torch.arange(N7, device=dev) < 2)):
+            e, x = check_sim3_hypotheses(what, (smp, a1, x2f, uv1f, uv2f, v, is1_7, is2_7,
+                                                *consts7), fix)
+            err7, exact7 = max(err7, e), exact7 and x
+    args7 = (samples7, *pairs7[False], valid7, is1_7, is2_7, *consts7, False)
+    record("sim3_hypotheses", err7, time_ms(lambda: k7.sim3_hypotheses(*args7)),
+           time_ms(lambda: k7.sim3_hypotheses_plain(*args7), 3), *sim3_hyp_work(samples7, valid7),
+           bit_exact=exact7, graph_us=graph_us(lambda: k7.sim3_hypotheses(*args7)),
+           **device_kernels(lambda: k7.sim3_hypotheses(*args7), 1))
+
+    # kernel 8: the whole Sim3 LM on the same 1024 pairs from a start 0.1 in
+    # scale, ~0.03 rad and 5 cm off, scale free and fixed
+    err8 = 0.0
+    R0_8 = lie.so3_exp(torch.tensor([0.02, -0.02, 0.01], device=dev)) @ R7
+    for fix in (False, True):
+        args8 = (*pairs7[fix], valid7, is1_7, is2_7, torch.tensor(1.0 if fix else 1.3, device=dev),
+                 R0_8, t7 + 0.05, cam.fx, cam.fy, cam.cx, cam.cy, fix, 100.0)
+        err8 = max(err8, check_sim3_lm(f"synthetic, fix_scale {fix}", args8))
+    args8 = (*pairs7[False], valid7, is1_7, is2_7, torch.tensor(1.3, device=dev), R0_8, t7 + 0.05,
+             cam.fx, cam.fy, cam.cx, cam.cy, False, 100.0)
+    record("sim3_lm_solve", err8, time_ms(lambda: k7.sim3_lm_solve(*args8)),
+           time_ms(lambda: k7.sim3_lm_solve_plain(*args8), 3), *sim3_lm_work(valid7, k7.LM_ITERS),
+           graph_us=graph_us(lambda: k7.sim3_lm_solve(*args8)),
+           **device_kernels(lambda: k7.sim3_lm_solve(*args8), 1))
+
     def drive(name, slam, images, counted):
         """One main-path run: counters zeroed just before, read just after;
         fails unless every kernel in `counted` was launched."""
@@ -728,7 +908,8 @@ def main():
     tracking.relocalize_candidates = matcher_launches_in(real_reloc, reloc_launches)
     lm_calls[0] = 0
     _, frame_s, launches4 = drive("slice", slam, frames,
-                                  [w for n, (_, _, w) in SOURCES.items() if n != "pnp_hypotheses"])
+                                  [w for n, (_, _, w) in SOURCES.items()
+                                   if n not in ("pnp_hypotheses",) + LOOP_ONLY])
     calls4, match_calls4, tri4 = lm_calls[0], match_calls[0], list(tri_launches)
     stats4 = stats_calls[0]
     counts4 = list(refresh_counts)
@@ -800,7 +981,8 @@ def main():
     lm_calls[0], match_calls[0] = 0, 0
     reloc_launches.clear()
     try:
-        out5, frame_s5, launches5 = drive("kidnap", slam5, images5, [w for _, _, w in SOURCES.values()])
+        out5, frame_s5, launches5 = drive("kidnap", slam5, images5,
+                                          [w for n, (_, _, w) in SOURCES.items() if n not in LOOP_ONLY])
     finally:
         pnp_mod.pnp_hypotheses, pnp_mod.optimize_pose_batched = real_hyp, real_polish
         pose_opt.optimize_pose = real_opt
@@ -881,9 +1063,158 @@ def main():
     results["pose_lm_solve"]["max_abs_err"] = max(results["pose_lm_solve"]["max_abs_err"], err_polish)
     results["pose_lm_solve"]["reloc_batch"] = polish_sizes
 
+    # ---- phase 6: a loop with SlamConfig()'s own defaults (loop closing on)
+    from orb_slam2_annotate_tpu_torch.pipeline import loop_closing as loop_mod
+    from orb_slam2_annotate_tpu_torch.solvers import sim3 as sim3_mod
+
+    t0 = time.perf_counter()
+    cam6, gt6, images6, loop_cfg = loop_setup()
+    print(f"render: {LOOP_FRAMES} frames in {time.perf_counter() - t0:.1f} s (host numpy)")
+    slam6 = System(cam6, loop_cfg, device="cuda")
+    lc6 = slam6.loop_closer
+    stage_ms = {k: [] for k in ("loop/detect", "loop/sim3", "loop/correct", "loop/pose_graph",
+                                "loop/gba", "loop/fold")}
+    calls6 = {"sim3_ransac": 0, "optimize_sim3": 0}
+    k3_in = {"sim3_guided_match": [], "loop_projection_count": [], "fuse_points_into": []}
+    captured6, closures = {}, []
+
+    def timed(name, fn):
+        # the stage's host wall time, the card drained before and after
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stage_ms[name].append(1e3 * (time.perf_counter() - t))
+            return out
+        return run
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            calls6[name] += 1
+            return fn(*a, **kw)
+        return run
+
+    latest6 = {}
+
+    def keep(name, fn):
+        # the first call's inputs and the latest, for the comparison below
+        def run(*a, **kw):
+            latest6[name] = tuple(x.clone() if torch.is_tensor(x) else x for x in a)
+            captured6.setdefault(("first", name), latest6[name])
+            return fn(*a, **kw)
+        return run
+
+    real_fold, real_resolve = lc6.maybe_fold_gba, lc6.resolve_detection
+
+    def fold(m, force=False):
+        n0 = lc6.n_gba_folded
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_fold(m, force)
+        torch.cuda.synchronize()
+        if lc6.n_gba_folded > n0:
+            stage_ms["loop/fold"].append(1e3 * (time.perf_counter() - t))
+        return out
+
+    def resolve(m, slot, det):
+        out = real_resolve(m, slot, det)
+        if out[1]:
+            closures.append(slam6.frame_id)
+            # the closing attempt's last launch of each: its pair-set RANSAC
+            # and its second optimize_sim3
+            for name in LOOP_ONLY:
+                captured6.setdefault(("closure", name), latest6[name])
+        return out
+
+    lc6.dispatch_detection = timed("loop/detect", lc6.dispatch_detection)
+    lc6._compute_sim3 = timed("loop/sim3", lc6._compute_sim3)
+    lc6._correct_loop = timed("loop/correct", lc6._correct_loop)
+    lc6._dispatch_global_ba = timed("loop/gba", lc6._dispatch_global_ba)
+    lc6.maybe_fold_gba, lc6.resolve_detection = fold, resolve
+    saved = (sim3_mod.sim3_ransac, sim3_mod.optimize_sim3, sim3_mod.sim3_hypotheses,
+             sim3_mod.sim3_lm_solve, loop_mod.sim3_guided_match, loop_mod.loop_projection_count,
+             local_mapping.fuse_points_into, matching.match_gated, loop_mod.optimize_pose_graph,
+             loop_mod.optimize_pose_graph_cg)
+    sim3_mod.sim3_ransac = counted("sim3_ransac", saved[0])
+    sim3_mod.optimize_sim3 = counted("optimize_sim3", saved[1])
+    sim3_mod.sim3_hypotheses = keep("sim3_hypotheses", saved[2])
+    sim3_mod.sim3_lm_solve = keep("sim3_lm_solve", saved[3])
+    loop_mod.sim3_guided_match = matcher_launches_in(saved[4], k3_in["sim3_guided_match"])
+    loop_mod.loop_projection_count = matcher_launches_in(saved[5], k3_in["loop_projection_count"])
+    local_mapping.fuse_points_into = matcher_launches_in(saved[6], k3_in["fuse_points_into"])
+    matching.match_gated = count_match
+    loop_mod.optimize_pose_graph = timed("loop/pose_graph", saved[8])
+    loop_mod.optimize_pose_graph_cg = timed("loop/pose_graph", saved[9])
+    match_calls[0] = 0
+    try:
+        _, frame_s6, launches6 = drive("loop", slam6, images6,
+                                       [w for n, (_, _, w) in SOURCES.items() if n != "pnp_hypotheses"])
+    finally:
+        (sim3_mod.sim3_ransac, sim3_mod.optimize_sim3, sim3_mod.sim3_hypotheses,
+         sim3_mod.sim3_lm_solve, loop_mod.sim3_guided_match, loop_mod.loop_projection_count,
+         local_mapping.fuse_points_into, matching.match_gated, loop_mod.optimize_pose_graph,
+         loop_mod.optimize_pose_graph_cg) = saved
+    match_calls6 = match_calls[0]
+    ate6, n6 = ate_of(slam6, gt6, range(LOOP_FRAMES))       # flushes: folds a pending BA
+    ate_bound6 = max(1.5 * LOOP_ATE_JAX, LOOP_ATE_JAX + 0.05)
+    # the correction's span without the global BA it dispatches
+    correct_ms = [c - g for c, g in zip(stage_ms["loop/correct"], stage_ms["loop/gba"])]
+    stage_ms["loop/correct"] = correct_ms
+    closure_ms = [1e3 * frame_s6[f] for f in closures]
+    print(f"loop: {LOOP_FRAMES} frames in {sum(frame_s6):.2f} s, frame wall time median "
+          f"{1e3 * statistics.median(frame_s6):.2f} ms, max {1e3 * max(frame_s6):.2f} ms (frame "
+          f"{frame_s6.index(max(frame_s6))}), closure frames {closures} at {closure_ms} ms; loops "
+          f"closed {lc6.n_loops_closed}, global BAs dispatched {lc6.n_gba_dispatched}, folded "
+          f"{lc6.n_gba_folded}; ATE {ate6:.5f} m (bound {ate_bound6:.5f}, JAX {LOOP_ATE_JAX}), tracked "
+          f"{n6}/{LOOP_FRAMES}, keyframes {slam6.n_keyframes}, map points {slam6.n_mappoints}, state "
+          f"{slam6.state}; sim3_ransac calls {calls6['sim3_ransac']}, optimize_sim3 calls "
+          f"{calls6['optimize_sim3']}, matcher calls {match_calls6}, kernel-3 launches per call "
+          f"{json.dumps(k3_in)}, card {card}")
+    print(f"loop stage times, ms (host wall time, the card drained around each): "
+          f"{json.dumps({k: [round(v, 3) for v in vs] for k, vs in stage_ms.items()})}")
+    checks = {"a loop closed": lc6.n_loops_closed >= 1,
+              "a global BA dispatched and folded": lc6.n_gba_dispatched >= 1 and lc6.n_gba_folded >= 1,
+              "tracked >= 60%": n6 >= 0.6 * LOOP_FRAMES, "state OK": slam6.state == "OK",
+              f"ATE <= {ate_bound6:.4f}": ate6 <= ate_bound6,
+              "one sim3_hypotheses launch per sim3_ransac":
+                  calls6["sim3_ransac"] > 0 and launches6["sim3_hypotheses"] == calls6["sim3_ransac"],
+              "one sim3_lm_solve launch per optimize_sim3":
+                  calls6["optimize_sim3"] > 0 and launches6["sim3_lm_solve"] == calls6["optimize_sim3"],
+              "one hamming_match launch per matcher call": launches6["hamming_match"] == match_calls6,
+              "one matcher launch per guided match / projection count / SearchAndFuse":
+                  all(len(v) > 0 and set(v) == {1} for v in k3_in.values()),
+              "one fast_nms launch per frame": launches6["fast_nms"] == LOOP_FRAMES,
+              "kernel inputs captured": len(captured6) == 4}
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"loop checks failed: {bad}")
+    # kernels 7 and 8 on the inputs the loop gave them: the run's first
+    # launch of each, and the closing attempt's last
+    for when in ("first", "closure"):
+        a7 = captured6[(when, "sim3_hypotheses")]
+        e7, x7 = check_sim3_hypotheses(f"the loop's {when} Sim3 RANSAC input", a7[:-1], a7[-1])
+        a8 = captured6[(when, "sim3_lm_solve")]
+        e8 = check_sim3_lm(f"the loop's {when} optimize_sim3 input", a8)
+        r7, r8 = results["sim3_hypotheses"], results["sim3_lm_solve"]
+        r7["max_abs_err"], r8["max_abs_err"] = max(r7["max_abs_err"], e7), max(r8["max_abs_err"], e8)
+        r7[f"captured_{when}"] = {
+            "H": a7[0].shape[0], "N": a7[1].shape[0], "valid": int(a7[5].sum()), "bit_exact": x7,
+            "ms": time_ms(lambda: k7.sim3_hypotheses(*a7)),
+            "graph_us": graph_us(lambda: k7.sim3_hypotheses(*a7)),
+            "bound_ms": bound(*sim3_hyp_work(a7[0], a7[5]))[0]}
+        r8[f"captured_{when}"] = {
+            "N": a8[0].shape[0], "valid": int(a8[4].sum()),
+            "ms": time_ms(lambda: k7.sim3_lm_solve(*a8)),
+            "graph_us": graph_us(lambda: k7.sim3_lm_solve(*a8)),
+            "bound_ms": bound(*sim3_lm_work(a8[4], a8[16]))[0]}
+    print(f"kernels 7 and 8 on the loop's inputs: "
+          f"{json.dumps({n: {k: v for k, v in results[n].items() if k.startswith('captured')} for n in LOOP_ONLY})}")
+
     kern = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
-             "launches": launches4[w] + launches5[w],
-             "launches_by_phase": {"slice": launches4[w], "kidnap": launches5[w]}, **results[n]}
+             "launches": launches4[w] + launches5[w] + launches6[w],
+             "launches_by_phase": {"slice": launches4[w], "kidnap": launches5[w],
+                                   "loop": launches6[w]}, **results[n]}
             for n, (src, rep, w) in SOURCES.items()]
     print(json.dumps({"kernels": kern, "slice": slice_out,
                       "kidnap": {"ate_m": ate5, "tracked": n5, "frames": len(seq),
@@ -891,6 +1222,16 @@ def main():
                                  "jump_frame_ms": 1e3 * frame_s5[KIDNAP_SWEEP],
                                  "keyframes": slam5.n_keyframes, "relocalizations": relocs,
                                  "optimize_pose_calls": calls5, "matcher_calls": match_calls5},
+                      "loop": {"ate_m": ate6, "ate_bound_m": ate_bound6, "ate_jax_m": LOOP_ATE_JAX,
+                               "tracked": n6, "frames": LOOP_FRAMES,
+                               "frames_per_s": LOOP_FRAMES / sum(frame_s6),
+                               "frame_ms_median": 1e3 * statistics.median(frame_s6),
+                               "frame_ms_max": 1e3 * max(frame_s6), "closure_frames": closures,
+                               "closure_frame_ms": closure_ms, "loops_closed": lc6.n_loops_closed,
+                               "gba_dispatched": lc6.n_gba_dispatched,
+                               "gba_folded": lc6.n_gba_folded, "keyframes": slam6.n_keyframes,
+                               "stage_ms": stage_ms, "sim3_ransac_calls": calls6["sim3_ransac"],
+                               "optimize_sim3_calls": calls6["optimize_sim3"]},
                       "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

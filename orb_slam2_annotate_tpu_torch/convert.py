@@ -72,6 +72,30 @@ def database_from_numpy(d: dict, device="cpu") -> KeyFrameDatabase:
     return KeyFrameDatabase(_to_torch("bows", d["bows"], device))
 
 
+_LOOP_COUNTERS = ("n_loops_closed", "n_loop_edges_dropped", "n_stats_overflow", "_last_loop_kf",
+                  "_seq")
+
+
+def loop_closer_state_to_numpy(lc) -> dict:
+    """A LoopCloser's state (of either package): database rows, consistency
+    streaks, loop edges and counters."""
+    d = {"bows": np.array(lc.db.bows if not torch.is_tensor(lc.db.bows) else lc.db.bows.cpu()),
+         "streaks": {int(k): int(v) for k, v in lc._streaks.items()},
+         "loop_edges": [(int(a), int(b)) for a, b in lc.loop_edges]}
+    d.update({k: int(getattr(lc, k)) for k in _LOOP_COUNTERS})
+    return d
+
+
+def loop_closer_state_from_numpy(lc, d: dict):
+    """Give the port's LoopCloser `lc` the state `d` (loop_closer_state_to_numpy)."""
+    lc.db = KeyFrameDatabase(_to_torch("bows", d["bows"], lc.device))
+    lc._streaks = dict(d["streaks"])
+    lc.loop_edges = list(d["loop_edges"])
+    for k in _LOOP_COUNTERS:
+        setattr(lc, k, int(d[k]))
+    return lc
+
+
 def cull_info_from_numpy(d: dict, device="cpu") -> CullInfo:
     return CullInfo(**{f.name: _to_torch(f.name, d[f.name], device)
                        for f in dataclasses.fields(CullInfo)})

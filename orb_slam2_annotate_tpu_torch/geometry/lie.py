@@ -1,4 +1,4 @@
-"""SO(3) / SE(3) Lie-group operations (port of geometry/lie.py, SE3 part).
+"""SO(3) / SE(3) / Sim(3) Lie-group operations (port of geometry/lie.py).
 
 Conventions as in the reference: poses are (R, t) with x_cam = R x_world + t,
 se3 tangents are [rho(3), phi(3)] (translation first).  All functions take
@@ -127,3 +127,112 @@ def se3_retract(R, t, xi):
     """Left retraction used by all solvers: T <- exp(xi) o T."""
     dR, dt = se3_exp(xi)
     return se3_compose(dR, dt, R, t)
+
+
+def se3_apply(R, t, x):
+    return torch.einsum("...ij,...j->...i", R, x) + t
+
+
+# ---------------------------------------------------------------------------
+# Sim(3), used by loop closing.  xi = [rho(3), phi(3), sigma]; (s, R, t) maps
+# x to s R x + t.
+# ---------------------------------------------------------------------------
+
+
+def sim3_exp(xi: torch.Tensor):
+    """exp: sim(3) -> Sim(3), xi [..., 7] -> (s, R, t) with t = W rho,
+    W = C I + A hat(phi) + B hat(phi)^2 and the reference's Taylor limits as
+    theta -> 0 and sigma -> 0."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    s = torch.exp(sigma)
+    R = so3_exp(phi)
+    theta = torch.linalg.norm(phi, dim=-1)
+    K = hat(phi)
+    K2 = K @ K
+    eps = 1e-5
+    sig_small = sigma.abs() < eps
+    th_small = theta < eps
+    one = torch.ones_like(sigma)
+    sig_safe = torch.where(sig_small, one, sigma)
+    th_safe = torch.where(th_small, one, theta)
+    C = torch.where(sig_small, 1.0 + sigma / 2.0 + sigma * sigma / 6.0, (s - 1.0) / sig_safe)
+    b = s * torch.cos(theta)
+    a = s * torch.sin(theta)
+    den = sigma * sigma + theta * theta
+    den_safe = torch.where(th_small & sig_small, one, den)
+    A_gen = (sigma * a + (1.0 - b) * th_safe) / (th_safe * den_safe)
+    B_gen = (C - ((b - 1.0) * sigma + a * th_safe) / den_safe) / (th_safe * th_safe)
+    A_th0 = torch.where(sig_small, 0.5 + sigma / 3.0,
+                        ((sig_safe - 1.0) * s + 1.0) / (sig_safe * sig_safe))
+    B_th0 = torch.where(sig_small, 1.0 / 6.0 + sigma / 4.0,
+                        ((0.5 * sig_safe * sig_safe - sig_safe + 1.0) * s - 1.0) / sig_safe ** 3)
+    A = torch.where(th_small, A_th0, A_gen)
+    B = torch.where(th_small, B_th0, B_gen)
+    W = C[..., None, None] * _eye3(xi) + A[..., None, None] * K + B[..., None, None] * K2
+    return s, R, torch.einsum("...ij,...j->...i", W, rho)
+
+
+def sim3_apply(s, R, t, x):
+    return s[..., None] * torch.einsum("...ij,...j->...i", R, x) + t
+
+
+def sim3_inverse(s, R, t):
+    s_inv = 1.0 / s
+    R_inv = R.transpose(-1, -2)
+    return s_inv, R_inv, -s_inv[..., None] * torch.einsum("...ij,...j->...i", R_inv, t)
+
+
+def sim3_compose(sa, Ra, ta, sb, Rb, tb):
+    """(sa,Ra,ta) o (sb,Rb,tb): first apply b, then a."""
+    return sa * sb, Ra @ Rb, sa[..., None] * torch.einsum("...ij,...j->...i", Ra, tb) + ta
+
+
+def sim3_retract(s, R, t, xi):
+    """Left retraction: S <- exp(xi) o S."""
+    ds, dR, dt = sim3_exp(xi)
+    return sim3_compose(ds, dR, dt, s, R, t)
+
+
+def sim3_log(s, R, t):
+    """log: Sim(3) -> sim(3); rho solves t = W rho with W probed from sim3_exp."""
+    from .smallsolve import solve3
+
+    sigma = torch.log(s)
+    phi = so3_log(R)
+    basis = torch.eye(3, dtype=t.dtype, device=t.device)
+    cols = [sim3_exp(torch.cat([basis[i].expand_as(t), phi, sigma[..., None]], dim=-1))[2]
+            for i in range(3)]
+    rho = solve3(torch.stack(cols, dim=-1), t)
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quaternion [qx, qy, qz, qw]: the best-conditioned
+    of Shepperd's four candidates."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    q0 = torch.stack([m21 - m12, m02 - m20, m10 - m01, 1.0 + tr], dim=-1)
+    q1 = torch.stack([1.0 + m00 - m11 - m22, m01 + m10, m02 + m20, m21 - m12], dim=-1)
+    q2 = torch.stack([m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21, m02 - m20], dim=-1)
+    q3 = torch.stack([m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22, m10 - m01], dim=-1)
+    cands = torch.stack([q0, q1, q2, q3], dim=-2)
+    idx = torch.argmax(torch.sum(cands * cands, dim=-1), dim=-1)
+    q = torch.gather(cands, -2, idx[..., None, None].expand(*idx.shape, 1, 4))[..., 0, :]
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion [qx, qy, qz, qw] -> rotation matrix."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    n = x * x + y * y + z * z + w * w
+    s = 2.0 / torch.clamp_min(n, _EPS)
+    wx, wy, wz = s * w * x, s * w * y, s * w * z
+    xx, xy, xz = s * x * x, s * x * y, s * x * z
+    yy, yz, zz = s * y * y, s * y * z, s * z * z
+    return torch.stack([
+        torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], dim=-1),
+        torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], dim=-1),
+        torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], dim=-1),
+    ], dim=-2)

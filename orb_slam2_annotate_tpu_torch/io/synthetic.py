@@ -1,7 +1,8 @@
 """Synthetic sequences with exact ground truth, numpy only.
 
 A copy of the parts of orb_slam2_annotate_tpu/io/synthetic.py that the
-monocular slice uses (PlaneScene, orbit_trajectory): importing the
+monocular slice and the loop scenes use (PlaneScene, orbit_trajectory,
+RoomScene, circle_trajectory, loop_trajectory): importing the
 reference package would import jax, and the machines that run the port
 need not have OpenCV.  ``warp_perspective`` therefore reimplements the
 arithmetic of ``cv2.warpPerspective(INTER_LINEAR, BORDER_CONSTANT)`` as
@@ -145,3 +146,61 @@ class PlaneScene:
             img[m] = warped[m]
             depth[m] = wz[m]
         return img, depth
+
+
+def loop_trajectory(n_frames: int, extent: float = 1.8, step: float = 0.06):
+    """Out-and-back sweep: x goes 0 -> extent -> 0 at constant heading."""
+    xs, x, direction = [], 0.0, 1.0
+    for _ in range(n_frames):
+        xs.append(x)
+        x += direction * step
+        if x >= extent:
+            direction = -1.0
+        if x <= 0 and direction < 0:
+            direction = 1.0
+    R = np.eye(3, dtype=np.float32)
+    return [(R, -R @ np.array([xk, 0.0, 0.0], np.float32)) for xk in xs]
+
+
+class RoomScene(PlaneScene):
+    """Four textured walls around the origin and a floor: a camera circling
+    outward sees each wall in turn, so covisibility between a loop's start
+    and end breaks until the loop closes."""
+
+    def __init__(self, seed: int = 0, half: float = 6.0, tex_size: int = 768):
+        rng = np.random.RandomState(seed)
+        self.planes = []
+
+        def make_texture():
+            t = np.zeros((tex_size, tex_size), np.float32)
+            for octave in range(2, 7):
+                n = tex_size // (2 ** octave)
+                layer = rng.rand(n, n).astype(np.float32) - 0.5
+                layer = np.kron(layer, np.ones((2 ** octave, 2 ** octave), np.float32))
+                t += layer * (1.4 ** octave)
+            t = t[:tex_size, :tex_size]
+            t = 120.0 + 60.0 * t / np.abs(t).max()
+            return np.clip(t, 5, 250)
+
+        h = half
+        walls = [(np.array([-h, -4.0, h]), np.array([2 * h, 0, 0])),     # z = +h
+                 (np.array([h, -4.0, h]), np.array([0, 0, -2 * h])),     # x = +h
+                 (np.array([h, -4.0, -h]), np.array([-2 * h, 0, 0])),    # z = -h
+                 (np.array([-h, -4.0, -h]), np.array([0, 0, 2 * h]))]    # x = -h
+        V = np.array([0, 8.0, 0])
+        for O, U in walls:
+            self.planes.append((O, U, V, make_texture()))
+        self.planes.append((np.array([-h, 2.0, h]), np.array([2 * h, 0, 0]),
+                            np.array([0, 0, -2 * h]), make_texture()))            # floor
+
+
+def circle_trajectory(n_frames: int, radius: float = 1.0, turns: float = 1.0):
+    """Outward-facing camera on a circle (world->cam poses)."""
+    poses = []
+    for k in range(n_frames):
+        a = 2.0 * np.pi * turns * k / n_frames
+        sa, ca = np.sin(a), np.cos(a)
+        p = np.array([radius * sa, 0.0, radius * ca], np.float32)
+        R = np.array([[ca, 0, -sa], [0, 1, 0], [sa, 0, ca]], np.float32)
+        poses.append((R, -R @ p))
+    return poses

@@ -1,6 +1,7 @@
 """Local mapping: keyframe insertion, recent-point culling, triangulation,
-local BA and keyframe culling (port of pipeline/local_mapping.py; fuse and
-depth points are not ported yet).
+local BA, keyframe culling, and the projection fuse that loop closing's
+SearchAndFuse runs (port of pipeline/local_mapping.py; the keyframe chain's
+own fuse, ``fuse_neighbors``, and depth points are not ported yet).
 
 The reference's ``.at[]`` writes that route filler indices to a dump row
 (K) or column (P) keep that dump slot here explicitly: torch raises on an
@@ -14,7 +15,7 @@ import dataclasses
 import torch
 
 from ..geometry import lie
-from ..geometry.camera import CameraModel, project
+from ..geometry.camera import CameraModel, in_image, project
 from ..geometry.twoview import triangulate_dlt
 from ..ops import matching
 from ..ops.sorting import nanmedian, stable_topk
@@ -243,6 +244,95 @@ def window_touched_points(m: ms.MapState, slot: int) -> torch.Tensor:
     kfs = torch.cat([torch.tensor([slot], device=m.device), nb])
     ok = torch.cat([torch.ones(1, dtype=torch.bool, device=m.device), w_slot[nb] > 0])
     return ms.point_mask_rows(m, kfs, ok)
+
+
+def _fuse_targets_core(m: ms.MapState, cam: CameraModel, targets: torch.Tensor,
+                       tgt_ok: torch.Tensor, src_masks: torch.Tensor,
+                       ratio: float = 0.9) -> ms.MapState:
+    """Projection fuse (ORBmatcher::Fuse + MapPoint::Replace as a remap
+    table).  targets [T] keyframe slots, tgt_ok [T], src_masks [T,P]: each
+    target's source points (the first 1024 that pass the view tests) are
+    projected into it and matched in a window (all T targets in one kernel-3
+    launch, B = T); a matched feature without a point gains the association,
+    one with another point close in 3D merges the two (the point with more
+    observations wins).  The reference's add / merge switches and gates are
+    at the values its only ported caller, ``fuse_points_into``, uses."""
+    K, P, N = m.K, m.P, m.N
+    dev = m.device
+    T = targets.shape[0]
+    MAXC = min(1024, P)
+    tl = targets.long()
+    R, t = m.kf_R[tl], m.kf_t[tl]                                      # [T,3,3], [T,3]
+    xc = torch.einsum("pj,tij->tpi", m.mp_pos, R) + t[:, None]          # [T,P,3]
+    uv = project(cam, xc)
+    centre = -torch.einsum("tji,tj->ti", R, t)                          # -R^T t
+    dvec = m.mp_pos[None] - centre[:, None]
+    dist = torch.linalg.norm(dvec, dim=-1)
+    vcos = (dvec * m.mp_normal[None]).sum(-1) / torch.clamp_min(dist, 1e-9)
+    okp = (src_masks & (xc[..., 2] > 0.05) & in_image(cam, uv) & (dist >= m.mp_min_dist)
+           & (dist <= m.mp_max_dist) & (vcos > 0.5))
+    dist_ratio = torch.clamp_min(m.mp_max_dist / torch.clamp_min(dist, 1e-9), 1.0)
+    top_oct = torch.where(m.kf_feat_valid, m.kf_octave, 0).max()
+    pred_oct = torch.minimum(torch.clamp_min(
+        torch.ceil(torch.log(dist_ratio) / torch.log(torch.tensor(SCALE))).to(torch.int32), 0),
+        top_oct)
+    cand = stable_topk(okp.to(torch.int32), MAXC)[1].contiguous()        # [T,MAXC]
+    take = lambda a: torch.gather(a, 1, cand if a.dim() == 2 else cand[..., None].expand(
+        -1, -1, a.shape[-1]))
+    cvalid = take(okp)
+    c_oct = take(pred_oct)
+    c_uv = take(uv)
+    radius = 3.0 * (SCALE ** c_oct.to(torch.float32))
+    res = matching.search_map_points(m.mp_desc[cand], cvalid, c_uv, c_oct, radius,
+                                     _kf_frame(m, tl), ratio=ratio, max_dist=matching.TH_LOW)
+    tgt = torch.clamp_min(res.idx, 0).long()                            # [T,MAXC]
+    f_oct = torch.gather(m.kf_octave[tl], 1, tgt)
+    sig2 = SCALE ** (2.0 * f_oct.to(torch.float32))
+    f_xy = torch.gather(m.kf_xy[tl], 1, tgt[..., None].expand(-1, -1, 2))
+    e2 = ((c_uv - f_xy) ** 2).sum(-1)
+    z_pt = take(xc[..., 2])
+    f_depth = torch.gather(m.kf_depth[tl], 1, tgt)
+    depth_ok = (f_depth <= 0) | ((z_pt - f_depth).abs() < 0.05 * f_depth)
+    ok = res.matched & (e2 < 2.0 * sig2) & depth_ok
+    feat_pt = torch.full((T, N), -1, dtype=torch.int32, device=dev).scatter_reduce(
+        1, tgt, torch.where(ok, cand.to(torch.int32), -1), "amax")
+    prop = torch.where(tgt_ok[:, None], feat_pt, -1)
+
+    # resolve each proposal against the feature's existing point
+    existing = m.kf_obs[tl]
+    n_obs = ms.mp_observation_counts(m)
+    add_mask = (existing < 0) & (prop >= 0)
+    merge_mask = (existing >= 0) & (prop >= 0) & (existing != prop)
+    ex = torch.clamp_min(existing, 0).long()
+    pr = torch.clamp_min(prop, 0).long()
+    p_ex = m.mp_pos[ex]
+    d3 = torch.linalg.norm(p_ex - m.mp_pos[pr], dim=-1)
+    depth_scale = torch.clamp_min(torch.linalg.norm(p_ex - centre[:, None], dim=-1), 1e-3)
+    merge_mask &= d3 < 0.015 * depth_scale
+    ex_wins = n_obs[ex] >= n_obs[pr]
+    loser = torch.where(ex_wins, pr, ex)
+    winner = torch.where(ex_wins, ex, pr)
+    remap = torch.arange(P + 1, dtype=torch.int32, device=dev)           # P = dump slot
+    remap = remap.index_put((torch.where(merge_mask, loser, P).reshape(-1),),
+                            torch.where(merge_mask, winner, P).to(torch.int32).reshape(-1))[:P]
+    remap = remap[remap.long()]                                         # resolve 2-chains
+
+    rows = torch.where(add_mask, prop, existing)
+    kf_obs = torch.cat([m.kf_obs, m.kf_obs[:1]]).index_put((torch.where(tgt_ok, tl, K),),
+                                                           rows)[:K]
+    live = remap == torch.arange(P, dtype=torch.int32, device=dev)
+    kf_obs = torch.where(kf_obs >= 0, remap[torch.clamp_min(kf_obs, 0).long()], -1)
+    return m.replace(kf_obs=kf_obs, mp_valid=m.mp_valid & live)
+
+
+def fuse_points_into(m: ms.MapState, cam: CameraModel, targets: torch.Tensor, tgt_ok: torch.Tensor,
+                     src_mask: torch.Tensor) -> ms.MapState:
+    """SearchAndFuse for loop closing: one shared set of source points (the
+    loop neighbourhood's) fused into every target keyframe [T].  The point
+    statistics are left stale: the caller refreshes the points it touched."""
+    T = targets.shape[0]
+    src_masks = (src_mask & m.mp_valid)[None].expand(T, m.P)
+    return _fuse_targets_core(m, cam, targets, tgt_ok, src_masks, ratio=0.8)
 
 
 @dataclasses.dataclass

@@ -2,16 +2,17 @@
 
 Sequences frame build, two-view initialization, the tracking step with
 relocalization, the keyframe policy, the keyframe chain with keyframe
-culling, and the keyframe database on an explicit ``device``.  Each stage
-is a ``torch.profiler.record_function`` span (frontend/extract, init/mono,
-tracking/step, tracking/relocalize, mapping/keyframe), which costs nothing
-unless a profiler is recording.
+culling, and loop closing with its global BA on an explicit ``device``.
+Each stage is a ``torch.profiler.record_function`` span (frontend/extract,
+init/mono, tracking/step, tracking/relocalize, mapping/keyframe, and loop
+closing's loop/detect, loop/sim3, loop/correct, loop/gba, loop/fold), which
+costs nothing unless a profiler is recording.
 
-The port runs the monocular sensor synchronously, with relocalization and
-keyframe culling on or off (``mono_slice_config`` turns both on, as the
-reference's defaults do).  Loop closing, fuse, pipelining, point sharding
-and the RGB-D / stereo sensors are not ported: they raise
-``NotImplementedError``.
+The port runs the monocular sensor synchronously, with loop closing,
+relocalization and keyframe culling each on or off: ``SlamConfig()`` is the
+reference's default monocular configuration, and ``mono_slice_config`` the
+same minus loop closing.  Fuse, pipelining, point sharding and the RGB-D /
+stereo sensors are not ported: they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -69,16 +70,16 @@ class SlamConfig:
         return ExtractorConfig(n_features=self.n_features, n_levels=self.n_levels, scale=self.scale)
 
 
-# the settings the port implements; every other value raises
-SLICE_SETTINGS = dict(sensor="mono", enable_loop_closing=False, enable_fuse=False,
-                      stats_in_triangulate=None, enable_cull=True, enable_local_ba=True,
-                      async_depth=0, shard_points=False)
+# the settings the port implements; every other value raises (loop closing,
+# relocalization and keyframe culling take either value)
+SLICE_SETTINGS = dict(sensor="mono", enable_fuse=False, stats_in_triangulate=None,
+                      enable_cull=True, enable_local_ba=True, async_depth=0, shard_points=False)
 
 
 def mono_slice_config(**kw) -> SlamConfig:
-    """A SlamConfig with the port's settings (relocalization and keyframe
-    culling on, the reference's defaults), plus sizes and toggles from `kw`."""
-    return SlamConfig(**{**SLICE_SETTINGS, **kw})
+    """The reference's defaults minus loop closing (relocalization and
+    keyframe culling on), plus sizes and toggles from `kw`."""
+    return SlamConfig(**{**SLICE_SETTINGS, "enable_loop_closing": False, **kw})
 
 
 @dataclasses.dataclass
@@ -125,10 +126,12 @@ class System:
         self._pose_np = None
         self._rel_np = None
         self._cur_ts = 0.0
-        # the keyframe database (BoW rows) that relocalization queries
-        self.loop_closer = LoopCloser(cam, cfg.max_kf, LoopCloserConfig(fix_scale=False),
+        # loop closing, and the keyframe database (BoW rows) that
+        # relocalization queries
+        self.loop_closer = LoopCloser(cam, cfg.max_kf,
+                                      LoopCloserConfig(fix_scale=cfg.sensor != "mono"),
                                       seed=cfg.seed + 1, device=self.device) \
-            if cfg.enable_relocalization else None
+            if cfg.enable_loop_closing or cfg.enable_relocalization else None
         self.frames_since_reloc = 0
         # reset() keeps the mode, as the reference's does
         self._localization_only = getattr(self, "_localization_only", False)
@@ -256,10 +259,18 @@ class System:
                                                 do_kf_cull=do_kf_cull)
         self._kf_valid_host[slot] = True
         if self.loop_closer is not None:
-            # writes the keyframe's BoW row; the loop candidates wait for loop closing
-            self.loop_closer.dispatch_detection(self.map, slot)
+            # writes the keyframe's BoW row; with loop closing on, resolves
+            # the candidates (and maybe closes a loop) at once, then folds a
+            # finished global BA
+            det = self.loop_closer.dispatch_detection(self.map, slot)
+            if self.cfg.enable_loop_closing:
+                self.map, closed = self.loop_closer.resolve_detection(self.map, slot, det)
+                if closed and self.cfg.verbose:
+                    print(f"  [loop] closed at kf slot {slot}")
+            self.map = self.loop_closer.maybe_fold_gba(self.map)
         if do_kf_cull:
             self._apply_cull_info(cull_info)
+        # adopt the keyframe's pose, which a loop correction may have moved
         self.R = self.map.kf_R[slot]
         self.t = self.map.kf_t[slot]
         self.last_obs = self.map.kf_obs[slot]
@@ -392,8 +403,15 @@ class System:
                                         np.asarray(Rcr, np.float32).copy(),
                                         np.asarray(tcr, np.float32).copy(), False))
 
+    def flush(self):
+        """Fold a pending global BA into the map (the synchronous path has no
+        other work in flight).  Call before reading trajectories or the map."""
+        if self.loop_closer is not None:
+            self.map = self.loop_closer.maybe_fold_gba(self.map, force=True)
+
     def frame_trajectory(self):
         """[(frame_id, 4x4 Tcw or None)] through the current keyframe poses."""
+        self.flush()
         kf_R = self.map.kf_R.cpu().numpy()
         kf_t = self.map.kf_t.cpu().numpy()
         out = []
@@ -410,6 +428,7 @@ class System:
 
     def keyframe_trajectory(self):
         """[(frame_id, 4x4 Tcw)] of the valid keyframes, by frame id."""
+        self.flush()
         v = self.map.kf_valid.cpu().numpy()
         fids = self.map.kf_frame_id.cpu().numpy()
         kf_R = self.map.kf_R.cpu().numpy()

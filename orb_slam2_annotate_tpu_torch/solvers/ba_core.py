@@ -1,5 +1,7 @@
-"""Grid bundle adjustment: robust LM with a dense Schur solve over a [C, N]
-keyframe-feature grid (port of solvers/ba_core.py, grid path only).
+"""Bundle adjustment (port of solvers/ba_core.py): the grid BA of local
+mapping, a robust LM with a dense Schur solve over a [C, N] keyframe-feature
+grid, and the padded edge-list problem (``BAProblem``, ``edge_residual_jac``)
+that the global BA of ``solvers/ba_cg.py`` solves.
 
 Same plane layout as the reference (Jacobian axes first, big axes last).
 The 6C x 6C reduced camera system is solved by Cholesky; where it is not
@@ -33,6 +35,62 @@ class GridBA:
     ur: torch.Tensor           # [C,N]
     inv_sigma2: torch.Tensor   # [C,N]
     edge_valid: torch.Tensor   # [C,N] bool
+
+
+@dataclasses.dataclass
+class BAProblem:
+    """Padded edge-list BA problem: poses R [C,3,3], t [C,3] world->cam;
+    points [P,3]; cam_fixed, cam_valid [C] and pt_valid [P] bool; edges
+    cam_idx, pt_idx [E] int, uv [E,2], ur [E] (< 0: mono), inv_sigma2 [E],
+    edge_valid [E] bool."""
+
+    R: torch.Tensor
+    t: torch.Tensor
+    points: torch.Tensor
+    cam_fixed: torch.Tensor
+    cam_valid: torch.Tensor
+    pt_valid: torch.Tensor
+    cam_idx: torch.Tensor
+    pt_idx: torch.Tensor
+    uv: torch.Tensor
+    ur: torch.Tensor
+    inv_sigma2: torch.Tensor
+    edge_valid: torch.Tensor
+
+    def replace(self, **kw) -> "BAProblem":
+        return dataclasses.replace(self, **kw)
+
+
+def edge_residual_jac(cam: CameraModel, prob: BAProblem):
+    """r [E,3], Jc [E,3,6] (left se3 update of the edge's camera), Jp [E,3,3]
+    (the world point), is_stereo [E], depth_ok [E]."""
+    ci, pi = prob.cam_idx.long(), prob.pt_idx.long()
+    Re = prob.R[ci]
+    xc = torch.einsum("eij,ej->ei", Re, prob.points[pi]) + prob.t[ci]
+    x, y, z = xc[:, 0], xc[:, 1], xc[:, 2]
+    depth_ok = z > 1e-3
+    z_safe = torch.where(z < 1e-3, torch.full_like(z, 1e-3), z)
+    iz = 1.0 / z_safe
+    iz2 = iz * iz
+    u = cam.fx * x * iz + cam.cx
+    v = cam.fy * y * iz + cam.cy
+    ur_pred = u - cam.bf * iz
+    is_stereo = prob.ur >= 0
+    zeros = torch.zeros_like(x)
+    r = torch.stack([u - prob.uv[:, 0], v - prob.uv[:, 1],
+                     torch.where(is_stereo, ur_pred - prob.ur, zeros)], dim=1)
+    du = torch.stack([cam.fx * iz, zeros, -cam.fx * x * iz2], dim=1)
+    dv = torch.stack([zeros, cam.fy * iz, -cam.fy * y * iz2], dim=1)
+    dr = du + torch.stack([zeros, zeros, cam.bf * iz2], dim=1)
+    dr = torch.where(is_stereo[:, None], dr, 0.0)
+    dpix = torch.stack([du, dv, dr], dim=1)
+    eye = torch.eye(3, dtype=xc.dtype, device=xc.device).expand(xc.shape[0], 3, 3)
+    Jc = dpix @ torch.cat([eye, -lie.hat(xc)], dim=2)
+    return r, Jc, dpix @ Re, is_stereo, depth_ok
+
+
+def edge_chi2(r, inv_sigma2):
+    return torch.sum(r * r, dim=1) * inv_sigma2
 
 
 def _project_planes(cam, R, t, X, g):

@@ -311,3 +311,16 @@ def observation_overflow(m: MapState):
     n_obs = mp_observation_counts(m)
     over = m.mp_valid & (n_obs > MAX_OBS)
     return over.sum(), torch.where(over, n_obs - MAX_OBS, 0).sum()
+
+
+def update_mappoint_geometry(m: MapState) -> MapState:
+    """Refresh normals and depth bands (and observation-based validity) of
+    every point, leaving descriptors as they are: after a loop correction or
+    a global BA every point moved, but no descriptor changed."""
+    obs_kf, obs_ft, obs_cnt, obs_mask = observation_table(m)
+    normal, min_d, max_d = _geometry_from_table(m, m.mp_pos, obs_kf, obs_ft, obs_mask)
+    upd = m.mp_valid & (obs_cnt > 0)
+    return m.replace(mp_normal=torch.where(upd[:, None], normal, m.mp_normal),
+                     mp_min_dist=torch.where(upd, min_d, m.mp_min_dist),
+                     mp_max_dist=torch.where(upd, max_d, m.mp_max_dist),
+                     mp_valid=m.mp_valid & (obs_cnt > 0))

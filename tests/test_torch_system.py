@@ -32,7 +32,7 @@ from orb_slam2_annotate_tpu_torch.geometry.camera import CameraModel as TCam
 from orb_slam2_annotate_tpu_torch.io import evaluation as teval
 from orb_slam2_annotate_tpu_torch.io import synthetic as tsyn
 from orb_slam2_annotate_tpu_torch.kernels import (assign_words, fast_nms, hamming, orb_describe,
-                                                  pnp_score, pose_lm)
+                                                  pnp_score, pose_lm, sim3)
 from orb_slam2_annotate_tpu_torch.ops import orb as torb
 from orb_slam2_annotate_tpu_torch.ops import pyramid as tpyr
 from orb_slam2_annotate_tpu_torch.pipeline import System as TSystem
@@ -112,7 +112,8 @@ def test_track_mono_returns_the_tracking_pose_on_keyframe_frames(slice_runs):
 def test_port_never_imports_jax():
     code = ("import sys, orb_slam2_annotate_tpu_torch, orb_slam2_annotate_tpu_torch.pipeline, "
             "orb_slam2_annotate_tpu_torch.io, orb_slam2_annotate_tpu_torch.convert, "
-            "orb_slam2_annotate_tpu_torch.kernels; assert 'jax' not in sys.modules")
+            "orb_slam2_annotate_tpu_torch.kernels, orb_slam2_annotate_tpu_torch.solvers, "
+            "orb_slam2_annotate_tpu_torch.pipeline.loop_closing; assert 'jax' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=str(__import__("pathlib").Path(
         __file__).resolve().parents[1]))
 
@@ -133,6 +134,36 @@ def test_synthetic_render_bit_identical(k):
     img_t, dep_t = tsyn.PlaneScene(seed=1).render(TCAM, R, t, h=240, w=320)
     np.testing.assert_array_equal(img_t, img_j)
     np.testing.assert_array_equal(dep_t, dep_j)
+
+
+@pytest.mark.parametrize("k", [0, 61, 172])
+def test_room_scene_render_bit_identical(k):
+    # the loop cell's scene and trajectory (chip_smoke.py phase 6)
+    R, t = jsyn.circle_trajectory(180, radius=1.8, turns=1.04)[k]
+    Rt, tt = tsyn.circle_trajectory(180, radius=1.8, turns=1.04)[k]
+    np.testing.assert_array_equal(Rt, R)
+    np.testing.assert_array_equal(tt, t)
+    img_j, dep_j = jsyn.RoomScene(seed=2).render(CAM, R, t, h=240, w=320)
+    img_t, dep_t = tsyn.RoomScene(seed=2).render(TCAM, R, t, h=240, w=320)
+    np.testing.assert_array_equal(img_t, img_j)
+    np.testing.assert_array_equal(dep_t, dep_j)
+
+
+def test_loop_trajectory_copy_agrees():
+    for (Rj, tj), (Rt, tt) in zip(jsyn.loop_trajectory(70, extent=1.6, step=0.06),
+                                  tsyn.loop_trajectory(70, extent=1.6, step=0.06)):
+        np.testing.assert_array_equal(Rt, Rj)
+        np.testing.assert_array_equal(tt, tj)
+
+
+def test_default_config_runs_mono():
+    # SlamConfig()'s own defaults (loop closing on) are the reference's
+    # default monocular configuration, which the port now runs
+    from orb_slam2_annotate_tpu_torch.pipeline import SlamConfig as TSlamConfig
+
+    slam = TSystem(TCAM, TSlamConfig(**SIZES), device="cpu")
+    assert slam.cfg.enable_loop_closing and slam.loop_closer is not None
+    assert not mono_slice_config().enable_loop_closing
 
 
 def test_evaluation_copy_agrees():
@@ -210,6 +241,13 @@ def test_wrappers_take_plain_path_on_cpu():
              23.964)
     for a, b in zip(pnp_score.pnp_hypotheses(*sargs), pnp_score.pnp_hypotheses_plain(*sargs)):
         assert torch.equal(a, b)
+    pargs = (samples[0, :, :3].contiguous(), xw, xw * 1.1 + 0.2, edges[1], edges[1], m, edges[3],
+             edges[3], 250.0, 250.0, 160.0, 120.0, 100.0)
+    for a, b in zip(sim3.sim3_hypotheses(*pargs, False), sim3.sim3_hypotheses_plain(*pargs, False)):
+        assert torch.equal(a, b)
+    largs = (*pargs[1:8], torch.tensor(1.1), R, t + 0.2, 250.0, 250.0, 160.0, 120.0, False, 100.0)
+    for a, b in zip(sim3.sim3_lm_solve(*largs), sim3.sim3_lm_solve_plain(*largs)):
+        assert torch.equal(a, b)
     assert all(w.launches == 0 for w in kernels.WRAPPERS)
 
 
@@ -220,7 +258,7 @@ def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
 
-@pytest.mark.parametrize("change", [dict(sensor="rgbd"), dict(enable_loop_closing=True),
+@pytest.mark.parametrize("change", [dict(sensor="rgbd"), dict(stats_in_triangulate=True),
                                     dict(sensor="stereo"), dict(shard_points=True),
                                     dict(enable_fuse=True), dict(async_depth=2)])
 def test_other_configurations_raise(change):

@@ -3,6 +3,7 @@
 
     python3 tools/profile_torch_slice.py           # the slice
     python3 tools/profile_torch_slice.py kidnap    # the kidnap run's jump frame
+    python3 tools/profile_torch_slice.py loop      # the loop cell's closure
 
 Runs chip_smoke.py's slice (its ``slice_setup``: VGA / 1024 features /
 8 levels, 48 frames) on cuda:0, times every ``track_mono`` call on the
@@ -14,7 +15,12 @@ loads a kernel's code at its first launch, which would otherwise land in
 the jump frame), the second is timed and records the jump frame and the
 three after it; it prints the relocalization's stages (the ``reloc/*``
 spans) with their host time and the device time of the kernels inside
-them.  Prints per-stage span
+them.  With ``loop`` it runs chip_smoke.py's phase-6 cell (``loop_setup``),
+twice the same way: the first run finds the frame whose keyframe closes the
+loop, the second records that frame and the LOOP_AFTER frames after it
+(where the global BA is folded) and prints the ``loop/*`` spans (detect,
+sim3, correct with pose_graph and fuse inside, gba, fold) and the closure
+frame's wall and device time.  Prints per-stage span
 totals and per-frame means (the System's record_function spans), the
 host-issued ``aten::mul`` calls per frame, the aten ops (and ``aten::sort``
 calls) under ``frontend/extract``, the device time of each
@@ -37,6 +43,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROFILE_FROM = 24   # slice: frames before this one warm up; the rest are profiled
 RELOC_SPANS = ("tracking/relocalize", "reloc/bow", "reloc/match", "reloc/sample",
                "reloc/hypotheses", "reloc/polish", "reloc/local_map")
+LOOP_SPANS = ("loop/detect", "loop/sim3", "loop/correct", "loop/pose_graph", "loop/fuse",
+              "loop/gba", "loop/fold")
+LOOP_AFTER = 8      # loop: frames recorded after the closure frame
 
 
 def hand_kernels() -> set:
@@ -68,35 +77,48 @@ def kernel_name(key: str) -> str:
 def main():
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     if not torch.cuda.is_available():
         sys.exit("CUDA is not available")
     sys.path.insert(0, ROOT)
-    from chip_smoke import KIDNAP_SWEEP, kidnap_setup, slice_setup
+    from chip_smoke import KIDNAP_SWEEP, kidnap_setup, loop_setup, slice_setup
     from orb_slam2_annotate_tpu_torch.kernels import _build
     from orb_slam2_annotate_tpu_torch.pipeline import System
 
-    kidnap = sys.argv[1:] == ["kidnap"]
-    if sys.argv[1:] and not kidnap:
-        sys.exit(f"usage: {sys.argv[0]} [kidnap]")
+    mode = sys.argv[1] if len(sys.argv) == 2 else "slice"
+    if len(sys.argv) > 2 or mode not in ("slice", "kidnap", "loop"):
+        sys.exit(f"usage: {sys.argv[0]} [kidnap | loop]")
+    kidnap, loop = mode == "kidnap", mode == "loop"
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    cam, _, frames, _, cfg = slice_setup()
-    profile_from = PROFILE_FROM
+    if loop:
+        cam, _, frames, cfg = loop_setup()
+    else:
+        cam, _, frames, _, cfg = slice_setup()
+    profile_from, profile_to = PROFILE_FROM, len(frames)
     if kidnap:
         _, _, frames = kidnap_setup(cam)
-        profile_from = KIDNAP_SWEEP
+        profile_from, profile_to = KIDNAP_SWEEP, len(frames)
     # every kernel built before the first frame: a kernel first used inside
     # the profiled window (kernel 6 in the jump frame) would time its build
     with concurrent.futures.ThreadPoolExecutor(len(_build.SOURCES)) as pool:
         list(pool.map(_build.load, _build.SOURCES))
-    if kidnap:
+    if kidnap or loop:
         warm = System(cam, cfg, device="cuda")
+        closures = []
         for k, img in enumerate(frames):
+            n0 = warm.loop_closer.n_loops_closed if loop else 0
             warm.track_mono(img, k / 30.0)
+            if loop and warm.loop_closer.n_loops_closed > n0:
+                closures.append(k)
         torch.cuda.synchronize()
         del warm
+        if loop:
+            if not closures:
+                sys.exit("the warm-up run closed no loop")
+            profile_from = closures[0]
+            profile_to = min(len(frames), profile_from + 1 + LOOP_AFTER)
     slam = System(cam, cfg, device="cuda")
 
     kinds = {"init": [], "track": [], "keyframe": []}
@@ -106,8 +128,9 @@ def main():
         n_kf = slam.n_keyframes
         was_init = slam.state in ("NO_IMAGES", "NOT_INITIALIZED")
         t0 = time.perf_counter()
-        slam.track_mono(frames[k], k / 30.0)
-        torch.cuda.synchronize()
+        with record_function("closure_frame" if loop and k == profile_from else "frame"):
+            slam.track_mono(frames[k], k / 30.0)
+            torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
         kind = "init" if was_init else ("keyframe" if slam.n_keyframes > n_kf else "track")
         kinds[kind].append(ms)
@@ -117,7 +140,7 @@ def main():
         step(k)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for k in range(profile_from, len(frames)):
+        for k in range(profile_from, profile_to):
             step(k)
         wall = time.perf_counter() - t0
     print(card)
@@ -129,7 +152,7 @@ def main():
     # kernels only: CPU ops and the record_function spans also carry device time
     device_us = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-    n_prof = len(frames) - profile_from
+    n_prof = profile_to - profile_from
     print(f"profiled {n_prof} frames: wall {wall * 1e3:.1f} ms, "
           f"device kernel time {device_us / 1e3:.1f} ms, busy share {device_us / 1e3 / (wall * 1e3):.3f}")
     for name in ("frontend/extract", "tracking/step", "mapping/keyframe", "init/mono"):
@@ -137,9 +160,13 @@ def main():
         if hit:
             print(f"span {name}: count {hit[0].count} host total {hit[0].cpu_time_total / 1e3:.1f} ms, "
                   f"{hit[0].cpu_time_total / 1e3 / n_prof:.1f} ms a profiled frame")
-    if kidnap:
-        print(f"jump frame {profile_from}: {kinds_ms[profile_from]:.2f} ms wall; state {slam.state}")
-        for name in RELOC_SPANS:
+    if kidnap or loop:
+        what = "jump frame" if kidnap else "closure frame"
+        print(f"{what} {profile_from}: {kinds_ms[profile_from]:.2f} ms wall; frames after it "
+              f"{[round(kinds_ms[k], 2) for k in range(profile_from + 1, profile_to)]} ms; state "
+              f"{slam.state}" + (f"; loops closed {slam.loop_closer.n_loops_closed}, global BAs "
+                                 f"folded {slam.loop_closer.n_gba_folded}" if loop else ""))
+        for name in (RELOC_SPANS if kidnap else ("closure_frame",) + LOOP_SPANS):
             host = [e for e in events if e.key == name and e.device_type == DeviceType.CPU]
             on_dev = [e for e in events if e.key == name and e.device_type == DeviceType.CUDA]
             if host:
