@@ -23,7 +23,12 @@ Phases (any failure exits non-zero):
      and repeated descriptors; kernel 4 (the whole pose LM) on 1024
      synthetic edges, once mono and once half stereo; kernel 5 exactly on
      the trained vocabulary, on the vocabulary with every word duplicated
-     and at N = 1000, W = 16383;
+     and at N = 1000, W = 16383; kernel 7 (the whole Sim3 RANSAC after its
+     draw) with every output bit for bit, at 1024 x 1024 with 25% outliers,
+     a near-collinear triple, 2 valid pairs, no valid pair and a zero-inlier
+     best, scale free and fixed, a refined fit that counts fewer (the best
+     kept), N = 4096 and H = 4096; kernel 8 (the whole Sim3 LM) at 1024
+     pairs scale free and fixed, 4096 pairs all valid and 3 valid pairs;
   4. run the monocular System (``mono_slice_config``: relocalization and
      keyframe culling on) through ``System.track_mono`` on 48 frames at
      VGA / 1024 features / 8 levels, with every launch counter reset just
@@ -56,10 +61,12 @@ Phases (any failure exits non-zero):
      dispatched and folded, the tracked fraction, the final state, the ATE
      against the JAX System's on the same cell, and the launches (kernel 7
      once a Sim3 RANSAC, kernel 8 once an optimize_sim3, kernel 3 once a
-     guided match / projection count / SearchAndFuse); then compare kernels
-     7 and 8 with their twins on the inputs the loop gave them (the run's
-     first launch of each, and the closing attempt's last), and print the
-     per-frame wall times and each loop stage's.
+     guided match / projection count / SearchAndFuse), and that the plain
+     Horn, Jacobi and score were never called; then compare kernels 7 and 8
+     with their twins on the inputs the loop gave them (the run's first
+     launch of each, and the closing attempt's last), count the device
+     kernels of a whole ``sim3_from_samples`` on them (one), and print the
+     per-frame wall times and each loop stage's, with totals and medians.
 Kernel times are one CUDA-event pair around 100 back-to-back calls after a
 warm-up, divided by the count; kernels 3b and 6 also give ``graph_us``, the
 device time a call in a replay of 50 calls captured into one CUDA graph (as
@@ -121,12 +128,12 @@ SOURCES = {
                      "orb_slam2_annotate_tpu/worldmap/vocabulary.py:81", "assign_words"),
     "pnp_hypotheses": ("orb_slam2_annotate_tpu_torch/csrc/pnp_score.cu",
                        "orb_slam2_annotate_tpu/solvers/pnp.py:87", "pnp_hypotheses"),
-    "sim3_hypotheses": ("orb_slam2_annotate_tpu_torch/csrc/sim3.cu",
-                        "orb_slam2_annotate_tpu/solvers/sim3.py:96", "sim3_hypotheses"),
+    "sim3_ransac_solve": ("orb_slam2_annotate_tpu_torch/csrc/sim3.cu",
+                          "orb_slam2_annotate_tpu/solvers/sim3.py:101", "sim3_ransac_solve"),
     "sim3_lm_solve": ("orb_slam2_annotate_tpu_torch/csrc/sim3.cu",
                       "orb_slam2_annotate_tpu/solvers/sim3.py:172", "sim3_lm_solve"),
 }
-LOOP_ONLY = ("sim3_hypotheses", "sim3_lm_solve")   # launched only with loop closing on
+LOOP_ONLY = ("sim3_ransac_solve", "sim3_lm_solve")   # launched only with loop closing on
 PEAK_OPS = 67e12      # /s: f32 outside the tensor cores (H100 SXM); 32-bit integer work alike
 PEAK_INT8_TC = 1.979e15  # /s: int8 dense tensor cores (H100 SXM); kernel 5's 1-bit products
 PEAK_BYTES = 3.35e12  # /s: HBM3
@@ -153,12 +160,17 @@ DD_BYTES_PER_POINT = 72        # the count in, the descriptor and its slot out
 POSE_OPS_PROJECT, POSE_OPS_ROW, POSE_OPS_COST, POSE_OPS_RECLASS = 45, 66, 35, 30
 # kernel 7: a 3-point Horn counted from the function, not the Jacobi schedule:
 # centroids (18), M (27), Q (16), the 4x4 symmetric eigenproblem at SVD-level
-# work (9 n^3 = 576), R from q (30), scale and t (45); then both
-# reprojections of a valid pair (33 operations each, as kernel 6's)
+# work (9 n^3 = 576), R from q (30), scale and t (45); both reprojections of
+# a valid pair (33 operations each, as kernel 6's); the weighted Horn's
+# terms of an inlier of the best: its weight and the two weighted points
+# (7 products, 7 sums), the centred points (6), M's 9 products, weights and
+# sums (27), R a (15), the two dot products (10), their weights and sums (4)
 SIM3_HORN_OPS = 18 + 27 + 16 + 9 * 4 ** 3 + 30 + 45
 SIM3_OPS_PER_REPROJECTION = 33
+SIM3_WEIGHTED_OPS_PER_INLIER = 14 + 6 + 27 + 15 + 10 + 4
 SIM3_PAIR_BYTES = 49             # x1, x2, uv1, uv2, both inverse sigma^2 (f32), valid
-SIM3_HYP_BYTES = 24 + 56         # the sampled triple in; s, R, t, count out
+SIM3_HYP_BYTES = 24 + 4          # the sampled triple in, its count out
+SIM3_RANSAC_OUT_BYTES = 52 + 4 + 1 + 8   # s, R, t; n; success; best (and a byte a pair's mask)
 # kernel 8, a valid pair in one LM iteration: both projections (66), 4
 # Jacobian rows of 7 (4 x 20) and their 28 + 7 products and sums (4 x 70),
 # the cost (20), three candidate costs (3 x 86), the inlier refresh (70)
@@ -337,27 +349,38 @@ def loop_setup():
     return cam, poses, frames, cfg
 
 
-def check_sim3_hypotheses(what, args, fix_scale):
-    """Kernel 7 against its twin: counts and best equal, s, R, t within
-    1e-5.  Returns (max |ds|, |dR|, |dt|, whether every output is bit-exact)."""
+SIM3_RANSAC_OUTS = ("s", "R", "t", "inliers", "n", "success", "counts", "best")
+
+
+def check_sim3_ransac(what, args):
+    """Kernel 7 against its twin: every output bit for bit (s, R, t, the
+    mask, n, success, each hypothesis's count, best).  args as
+    sim3_ransac_solve's.  Returns (max |ds|, |dR|, |dt|, whether the
+    refined Sim3 was kept, the outputs)."""
     import torch
 
     from orb_slam2_annotate_tpu_torch.kernels import sim3 as k7
 
-    got = k7.sim3_hypotheses(*args, fix_scale)
-    ref = k7.sim3_hypotheses_plain(*args, fix_scale)
+    got = k7.sim3_ransac_solve(*args)
+    ref = k7.sim3_ransac_solve_plain(*args)
     torch.cuda.synchronize()
-    if not (torch.equal(got[3], ref[3]) and torch.equal(got[4], ref[4])):
-        fail(f"sim3_hypotheses ({what}): counts differ on {int((got[3] != ref[3]).sum())} "
-             f"hypotheses, best {int(got[4])} vs {int(ref[4])}")
+    moved = [n for n, a, b in zip(SIM3_RANSAC_OUTS, got, ref) if not torch.equal(a, b)]
     err = max(float((a - b).abs().max()) for a, b in zip(got[:3], ref[:3]))
-    if not err <= 1e-5:
-        fail(f"sim3_hypotheses ({what}): s, R or t differs from the twin by {err:.3g}")
-    exact = all(torch.equal(a, b) for a, b in zip(got, ref))
-    print(f"sim3_hypotheses vs twin, {what}: H {args[0].shape[0]}, N {args[1].shape[0]}, fix_scale "
-          f"{fix_scale}: counts and best equal (best {int(ref[4])}, {int(ref[3].max())} inliers), "
-          f"max |ds|,|dR|,|dt| {err:.3g}, every output bit-exact {exact}")
-    return err, exact
+    if moved:
+        fail(f"sim3_ransac_solve ({what}): {moved} differ from the twin (max |ds|,|dR|,|dt| "
+             f"{err:.3g}, counts differ on {int((got[6] != ref[6]).sum())} hypotheses, best "
+             f"{int(got[7])} vs {int(ref[7])}, n {int(got[4])} vs {int(ref[4])})")
+    # the refined Sim3 was kept unless the outputs are the best triple's own fit
+    samples, x1, x2, fix_scale = args[0], args[1], args[2], args[13]
+    idx = samples[got[7]].long()
+    s_b, R_b, t_b = k7.horn3_plain(x1[idx][None], x2[idx][None], fix_scale)
+    refined = not (torch.equal(got[0], s_b[0]) and torch.equal(got[1], R_b[0])
+                   and torch.equal(got[2], t_b[0]))
+    print(f"sim3_ransac_solve vs twin, {what}: H {samples.shape[0]}, N {x1.shape[0]}, valid "
+          f"{int(args[5].sum())}, fix_scale {fix_scale}: every output bit-exact (best {int(ref[7])}, "
+          f"{int(ref[6].max())} inliers; n {int(ref[4])}, success {bool(ref[5])}, refined kept "
+          f"{refined}, s {float(ref[0]):.6f})")
+    return err, refined, got
 
 
 def check_sim3_lm(what, args):
@@ -371,7 +394,8 @@ def check_sim3_lm(what, args):
     got = k8.sim3_lm_solve(*args)
     ref = k8.sim3_lm_solve_plain(*args)
     torch.cuda.synchronize()
-    x1, x2, uv1, uv2, valid, is1, is2 = args[:7]
+    x1, x2, uv1, uv2, valid = args[:5]
+    is1, is2 = k8.inv_sigma2_or_ones(x1, *args[5:7])
     fx, fy, cx, cy, fix_scale, th = args[10:16]
     err = max(float((a - b).abs().max()) for a, b in zip(got[:3], ref[:3]))
     _, c_f, c_i, _ = k8.project_residuals(fx, fy, cx, cy, got[0], got[1], got[2], x1, x2, uv1, uv2,
@@ -388,11 +412,16 @@ def check_sim3_lm(what, args):
     return err
 
 
-def sim3_hyp_work(samples, valid):
-    """(bytes, operations) of one kernel-7 call."""
+def sim3_hyp_work(samples, valid, n_best):
+    """(bytes, operations) of one kernel-7 call: every triple's Horn and its
+    count over the valid pairs; the best's rescore over them; the weighted
+    Horn's terms over the best's n_best inliers and its one Horn; the refined
+    Sim3's rescore."""
     H, N = samples.shape[0], valid.shape[0]
-    return (H * SIM3_HYP_BYTES + N * SIM3_PAIR_BYTES + 8,
-            H * SIM3_HORN_OPS + 2 * SIM3_OPS_PER_REPROJECTION * H * float(valid.sum()))
+    n_valid = float(valid.sum())
+    reproj = 2 * SIM3_OPS_PER_REPROJECTION * n_valid
+    return (H * SIM3_HYP_BYTES + N * (SIM3_PAIR_BYTES + 1) + SIM3_RANSAC_OUT_BYTES,
+            (H + 1) * SIM3_HORN_OPS + (H + 2) * reproj + SIM3_WEIGHTED_OPS_PER_INLIER * n_best)
 
 
 def sim3_lm_work(valid, iters):
@@ -775,61 +804,109 @@ def main():
                    "(two calls, TF32 off)")
     results["assign_words"]["library_ms"] = time_ms(library5)
 
-    # kernel 7: every sampled triple's Sim3, its count and the first best;
-    # 1024 hypotheses x 1024 pairs with 25% outliers (tests/test_loop_components.py's
-    # case at full size), once with a near-collinear triple, once with 2
-    # valid pairs; counts and best bit for bit
+    # kernel 7: the whole Sim3 RANSAC after its draw; 1024 hypotheses x 1024
+    # pairs with 25% outliers (tests/test_loop_components.py's case at full
+    # size), once with a near-collinear triple, once with 2 valid pairs (the
+    # draws from all N), once with no valid pair and once with no inlier at
+    # all (th = 0: a zero-inlier best), once with 30% of the pairs' x2 at
+    # 1.5-2 x their depth along their rays (the refined fit counts fewer, so
+    # the best is kept); then N = 4096 and H = 4096; every output bit for bit
     from orb_slam2_annotate_tpu_torch.kernels import sim3 as k7
     N7 = H7 = 1024
+    ones7 = torch.ones(N7, device=dev)
     lo7 = torch.tensor([-2.0, -2.0, 3.0], device=dev)
     hi7 = torch.tensor([2.0, 2.0, 8.0], device=dev)
     box = lambda n: lo7 + (hi7 - lo7) * torch.rand(n, 3, generator=gen, device=dev)
     proj7 = lambda x: torch.stack([cam.fx * x[:, 0] / x[:, 2] + cam.cx,
                                    cam.fy * x[:, 1] / x[:, 2] + cam.cy], 1)
-    x1s = box(N7)
     R7 = lie.so3_exp(torch.tensor([0.1, 0.3, -0.2], device=dev))
     t7 = torch.tensor([0.5, -0.2, 0.8], device=dev)
-    out7 = (torch.rand(N7, generator=gen, device=dev) < 0.25)[:, None]
-    pairs7 = {}
-    for fix in (False, True):
-        x2t = (1.0 if fix else 1.4) * x1s @ R7.T + t7
-        pairs7[fix] = (x1s, torch.where(out7, box(N7), x2t).contiguous(),
-                       (proj7(x1s) + 0.5 * torch.randn(N7, 2, generator=gen, device=dev)).contiguous(),
-                       proj7(x2t).contiguous())
-    valid7 = torch.ones(N7, dtype=torch.bool, device=dev)
-    is1_7 = (1.2 ** (-2.0 * torch.randint(0, 8, (N7,), generator=gen, device=dev).float())).contiguous()
-    is2_7 = torch.ones(N7, device=dev)
+
+    def pair_set(n, fix, depth_err=0.0, exact=False):
+        """(x1, x2, uv1, uv2, is1) of n pairs with 25% outliers (or, with
+        depth_err, 30% of x2 moved along their rays instead; exact: no
+        outlier and no pixel noise)."""
+        x1 = box(n)
+        x2t = (1.0 if fix else 1.4) * x1 @ R7.T + t7
+        if exact:
+            return x1, x2t.contiguous(), proj7(x1).contiguous(), proj7(x2t).contiguous(), ones7
+        if depth_err:
+            far = (torch.rand(n, generator=gen, device=dev) < 0.3)[:, None]
+            moved = x2t * (1 + depth_err * (0.5 + 0.5 * torch.rand(n, 1, generator=gen, device=dev)))
+            x2 = torch.where(far, moved, x2t)
+        else:
+            x2 = torch.where((torch.rand(n, generator=gen, device=dev) < 0.25)[:, None], box(n), x2t)
+        uv1 = proj7(x1) + 0.5 * torch.randn(n, 2, generator=gen, device=dev)
+        is1 = 1.2 ** (-2.0 * torch.randint(0, 8, (n,), generator=gen, device=dev).float())
+        return x1, x2.contiguous(), uv1.contiguous(), proj7(x2t).contiguous(), is1.contiguous()
+
+    def draws(valid, H):
+        return torch.multinomial(valid.float().expand(H, -1), 3, generator=gen)
+
     consts7 = (cam.fx, cam.fy, cam.cx, cam.cy, 100.0)    # the loop closer's chi2 gate
-    samples7 = torch.multinomial(valid7.float().expand(H7, N7), 3, generator=gen)
+    valid7 = torch.ones(N7, dtype=torch.bool, device=dev)
+    samples7 = draws(valid7, H7)
     samples_c = samples7.clone()
     samples_c[0] = torch.tensor([1, 2, 3], device=dev)
-    x1c = x1s.clone()
-    x1c[2] = x1s[1] + 0.5 * (x1s[3] - x1s[1]) + 1e-4            # on the segment, 0.1 mm off
-    err7, exact7 = 0.0, True
+    pairs7 = {fix: pair_set(N7, fix) for fix in (False, True)}
+    err7, kept7 = 0.0, {}
     for fix in (False, True):
-        x1f, x2f, uv1f, uv2f = pairs7[fix]
-        for what, smp, a1, v in (("25% outliers", samples7, x1f, valid7),
-                                 ("a near-collinear triple", samples_c, x1c, valid7),
-                                 ("2 valid pairs", samples7, x1f, torch.arange(N7, device=dev) < 2)):
-            e, x = check_sim3_hypotheses(what, (smp, a1, x2f, uv1f, uv2f, v, is1_7, is2_7,
-                                                *consts7), fix)
-            err7, exact7 = max(err7, e), exact7 and x
-    args7 = (samples7, *pairs7[False], valid7, is1_7, is2_7, *consts7, False)
-    record("sim3_hypotheses", err7, time_ms(lambda: k7.sim3_hypotheses(*args7)),
-           time_ms(lambda: k7.sim3_hypotheses_plain(*args7), 3), *sim3_hyp_work(samples7, valid7),
-           bit_exact=exact7, graph_us=graph_us(lambda: k7.sim3_hypotheses(*args7)),
-           **device_kernels(lambda: k7.sim3_hypotheses(*args7), 1))
+        x1f, x2f, uv1f, uv2f, is1f = pairs7[fix]
+        x1c = x1f.clone()
+        x1c[2] = x1f[1] + 0.5 * (x1f[3] - x1f[1]) + 1e-4          # on the segment, 0.1 mm off
+        two = torch.arange(N7, device=dev) < 2
+        for what, smp, a1, v, th in (
+                ("25% outliers", samples7, x1f, valid7, consts7[4]),
+                ("a near-collinear triple", samples_c, x1c, valid7, consts7[4]),
+                ("fewer than 3 valid: 2 valid pairs", samples7, x1f, two, consts7[4]),
+                ("no valid pair", samples7, x1f, ~valid7, consts7[4]),
+                ("a zero-inlier best (th = 0)", samples7, x1f, valid7, 0.0)):
+            e, kept7[f"{what}, fix_scale {fix}"], _ = check_sim3_ransac(
+                f"{what}, fix_scale {fix}",
+                (smp, a1, x2f, uv1f, uv2f, v, is1f, ones7, *consts7[:4], th, fix, 20))
+            err7 = max(err7, e)
+    depth7 = pair_set(N7, False, depth_err=1.0)
+    e, refined, _ = check_sim3_ransac("30% of the depths 1.5-2 x (refined counts fewer)",
+                                      (samples7, *depth7[:4], valid7, depth7[4], ones7, *consts7,
+                                       False, 20))
+    if refined:
+        fail("sim3_ransac_solve: the depth-error case kept the refined Sim3; it must exercise the best")
+    err7 = max(err7, e)
+    N4k = 4096
+    valid4k = torch.ones(N4k, dtype=torch.bool, device=dev)
+    big = {"N = 4096": (draws(valid4k, H7), *pair_set(N4k, False)[:4], valid4k),
+           "H = 4096": (draws(valid7, 4096), *pairs7[False][:4], valid7)}
+    for what, (smp, x1b, x2b, uv1b, uv2b, vb) in big.items():
+        e, _, _ = check_sim3_ransac(what, (smp, x1b, x2b, uv1b, uv2b, vb, None, None, *consts7,
+                                           False, 20))
+        err7 = max(err7, e)
+    args7 = (samples7, *pairs7[False][:4], valid7, pairs7[False][4], ones7, *consts7, False, 20)
+    out7 = k7.sim3_ransac_solve(*args7)
+    record("sim3_ransac_solve", err7, time_ms(lambda: k7.sim3_ransac_solve(*args7)),
+           time_ms(lambda: k7.sim3_ransac_solve_plain(*args7), 3),
+           *sim3_hyp_work(samples7, valid7, float(out7[6][out7[7]])), bit_exact=True,
+           refined_kept=kept7, graph_us=graph_us(lambda: k7.sim3_ransac_solve(*args7)),
+           **device_kernels(lambda: k7.sim3_ransac_solve(*args7), 1))
 
     # kernel 8: the whole Sim3 LM on the same 1024 pairs from a start 0.1 in
-    # scale, ~0.03 rad and 5 cm off, scale free and fixed
+    # scale, ~0.03 rad and 5 cm off, scale free and fixed; then 4096 pairs
+    # all valid, and 3 valid pairs with exact pixels (with noisy ones 8
+    # iterations can stop short on a flat cost, where any two LM
+    # implementations part beyond the tolerance)
     err8 = 0.0
     R0_8 = lie.so3_exp(torch.tensor([0.02, -0.02, 0.01], device=dev)) @ R7
+    start8 = lambda fix: (torch.tensor(1.0 if fix else 1.3, device=dev), R0_8, t7 + 0.05)
     for fix in (False, True):
-        args8 = (*pairs7[fix], valid7, is1_7, is2_7, torch.tensor(1.0 if fix else 1.3, device=dev),
-                 R0_8, t7 + 0.05, cam.fx, cam.fy, cam.cx, cam.cy, fix, 100.0)
+        args8 = (*pairs7[fix][:4], valid7, pairs7[fix][4], ones7, *start8(fix), *consts7[:4], fix,
+                 100.0)
         err8 = max(err8, check_sim3_lm(f"synthetic, fix_scale {fix}", args8))
-    args8 = (*pairs7[False], valid7, is1_7, is2_7, torch.tensor(1.3, device=dev), R0_8, t7 + 0.05,
-             cam.fx, cam.fy, cam.cx, cam.cy, False, 100.0)
+    for what, (x1b, x2b, uv1b, uv2b, is1b), vb in (
+            ("4096 pairs all valid", pair_set(N4k, False), valid4k),
+            ("3 valid pairs", pair_set(N7, False, exact=True), torch.arange(N7, device=dev) < 3)):
+        err8 = max(err8, check_sim3_lm(what, (x1b, x2b, uv1b, uv2b, vb, is1b, None, *start8(False),
+                                              *consts7[:4], False, 100.0)))
+    args8 = (*pairs7[False][:4], valid7, pairs7[False][4], ones7, *start8(False), *consts7[:4],
+             False, 100.0)
     record("sim3_lm_solve", err8, time_ms(lambda: k7.sim3_lm_solve(*args8)),
            time_ms(lambda: k7.sim3_lm_solve_plain(*args8), 3), *sim3_lm_work(valid7, k7.LM_ITERS),
            graph_us=graph_us(lambda: k7.sim3_lm_solve(*args8)),
@@ -1077,6 +1154,8 @@ def main():
     calls6 = {"sim3_ransac": 0, "optimize_sim3": 0}
     k3_in = {"sim3_guided_match": [], "loop_projection_count": [], "fuse_points_into": []}
     captured6, closures = {}, []
+    # the plain Horn, Jacobi and score: the CUDA path must call none of them
+    plain6 = {name: 0 for name in ("horn_sim3", "jacobi_eig4", "sim3_score_plain")}
 
     def timed(name, fn):
         # the stage's host wall time, the card drained before and after
@@ -1123,7 +1202,7 @@ def main():
             closures.append(slam6.frame_id)
             # the closing attempt's last launch of each: its pair-set RANSAC
             # and its second optimize_sim3
-            for name in LOOP_ONLY:
+            for name in (*LOOP_ONLY, "sim3_from_samples"):
                 captured6.setdefault(("closure", name), latest6[name])
         return out
 
@@ -1132,14 +1211,25 @@ def main():
     lc6._correct_loop = timed("loop/correct", lc6._correct_loop)
     lc6._dispatch_global_ba = timed("loop/gba", lc6._dispatch_global_ba)
     lc6.maybe_fold_gba, lc6.resolve_detection = fold, resolve
-    saved = (sim3_mod.sim3_ransac, sim3_mod.optimize_sim3, sim3_mod.sim3_hypotheses,
+    saved = (sim3_mod.sim3_ransac, sim3_mod.optimize_sim3, sim3_mod.sim3_ransac_solve,
              sim3_mod.sim3_lm_solve, loop_mod.sim3_guided_match, loop_mod.loop_projection_count,
              local_mapping.fuse_points_into, matching.match_gated, loop_mod.optimize_pose_graph,
-             loop_mod.optimize_pose_graph_cg)
+             loop_mod.optimize_pose_graph_cg, sim3_mod.sim3_from_samples)
     sim3_mod.sim3_ransac = counted("sim3_ransac", saved[0])
     sim3_mod.optimize_sim3 = counted("optimize_sim3", saved[1])
-    sim3_mod.sim3_hypotheses = keep("sim3_hypotheses", saved[2])
+    sim3_mod.sim3_ransac_solve = keep("sim3_ransac_solve", saved[2])
     sim3_mod.sim3_lm_solve = keep("sim3_lm_solve", saved[3])
+    sim3_mod.sim3_from_samples = keep("sim3_from_samples", saved[10])
+    saved_plain = {name: getattr(k7, name) for name in plain6}
+
+    def plain_counted(name, fn):
+        def run(*a, **kw):
+            plain6[name] += 1
+            return fn(*a, **kw)
+        return run
+
+    for name, fn in saved_plain.items():
+        setattr(k7, name, plain_counted(name, fn))
     loop_mod.sim3_guided_match = matcher_launches_in(saved[4], k3_in["sim3_guided_match"])
     loop_mod.loop_projection_count = matcher_launches_in(saved[5], k3_in["loop_projection_count"])
     local_mapping.fuse_points_into = matcher_launches_in(saved[6], k3_in["fuse_points_into"])
@@ -1151,10 +1241,12 @@ def main():
         _, frame_s6, launches6 = drive("loop", slam6, images6,
                                        [w for n, (_, _, w) in SOURCES.items() if n != "pnp_hypotheses"])
     finally:
-        (sim3_mod.sim3_ransac, sim3_mod.optimize_sim3, sim3_mod.sim3_hypotheses,
+        (sim3_mod.sim3_ransac, sim3_mod.optimize_sim3, sim3_mod.sim3_ransac_solve,
          sim3_mod.sim3_lm_solve, loop_mod.sim3_guided_match, loop_mod.loop_projection_count,
          local_mapping.fuse_points_into, matching.match_gated, loop_mod.optimize_pose_graph,
-         loop_mod.optimize_pose_graph_cg) = saved
+         loop_mod.optimize_pose_graph_cg, sim3_mod.sim3_from_samples) = saved
+        for name, fn in saved_plain.items():
+            setattr(k7, name, fn)
     match_calls6 = match_calls[0]
     ate6, n6 = ate_of(slam6, gt6, range(LOOP_FRAMES))       # flushes: folds a pending BA
     ate_bound6 = max(1.5 * LOOP_ATE_JAX, LOOP_ATE_JAX + 0.05)
@@ -1173,36 +1265,46 @@ def main():
           f"{json.dumps(k3_in)}, card {card}")
     print(f"loop stage times, ms (host wall time, the card drained around each): "
           f"{json.dumps({k: [round(v, 3) for v in vs] for k, vs in stage_ms.items()})}")
+    stage_sums = {k: {"calls": len(vs), "total_ms": sum(vs),
+                      "median_ms": statistics.median(vs) if vs else None}
+                  for k, vs in stage_ms.items()}
+    print(f"loop stage totals and medians, ms: {json.dumps(stage_sums)}; plain Horn / Jacobi / "
+          f"score calls in the run: {json.dumps(plain6)}")
     checks = {"a loop closed": lc6.n_loops_closed >= 1,
               "a global BA dispatched and folded": lc6.n_gba_dispatched >= 1 and lc6.n_gba_folded >= 1,
               "tracked >= 60%": n6 >= 0.6 * LOOP_FRAMES, "state OK": slam6.state == "OK",
               f"ATE <= {ate_bound6:.4f}": ate6 <= ate_bound6,
-              "one sim3_hypotheses launch per sim3_ransac":
-                  calls6["sim3_ransac"] > 0 and launches6["sim3_hypotheses"] == calls6["sim3_ransac"],
+              "one sim3_ransac_solve launch per sim3_ransac":
+                  calls6["sim3_ransac"] > 0 and launches6["sim3_ransac_solve"] == calls6["sim3_ransac"],
+              "no plain Horn, Jacobi or score on the CUDA path": not any(plain6.values()),
               "one sim3_lm_solve launch per optimize_sim3":
                   calls6["optimize_sim3"] > 0 and launches6["sim3_lm_solve"] == calls6["optimize_sim3"],
               "one hamming_match launch per matcher call": launches6["hamming_match"] == match_calls6,
               "one matcher launch per guided match / projection count / SearchAndFuse":
                   all(len(v) > 0 and set(v) == {1} for v in k3_in.values()),
               "one fast_nms launch per frame": launches6["fast_nms"] == LOOP_FRAMES,
-              "kernel inputs captured": len(captured6) == 4}
+              "kernel inputs captured": len(captured6) == 6}
     bad = [k for k, v in checks.items() if not v]
     if bad:
         fail(f"loop checks failed: {bad}")
     # kernels 7 and 8 on the inputs the loop gave them: the run's first
     # launch of each, and the closing attempt's last
     for when in ("first", "closure"):
-        a7 = captured6[(when, "sim3_hypotheses")]
-        e7, x7 = check_sim3_hypotheses(f"the loop's {when} Sim3 RANSAC input", a7[:-1], a7[-1])
+        a7 = captured6[(when, "sim3_ransac_solve")]
+        e7, refined7, out7 = check_sim3_ransac(f"the loop's {when} Sim3 RANSAC input", a7)
         a8 = captured6[(when, "sim3_lm_solve")]
         e8 = check_sim3_lm(f"the loop's {when} optimize_sim3 input", a8)
-        r7, r8 = results["sim3_hypotheses"], results["sim3_lm_solve"]
+        r7, r8 = results["sim3_ransac_solve"], results["sim3_lm_solve"]
         r7["max_abs_err"], r8["max_abs_err"] = max(r7["max_abs_err"], e7), max(r8["max_abs_err"], e8)
+        # the whole sim3_ransac after its draw is this one device kernel
+        af = captured6[(when, "sim3_from_samples")]
         r7[f"captured_{when}"] = {
-            "H": a7[0].shape[0], "N": a7[1].shape[0], "valid": int(a7[5].sum()), "bit_exact": x7,
-            "ms": time_ms(lambda: k7.sim3_hypotheses(*a7)),
-            "graph_us": graph_us(lambda: k7.sim3_hypotheses(*a7)),
-            "bound_ms": bound(*sim3_hyp_work(a7[0], a7[5]))[0]}
+            "H": a7[0].shape[0], "N": a7[1].shape[0], "valid": int(a7[5].sum()), "bit_exact": True,
+            "refined_kept": refined7, "n": int(out7[4]),
+            "ms": time_ms(lambda: k7.sim3_ransac_solve(*a7)),
+            "graph_us": graph_us(lambda: k7.sim3_ransac_solve(*a7)),
+            "bound_ms": bound(*sim3_hyp_work(a7[0], a7[5], float(out7[6][out7[7]])))[0],
+            "sim3_from_samples": device_kernels(lambda: sim3_mod.sim3_from_samples(*af), 1)}
         r8[f"captured_{when}"] = {
             "N": a8[0].shape[0], "valid": int(a8[4].sum()),
             "ms": time_ms(lambda: k7.sim3_lm_solve(*a8)),

@@ -8,7 +8,7 @@ from . import assign_words, fast_nms, hamming, orb_describe, pnp_score, pose_lm,
 
 WRAPPERS = (fast_nms.fast_nms, orb_describe.orb_describe, hamming.hamming_match,
             hamming.distinctive_descriptors, pose_lm.optimize_pose_batched,
-            assign_words.assign_words, pnp_score.pnp_hypotheses, sim3.sim3_hypotheses,
+            assign_words.assign_words, pnp_score.pnp_hypotheses, sim3.sim3_ransac_solve,
             sim3.sim3_lm_solve)
 
 __all__ = ["assign_words", "fast_nms", "hamming", "orb_describe", "pnp_score", "pose_lm", "sim3",

@@ -1,29 +1,36 @@
-"""Kernels 7 and 8: loop closing's Sim3 RANSAC hypotheses and its Sim3 LM.
+"""Kernels 7 and 8: loop closing's Sim3 RANSAC after its draw, and its Sim3 LM.
 
-``sim3_hypotheses`` (kernel 7) fits Horn's Sim3 to every sampled triple of
-matched point pairs, counts each hypothesis's inliers by reprojection in
-both directions and picks the first hypothesis with the most, in one
-launch.  ``sim3_lm_solve`` (kernel 8) runs a whole ``optimize_sim3``: 8 LM
+``sim3_ransac_solve`` (kernel 7) runs the reference's ``sim3_ransac`` from
+the sampled triples on, in one launch: Horn's Sim3 of every triple of
+matched point pairs, each hypothesis's inliers by reprojection in both
+directions, the first hypothesis with the most, the weighted Horn over its
+inliers, and the refined Sim3 where it counts at least as many.
+``sim3_lm_solve`` (kernel 8) runs a whole ``optimize_sim3``: 8 LM
 iterations over paired forward / inverse reprojection edges with a Huber
 kernel, a damping ladder lambda x {1, 8, 64} and a chi2 inlier refresh, in
 one launch.  Both launch ``csrc/sim3.cu`` for CUDA tensors and run their
-plain twins (``sim3_hypotheses_plain``, ``sim3_lm_solve_plain``) for CPU
-tensors; each wrapper's ``launches`` counts its kernel launches.
+plain twins (``sim3_ransac_solve_plain``, ``sim3_lm_solve_plain``) for CPU
+tensors; each wrapper's ``launches`` counts its kernel launches.  The
+inverse sigma^2 arguments may be None (all ones; the kernels then read
+nothing for them).
 
 Kernel 7's twin takes only +, -, x, / and sqrt, each rounded once, in the
-kernel's order (built with ``--fmad=false``), so counts and ``best`` are
-bit-exact.  Horn's quaternion is the eigenvector of the symmetric 4x4 Q
-with the largest eigenvalue, from JACOBI_SWEEPS cyclic Jacobi sweeps (a pair
-rotates only while q_pq^2 > 2^-48 (q_pp^2 + q_qq^2)); q and -q give the same
-R, so the result agrees with the reference's ``eigh`` to float32 accuracy.
-Every division is by a tensor (PyTorch's CUDA division by a Python number
-multiplies by the reciprocal, which rounds twice).
+kernel's order (built with ``--fmad=false``), so every output is bit-exact.
+Horn's quaternion is the eigenvector of the symmetric 4x4 Q with the
+largest eigenvalue, from JACOBI_SWEEPS cyclic Jacobi sweeps (a pair rotates
+only while q_pq^2 > 2^-48 (q_pp^2 + q_qq^2)), the last on ties as the
+reference's ``eigh`` (ascending) leaves it; q and -q give the same R, so
+the result agrees with the reference to float32 accuracy.  The weighted
+Horn's sums over the N pairs run as ``tree_sum``: zeros up to a power of
+two, then adjacent pairs added level by level.  Every division is by a
+tensor (PyTorch's CUDA division by a Python number multiplies by the
+reciprocal, which rounds twice).
 
 Kernel 8's twin is the reference's formulation: ``torch.func.jacfwd``
 through ``sim3_retract`` and ``torch.linalg.solve``; the kernel uses the
-analytic left-tangent Jacobian and Gaussian elimination with partial
-pivoting, and sums in another order (tolerances in the tests and
-``chip_smoke.py``).
+analytic left-tangent Jacobian and a row-parallel elimination without
+pivoting (the damped normal matrix is positive definite), and sums in
+another order (tolerances in the tests and ``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from . import _build
 JACOBI_SWEEPS = 6      # cyclic sweeps of the 4x4 Q (pairs 01 02 03 12 13 23)
 ORTHO_TOL2 = 2.0 ** -48
 MAX_N = 4096           # pairs staged in shared memory by both kernels
+MAX_H = (1 << 15) - 1  # kernel 7's hypotheses a call
 LM_ITERS = 8           # the reference's optimize_sim3 default
 LM_LAMBDA0 = 1e-4
 PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
@@ -94,9 +102,9 @@ def horn_q(M):
 
 
 def horn_rotation(Q):
-    """R from the eigenvector of Q's largest eigenvalue (the first on ties)."""
+    """R from the eigenvector of Q's largest eigenvalue (the last on ties)."""
     vals, vecs = jacobi_eig4(Q)
-    k = torch.argmax(vals, dim=-1)
+    k = 3 - torch.argmax(vals.flip(-1), dim=-1)
     q = torch.gather(vecs, -1, k[..., None, None].expand(*k.shape, 4, 1))[..., 0]
     qw, qx, qy, qz = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     R = [[1.0 - 2.0 * (qy * qy + qz * qz), 2.0 * (qx * qy - qw * qz), 2.0 * (qx * qz + qw * qy)],
@@ -135,6 +143,42 @@ def horn3_plain(p1, p2, fix_scale: bool):
     return s, R, t
 
 
+def tree_sum(x):
+    """Sum over the first axis as kernel 7's fixed tree: zeros appended up to
+    a power of two, then adjacent pairs added level by level."""
+    n = x.shape[0]
+    p = 1 << max(n - 1, 0).bit_length()
+    if p > n:
+        x = torch.cat([x, x.new_zeros((p - n, *x.shape[1:]))])
+    while x.shape[0] > 1:
+        x = x[0::2] + x[1::2]
+    return x[0]
+
+
+def horn_sim3(x1, x2, w, fix_scale: bool = False):
+    """Closed-form weighted Sim3 (s, R, t) with x2 ~ s R x1 + t (Horn 1987;
+    the reference's ``horn_sim3``), x1, x2 [N,3], w [N]; every sum over the
+    N pairs a ``tree_sum``, in kernel 7's order."""
+    wsum = torch.clamp_min(tree_sum(w), 1e-9)
+    c1 = tree_sum(x1 * w[:, None]) / wsum
+    c2 = tree_sum(x2 * w[:, None]) / wsum
+    a = x1 - c1
+    b = x2 - c2
+    M = tree_sum((a[:, :, None] * b[:, None, :]) * w[:, None, None])
+    R = horn_rotation(horn_q(M))
+    Ra = _matvec(R, a)
+    num = tree_sum(_dot3(Ra, b) * w)
+    den = torch.clamp_min(tree_sum(_dot3(Ra, Ra) * w), 1e-12)
+    s = torch.ones_like(num) if fix_scale else num / den
+    return s, R, c2 - s * _matvec(R, c1)
+
+
+def inv_sigma2_or_ones(x1, is1, is2):
+    """The inverse sigma^2 of both images, all ones where None."""
+    ones = lambda: torch.ones(x1.shape[0], dtype=x1.dtype, device=x1.device)
+    return ones() if is1 is None else is1, ones() if is2 is None else is2
+
+
 def sim3_score_plain(s, R, t, x1, x2, uv1, uv2, valid, is1, is2, fx, fy, cx, cy, th):
     """[H, N] inlier masks of hypotheses s [H], R [H,3,3], t [H,3]: x1 through
     S into image 2 and x2 through S^-1 into image 1, both squared pixel
@@ -157,17 +201,30 @@ def sim3_score_plain(s, R, t, x1, x2, uv1, uv2, valid, is1, is2, fx, fy, cx, cy,
             & (y1[..., 2] > 0) & (y2[..., 2] > 0))
 
 
-def sim3_hypotheses_plain(samples, x1, x2, uv1, uv2, valid, is1, is2, fx: float, fy: float,
-                          cx: float, cy: float, th: float, fix_scale: bool):
-    """samples [H,3] pair indices; x1, x2 [N,3] camera-frame points of the
-    pairs; uv1, uv2 [N,2] their pixels; valid [N]; is1, is2 [N] inverse
-    sigma^2 -> (s [H], R [H,3,3], t [H,3], n [H] int32 inlier counts,
-    best 0-d int64: the first hypothesis with the most inliers)."""
+def sim3_ransac_solve_plain(samples, x1, x2, uv1, uv2, valid, is1, is2, fx: float, fy: float,
+                            cx: float, cy: float, th: float, fix_scale: bool, min_inliers: int):
+    """The reference's ``sim3_ransac`` after the draw.  samples [H,3] pair
+    indices; x1, x2 [N,3] camera-frame points of the pairs; uv1, uv2 [N,2]
+    their pixels; valid [N]; is1, is2 [N] inverse sigma^2 (or None) ->
+    (s 0-d, R [3,3], t [3], inliers [N] bool, n 0-d int32, success 0-d
+    bool, counts [H] int32: each hypothesis's inliers, best 0-d int64: the
+    first hypothesis with the most)."""
+    is1, is2 = inv_sigma2_or_ones(x1, is1, is2)
+    consts = (x1, x2, uv1, uv2, valid, is1, is2, fx, fy, cx, cy, th)
     idx = samples.long()
     s, R, t = horn3_plain(x1[idx], x2[idx], fix_scale)
-    n = sim3_score_plain(s, R, t, x1, x2, uv1, uv2, valid, is1, is2, fx, fy, cx, cy, th) \
-        .sum(-1).to(torch.int32)
-    return s, R, t, n, torch.argmax(n)
+    inl = sim3_score_plain(s, R, t, *consts)
+    counts = inl.sum(-1).to(torch.int32)
+    best = torch.argmax(counts)
+    inl_b, n_b = inl[best], counts[best]
+    s_r, R_r, t_r = horn_sim3(x1, x2, inl_b.to(torch.float32), fix_scale)
+    inl_r = sim3_score_plain(s_r[None], R_r[None], t_r[None], *consts)[0]
+    n_r = inl_r.sum().to(torch.int32)
+    use = n_r >= n_b
+    n = torch.maximum(n_r, n_b)
+    return (torch.where(use, s_r, s[best]), torch.where(use, R_r, R[best]),
+            torch.where(use, t_r, t[best]), torch.where(use, inl_r, inl_b), n, n >= min_inliers,
+            counts, best)
 
 
 def project_residuals(fx, fy, cx, cy, s, R, t, x1, x2, uv1, uv2, is1, is2):
@@ -196,6 +253,7 @@ def sim3_lm_solve_plain(x1, x2, uv1, uv2, valid, is1, is2, s0, R0, t0, fx: float
     """The reference's ``optimize_sim3``: (s 0-d, R [3,3], t [3], inlier [N]
     bool, n 0-d int32)."""
     dev = x1.device
+    is1, is2 = inv_sigma2_or_ones(x1, is1, is2)
     res = lambda s, R, t: project_residuals(fx, fy, cx, cy, s, R, t, x1, x2, uv1, uv2, is1, is2)
 
     def robust_cost(s, R, t, inlier):
@@ -252,9 +310,9 @@ def sim3_lm_solve_plain(x1, x2, uv1, uv2, valid, is1, is2, s0, R0, t0, fx: float
 @functools.cache
 def _lib():
     lib = _build.load("sim3")
-    h = lib.sim3_hypotheses_launch
+    h = lib.sim3_ransac_launch
     h.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_float] * 5 \
-        + [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_void_p]
     h.restype = ctypes.c_int
     lm = lib.sim3_lm_launch
     lm.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] + [ctypes.c_float] * 4 \
@@ -263,10 +321,12 @@ def _lib():
     return lib
 
 
-_TICKETS: dict = {}   # device -> [1] int32, 0 between calls
+_WORKSPACES: dict = {}   # device -> [1 + MAX_H] int32: kernel 7's ticket, then its counts'
+                         # accumulator; 0 between calls
 
 
 def _pairs_checked(dev, N, x1, x2, uv1, uv2, valid, is1, is2):
+    """Check the pairs a kernel reads; the pointers of is1 and is2 (0 for None)."""
     if not 0 < N <= MAX_N:
         raise ValueError(f"sim3 kernels take 1 to {MAX_N} pairs, got {N}")
     f32 = torch.float32
@@ -274,41 +334,49 @@ def _pairs_checked(dev, N, x1, x2, uv1, uv2, valid, is1, is2):
                                (uv1, "uv1", f32, (N, 2)), (uv2, "uv2", f32, (N, 2)),
                                (valid, "valid", torch.bool, (N,)), (is1, "is1", f32, (N,)),
                                (is2, "is2", f32, (N,))):
-        _build.check_tensor(a, name, dt, shape, dev)
+        if a is not None:
+            _build.check_tensor(a, name, dt, shape, dev)
+    return (0 if is1 is None else is1.data_ptr()), (0 if is2 is None else is2.data_ptr())
 
 
-def sim3_hypotheses(samples, x1, x2, uv1, uv2, valid, is1, is2, fx: float, fy: float, cx: float,
-                    cy: float, th: float, fix_scale: bool):
-    """One launch: every sampled triple's Horn Sim3, its inlier count and
-    the first best; see ``sim3_hypotheses_plain``."""
+def sim3_ransac_solve(samples, x1, x2, uv1, uv2, valid, is1, is2, fx: float, fy: float,
+                      cx: float, cy: float, th: float, fix_scale: bool, min_inliers: int):
+    """One launch: the whole Sim3 RANSAC after its draw; see
+    ``sim3_ransac_solve_plain``."""
     if not x1.is_cuda:
-        return sim3_hypotheses_plain(samples, x1, x2, uv1, uv2, valid, is1, is2, fx, fy, cx, cy,
-                                     th, fix_scale)
+        return sim3_ransac_solve_plain(samples, x1, x2, uv1, uv2, valid, is1, is2, fx, fy, cx, cy,
+                                       th, fix_scale, min_inliers)
     dev = x1.device
     H, N = samples.shape[0], x1.shape[0]
-    if not 0 < H < 1 << 15:
-        raise ValueError(f"sim3_hypotheses: H = {H} hypotheses (1 to 32767)")
+    if not 0 < H <= MAX_H:
+        raise ValueError(f"sim3_ransac_solve: H = {H} hypotheses (1 to {MAX_H})")
     _build.check_tensor(samples, "samples", torch.int64, (H, 3), dev)
-    _pairs_checked(dev, N, x1, x2, uv1, uv2, valid, is1, is2)
-    s = torch.empty((H,), dtype=torch.float32, device=dev)
-    R = torch.empty((H, 3, 3), dtype=torch.float32, device=dev)
-    t = torch.empty((H, 3), dtype=torch.float32, device=dev)
-    n = torch.empty((H,), dtype=torch.int32, device=dev)
+    p_is1, p_is2 = _pairs_checked(dev, N, x1, x2, uv1, uv2, valid, is1, is2)
+    f32 = torch.float32
+    hyp = torch.empty((H, 13), dtype=f32, device=dev)
+    counts = torch.empty((H,), dtype=torch.int32, device=dev)
     best = torch.empty((), dtype=torch.int64, device=dev)
-    ticket = _TICKETS.get(dev)
-    if ticket is None:
-        ticket = _TICKETS[dev] = torch.zeros((1,), dtype=torch.int32, device=dev)
-    err = _lib().sim3_hypotheses_launch(
+    s = torch.empty((), dtype=f32, device=dev)
+    R = torch.empty((3, 3), dtype=f32, device=dev)
+    t = torch.empty((3,), dtype=f32, device=dev)
+    inliers = torch.empty((N,), dtype=torch.bool, device=dev)
+    n = torch.empty((), dtype=torch.int32, device=dev)
+    success = torch.empty((), dtype=torch.bool, device=dev)
+    ws = _WORKSPACES.get(dev)
+    if ws is None:
+        ws = _WORKSPACES[dev] = torch.zeros((1 + MAX_H,), dtype=torch.int32, device=dev)
+    err = _lib().sim3_ransac_launch(
         samples.data_ptr(), x1.data_ptr(), x2.data_ptr(), uv1.data_ptr(), uv2.data_ptr(),
-        valid.data_ptr(), is1.data_ptr(), is2.data_ptr(), H, N, fx, fy, cx, cy, th,
-        int(fix_scale), s.data_ptr(), R.data_ptr(), t.data_ptr(), n.data_ptr(), best.data_ptr(),
-        ticket.data_ptr(), _build.stream_ptr(dev))
-    _build.check_launch(err, "sim3_hypotheses")
-    sim3_hypotheses.launches += 1
-    return s, R, t, n, best
+        valid.data_ptr(), p_is1, p_is2, H, N, fx, fy, cx, cy, th, int(fix_scale), int(min_inliers),
+        hyp.data_ptr(), ws.data_ptr() + 4, counts.data_ptr(), best.data_ptr(), s.data_ptr(),
+        R.data_ptr(), t.data_ptr(), inliers.data_ptr(), n.data_ptr(), success.data_ptr(),
+        ws.data_ptr(), _build.stream_ptr(dev))
+    _build.check_launch(err, "sim3_ransac_solve")
+    sim3_ransac_solve.launches += 1
+    return s, R, t, inliers, n, success, counts, best
 
 
-sim3_hypotheses.launches = 0
+sim3_ransac_solve.launches = 0
 
 
 def sim3_lm_solve(x1, x2, uv1, uv2, valid, is1, is2, s0, R0, t0, fx: float, fy: float, cx: float,
@@ -319,7 +387,7 @@ def sim3_lm_solve(x1, x2, uv1, uv2, valid, is1, is2, s0, R0, t0, fx: float, fy: 
                                    fix_scale, chi2_th, iters)
     dev = x1.device
     N = x1.shape[0]
-    _pairs_checked(dev, N, x1, x2, uv1, uv2, valid, is1, is2)
+    p_is1, p_is2 = _pairs_checked(dev, N, x1, x2, uv1, uv2, valid, is1, is2)
     f32 = torch.float32
     s0 = torch.as_tensor(s0, dtype=f32, device=dev).reshape(()).contiguous()
     R0, t0 = R0.to(f32).contiguous(), t0.to(f32).contiguous()
@@ -332,7 +400,7 @@ def sim3_lm_solve(x1, x2, uv1, uv2, valid, is1, is2, s0, R0, t0, fx: float, fy: 
     n = torch.empty((), dtype=torch.int32, device=dev)
     err = _lib().sim3_lm_launch(
         x1.data_ptr(), x2.data_ptr(), uv1.data_ptr(), uv2.data_ptr(), valid.data_ptr(),
-        is1.data_ptr(), is2.data_ptr(), s0.data_ptr(), R0.data_ptr(), t0.data_ptr(), N, fx, fy,
+        p_is1, p_is2, s0.data_ptr(), R0.data_ptr(), t0.data_ptr(), N, fx, fy,
         cx, cy, int(fix_scale), iters, chi2_th, s.data_ptr(), R.data_ptr(), t.data_ptr(),
         inlier.data_ptr(), n.data_ptr(), _build.stream_ptr(dev))
     _build.check_launch(err, "sim3_lm_solve")

@@ -6,10 +6,13 @@ system); horn_sim3 within 1e-5 (the port takes Horn's quaternion by Jacobi,
 the reference by ``eigh``); kernel 7's twin on every sampled triple within
 1e-4 of the reference's vmapped Horn (t within 1e-4 + 1e-4 |t|: triples with
 an outlier give ill-conditioned fits with |t| up to ~10); sim3_from_samples
-fed the reference's own sampled sets (``jax.random.split`` + the vmapped ``choice`` of
-sim3_ransac) gives the same success, inlier count and mask, and s, R, t
-within 1e-5; optimize_sim3 (kernel 8's twin) the same count, masks that
-differ on at most 1% of pairs, and s, R, t within 1e-4.
+(kernel 7's twin) fed the reference's own sampled sets (``jax.random.split``
++ the vmapped ``choice`` of sim3_ransac) gives the same success, inlier
+count and mask, and s, R, t within 1e-5, also with fewer than 3 valid
+pairs, with a refined fit that counts fewer inliers than the best
+hypothesis, and with no valid pair; its tree sums within 1e-6 (relative)
+of a float64 sum; optimize_sim3 (kernel 8's twin) the same count, masks
+that differ on at most 1% of pairs, and s, R, t within 1e-4.
 """
 
 import jax
@@ -41,8 +44,10 @@ def close(a, b, tol, rtol=0.0):
     np.testing.assert_allclose(np.asarray(b.detach()), np.asarray(a), rtol=rtol, atol=tol)
 
 
-def pairs(seed: int, n: int = 96, n_bad: int = 24, scale: float = 1.4):
-    """Matched camera-frame points x1, x2 ~ s R x1 + t, their pixels, n_bad outliers."""
+def pairs(seed: int, n: int = 96, n_bad: int = 24, scale: float = 1.4, depth_err: float = 0.0):
+    """Matched camera-frame points x1, x2 ~ s R x1 + t, their pixels, n_bad
+    outliers; with depth_err, 30% of the x2 moved along their viewing rays
+    by a factor 1 + depth_err x U(0.5, 1)."""
     rng = np.random.RandomState(seed)
     x1 = rng.uniform([-2, -2, 3], [2, 2, 8], (n, 3)).astype(np.float32)
     R = np.asarray(jlie.so3_exp(jnp.asarray(rng.randn(3).astype(np.float32) * 0.2)))
@@ -54,6 +59,9 @@ def pairs(seed: int, n: int = 96, n_bad: int = 24, scale: float = 1.4):
     uv2 = proj(x2)
     bad = rng.choice(n, n_bad, replace=False)
     x2[bad] = rng.uniform([-2, -2, 3], [2, 2, 8], (n_bad, 3))
+    if depth_err:
+        far = rng.choice(n, int(0.3 * n), replace=False)
+        x2[far] *= 1 + depth_err * rng.uniform(0.5, 1.0, (len(far), 1))
     return x1, x2, uv1, uv2, (scale, R, t)
 
 
@@ -104,7 +112,7 @@ def test_horn_sim3_agrees(fix_scale):
     x1, x2, _, _, _ = pairs(2)
     w = (np.random.RandomState(3).rand(x1.shape[0]) > 0.3).astype(np.float32)
     for a, b in zip(jsim3.horn_sim3(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(w), fix_scale),
-                    tsim3.horn_sim3(T(x1), T(x2), T(w), fix_scale)):
+                    ksim3.horn_sim3(T(x1), T(x2), T(w), fix_scale)):
         close(a, b, 1e-5)
 
 
@@ -117,13 +125,22 @@ def reference_samples(key, valid: np.ndarray, n_hyp: int) -> np.ndarray:
         lambda k: jax.random.choice(k, valid.shape[0], (3,), replace=False, p=probs))(keys))
 
 
+@pytest.mark.parametrize("n", [1, 2, 3, 37, 512, 1000, 4096])
+def test_tree_sum_matches_float64(n):
+    x = np.random.RandomState(n).rand(n, 3).astype(np.float32)
+    got = ksim3.tree_sum(T(x)).numpy()
+    np.testing.assert_allclose(got, x.astype(np.float64).sum(0), rtol=1e-6, atol=0)
+
+
 def test_kernel7_twin_fits_every_triple_like_the_reference():
     x1, x2, uv1, uv2, _ = pairs(4)
     valid = np.ones(x1.shape[0], bool)
     samples = reference_samples(jax.random.PRNGKey(5), valid, 256)
-    s, R, t, n, best = ksim3.sim3_hypotheses_plain(
-        T(samples), T(x1), T(x2), T(uv1), T(uv2), T(valid), torch.ones(96), torch.ones(96),
-        400.0, 400.0, 160.0, 120.0, 9.21, False)
+    idx = T(samples).long()
+    s, R, t = ksim3.horn3_plain(T(x1)[idx], T(x2)[idx], False)
+    n, best = ksim3.sim3_ransac_solve_plain(
+        T(samples), T(x1), T(x2), T(uv1), T(uv2), T(valid), None, None,
+        400.0, 400.0, 160.0, 120.0, 9.21, False, 20)[6:]
     js, jR, jt = jax.vmap(lambda smp: jsim3.horn_sim3(
         jnp.asarray(x1)[smp], jnp.asarray(x2)[smp], jnp.ones(3)))(jnp.asarray(samples))
     close(js, s, 1e-4)
@@ -132,12 +149,18 @@ def test_kernel7_twin_fits_every_triple_like_the_reference():
     assert int(best) == int(torch.argmax(n)) and n.dtype == torch.int32
 
 
-@pytest.mark.parametrize("case", ["all valid", "partial valid", "fix scale"])
+@pytest.mark.parametrize("case", ["all valid", "partial valid", "fix scale", "fewer than 3 valid",
+                                  "refined counts fewer", "none valid"])
 def test_sim3_from_samples_fed_reference_draws(case):
-    x1, x2, uv1, uv2, truth = pairs(6)
+    # "fewer than 3 valid": one valid pair, the draws from all N; "refined
+    # counts fewer": depth errors bias the weighted Horn, so the best
+    # hypothesis is kept
+    x1, x2, uv1, uv2, truth = pairs(6, n_bad=0 if case == "fewer than 3 valid" else 24,
+                                    depth_err=0.3 if case == "refined counts fewer" else 0.0)
     n = x1.shape[0]
-    valid = np.ones(n, bool) if case != "partial valid" else \
-        np.random.RandomState(8).rand(n) > 0.25
+    valid = {"partial valid": np.random.RandomState(8).rand(n) > 0.25,
+             "fewer than 3 valid": np.arange(n) == 5,
+             "none valid": np.zeros(n, bool)}.get(case, np.ones(n, bool))
     fix = case == "fix scale"
     if fix:
         x2 = (x1 @ truth[1].T + truth[2]).astype(np.float32)
@@ -150,11 +173,20 @@ def test_sim3_from_samples_fed_reference_draws(case):
     got = tsim3.sim3_from_samples(TCAM, T(reference_samples(key, valid, 128)), T(x1), T(x2),
                                   T(uv1), T(uv2), fix, valid=T(valid), th_chi2=100.0,
                                   min_inliers=12)
-    assert bool(got.success) == bool(ref.success) and bool(got.success)
+    assert bool(got.success) == bool(ref.success) == (case not in ("fewer than 3 valid",
+                                                                  "none valid"))
     assert int(got.n_inliers) == int(ref.n_inliers)
     np.testing.assert_array_equal(got.inliers.numpy(), np.asarray(ref.inliers))
     for a, b in ((ref.s, got.s), (ref.R, got.R), (ref.t, got.t)):
         close(a, b, 1e-5)
+    if case in ("fewer than 3 valid", "refined counts fewer"):
+        # the weighted Horn over the kept mask counts fewer: use_refined is false
+        w = got.inliers.to(torch.float32)
+        s_r, R_r, t_r = ksim3.horn_sim3(T(x1), T(x2), w, fix)
+        n_r = ksim3.sim3_score_plain(s_r[None], R_r[None], t_r[None], T(x1), T(x2), T(uv1),
+                                     T(uv2), T(valid), torch.ones(n), torch.ones(n), 400.0, 400.0,
+                                     160.0, 120.0, 100.0)[0].sum()
+        assert int(n_r) < int(got.n_inliers)
 
 
 def test_sim3_ransac_recovers_the_similarity():

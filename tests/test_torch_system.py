@@ -243,7 +243,8 @@ def test_wrappers_take_plain_path_on_cpu():
         assert torch.equal(a, b)
     pargs = (samples[0, :, :3].contiguous(), xw, xw * 1.1 + 0.2, edges[1], edges[1], m, edges[3],
              edges[3], 250.0, 250.0, 160.0, 120.0, 100.0)
-    for a, b in zip(sim3.sim3_hypotheses(*pargs, False), sim3.sim3_hypotheses_plain(*pargs, False)):
+    for a, b in zip(sim3.sim3_ransac_solve(*pargs, False, 12),
+                    sim3.sim3_ransac_solve_plain(*pargs, False, 12)):
         assert torch.equal(a, b)
     largs = (*pargs[1:8], torch.tensor(1.1), R, t + 0.2, 250.0, 250.0, 160.0, 120.0, False, 100.0)
     for a, b in zip(sim3.sim3_lm_solve(*largs), sim3.sim3_lm_solve_plain(*largs)):
