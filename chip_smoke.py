@@ -7,7 +7,7 @@ Phases (any failure exits non-zero):
   1. print the card's name and power limit; require CUDA;
   2. build every CUDA kernel from csrc/ with nvcc, one process per source,
      all started together;
-  3. compare kernels 1-5, 3b, 7 and 8 with their plain torch twins on the card, at the
+  3. compare kernels 1-5, 3b and 7-10 with their plain torch twins on the card, at the
      shapes of the main path (PlaneScene seed 1, VGA, 8 levels, 1024
      keypoints, the trained 16384-word vocabulary), and time both with
      CUDA events: kernel 1 (a frame's whole pyramid, blur, FAST, NMS and
@@ -29,6 +29,15 @@ Phases (any failure exits non-zero):
      best, scale free and fixed, a refined fit that counts fewer (the best
      kept), N = 4096 and H = 4096; kernel 8 (the whole Sim3 LM) at 1024
      pairs scale free and fixed, 4096 pairs all valid and 3 valid pairs;
+     kernel 9 (a stereo frame's match, SAD refinement, depth and
+     acceptance) with every output bit for bit, on the VGA pair of frame 0
+     (the right camera 0.3 m along +x) at 1024 x 1024 keypoints and on
+     random uint8 pairs shifted by 6 px: distances 0-255, ties (every right
+     keypoint twice), x.5 centres, patches on the border, rows without a
+     candidate, every row accepted (the median gate bites) and no valid
+     left keypoint; kernel 10 (a pair's bilinear remap) bit for bit on a
+     real distortion map and on identity maps, where it returns the images,
+     beside one grid_sample call;
   4. run the monocular System (``mono_slice_config``: relocalization and
      keyframe culling on) through ``System.track_mono`` on 48 frames at
      VGA / 1024 features / 8 levels, with every launch counter reset just
@@ -66,7 +75,21 @@ Phases (any failure exits non-zero):
      with their twins on the inputs the loop gave them (the run's first
      launch of each, and the closing attempt's last), count the device
      kernels of a whole ``sim3_from_samples`` on them (one), and print the
-     per-frame wall times and each loop stage's, with totals and medians.
+     per-frame wall times and each loop stage's, with totals and medians;
+  7. RGB-D on bench.py's cell (bench.py:151-196: the slice's 48 VGA frames
+     with their rendered depth, bf = 500 x 0.3, th_depth 100, SlamConfig()'s
+     other defaults) through ``System.track_rgbd``, counters reset just
+     before: state, tracked >= 80%, >= 3 keyframes, > 200 map points, the
+     SE3-aligned ATE within max(1.5 x, +0.01 m) of the JAX System's on the
+     same cell (tools/jax_depth_reference.py), the end-to-end displacement
+     within 5%, kernels 1 and 2 once a frame, kernel 9 never; then kernel 4
+     against its twin on a local-map call with stereo rows;
+  8. stereo on the same cell (the right image rendered at t - [0.3, 0, 0])
+     through ``System.track_stereo``, every pair through a StereoRectifier
+     of the rectified rig (identity maps), whose output must equal its input
+     bit for bit: the same bounds with the path length within 15% instead of
+     the displacement, kernels 1 and 2 twice a frame, kernels 9 and 10 once
+     a frame; kernel 4 again on a local-map call with stereo rows.
 Kernel times are one CUDA-event pair around 100 back-to-back calls after a
 warm-up, divided by the count; kernels 3b and 6 also give ``graph_us``, the
 device time a call in a replay of 50 calls captured into one CUDA graph (as
@@ -132,8 +155,20 @@ SOURCES = {
                           "orb_slam2_annotate_tpu/solvers/sim3.py:101", "sim3_ransac_solve"),
     "sim3_lm_solve": ("orb_slam2_annotate_tpu_torch/csrc/sim3.cu",
                       "orb_slam2_annotate_tpu/solvers/sim3.py:172", "sim3_lm_solve"),
+    "stereo_match": ("orb_slam2_annotate_tpu_torch/csrc/stereo.cu",
+                     "orb_slam2_annotate_tpu/pipeline/frame.py:147", "stereo_match"),
+    "remap_pair": ("orb_slam2_annotate_tpu_torch/csrc/remap.cu",
+                   "orb_slam2_annotate_tpu/geometry/rectify.py:64", "remap_pair"),
 }
 LOOP_ONLY = ("sim3_ransac_solve", "sim3_lm_solve")   # launched only with loop closing on
+STEREO_ONLY = ("stereo_match", "remap_pair")         # launched only by the stereo sensor
+# phases 7 and 8: bench.py's RGB-D / stereo cell (bench.py:151-196) on the
+# slice's frames: bf = 500 x 0.3, th_depth 100, SlamConfig()'s other defaults
+BASELINE = 0.3
+# the JAX System on the same cells (python3 tools/jax_depth_reference.py rgbd|stereo,
+# a CPU run): SE3-aligned ATE over frame_trajectory(), all 48 frames tracked
+RGBD_ATE_JAX = 0.0028807614141597984
+STEREO_ATE_JAX = 0.003443945486205791
 PEAK_OPS = 67e12      # /s: f32 outside the tensor cores (H100 SXM); 32-bit integer work alike
 PEAK_INT8_TC = 1.979e15  # /s: int8 dense tensor cores (H100 SXM); kernel 5's 1-bit products
 PEAK_BYTES = 3.35e12  # /s: HBM3
@@ -175,6 +210,21 @@ SIM3_RANSAC_OUT_BYTES = 52 + 4 + 1 + 8   # s, R, t; n; success; best (and a byte
 # Jacobian rows of 7 (4 x 20) and their 28 + 7 products and sums (4 x 70),
 # the cost (20), three candidate costs (3 x 86), the inlier refresh (70)
 SIM3_LM_OPS_PER_PAIR = 66 + 4 * 20 + 4 * 70 + 20 + 3 * 86 + 70
+# kernel 9: the row-band gate of a pair (2 differences, 2 absolutes, a product,
+# 5 compares, the octave difference; ~12), a candidate's 512-bit distance (as
+# kernel 3's 48) and its packed minimum (2); an accepted row's 9 x 81 SAD terms
+# (a difference, an absolute, a sum: 3) and its parabola and depth (~40)
+STEREO_GATE_OPS = 12
+STEREO_CAND_OPS = HAMMING_OPS_PER_PAIR + 2
+SAD_OPS_PER_TERM, SAD_TERMS = 3, 9 * 81
+STEREO_ROW_OPS = 40
+STEREO_KP_BYTES = 8 + 4 + 1 + 64          # a keypoint: xy, octave, valid, descriptor
+STEREO_ROW_BYTES = 4 + 17                 # x_und in; ur, depth, best, bestd, ok out
+SAD_PIXELS = 81 + 9 * 17                  # an accepted row's left patch and right band
+# kernel 10 per output pixel: floor x 2, 2 fractions, 4 tap tests, 6 products,
+# 3 sums, 3 complements
+REMAP_OPS_PER_PIXEL = 20
+REMAP_BYTES_PER_PIXEL = 4 + 8 + 4         # the image read once, the map, the output
 
 
 def fail(msg: str):
@@ -349,6 +399,43 @@ def loop_setup():
     return cam, poses, frames, cfg
 
 
+def depth_setup(poses):
+    """Phases 7 and 8's cell: (camera with bf = 500 x 0.3, the stereo right
+    images rendered at t - [0.3, 0, 0] as uint8, config for a sensor):
+    bench.py's RGB-D / stereo settings, SlamConfig()'s other defaults (8
+    levels; loop closing, relocalization and keyframe culling on)."""
+    import numpy as np
+
+    from orb_slam2_annotate_tpu_torch.geometry.camera import CameraModel
+    from orb_slam2_annotate_tpu_torch.io import synthetic
+    from orb_slam2_annotate_tpu_torch.pipeline import SlamConfig
+
+    cam = CameraModel.create(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480,
+                             bf=500.0 * BASELINE)
+    scene = synthetic.PlaneScene(seed=1)
+    shift = np.array([BASELINE, 0.0, 0.0], np.float32)
+    rights = [np.clip(scene.render(cam, R, np.asarray(t, np.float32) - shift, h=480, w=640)[0],
+                      0, 255).astype(np.uint8) for R, t in poses]
+    config = lambda sensor: SlamConfig(sensor=sensor, n_features=1024, max_kf=128, max_mp=16384,
+                                       max_frames_between_kf=6, init_min_matches=60,
+                                       th_depth=100.0)
+    return cam, rights, config
+
+
+def stereo_work(args, out):
+    """(bytes, operations) of one kernel-9 call on these inputs: every pair
+    through the gate, each candidate's distance, each accepted row's SAD."""
+    from orb_slam2_annotate_tpu_torch.kernels import stereo as k9
+
+    xy_l, oct_l, valid_l, _, xy_r, oct_r, valid_r, _, _, _, _, scales, fx = args[:13]
+    N, M = xy_l.shape[0], xy_r.shape[0]
+    cand = float(k9.stereo_candidates(xy_l, oct_l, valid_l, xy_r, oct_r, valid_r, scales, fx).sum())
+    rows = float((out[3] < args[14]).sum())            # rows that run the SAD
+    return (STEREO_KP_BYTES * (N + M) + STEREO_ROW_BYTES * N + 4 * SAD_PIXELS * rows,
+            STEREO_GATE_OPS * N * M + STEREO_CAND_OPS * cand
+            + (SAD_OPS_PER_TERM * SAD_TERMS + STEREO_ROW_OPS) * rows)
+
+
 SIM3_RANSAC_OUTS = ("s", "R", "t", "inliers", "n", "success", "counts", "best")
 
 
@@ -459,6 +546,15 @@ def main():
     import orb_slam2_annotate_tpu_torch  # noqa: F401  (sets TF32 off)
     from orb_slam2_annotate_tpu_torch import kernels
     from orb_slam2_annotate_tpu_torch.kernels import _build
+
+    def zero_launches():
+        for w in kernels.WRAPPERS:
+            w.launches = 0
+
+    def read_launches():
+        return {w.__name__: w.launches for w in kernels.WRAPPERS}
+
+    zero_launches()
     from orb_slam2_annotate_tpu_torch.kernels import assign_words as k5
     from orb_slam2_annotate_tpu_torch.kernels import fast_nms as k1
     from orb_slam2_annotate_tpu_torch.kernels import hamming as k3
@@ -478,14 +574,20 @@ def main():
         fail("the port imported jax")
     dev = torch.device("cuda:0")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    launches1 = read_launches()
 
     # ---- phase 2: build
+    zero_launches()
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(_build.SOURCES)) as pool:
         list(pool.map(_build.load, _build.SOURCES))
     print(f"build: {time.perf_counter() - t0:.1f} s  per source {json.dumps(_build.BUILD_SECONDS)}")
+    launches2 = read_launches()
 
-    # ---- phase 3: kernels vs plain twins at main-path shapes
+    # ---- phase 3: kernels vs plain twins at main-path shapes; the counts
+    # read at its end are the wrapper calls of its checks and timings (a
+    # CUDA-graph replay calls no wrapper)
+    zero_launches()
     t0 = time.perf_counter()
     cam, poses, frames, depths, slice_cfg = slice_setup()
     print(f"render: {N_FRAMES} frames in {time.perf_counter() - t0:.1f} s (host numpy)")
@@ -912,19 +1014,182 @@ def main():
            graph_us=graph_us(lambda: k7.sim3_lm_solve(*args8)),
            **device_kernels(lambda: k7.sim3_lm_solve(*args8), 1))
 
-    def drive(name, slam, images, counted):
+    # kernel 9: a stereo frame's match, SAD refinement, depth and acceptance,
+    # every output (ur, depth, best, bestd, ok) bit for bit against its twin:
+    # the VGA pair of frame 0 (the right camera 0.3 m along +x) at 1024 x 1024
+    # keypoints, then constructed cases on a random uint8 pair shifted by 6 px
+    import types
+
+    from orb_slam2_annotate_tpu_torch.geometry.camera import undistort_pixels
+    from orb_slam2_annotate_tpu_torch.kernels import remap as k10
+    from orb_slam2_annotate_tpu_torch.kernels import stereo as k9
+    from orb_slam2_annotate_tpu_torch.pipeline.frame import TH_STEREO
+
+    t0 = time.perf_counter()
+    cam_d, rights, depth_config = depth_setup(poses)
+    print(f"render: {N_FRAMES} right frames in {time.perf_counter() - t0:.1f} s (host numpy)")
+    scales9 = pyramid.level_scales(cfg.n_levels, cfg.scale, device=dev)
+    names9 = ("ur", "depth", "best", "bestd", "ok")
+
+    def k9_args(fl, fr, il, ir, th=TH_STEREO):
+        x_und = undistort_pixels(cam_d, fl.xy)[:, 0].contiguous()
+        return (fl.xy, fl.octave, fl.valid, fl.desc, fr.xy, fr.octave, fr.valid, fr.desc, x_und,
+                il, ir, scales9, cam_d.fx, cam_d.bf, th)
+
+    def check_stereo(what, args):
+        got = k9.stereo_match(*args)
+        ref = k9.stereo_match_plain(*args)
+        torch.cuda.synchronize()
+        moved = [n for n, a, b in zip(names9, got, ref) if not torch.equal(a, b)]
+        if moved:
+            fail(f"stereo_match ({what}): {moved} differ from the twin "
+                 f"({int((got[4] != ref[4]).sum())} rows' ok, {int((got[2] != ref[2]).sum())} best)")
+        print(f"stereo_match vs twin, {what}: N {args[0].shape[0]}, M {args[4].shape[0]}, every "
+              f"output bit-exact; accepted {int(ref[4].sum())}, matched below th "
+              f"{int((ref[3] < TH_STEREO).sum())}, no candidate {int((ref[3] == k9.NO_MATCH).sum())}")
+        return ref
+
+    il9 = torch.from_numpy(frames[0]).to(dev).float()
+    ir9 = torch.from_numpy(rights[0]).to(dev).float()
+    args9 = k9_args(extractor.extract(il9, tab, cfg), extractor.extract(ir9, tab, cfg), il9, ir9)
+    out9 = check_stereo("the VGA pair of frame 0", args9)
+    if int(out9[4].sum()) < 300:
+        fail(f"stereo_match: only {int(out9[4].sum())} rows accepted on the VGA pair")
+
+    def words(bits):
+        """[n, 512] bool -> [n, 16] int32 words, bit k of word w at 32 w + k."""
+        w = (bits.view(-1, 16, 32).long() << torch.arange(32, device=dev)).sum(-1)
+        return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+    def stereo_case(n, flips, xy_l=None, shift=6):
+        """A random uint8 pair, the right image the left one shifted `shift` px
+        left; n left keypoints (random, or xy_l), each with a right partner
+        `shift` px left whose descriptor differs in flips[i] bits."""
+        il = torch.randint(0, 256, (480, 640), generator=gen, device=dev).float()
+        ir = torch.roll(il, -shift, 1)
+        if xy_l is None:
+            xy_l = torch.stack([10 + 620 * torch.rand(n, generator=gen, device=dev),
+                                10 + 460 * torch.rand(n, generator=gen, device=dev)], 1)
+        octv = torch.randint(0, cfg.n_levels, (n,), generator=gen, device=dev, dtype=torch.int32)
+        desc = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, 16), generator=gen, device=dev,
+                             dtype=torch.int32)
+        order = torch.rand(n, 512, generator=gen, device=dev).argsort(1)
+        flip = words(order < flips[:, None])
+        ones = torch.ones(n, dtype=torch.bool, device=dev)
+        fl = types.SimpleNamespace(xy=xy_l.contiguous(), octave=octv, valid=ones, desc=desc)
+        fr = types.SimpleNamespace(xy=(xy_l - torch.tensor([float(shift), 0.0], device=dev))
+                                   .contiguous(), octave=octv.clone(), valid=ones.clone(),
+                                   desc=desc ^ flip)
+        return fl, fr, il, ir
+
+    rand_flips = lambda n, hi: torch.randint(0, hi, (n,), generator=gen, device=dev)
+    cases9 = {}
+    fl, fr, il, ir = stereo_case(1024, rand_flips(1024, 256))
+    cases9["random 1024 x 1024, distances 0-255"] = (fl, fr, il, ir)
+    fl, fr, il, ir = stereo_case(512, rand_flips(512, 200))
+    dup = types.SimpleNamespace(**{k: torch.cat([getattr(fr, k)] * 2).contiguous()
+                                   for k in ("xy", "octave", "valid", "desc")})
+    cases9["ties: every right keypoint twice (the first wins)"] = (fl, dup, il, ir)
+    u = torch.rand(1024, 2, generator=gen, device=dev)
+    half = torch.floor(torch.stack([10 + 620 * u[:, 0], 10 + 460 * u[:, 1]], 1)) + 0.5
+    cases9["x.5 and y.5 centres"] = stereo_case(1024, rand_flips(1024, 200), half)
+    side = lambda hi: torch.where(torch.rand(1024, generator=gen, device=dev) < 0.5,
+                                  3 * torch.rand(1024, generator=gen, device=dev),
+                                  hi - 3 * torch.rand(1024, generator=gen, device=dev))
+    cases9["patches on the border"] = stereo_case(1024, rand_flips(1024, 200),
+                                                  torch.stack([side(639.0), side(479.0)], 1))
+    fl, fr, il, ir = stereo_case(1024, rand_flips(1024, 200))
+    fl.xy[:64, 1] = 2.0                                   # above every other keypoint's band
+    fr.xy[:64, 1] = 400.0                                 # and their partners moved away
+    cases9["64 rows without a candidate"] = (fl, fr, il, ir)
+    # th 300 with rows not accepted: the median is the reference's 80, and
+    # accepted rows above 2.1 x 80 = 168 go
+    th_hi = (300, "th 300, 64 rows without a candidate: rows above 168 dropped")
+    rows64 = torch.stack([10 + 600 * torch.rand(64, generator=gen, device=dev),
+                          10 + 7 * torch.arange(64, device=dev).float()], 1)
+    flips64 = rand_flips(64, 40)
+    flips64[5] = 120
+    cases9["every row accepted: the median gate bites"] = stereo_case(64, flips64, rows64)
+    fl, fr, il, ir = stereo_case(1024, rand_flips(1024, 200))
+    fl.valid = torch.zeros_like(fl.valid)
+    cases9["no valid left keypoint"] = (fl, fr, il, ir)
+    for what, (fl, fr, il, ir) in cases9.items():
+        ref = check_stereo(what, k9_args(fl, fr, il, ir))
+        if what.startswith("64 rows"):
+            hi = check_stereo(th_hi[1], k9_args(fl, fr, il, ir, th_hi[0]))
+            above = (hi[3] > 168) & (hi[3] < th_hi[0])
+            if bool((hi[4] & (hi[3] > 168)).any()) or not bool(above.any()):
+                fail(f"stereo_match at th {th_hi[0]}: {int(above.sum())} rows in (168, "
+                     f"{th_hi[0]}), {int((hi[4] & (hi[3] > 168)).sum())} of them accepted")
+        if what.startswith("ties") and not bool((ref[2][ref[3] < k9.NO_MATCH] < 512).all()):
+            fail("stereo_match: a tie in distance did not take the first index")
+        if what.startswith("64 rows") and not (bool((ref[3][:64] == k9.NO_MATCH).all())
+                                                and bool((ref[2][:64] == 0).all())):
+            fail("stereo_match: a row without a candidate must give best 0, bestd 2048")
+        if what.startswith("every row") and not (bool((ref[3] < TH_STEREO).all())
+                                                  and 0 < int(ref[4].sum()) < 64):
+            fail(f"stereo_match: the all-accepted case kept {int(ref[4].sum())} of 64 rows")
+        if what.startswith("no valid") and bool(ref[4].any()):
+            fail("stereo_match: a row without a valid keypoint was accepted")
+    record("stereo_match", 0.0, time_ms(lambda: k9.stereo_match(*args9)),
+           time_ms(lambda: k9.stereo_match_plain(*args9), 10), *stereo_work(args9, out9),
+           bit_exact=True, cases=["the VGA pair of frame 0", *cases9, th_hi[1]],
+           graph_us=graph_us(lambda: k9.stereo_match(*args9)),
+           **device_kernels(lambda: k9.stereo_match(*args9), 1))
+
+    # kernel 10: both images of a pair remapped in one launch, bit for bit
+    # against its twin on a real distortion map (tests/test_rectify.py's K and
+    # D at 640x480) and on identity maps, where it returns the images
+    from orb_slam2_annotate_tpu_torch.geometry import rectify
+    K10 = np.array([[458.0, 0, 367.0], [0, 457.0, 248.0], [0, 0, 1]], np.float32)
+    D10 = np.array([-0.28, 0.07, 1e-4, -2e-5, 0.0], np.float32)
+    dist_map = rectify.rectify_map(K10, D10, np.eye(3), K10, 480, 640, dev)
+    id_map = rectify.rectify_map(np.eye(3), np.zeros(5), np.eye(3), np.eye(3), 480, 640, dev)
+    for what, maps in (("distortion map", (dist_map, dist_map + 0.37)),
+                       ("identity maps", (id_map, id_map))):
+        got = k10.remap_pair(il9, ir9, *maps)
+        ref = k10.remap_pair_plain(il9, ir9, *maps)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            fail(f"remap_pair ({what}) differs from its twin")
+        if what == "identity maps" and not (torch.equal(got[0], il9) and torch.equal(got[1], ir9)):
+            fail("remap_pair at identity maps does not return the images")
+        print(f"remap_pair vs twin, {what}: bit-exact")
+    args10 = (il9, ir9, dist_map, dist_map + 0.37)
+    # one PyTorch call: grid_sample of both images on the maps normalised to [-1, 1]
+    scale10 = torch.tensor([2.0 / 639, 2.0 / 479], device=dev)
+    grid10 = torch.stack([args10[2], args10[3]]) * scale10 - 1.0
+    img10 = torch.stack([il9, ir9])[:, None]
+    library10 = lambda: torch.nn.functional.grid_sample(img10, grid10, mode="bilinear",
+                                                        padding_mode="zeros", align_corners=True)
+    lib_err = float((library10()[:, 0] - torch.stack(k10.remap_pair(*args10))).abs().max())
+    record("remap_pair", 0.0, time_ms(lambda: k10.remap_pair(*args10)),
+           time_ms(lambda: k10.remap_pair_plain(*args10), 10),
+           2 * 480 * 640 * REMAP_BYTES_PER_PIXEL, 2 * 480 * 640 * REMAP_OPS_PER_PIXEL,
+           bit_exact=True, graph_us=graph_us(lambda: k10.remap_pair(*args10)),
+           library="torch.nn.functional.grid_sample, bilinear, zeros, align_corners=True, both "
+                   "images as a batch of two", library_max_abs_diff=lib_err,
+           **device_kernels(lambda: k10.remap_pair(*args10), 1))
+    results["remap_pair"].update(library_ms=time_ms(library10), library_graph_us=graph_us(library10))
+    print(f"grid_sample on the same inputs: {results['remap_pair']['library_ms']:.4f} ms a call, "
+          f"{results['remap_pair']['library_graph_us']:.2f} us replayed; remap_pair "
+          f"{results['remap_pair']['ms']:.4f} ms, {results['remap_pair']['graph_us']:.2f} us")
+
+    launches3 = read_launches()
+    print(f"launches in phase 3's checks and timings: {json.dumps(launches3)}")
+
+    def drive(name, slam, images, counted, track=lambda slam, img, ts: slam.track_mono(img, ts)):
         """One main-path run: counters zeroed just before, read just after;
         fails unless every kernel in `counted` was launched."""
-        for w in kernels.WRAPPERS:
-            w.launches = 0
+        zero_launches()
         torch.cuda.synchronize()
         out, frame_s = [], []
         for k, img in enumerate(images):
             t0 = time.perf_counter()
-            out.append(slam.track_mono(img, k / 30.0))
+            out.append(track(slam, img, k / 30.0))
             torch.cuda.synchronize()
             frame_s.append(time.perf_counter() - t0)
-        launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
+        launches = read_launches()
         print(f"launches in the {name} run: {json.dumps(launches)}")
         print(f"{name}: frame wall time median {1e3 * statistics.median(frame_s):.2f} ms, "
               f"max {1e3 * max(frame_s):.2f} ms (frame {frame_s.index(max(frame_s))})")
@@ -986,7 +1251,7 @@ def main():
     lm_calls[0] = 0
     _, frame_s, launches4 = drive("slice", slam, frames,
                                   [w for n, (_, _, w) in SOURCES.items()
-                                   if n not in ("pnp_hypotheses",) + LOOP_ONLY])
+                                   if n not in ("pnp_hypotheses",) + LOOP_ONLY + STEREO_ONLY])
     calls4, match_calls4, tri4 = lm_calls[0], match_calls[0], list(tri_launches)
     stats4 = stats_calls[0]
     counts4 = list(refresh_counts)
@@ -1059,7 +1324,8 @@ def main():
     reloc_launches.clear()
     try:
         out5, frame_s5, launches5 = drive("kidnap", slam5, images5,
-                                          [w for n, (_, _, w) in SOURCES.items() if n not in LOOP_ONLY])
+                                          [w for n, (_, _, w) in SOURCES.items()
+                                           if n not in LOOP_ONLY + STEREO_ONLY])
     finally:
         pnp_mod.pnp_hypotheses, pnp_mod.optimize_pose_batched = real_hyp, real_polish
         pose_opt.optimize_pose = real_opt
@@ -1239,7 +1505,8 @@ def main():
     match_calls[0] = 0
     try:
         _, frame_s6, launches6 = drive("loop", slam6, images6,
-                                       [w for n, (_, _, w) in SOURCES.items() if n != "pnp_hypotheses"])
+                                       [w for n, (_, _, w) in SOURCES.items()
+                                        if n not in ("pnp_hypotheses",) + STEREO_ONLY])
     finally:
         (sim3_mod.sim3_ransac, sim3_mod.optimize_sim3, sim3_mod.sim3_ransac_solve,
          sim3_mod.sim3_lm_solve, loop_mod.sim3_guided_match, loop_mod.loop_projection_count,
@@ -1313,10 +1580,144 @@ def main():
     print(f"kernels 7 and 8 on the loop's inputs: "
           f"{json.dumps({n: {k: v for k, v in results[n].items() if k.startswith('captured')} for n in LOOP_ONLY})}")
 
+    # ---- phases 7 and 8: RGB-D and stereo through System.track_rgbd /
+    # track_stereo on bench.py's cell (the slice's frames, bf = 500 x 0.3)
+    from orb_slam2_annotate_tpu_torch.geometry.rectify import StereoRectifier
+    from orb_slam2_annotate_tpu_torch.io import evaluation
+
+    def depth_outcome(slam):
+        """Over frame_trajectory(): the SE3-aligned ATE (depth makes the map
+        metric), the end-to-end displacement and path-length ratios."""
+        traj = dict(slam.frame_trajectory())
+        ids = [k for k, T in traj.items() if T is not None]
+        est = np.stack([-traj[k][:3, :3].T @ traj[k][:3, 3] for k in ids]).astype(np.float64)
+        gt = np.stack([-poses[k][0].T @ poses[k][1] for k in ids]).astype(np.float64)
+        path = lambda c: float(np.linalg.norm(np.diff(c, axis=0), axis=1).sum())
+        return {"ate_se3_m": float(evaluation.ate_rmse(est, gt, with_scale=False)[0]),
+                "tracked": len(ids), "frames": N_FRAMES, "state": slam.state,
+                "keyframes": slam.n_keyframes, "map_points": slam.n_mappoints,
+                "displacement_ratio": float(np.linalg.norm(est[-1] - est[0])
+                                            / np.linalg.norm(gt[-1] - gt[0])),
+                "path_ratio": path(est) / path(gt)}
+
+    def depth_run(name, sensor, images, track, counted):
+        """One depth-sensor run with the matcher, optimize_pose and
+        relocalization-polish calls counted, and the edges of one local-map
+        optimize_pose with stereo rows from the second half kept."""
+        slam_d = System(cam_d, depth_config(sensor), device="cuda")
+        kept, polishes = {}, [0]
+
+        def keep_stereo_rows(c_, R0, t0, obs, *a, **kw):
+            lm_calls[0] += 1
+            if (sys._getframe(1).f_code.co_name == "track_local_map" and "args" not in kept
+                    and slam_d.frame_id >= N_FRAMES // 2 and bool(((obs.ur >= 0) & obs.valid).any())):
+                kept["args"] = (c_, R0[None].clone(), t0[None].clone(), obs.xw[None].clone(),
+                                obs.uv.clone(), obs.ur.clone(), obs.inv_sigma2.clone(),
+                                obs.valid[None].clone())
+            return real_opt(c_, R0, t0, obs, *a, **kw)
+
+        def count_polish(*a):
+            polishes[0] += 1
+            return real_polish(*a)
+
+        pose_opt.optimize_pose, matching.match_gated = keep_stereo_rows, count_match
+        pnp_mod.optimize_pose_batched = count_polish
+        lm_calls[0], match_calls[0] = 0, 0
+        try:
+            _, frame_s_d, launches_d = drive(name, slam_d, images, counted, track)
+        finally:
+            pose_opt.optimize_pose, matching.match_gated = real_opt, real_match
+            pnp_mod.optimize_pose_batched = real_polish
+        out = depth_outcome(slam_d)
+        out.update(frames_per_s=N_FRAMES / sum(frame_s_d),
+                   frame_ms_median=1e3 * statistics.median(frame_s_d),
+                   optimize_pose_calls=lm_calls[0], matcher_calls=match_calls[0],
+                   polishes=polishes[0])
+        print(f"{name}: {json.dumps(out)}, card {card}")
+        checks = {"state OK": slam_d.state == "OK", "tracked >= 80%": out["tracked"] >= 0.8 * N_FRAMES,
+                  "keyframes >= 3": slam_d.n_keyframes >= 3, "map points > 200": slam_d.n_mappoints > 200,
+                  "one pose_lm_solve launch per optimize_pose and per polish":
+                      launches_d["optimize_pose_batched"] == lm_calls[0] + polishes[0],
+                  "one hamming_match launch per matcher call":
+                      launches_d["hamming_match"] == match_calls[0],
+                  "a local-map call with stereo rows captured": "args" in kept}
+        return slam_d, out, launches_d, kept, checks
+
+    def outcome_bounds(out, ate_jax):
+        bound_d = max(1.5 * ate_jax, ate_jax + 0.01)
+        out.update(ate_bound_m=bound_d, ate_jax_m=ate_jax)
+        return {f"SE3 ATE <= {bound_d:.5f} (JAX {ate_jax:.5f})": out["ate_se3_m"] <= bound_d}
+
+    # phase 7: RGB-D, the rendered depth
+    _, out7, launches7, kept7, checks = depth_run(
+        "rgbd", "rgbd", list(zip(frames, depths)),
+        lambda slam, fd, ts: slam.track_rgbd(fd[0], fd[1], ts),
+        [w for n, (_, _, w) in SOURCES.items() if n not in ("pnp_hypotheses",) + LOOP_ONLY
+         + STEREO_ONLY])
+    checks.update(outcome_bounds(out7, RGBD_ATE_JAX))
+    checks.update({"displacement within 5%": abs(out7["displacement_ratio"] - 1.0) < 0.05,
+                   "one fast_nms launch per frame": launches7["fast_nms"] == N_FRAMES,
+                   "one orb_describe call per frame": launches7["orb_describe"] == N_FRAMES,
+                   "no stereo_match or remap_pair launch":
+                       launches7["stereo_match"] == 0 and launches7["remap_pair"] == 0})
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"rgbd checks failed: {bad}")
+    # kernel 4 on a local-map call with stereo rows (ur >= 0), phase 4's tolerances
+    args7 = kept7["args"]
+    err_st = check_pose_lm("captured RGB-D local-map call (stereo rows)", args7)
+    r4 = results["pose_lm_solve"]
+    r4["max_abs_err"] = max(r4["max_abs_err"], err_st)
+    r4["captured_rgbd"] = {"stereo_rows": int(((args7[5] >= 0) & args7[7][0]).sum()),
+                           "edges": int(args7[7].sum()),
+                           "ms": time_ms(lambda: k4.optimize_pose_batched(*args7)),
+                           "graph_us": graph_us(lambda: k4.optimize_pose_batched(*args7)),
+                           "bound_ms": bound(*pose_lm_work(args7[3], args7[5], args7[7]))[0]}
+    print(f"pose_lm_solve on the RGB-D call: {json.dumps(r4['captured_rgbd'])}")
+
+    # phase 8: stereo, every pair through a StereoRectifier of the rectified,
+    # undistorted rig (zero distortion, identity rotation; unit intrinsics, so
+    # the maps hold exact integers: with the camera's K the float32 inversion
+    # leaves them up to 6.1e-5 px off), whose output must be the input
+    eye = np.eye(3, dtype=np.float32)
+    rect = StereoRectifier(eye, np.zeros(5), eye, eye, eye, np.zeros(5), eye, eye, 480, 640,
+                           device="cuda")
+    rectified = []
+
+    def track8(slam, pair, ts):
+        il, ir = rect(*pair)
+        rectified.append((il, ir))
+        return slam.track_stereo(il, ir, ts)
+
+    _, out8, launches8, kept8, checks = depth_run(
+        "stereo", "stereo", list(zip(frames, rights)), track8,
+        [w for n, (_, _, w) in SOURCES.items() if n not in ("pnp_hypotheses",) + LOOP_ONLY])
+    # compared after the run, so the frame times hold only the rectifier and track_stereo
+    up = lambda im: torch.from_numpy(im).to(dev).float()
+    moved8 = [k for k, ((il, ir), fl_, fr_) in enumerate(zip(rectified, frames, rights))
+              if not (torch.equal(il, up(fl_)) and torch.equal(ir, up(fr_)))]
+    if len(rectified) != N_FRAMES:
+        fail(f"stereo: {len(rectified)} rectified pairs for {N_FRAMES} frames")
+    checks.update(outcome_bounds(out8, STEREO_ATE_JAX))
+    checks.update({"path length within 15%": abs(out8["path_ratio"] - 1.0) < 0.15,
+                   "rectified pairs equal the input": not moved8,
+                   "two fast_nms launches per frame": launches8["fast_nms"] == 2 * N_FRAMES,
+                   "two orb_describe calls per frame": launches8["orb_describe"] == 2 * N_FRAMES,
+                   "one stereo_match launch per frame": launches8["stereo_match"] == N_FRAMES,
+                   "one remap_pair launch per frame": launches8["remap_pair"] == N_FRAMES})
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"stereo checks failed: {bad} (frames whose rectified pair moved: {moved8})")
+    err_st8 = check_pose_lm("captured stereo local-map call", kept8["args"])
+    r4["max_abs_err"] = max(r4["max_abs_err"], err_st8)
+
     kern = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
-             "launches": launches4[w] + launches5[w] + launches6[w],
-             "launches_by_phase": {"slice": launches4[w], "kidnap": launches5[w],
-                                   "loop": launches6[w]}, **results[n]}
+             "launches": launches4[w] + launches5[w] + launches6[w] + launches7[w] + launches8[w],
+             "launches_by_phase": {"1 card": launches1[w], "2 build": launches2[w],
+                                   "3 twins": launches3[w], "4 slice": launches4[w],
+                                   "5 kidnap": launches5[w], "6 loop": launches6[w],
+                                   "7 rgbd": launches7[w], "8 stereo": launches8[w]},
+             **results[n]}
             for n, (src, rep, w) in SOURCES.items()]
     print(json.dumps({"kernels": kern, "slice": slice_out,
                       "kidnap": {"ate_m": ate5, "tracked": n5, "frames": len(seq),
@@ -1334,7 +1735,7 @@ def main():
                                "gba_folded": lc6.n_gba_folded, "keyframes": slam6.n_keyframes,
                                "stage_ms": stage_ms, "sim3_ransac_calls": calls6["sim3_ransac"],
                                "optimize_sim3_calls": calls6["optimize_sim3"]},
-                      "card": card}))
+                      "rgbd": out7, "stereo": out8, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

@@ -1,4 +1,4 @@
-from . import camera, lie, smallsolve, twoview
+from . import camera, lie, rectify, smallsolve, twoview
 from .camera import CameraModel
 
-__all__ = ["camera", "lie", "smallsolve", "twoview", "CameraModel"]
+__all__ = ["camera", "lie", "rectify", "smallsolve", "twoview", "CameraModel"]

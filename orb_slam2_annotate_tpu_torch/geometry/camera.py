@@ -44,6 +44,17 @@ class CameraModel:
                              [0.0, 0.0, 1.0]], dtype=torch.float32, device=device)
 
 
+def distort_normalized(cam: CameraModel, xn: torch.Tensor) -> torch.Tensor:
+    """Apply radial-tangential distortion to normalized coordinates [..., 2]."""
+    x, y = xn[..., 0], xn[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (cam.k1 + r2 * (cam.k2 + r2 * cam.k3))
+    xy = x * y
+    xd = x * radial + 2.0 * cam.p1 * xy + cam.p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + cam.p1 * (r2 + 2.0 * y * y) + 2.0 * cam.p2 * xy
+    return torch.stack([xd, yd], dim=-1)
+
+
 def undistort_normalized(cam: CameraModel, xd: torch.Tensor, iters: int = 8) -> torch.Tensor:
     """Invert distortion by fixed-point iteration (cv::undistortPoints-style)."""
     xn = xd
@@ -72,6 +83,22 @@ def project(cam: CameraModel, xc: torch.Tensor) -> torch.Tensor:
     u = cam.fx * xc[..., 0] / z_safe + cam.cx
     v = cam.fy * xc[..., 1] / z_safe + cam.cy
     return torch.stack([u, v], dim=-1)
+
+
+def project_stereo(cam: CameraModel, xc: torch.Tensor) -> torch.Tensor:
+    """-> [u, v, u_right] with u_right = u - bf / z (the stereo residual's)."""
+    uv = project(cam, xc)
+    z = xc[..., 2]
+    z = torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
+    ur = uv[..., 0] - torch.full_like(z, cam.bf) / z
+    return torch.cat([uv, ur[..., None]], dim=-1)
+
+
+def backproject(cam: CameraModel, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """Ideal pixels [..., 2] + depth [...] -> camera-frame 3D [..., 3]."""
+    x = (uv[..., 0] - cam.cx) / cam.fx * depth
+    y = (uv[..., 1] - cam.cy) / cam.fy * depth
+    return torch.stack([x, y, depth], dim=-1)
 
 
 def in_image(cam: CameraModel, uv: torch.Tensor, margin: float = 0.0) -> torch.Tensor:

@@ -26,7 +26,8 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # decide bits or must round like the plain torch twin
 SOURCES = {"fast_nms": ("--fmad=false",), "orb_describe": ("--fmad=false",),
            "hamming": ("--fmad=false",), "pose_lm": ("--fmad=false",), "assign_words": (),
-           "pnp_score": ("--fmad=false",), "sim3": ("--fmad=false",)}
+           "pnp_score": ("--fmad=false",), "sim3": ("--fmad=false",),
+           "stereo": ("--fmad=false",), "remap": ("--fmad=false",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: dict[str, float] = {}

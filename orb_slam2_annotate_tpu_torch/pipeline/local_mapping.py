@@ -1,7 +1,8 @@
-"""Local mapping: keyframe insertion, recent-point culling, triangulation,
-local BA, keyframe culling, and the projection fuse that loop closing's
-SearchAndFuse runs (port of pipeline/local_mapping.py; the keyframe chain's
-own fuse, ``fuse_neighbors``, and depth points are not ported yet).
+"""Local mapping: keyframe insertion, depth points (RGB-D / stereo),
+recent-point culling, triangulation, local BA, keyframe culling, and the
+projection fuse that loop closing's SearchAndFuse runs (port of
+pipeline/local_mapping.py; the keyframe chain's own fuse,
+``fuse_neighbors``, is not ported yet).
 
 The reference's ``.at[]`` writes that route filler indices to a dump row
 (K) or column (P) keep that dump slot here explicitly: torch raises on an
@@ -15,7 +16,7 @@ import dataclasses
 import torch
 
 from ..geometry import lie
-from ..geometry.camera import CameraModel, in_image, project
+from ..geometry.camera import CameraModel, backproject, in_image, project
 from ..geometry.twoview import triangulate_dlt
 from ..ops import matching
 from ..ops.sorting import nanmedian, stable_topk
@@ -36,6 +37,39 @@ def insert_keyframe_from_frame(m: ms.MapState, frame: Frame, slot: int, R, t, ob
     return ms.insert_keyframe(m, slot, R, t, frame_id, timestamp, frame.xy, frame.ur,
                               frame.depth, frame.octave, frame.angle, frame.desc, frame.valid,
                               torch.where(frame.valid, obs, -1))
+
+
+def _new_points(m: ms.MapState, slots: torch.Tensor, take: torch.Tensor,
+                pos: torch.Tensor) -> ms.MapState:
+    """Points at `pos` [n,3] in the free `slots` [n] where `take`: valid,
+    created by the newest keyframe (mp_first_kf = n_kf - 1), seen and
+    found once."""
+    def put(a, v):
+        return a.index_put((slots,), torch.where(take.reshape((-1,) + (1,) * (v.dim() - 1)), v,
+                                                 a[slots]))
+
+    ones = torch.ones_like(m.mp_visible[slots])
+    return m.replace(mp_pos=put(m.mp_pos, pos),
+                     mp_valid=m.mp_valid.index_put((slots,), m.mp_valid[slots] | take),
+                     mp_first_kf=put(m.mp_first_kf, (m.n_kf - 1).expand(slots.shape[0])
+                                     .to(torch.int32)),
+                     mp_visible=put(m.mp_visible, ones), mp_found=put(m.mp_found, ones))
+
+
+def create_depth_mappoints(m: ms.MapState, cam: CameraModel, slot: int,
+                           max_depth: float) -> ms.MapState:
+    """RGB-D / stereo: a point for every valid feature of keyframe `slot`
+    without one whose depth is in (0, max_depth), in the free slots taken in
+    order (feature n -> the n-th free slot).  Point statistics are left
+    stale for the caller to refresh."""
+    depth = m.kf_depth[slot]
+    need = m.kf_feat_valid[slot] & (m.kf_obs[slot] < 0) & (depth > 0) & (depth < max_depth)
+    slots = ms.free_mp_slots(m, m.N)
+    take = need & ~m.mp_valid[slots]
+    xw = (backproject(cam, m.kf_xy[slot], depth) - m.kf_t[slot]) @ m.kf_R[slot]   # R^T (xc - t)
+    kf_obs = m.kf_obs.clone()
+    kf_obs[slot] = torch.where(take, slots.to(torch.int32), m.kf_obs[slot])
+    return _new_points(m, slots, take, xw).replace(kf_obs=kf_obs)
 
 
 def cull_recent_mappoints(m: ms.MapState) -> ms.MapState:
@@ -153,20 +187,11 @@ def create_new_mappoints(m: ms.MapState, cam: CameraModel, slot: int,
     slots = ms.free_mp_slots(m, N)
     take = good & ~m.mp_valid[slots]
     new_ids = torch.where(take, slots.to(torch.int32), -1)
-
-    def put(a, v):
-        return a.index_put((slots,), torch.where(take.reshape((-1,) + (1,) * (v.dim() - 1)), v,
-                                                 a[slots]))
-
     kf_obs = m.kf_obs.clone()
     kf_obs[slot] = torch.where(take, new_ids, m.kf_obs[slot])
     lin = nb_sel * N + torch.clamp_min(best_idx, 0).long()
     kf_obs = kf_obs.reshape(-1).scatter_reduce(0, lin, new_ids, "amax").reshape(K, N)
-    n_kf1 = (m.n_kf - 1).expand(N)
-    return m.replace(mp_pos=put(m.mp_pos, X), mp_valid=m.mp_valid.index_put(
-        (slots,), m.mp_valid[slots] | take), mp_first_kf=put(m.mp_first_kf, n_kf1.to(torch.int32)),
-        mp_visible=put(m.mp_visible, torch.ones_like(m.mp_visible[slots])),
-        mp_found=put(m.mp_found, torch.ones_like(m.mp_found[slots])), kf_obs=kf_obs)
+    return _new_points(m, slots, take, X).replace(kf_obs=kf_obs)
 
 
 def local_bundle_adjustment(m: ms.MapState, cam: CameraModel, slot: int, n_opt: int = 16,
@@ -416,12 +441,15 @@ def cull_keyframes(m: ms.MapState, protect_slot: int, max_cull: int = 4,
 
 
 def keyframe_chain(m: ms.MapState, cam: CameraModel, frame: Frame, slot: int, R, t, obs,
-                   frame_id: int, timestamp: float,
+                   frame_id: int, timestamp: float, max_depth: float | None = None,
                    do_kf_cull: bool = True) -> tuple[ms.MapState, CullInfo]:
-    """The per-keyframe mapping chain: insert -> recent-point cull ->
-    triangulate -> local BA -> (keyframe cull) -> windowed stats refresh.
-    Returns the map and the CullInfo (all zero when culling is off)."""
+    """The per-keyframe mapping chain: insert -> (depth points, unless
+    max_depth is None) -> recent-point cull -> triangulate -> local BA ->
+    (keyframe cull) -> windowed stats refresh.  Returns the map and the
+    CullInfo (all zero when culling is off)."""
     m = insert_keyframe_from_frame(m, frame, slot, R, t, obs, frame_id, timestamp)
+    if max_depth is not None:
+        m = create_depth_mappoints(m, cam, slot, max_depth)
     m = cull_recent_mappoints(m)
     m = create_new_mappoints(m, cam, slot)
     m = local_bundle_adjustment(m, cam, slot)

@@ -1,5 +1,5 @@
-"""Keyframe decision and the monocular bootstrap map (port of
-pipeline/policy.py)."""
+"""Keyframe decision and the bootstrap maps, monocular and RGB-D / stereo
+(port of pipeline/policy.py)."""
 
 from __future__ import annotations
 
@@ -58,3 +58,18 @@ def build_mono_init_map(m: ms.MapState, cam: CameraModel, f0: Frame, frame: Fram
     m = ms.update_mappoint_stats_touched(m, mp_valid)
     m = lm.local_bundle_adjustment(m, cam, 1)
     return ms.update_mappoint_stats_touched(m, mp_valid), obs1
+
+
+def build_depth_init_map(m: ms.MapState, cam: CameraModel, frame: Frame, slot: int,
+                         frame_id: int, ts: float, max_depth: float) -> ms.MapState:
+    """RGB-D / stereo bootstrap: one keyframe at the origin in `slot`, a
+    point from every feature with depth in (0, max_depth), and the stats of
+    those points only (mp_first_kf holds the keyframe counter, n_kf - 1)."""
+    from . import local_mapping as lm
+
+    dev = m.device
+    obs = torch.full((frame.xy.shape[0],), -1, dtype=torch.int32, device=dev)
+    m = lm.insert_keyframe_from_frame(m, frame, slot, torch.eye(3, device=dev),
+                                      torch.zeros(3, device=dev), obs, frame_id, ts)
+    m = lm.create_depth_mappoints(m, cam, slot, max_depth)
+    return ms.update_mappoint_stats_touched(m, m.mp_first_kf == m.n_kf - 1)

@@ -1,18 +1,21 @@
-"""System facade, monocular synchronous path (port of pipeline/system.py).
+"""System facade, synchronous path (port of pipeline/system.py).
 
-Sequences frame build, two-view initialization, the tracking step with
-relocalization, the keyframe policy, the keyframe chain with keyframe
-culling, and loop closing with its global BA on an explicit ``device``.
-Each stage is a ``torch.profiler.record_function`` span (frontend/extract,
-init/mono, tracking/step, tracking/relocalize, mapping/keyframe, and loop
+Sequences frame build, initialization (two-view for mono, depth-seeded from
+one frame for RGB-D and stereo), the tracking step with relocalization, the
+keyframe policy, the keyframe chain with keyframe culling, and loop closing
+with its global BA on an explicit ``device``.  Each stage is a
+``torch.profiler.record_function`` span (frontend/extract, init/mono,
+init/depth, tracking/step, tracking/relocalize, mapping/keyframe, and loop
 closing's loop/detect, loop/sim3, loop/correct, loop/gba, loop/fold), which
 costs nothing unless a profiler is recording.
 
-The port runs the monocular sensor synchronously, with loop closing,
+The port runs the mono, RGB-D and stereo sensors synchronously
+(``track_mono``, ``track_rgbd``, ``track_stereo``), with loop closing,
 relocalization and keyframe culling each on or off: ``SlamConfig()`` is the
 reference's default monocular configuration, and ``mono_slice_config`` the
-same minus loop closing.  Fuse, pipelining, point sharding and the RGB-D /
-stereo sensors are not ported: they raise ``NotImplementedError``.
+same minus loop closing; with depth, loop closing fixes the Sim3 scale.
+Fuse, pipelining and point sharding are not ported: they raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from ..worldmap import map_state as ms
 from . import local_mapping as lm
 from . import policy
 from . import tracking as tk
-from .frame import Frame, make_frame_mono
+from .frame import Frame, make_frame_mono, make_frame_rgbd, make_frame_stereo
 from .loop_closing import LoopCloser, LoopCloserConfig
 
 
@@ -52,6 +55,7 @@ class SlamConfig:
     kf_ref_ratio: float = 0.8
     min_inliers_track: int = 15
     min_inliers_local: int = 30
+    th_depth: float = 40.0           # close-depth threshold, in baselines (RGB-D / stereo)
     init_min_matches: int = 100
     seed: int = 0
     verbose: bool = False
@@ -70,10 +74,11 @@ class SlamConfig:
         return ExtractorConfig(n_features=self.n_features, n_levels=self.n_levels, scale=self.scale)
 
 
-# the settings the port implements; every other value raises (loop closing,
-# relocalization and keyframe culling take either value)
-SLICE_SETTINGS = dict(sensor="mono", enable_fuse=False, stats_in_triangulate=None,
-                      enable_cull=True, enable_local_ba=True, async_depth=0, shard_points=False)
+# the sensors and settings the port implements; every other value raises
+# (loop closing, relocalization and keyframe culling take either value)
+SENSORS = ("mono", "rgbd", "stereo")
+SLICE_SETTINGS = dict(enable_fuse=False, stats_in_triangulate=None, enable_cull=True,
+                      enable_local_ba=True, async_depth=0, shard_points=False)
 
 
 def mono_slice_config(**kw) -> SlamConfig:
@@ -93,11 +98,13 @@ class FrameRecord:
 
 
 class System:
-    """Monocular SLAM engine on one torch device."""
+    """Mono / RGB-D / stereo SLAM engine on one torch device."""
 
     def __init__(self, cam: CameraModel, config: SlamConfig | None = None, device="cuda"):
         cfg = config or SlamConfig()
         unsupported = {k: getattr(cfg, k) for k, v in SLICE_SETTINGS.items() if getattr(cfg, k) != v}
+        if cfg.sensor not in SENSORS:
+            unsupported["sensor"] = cfg.sensor
         if unsupported:
             raise NotImplementedError(f"not ported yet: {unsupported}")
         self.cam = cam
@@ -136,15 +143,37 @@ class System:
         # reset() keeps the mode, as the reference's does
         self._localization_only = getattr(self, "_localization_only", False)
 
-    def track_mono(self, image: np.ndarray, timestamp: float):
-        """image [H,W] grayscale uint8 or float32.  Returns 4x4 Tcw or None."""
+    def _upload(self, image) -> torch.Tensor:
+        """A grayscale image (numpy or tensor) on the device: uint8 stays
+        uint8 (the cast to f32 happens on the device), anything else f32."""
+        if torch.is_tensor(image):
+            return image.to(self.device)
         img = np.asarray(image)
         if img.dtype != np.uint8:
             img = img.astype(np.float32)
+        return torch.from_numpy(img).to(self.device)
+
+    def track_mono(self, image, timestamp: float):
+        """image [H,W] grayscale uint8 or float32.  Returns 4x4 Tcw or None."""
         with record_function("frontend/extract"):
-            frame = make_frame_mono(torch.from_numpy(img).to(self.device), self.cam, self.tab,
-                                    self.cfg.extractor)
+            frame = make_frame_mono(self._upload(image), self.cam, self.tab, self.cfg.extractor)
         return self._track(frame, timestamp)
+
+    def track_rgbd(self, image, depth, timestamp: float):
+        """image [H,W] grayscale, depth [H,W] metric (0 = invalid), registered
+        to the image.  Returns 4x4 Tcw or None."""
+        with record_function("frontend/extract"):
+            frame = make_frame_rgbd(self._upload(image),
+                                    torch.as_tensor(depth).to(self.device, torch.float32),
+                                    self.cam, self.tab, self.cfg.extractor)
+        return self._track(frame, timestamp, has_depth=True)
+
+    def track_stereo(self, image_l, image_r, timestamp: float):
+        """A rectified pair [H,W] (numpy or tensors).  Returns 4x4 Tcw or None."""
+        with record_function("frontend/extract"):
+            frame = make_frame_stereo(self._upload(image_l), self._upload(image_r), self.cam,
+                                      self.tab, self.cfg.extractor)
+        return self._track(frame, timestamp, has_depth=True)
 
     def activate_localization_mode(self):
         """Track against the frozen map: no keyframes are made."""
@@ -158,12 +187,16 @@ class System:
 
     # ------------------------------------------------------------------
 
-    def _track(self, frame: Frame, timestamp: float):
+    def _track(self, frame: Frame, timestamp: float, has_depth: bool = False):
         self.frame_id += 1
         self._cur_ts = timestamp
         if self.state in ("NO_IMAGES", "NOT_INITIALIZED"):
-            with record_function("init/mono"):
-                ok = self._initialize_mono(frame, timestamp)
+            if has_depth:
+                with record_function("init/depth"):
+                    ok = self._initialize_depth(frame, timestamp)
+            else:
+                with record_function("init/mono"):
+                    ok = self._initialize_mono(frame, timestamp)
             if not ok:
                 self._record(lost=True)
                 return None
@@ -212,7 +245,7 @@ class System:
         self.last_obs = step.obs
         if not self._localization_only and self._need_keyframe(step.n_local):
             with record_function("mapping/keyframe"):
-                self._create_keyframe(frame, timestamp, step.obs)
+                self._create_keyframe(frame, timestamp, step.obs, has_depth)
         self._record()
         return self._pose44()
 
@@ -249,14 +282,19 @@ class System:
             min_frames=self.cfg.min_frames_between_kf, max_frames=self.cfg.max_frames_between_kf,
             ref_ratio=self.cfg.kf_ref_ratio, min_track=self.cfg.min_inliers_track)
 
-    def _create_keyframe(self, frame: Frame, timestamp: float, obs: torch.Tensor):
+    def _max_depth(self) -> float:
+        """The close-depth threshold: th_depth baselines."""
+        return self.cfg.th_depth * (self.cam.bf / self.cam.fx)
+
+    def _create_keyframe(self, frame: Frame, timestamp: float, obs: torch.Tensor,
+                         has_depth: bool = False):
         self._ensure_capacity()
         slot = int(np.argmin(self._kf_valid_host))
         # +1: the keyframe this chain inserts is not in _kf_valid_host yet
         do_kf_cull = self.cfg.enable_kf_culling and self.n_keyframes + 1 > 8
-        self.map, cull_info = lm.keyframe_chain(self.map, self.cam, frame, slot, self.R, self.t,
-                                                obs, self.frame_id, timestamp,
-                                                do_kf_cull=do_kf_cull)
+        self.map, cull_info = lm.keyframe_chain(
+            self.map, self.cam, frame, slot, self.R, self.t, obs, self.frame_id, timestamp,
+            self._max_depth() if has_depth else None, do_kf_cull=do_kf_cull)
         self._kf_valid_host[slot] = True
         if self.loop_closer is not None:
             # writes the keyframe's BoW row; with loop closing on, resolves
@@ -376,6 +414,28 @@ class System:
         self.last_kf_frame = self.frame_id
         self.ref_tracked = int(init.n_good)
         self._init_frame = None
+        return True
+
+    def _initialize_depth(self, frame: Frame, timestamp: float) -> bool:
+        """One keyframe at the origin with a point from every close-depth
+        feature; needs depth on min(500, n_features // 2) features."""
+        n_depth = int((frame.valid & (frame.depth > 0)).sum())
+        if n_depth < min(500, self.cfg.n_features // 2):
+            return False
+        slot = int(np.argmin(self._kf_valid_host))
+        self.map = policy.build_depth_init_map(self.map, self.cam, frame, slot, self.frame_id,
+                                               timestamp, self._max_depth())
+        self.R = torch.eye(3, device=self.device)
+        self.t = torch.zeros(3, device=self.device)
+        self.last_frame = frame
+        self.last_obs = self.map.kf_obs[slot]
+        self.vel = None
+        self.ref_kf = slot
+        self._kf_valid_host[slot] = True
+        self._pose_np = None
+        self._rel_np = None
+        self.last_kf_frame = self.frame_id
+        self.ref_tracked = int((self.last_obs >= 0).sum())
         return True
 
     # ---- bookkeeping ---------------------------------------------------

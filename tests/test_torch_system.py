@@ -1,7 +1,8 @@
 """The whole monocular slice of the port against the JAX System, plus the
 package-level rules: no jax import, numpy copies that agree with the
 reference, asset files that are byte-identical copies, CPU tensors taking the plain twins without touching the launch
-counters, the configuration guard, and localization mode.
+counters, the configuration guard (the RGB-D and stereo sensors construct
+with the Sim3 scale fixed), and localization mode.
 
 The pose that ``track_mono`` returns on a keyframe frame is the tracking
 step's, as the reference's is: within 1e-3 of the reference's 4x4 on the
@@ -29,10 +30,11 @@ from orb_slam2_annotate_tpu.ops import orb as jorb
 from orb_slam2_annotate_tpu.pipeline import SlamConfig, System
 from orb_slam2_annotate_tpu_torch import convert, kernels
 from orb_slam2_annotate_tpu_torch.geometry.camera import CameraModel as TCam
+from orb_slam2_annotate_tpu_torch.geometry.rectify import StereoRectifier as TStereoRectifier
 from orb_slam2_annotate_tpu_torch.io import evaluation as teval
 from orb_slam2_annotate_tpu_torch.io import synthetic as tsyn
 from orb_slam2_annotate_tpu_torch.kernels import (assign_words, fast_nms, hamming, orb_describe,
-                                                  pnp_score, pose_lm, sim3)
+                                                  pnp_score, pose_lm, remap, sim3, stereo)
 from orb_slam2_annotate_tpu_torch.ops import orb as torb
 from orb_slam2_annotate_tpu_torch.ops import pyramid as tpyr
 from orb_slam2_annotate_tpu_torch.pipeline import System as TSystem
@@ -249,22 +251,37 @@ def test_wrappers_take_plain_path_on_cpu():
     largs = (*pargs[1:8], torch.tensor(1.1), R, t + 0.2, 250.0, 250.0, 160.0, 120.0, False, 100.0)
     for a, b in zip(sim3.sim3_lm_solve(*largs), sim3.sim3_lm_solve_plain(*largs)):
         assert torch.equal(a, b)
+    fl = orb_describe.orb_describe(*args)
+    kargs = (fl[0], fl[2], fl[5], fl[4], fl[0] - torch.tensor([2.0, 0.0]), fl[2], fl[5], fl[4],
+             fl[0][:, 0].contiguous(), img, img.roll(-2, 1), tpyr.level_scales(2), 250.0, 20.0, 159)
+    for a, b in zip(stereo.stereo_match(*kargs), stereo.stereo_match_plain(*kargs)):
+        assert torch.equal(a, b)
+    mxy = torch.stack(torch.meshgrid(torch.arange(80.0), torch.arange(64.0), indexing="xy"), -1) + 0.25
+    for a, b in zip(remap.remap_pair(img, img, mxy, mxy), remap.remap_pair_plain(img, img, mxy, mxy)):
+        assert torch.equal(a, b)
     assert all(w.launches == 0 for w in kernels.WRAPPERS)
 
 
-@pytest.mark.parametrize("entry", [TSystem.__init__, TLoopCloser.__init__],
-                         ids=["System", "LoopCloser"])
+@pytest.mark.parametrize("entry", [TSystem.__init__, TLoopCloser.__init__,
+                                   TStereoRectifier.__init__],
+                         ids=["System", "LoopCloser", "StereoRectifier"])
 def test_entry_points_default_to_the_card(entry):
     # read from the signature: nothing here touches a card
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
 
-@pytest.mark.parametrize("change", [dict(sensor="rgbd"), dict(stats_in_triangulate=True),
-                                    dict(sensor="stereo"), dict(shard_points=True),
+@pytest.mark.parametrize("change", [dict(stats_in_triangulate=True), dict(shard_points=True),
                                     dict(enable_fuse=True), dict(async_depth=2)])
 def test_other_configurations_raise(change):
     with pytest.raises(NotImplementedError):
         TSystem(TCAM, mono_slice_config(**{**SIZES, **change}), device="cpu")
+
+
+@pytest.mark.parametrize("sensor", ["rgbd", "stereo"])
+def test_depth_sensors_construct_with_fixed_scale(sensor):
+    # the two cases test_other_configurations_raise held before these sensors were ported
+    slam = TSystem(TCAM, mono_slice_config(**{**SIZES, "sensor": sensor}), device="cpu")
+    assert slam.cfg.sensor == sensor and slam.loop_closer.cfg.fix_scale
 
 
 @pytest.mark.parametrize("toggles", [dict(enable_relocalization=False, enable_kf_culling=False),

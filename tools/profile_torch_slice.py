@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's monocular slice goes, on one GPU.
+"""Where the time of the PyTorch port's slices goes, on one GPU.
 
     python3 tools/profile_torch_slice.py           # the slice
     python3 tools/profile_torch_slice.py kidnap    # the kidnap run's jump frame
     python3 tools/profile_torch_slice.py loop      # the loop cell's closure
+    python3 tools/profile_torch_slice.py rgbd      # the RGB-D cell (chip_smoke.py phase 7)
+    python3 tools/profile_torch_slice.py stereo    # the stereo cell (chip_smoke.py phase 8)
 
 Runs chip_smoke.py's slice (its ``slice_setup``: VGA / 1024 features /
 8 levels, 48 frames) on cuda:0, times every ``track_mono`` call on the
@@ -20,11 +22,16 @@ twice the same way: the first run finds the frame whose keyframe closes the
 loop, the second records that frame and the LOOP_AFTER frames after it
 (where the global BA is folded) and prints the ``loop/*`` spans (detect,
 sim3, correct with pose_graph and fuse inside, gba, fold) and the closure
-frame's wall and device time.  Prints per-stage span
+frame's wall and device time.  With ``rgbd`` or ``stereo`` it runs the
+slice's frames through ``track_rgbd`` (the rendered depth) or
+``track_stereo`` (chip_smoke.py's ``depth_setup``: the right images, each
+pair through the identity StereoRectifier of phase 8) and profiles the
+frames from PROFILE_FROM on like the slice.  Prints per-stage span
 totals and per-frame means (the System's record_function spans), the
 host-issued ``aten::mul`` calls per frame, the aten ops (and ``aten::sort``
 calls) under ``frontend/extract``, the device time of each
-hand-written kernel, the top device kernels by total time, and the device
+hand-written kernel (in total and a profiled frame), the top device kernels
+by total time, and the device
 busy share of the profiled window, with the card's name and power limit.
 """
 
@@ -82,20 +89,34 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("CUDA is not available")
     sys.path.insert(0, ROOT)
-    from chip_smoke import KIDNAP_SWEEP, kidnap_setup, loop_setup, slice_setup
+    import numpy as np
+
+    from chip_smoke import KIDNAP_SWEEP, depth_setup, kidnap_setup, loop_setup, slice_setup
+    from orb_slam2_annotate_tpu_torch.geometry.rectify import StereoRectifier
     from orb_slam2_annotate_tpu_torch.kernels import _build
     from orb_slam2_annotate_tpu_torch.pipeline import System
 
     mode = sys.argv[1] if len(sys.argv) == 2 else "slice"
-    if len(sys.argv) > 2 or mode not in ("slice", "kidnap", "loop"):
-        sys.exit(f"usage: {sys.argv[0]} [kidnap | loop]")
+    if len(sys.argv) > 2 or mode not in ("slice", "kidnap", "loop", "rgbd", "stereo"):
+        sys.exit(f"usage: {sys.argv[0]} [kidnap | loop | rgbd | stereo]")
     kidnap, loop = mode == "kidnap", mode == "loop"
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     if loop:
         cam, _, frames, cfg = loop_setup()
     else:
-        cam, _, frames, _, cfg = slice_setup()
+        cam, poses, frames, depths, cfg = slice_setup()
+    track = lambda slam, k: slam.track_mono(frames[k], k / 30.0)
+    if mode == "rgbd":
+        cam, _, config = depth_setup(poses)
+        cfg = config("rgbd")
+        track = lambda slam, k: slam.track_rgbd(frames[k], depths[k], k / 30.0)
+    elif mode == "stereo":
+        cam, rights, config = depth_setup(poses)
+        cfg = config("stereo")
+        eye = np.eye(3, dtype=np.float32)
+        rect = StereoRectifier(eye, np.zeros(5), eye, eye, eye, np.zeros(5), eye, eye, 480, 640)
+        track = lambda slam, k: slam.track_stereo(*rect(frames[k], rights[k]), k / 30.0)
     profile_from, profile_to = PROFILE_FROM, len(frames)
     if kidnap:
         _, _, frames = kidnap_setup(cam)
@@ -129,7 +150,7 @@ def main():
         was_init = slam.state in ("NO_IMAGES", "NOT_INITIALIZED")
         t0 = time.perf_counter()
         with record_function("closure_frame" if loop and k == profile_from else "frame"):
-            slam.track_mono(frames[k], k / 30.0)
+            track(slam, k)
             torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
         kind = "init" if was_init else ("keyframe" if slam.n_keyframes > n_kf else "track")
@@ -155,7 +176,8 @@ def main():
     n_prof = profile_to - profile_from
     print(f"profiled {n_prof} frames: wall {wall * 1e3:.1f} ms, "
           f"device kernel time {device_us / 1e3:.1f} ms, busy share {device_us / 1e3 / (wall * 1e3):.3f}")
-    for name in ("frontend/extract", "tracking/step", "mapping/keyframe", "init/mono"):
+    for name in ("frontend/extract", "tracking/step", "mapping/keyframe", "init/mono",
+                 "init/depth"):
         hit = [e for e in events if e.key == name]
         if hit:
             print(f"span {name}: count {hit[0].count} host total {hit[0].cpu_time_total / 1e3:.1f} ms, "
@@ -184,7 +206,8 @@ def main():
     for e in events:
         if e.device_type == DeviceType.CUDA and kernel_name(e.key) in hand:
             print(f"hand kernel {e.key[:60]}: {e.count} launches, device "
-                  f"{e.self_device_time_total / 1e3:.3f} ms, {e.self_device_time_total / e.count:.2f} us each")
+                  f"{e.self_device_time_total / 1e3:.3f} ms, {e.self_device_time_total / e.count:.2f} us "
+                  f"each, {e.self_device_time_total / 1e3 / n_prof:.4f} ms a profiled frame")
     print(events.table(sort_by="self_device_time_total", row_limit=20))
 
 
