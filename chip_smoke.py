@@ -34,10 +34,19 @@ Phases (any failure exits non-zero):
      (the right camera 0.3 m along +x) at 1024 x 1024 keypoints and on
      random uint8 pairs shifted by 6 px: distances 0-255, ties (every right
      keypoint twice), x.5 centres, patches on the border, rows without a
-     candidate, every row accepted (the median gate bites) and no valid
-     left keypoint; kernel 10 (a pair's bilinear remap) bit for bit on a
+     candidate, every row accepted (the median gate bites), no valid
+     left keypoint, and what the row bands reach: partners exactly a row
+     tolerance apart (and one float step further), the top octave's widest
+     band, crowded rows (~256 candidates, more than a ballot or the warp's
+     list holds), rows at 0, H - 1 and outside the image, M = 1000, M = 1,
+     N = 1021 and M at the shared-memory capacity (one more is refused
+     before the launch); kernel 10 (a pair's bilinear remap) bit for bit on a
      real distortion map and on identity maps, where it returns the images,
-     beside one grid_sample call;
+     and through a StereoRectifier, beside one grid_sample call; both
+     wrappers' checks on the host (time.perf_counter_ns over 10,000 calls a
+     part; tools/stereo_host_parts.py splits the whole call) and the 100-call
+     times of stereo_match, remap_pair, StereoRectifier.__call__ and
+     grid_sample in turns;
   4. run the monocular System (``mono_slice_config``: relocalization and
      keyframe culling on) through ``System.track_mono`` on 48 frames at
      VGA / 1024 features / 8 levels, with every launch counter reset just
@@ -269,6 +278,32 @@ def graph_us(fn, reps: int = 50) -> float:
     b.record()
     b.synchronize()
     return 1e3 * a.elapsed_time(b) / reps
+
+
+def host_ns(fn, calls: int = 10_000, batch: int = 200) -> float:
+    """Host time of one call in ns: time.perf_counter_ns around batches of
+    `batch` back-to-back calls, `calls` in all, after a warm-up call; the
+    card is drained between batches, outside the timed part, so a launch
+    never waits for a full queue."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    total = 0
+    for _ in range(calls // batch):
+        t0 = time.perf_counter_ns()
+        for _ in range(batch):
+            fn()
+        total += time.perf_counter_ns() - t0
+        torch.cuda.synchronize()
+    return total / (calls // batch * batch)
+
+
+def host_parts(name: str, parts: dict) -> dict:
+    """Each part's host ns a call (host_ns), printed on one line."""
+    out = {k: round(host_ns(fn), 1) for k, fn in parts.items()}
+    print(f"{name} host parts, ns a call over 10,000 calls: {json.dumps(out)}")
+    return out
 
 
 def device_kernels(fn, expected: int) -> dict:
@@ -1113,6 +1148,74 @@ def main():
     fl, fr, il, ir = stereo_case(1024, rand_flips(1024, 200))
     fl.valid = torch.zeros_like(fl.valid)
     cases9["no valid left keypoint"] = (fl, fr, il, ir)
+    # the row bands: partners exactly a row tolerance above or below, and a
+    # quarter one float step further (not candidates); at octave 0 (tol 2)
+    # y +- tol is exact in f32
+    tol9 = 2.0 * scales9
+    fl, fr, il, ir = stereo_case(1024, rand_flips(1024, 200))
+    fl.octave[:] = 0
+    fr.octave[:] = 0
+    t_r = tol9[fr.octave.long()]
+    sign = torch.where(torch.rand(1024, generator=gen, device=dev) < 0.5, 1.0, -1.0)
+    y_edge = fl.xy[:, 1] + sign * t_r
+    y_out = torch.nextafter(y_edge, y_edge + sign)
+    fr.xy[:, 1] = torch.where(torch.arange(1024, device=dev) % 4 == 3, y_out, y_edge)
+    n_edge9 = int(((fl.xy[:, 1] - fr.xy[:, 1]).abs() == t_r).sum())
+    cases9["partners exactly a row tolerance apart"] = (fl, fr, il, ir)
+    # every keypoint at the top octave, partners spread over its whole band
+    fl, fr, il, ir = stereo_case(1024, rand_flips(1024, 200))
+    fl.octave[:] = cfg.n_levels - 1
+    fr.octave[:] = cfg.n_levels - 1
+    fr.xy[:, 1] += (2 * torch.rand(1024, generator=gen, device=dev) - 1) * tol9[-1]
+    cases9["the top octave: the widest band"] = (fl, fr, il, ir)
+    # 64 left rows on 4 image rows, 1024 right keypoints on the same rows to
+    # their left: ~256 candidates a row, more than a ballot's 32 and the
+    # warp's list of 64
+    fl, fr, il, ir = stereo_case(1024, rand_flips(1024, 200))
+    rows9 = torch.tensor([100.0, 200.0, 300.0, 400.0], device=dev)
+    fl = types.SimpleNamespace(**{k: getattr(fl, k)[:64].clone() for k in ("xy", "octave", "valid",
+                                                                          "desc")})
+    fl.xy[:, 0], fl.xy[:, 1] = 600.0, rows9.repeat(16)
+    fl.octave[:] = 0
+    fr.xy[:, 0] = 100 + 490 * torch.rand(1024, generator=gen, device=dev)
+    fr.xy[:, 1] = rows9.repeat(256) + torch.rand(1024, generator=gen, device=dev) - 0.5
+    fr.octave[:] = 0
+    fr.desc[:64] = fl.desc ^ words(torch.rand(64, 512, generator=gen, device=dev) < 0.1)
+    cases9["crowded rows: ~256 candidates each"] = (fl, fr, il, ir)
+    # keypoints on the first and last image rows and outside [0, H)
+    fl, fr, il, ir = stereo_case(1024, rand_flips(1024, 200))
+    edge9 = torch.tensor([0.0, 479.0, -0.5, -3.0, 479.99, 480.0, 483.5, -1e6, 1e6], device=dev)
+    fl.xy[:, 1] = edge9[torch.randint(0, len(edge9), (1024,), generator=gen, device=dev)]
+    fr.xy[:, 1] = fl.xy[:, 1] + 3 * (torch.rand(1024, generator=gen, device=dev) - 0.5)
+    cases9["rows at 0, H - 1 and outside the image"] = (fl, fr, il, ir)
+    # ragged sizes: M not a multiple of 32, M = 1, N not a multiple of a CTA's rows
+    fl, fr, il, ir = stereo_case(1024, rand_flips(1024, 200))
+    cut = lambda f, n: types.SimpleNamespace(**{k: getattr(f, k)[:n].contiguous()
+                                                for k in ("xy", "octave", "valid", "desc")})
+    cases9["M = 1000"] = (fl, cut(fr, 1000), il, ir)
+    triple = types.SimpleNamespace(**{k: torch.cat([getattr(fr, k)] * 3).contiguous()
+                                      for k in ("xy", "octave", "valid", "desc")})
+    cases9["M = 3072: each right keypoint three times (staging rounds, the first wins)"] = (
+        fl, triple, il, ir)
+    cases9["M = 1"] = (fl, cut(fr, 1), il, ir)
+    cases9["N = 1021"] = (cut(fl, 1021), fr, il, ir)
+    # the most right keypoints the CTA's shared memory stages (each partner
+    # nine times over, the first wins), after its fixed part is held to the
+    # built kernel's; one more is refused before the launch
+    smem9 = _build.load("stereo").stereo_match_static_smem()
+    if smem9 != k9.FIXED_SMEM:
+        fail(f"stereo_match: the kernel's static shared memory is {smem9} B, "
+             f"kernels/stereo.py FIXED_SMEM says {k9.FIXED_SMEM}")
+    m9 = k9.max_right_keypoints(480, cfg.n_levels)
+    fill = types.SimpleNamespace(**{k: torch.cat([getattr(fr, k)] * -(-m9 // 1024))[:m9 + 1]
+                                    .contiguous() for k in ("xy", "octave", "valid", "desc")})
+    cases9[f"M = {m9}, the shared-memory capacity at VGA"] = (fl, cut(fill, m9), il, ir)
+    try:
+        k9.stereo_match(*k9_args(fl, fill, il, ir))
+    except ValueError:
+        print(f"stereo_match: M = {m9 + 1} refused before the launch (capacity {m9} at VGA)")
+    else:
+        fail(f"stereo_match took M = {m9 + 1}, beyond its shared memory")
     for what, (fl, fr, il, ir) in cases9.items():
         ref = check_stereo(what, k9_args(fl, fr, il, ir))
         if what.startswith("64 rows"):
@@ -1131,10 +1234,21 @@ def main():
             fail(f"stereo_match: the all-accepted case kept {int(ref[4].sum())} of 64 rows")
         if what.startswith("no valid") and bool(ref[4].any()):
             fail("stereo_match: a row without a valid keypoint was accepted")
+        if (what.startswith(("M = 3072", f"M = {m9},"))
+                and not bool((ref[2][ref[3] < k9.NO_MATCH] < 1024).all())):
+            fail("stereo_match: a tie across staging rounds did not take the first index")
+        if what.startswith("crowded") and int((ref[3] < TH_STEREO).sum()) < 32:
+            fail("stereo_match: the crowded rows found too few matches")
+    if n_edge9 < 500:
+        fail(f"stereo_match: only {n_edge9} partners exactly a row tolerance apart")
+    # the wrapper's host time by part: its checks (the rest of the call,
+    # part by part, is tools/stereo_host_parts.py)
+    host9 = host_parts("stereo_match", {
+        "check_inputs": lambda: k9.check_inputs(*args9[:12], TH_STEREO, dev)})
     record("stereo_match", 0.0, time_ms(lambda: k9.stereo_match(*args9)),
            time_ms(lambda: k9.stereo_match_plain(*args9), 10), *stereo_work(args9, out9),
            bit_exact=True, cases=["the VGA pair of frame 0", *cases9, th_hi[1]],
-           graph_us=graph_us(lambda: k9.stereo_match(*args9)),
+           graph_us=graph_us(lambda: k9.stereo_match(*args9)), host_ns=host9,
            **device_kernels(lambda: k9.stereo_match(*args9), 1))
 
     # kernel 10: both images of a pair remapped in one launch, bit for bit
@@ -1156,6 +1270,13 @@ def main():
             fail("remap_pair at identity maps does not return the images")
         print(f"remap_pair vs twin, {what}: bit-exact")
     args10 = (il9, ir9, dist_map, dist_map + 0.37)
+    # a rectifier over the same distortion: its maps checked once, at construction
+    eye10 = np.eye(3, dtype=np.float32)
+    rect10 = rectify.StereoRectifier(K10, D10, eye10, K10, K10, D10, eye10, K10, 480, 640,
+                                     device="cuda")
+    if not all(torch.equal(a, b) for a, b in zip(
+            rect10(il9, ir9), k10.remap_pair_plain(il9, ir9, rect10.map_l, rect10.map_r))):
+        fail("StereoRectifier differs from kernel 10's twin on its own maps")
     # one PyTorch call: grid_sample of both images on the maps normalised to [-1, 1]
     scale10 = torch.tensor([2.0 / 639, 2.0 / 479], device=dev)
     grid10 = torch.stack([args10[2], args10[3]]) * scale10 - 1.0
@@ -1170,10 +1291,31 @@ def main():
            library="torch.nn.functional.grid_sample, bilinear, zeros, align_corners=True, both "
                    "images as a batch of two", library_max_abs_diff=lib_err,
            **device_kernels(lambda: k10.remap_pair(*args10), 1))
-    results["remap_pair"].update(library_ms=time_ms(library10), library_graph_us=graph_us(library10))
-    print(f"grid_sample on the same inputs: {results['remap_pair']['library_ms']:.4f} ms a call, "
-          f"{results['remap_pair']['library_graph_us']:.2f} us replayed; remap_pair "
-          f"{results['remap_pair']['ms']:.4f} ms, {results['remap_pair']['graph_us']:.2f} us")
+    # the wrapper's host time by part: its checks (tools/stereo_host_parts.py
+    # times the rest)
+    host10 = host_parts("remap_pair", {
+        "check_maps": lambda: k10.check_maps(args10[2], args10[3], dev),
+        "check_images": lambda: k10.check_images(il9, ir9, dev)})
+    results["remap_pair"].update(library_ms=time_ms(library10), library_graph_us=graph_us(library10),
+                                 rectifier_ms=time_ms(lambda: rect10(il9, ir9)), host_ns=host10)
+    r10 = results["remap_pair"]
+    print(f"remap_pair against grid_sample on the 100-call clock, same run: remap_pair "
+          f"{r10['ms']:.4f} ms, StereoRectifier.__call__ {r10['rectifier_ms']:.4f} ms, "
+          f"grid_sample {r10['library_ms']:.4f} ms a call; replayed {r10['graph_us']:.2f} us "
+          f"against {r10['library_graph_us']:.2f} us")
+    # the same clock in turns, 7 rounds: the host is shared, so one round is noisy
+    turns = {"remap_pair": lambda: k10.remap_pair(*args10),
+             "StereoRectifier.__call__": lambda: rect10(il9, ir9), "grid_sample": library10,
+             "stereo_match": lambda: k9.stereo_match(*args9)}
+    rounds = {k: [] for k in turns}
+    for _ in range(7):
+        for k, fn in turns.items():
+            rounds[k].append(time_ms(fn))
+    r10["ms_in_turns"] = {k: statistics.median(v) for k, v in rounds.items()}
+    results["stereo_match"]["ms_in_turns"] = r10["ms_in_turns"]["stereo_match"]
+    print(f"100-call ms a call, median of 7 rounds in turns: "
+          f"{json.dumps({k: round(v, 5) for k, v in r10['ms_in_turns'].items()})}; all rounds "
+          f"{json.dumps({k: [round(x, 5) for x in v] for k, v in rounds.items()})}")
 
     launches3 = read_launches()
     print(f"launches in phase 3's checks and timings: {json.dumps(launches3)}")

@@ -6,7 +6,8 @@ back-projected through the new projection P, rotated by R^-1 into the
 original camera, distorted and projected with the original K.
 ``stereo_rectify`` is the reference's Bouguet-style split of the relative
 rotation, in float64 on the host.  ``StereoRectifier`` holds both maps on
-its device and rectifies a pair in one ``kernels.remap.remap_pair`` launch.
+its device, checked once, and rectifies a pair in one kernel-10 launch
+(``kernels.remap.launch``).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.remap import remap_pair
+from ..kernels import remap
 from . import lie
 from .camera import CameraModel, distort_normalized
 
@@ -80,19 +81,45 @@ def stereo_rectify(K1, D1, K2, D2, R, t, height: int, width: int):
 
 
 class StereoRectifier:
-    """Both cameras' maps on `device`; a call rectifies a pair in one launch."""
+    """Both cameras' maps on `device`, checked once for kernel 10 where they
+    are made; a call rectifies a pair in one launch."""
 
     def __init__(self, K_l, D_l, R_l, P_l, K_r, D_r, R_r, P_r, height: int, width: int,
                  device="cuda"):
-        self.device = torch.device(device)
-        self.map_l = rectify_map(K_l, D_l, R_l, P_l, height, width, self.device)
-        self.map_r = rectify_map(K_r, D_r, R_r, P_r, height, width, self.device)
+        self._map_l = rectify_map(K_l, D_l, R_l, P_l, height, width, torch.device(device))
+        self._map_r = rectify_map(K_r, D_r, R_r, P_r, height, width, torch.device(device))
+        self.device = self._map_l.device      # with its index: "cuda" is "cuda:<current>"
+        self._checked = (remap.check_maps(self._map_l, self._map_r, self.device)
+                         if self.device.type == "cuda" else None)
         P_l = np.asarray(P_l, np.float32)
         self.cam = CameraModel.create(fx=P_l[0, 0], fy=P_l[1, 1], cx=P_l[0, 2], cy=P_l[1, 2],
                                       width=width, height=height)
 
+    # read-only: kernel 10 reads the pointers checked at construction
+    @property
+    def map_l(self) -> torch.Tensor:
+        return self._map_l
+
+    @property
+    def map_r(self) -> torch.Tensor:
+        return self._map_r
+
+    def _as_f32(self, im):
+        """im as an f32 contiguous tensor on the rectifier's device: as it is
+        when it already is one."""
+        if (type(im) is torch.Tensor and im.dtype is torch.float32 and im.device == self.device
+                and im.is_contiguous()):
+            return im
+        return torch.as_tensor(im).to(self.device, torch.float32).contiguous()
+
     def __call__(self, img_l, img_r):
         """Images [H, W] (numpy or tensors, any real type) -> the rectified
         pair, f32 tensors on the rectifier's device."""
-        as_f32 = lambda im: torch.as_tensor(im).to(self.device, torch.float32).contiguous()
-        return remap_pair(as_f32(img_l), as_f32(img_r), self.map_l, self.map_r)
+        img_l, img_r = self._as_f32(img_l), self._as_f32(img_r)
+        if self._checked is None:
+            return remap.remap_pair(img_l, img_r, self._map_l, self._map_r)
+        # _as_f32 leaves kernel 10's image checks to the shapes
+        H, W = img_l.shape
+        if img_r.shape != (H, W):
+            raise ValueError(f"img_r: expected shape {(H, W)}, got {tuple(img_r.shape)}")
+        return remap.launch(img_l, img_r, H, W, *self._checked)

@@ -49,6 +49,51 @@ def _lib():
     return fn
 
 
+F32 = torch.float32
+
+
+def check_maps(map_l: torch.Tensor, map_r: torch.Tensor, device):
+    """Kernel 10's checks of the maps: both f32 [Ho, Wo, 2], contiguous, on
+    `device` and 8-byte aligned.  Returns (Ho, Wo, map_l's pointer, map_r's)
+    for ``launch``: a caller that owns fixed maps checks them once."""
+    Ho, Wo = map_l.shape[:2]
+    shape = (Ho, Wo, 2)
+    _build.check_tensor(map_l, "map_l", F32, shape, device)
+    _build.check_tensor(map_r, "map_r", F32, shape, device)
+    p_l, p_r = map_l.data_ptr(), map_r.data_ptr()
+    if p_l % 8 or p_r % 8:
+        raise ValueError("remap_pair reads the maps as 8-byte (x, y) vectors: misaligned map")
+    return Ho, Wo, p_l, p_r
+
+
+def check_images(img_l: torch.Tensor, img_r: torch.Tensor, device):
+    """Kernel 10's checks of the images: both f32 [H, W], contiguous, on
+    `device`.  Returns (H, W)."""
+    H, W = img_l.shape
+    _build.check_tensor(img_l, "img_l", F32, (H, W), device)
+    _build.check_tensor(img_r, "img_r", F32, (H, W), device)
+    return H, W
+
+
+def launch(img_l: torch.Tensor, img_r: torch.Tensor, H: int, W: int, Ho: int, Wo: int, p_l: int,
+           p_r: int):
+    """Kernel 10 on inputs already checked: the images by ``check_images``
+    (or as a caller that made them f32, contiguous, [H, W] on the maps'
+    device), the maps by ``check_maps``."""
+    dev = img_l.device
+    if Ho == H and Wo == W:                  # the cheapest allocation
+        out_l, out_r = torch.empty_like(img_l), torch.empty_like(img_l)
+    else:
+        out_l = torch.empty((Ho, Wo), dtype=F32, device=dev)
+        out_r = torch.empty((Ho, Wo), dtype=F32, device=dev)
+    err = _lib()(img_l.data_ptr(), img_r.data_ptr(), p_l, p_r, out_l.data_ptr(), out_r.data_ptr(),
+                 H, W, Ho, Wo, _build.stream_ptr(dev))
+    _build.check_launch(err, "remap_pair")
+    if Ho * Wo:
+        remap_pair.launches += 1
+    return out_l, out_r
+
+
 def remap_pair(img_l: torch.Tensor, img_r: torch.Tensor, map_l: torch.Tensor,
                map_r: torch.Tensor):
     """Kernel 10: (img_l at map_l, img_r at map_r); images [H, W] f32, maps
@@ -56,22 +101,9 @@ def remap_pair(img_l: torch.Tensor, img_r: torch.Tensor, map_l: torch.Tensor,
     if not img_l.is_cuda:
         return remap_pair_plain(img_l, img_r, map_l, map_r)
     dev = img_l.device
-    H, W = img_l.shape
-    Ho, Wo = map_l.shape[:2]
-    f32 = torch.float32
-    for t, name, shape in ((img_l, "img_l", (H, W)), (img_r, "img_r", (H, W)),
-                           (map_l, "map_l", (Ho, Wo, 2)), (map_r, "map_r", (Ho, Wo, 2))):
-        _build.check_tensor(t, name, f32, shape, dev)
-    if map_l.data_ptr() % 8 or map_r.data_ptr() % 8:
-        raise ValueError("remap_pair reads the maps as 8-byte (x, y) vectors: misaligned map")
-    out = torch.empty((2, Ho, Wo), dtype=f32, device=dev)
-    p = out.data_ptr()
-    err = _lib()(img_l.data_ptr(), img_r.data_ptr(), map_l.data_ptr(), map_r.data_ptr(),
-                 p, p + 4 * Ho * Wo, H, W, Ho, Wo, _build.stream_ptr(dev))
-    _build.check_launch(err, "remap_pair")
-    if Ho * Wo:
-        remap_pair.launches += 1
-    return out[0], out[1]
+    Ho, Wo, p_l, p_r = check_maps(map_l, map_r, dev)
+    H, W = check_images(img_l, img_r, dev)
+    return launch(img_l, img_r, H, W, Ho, Wo, p_l, p_r)
 
 
 remap_pair.launches = 0

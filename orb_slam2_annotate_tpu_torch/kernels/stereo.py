@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -33,6 +34,14 @@ NO_MATCH = 2048    # the reference's sentinel distance for a non-candidate
 HALF = 4           # 9 x 9 SAD patch
 SLIDE = 4          # slides -4 .. 4
 MEDIAN_NAN = 80.0  # jnp.nan_to_num's stand-in for the NaN median
+BAND_SHIFT, MAX_BANDS = 2, 1024  # kernel 9's row bands (csrc/stereo.cu)
+# kernel 9's shared memory: sizeof(Fixed) in csrc/stereo.cu (8 rows a CTA:
+# a 64-entry list, a 9 x 9 patch and a 9 x 32 strip each; a 514-bin
+# histogram; three words and a flag), 15925 B that the runtime rounds to 16,
+# then 24 B a right keypoint, a word a band start and a word a level, within
+# the 227 KiB a CTA may take on sm_90
+FIXED_SMEM = -(-(4 * (8 * (64 + 81 + 9 * 32) + 514 + 3) + 1) // 16) * 16
+SMEM_PER_CTA = 227 * 1024
 
 
 def stereo_candidates(xy_l, oct_l, valid_l, xy_r, oct_r, valid_r, scales, fx: float):
@@ -44,6 +53,48 @@ def stereo_candidates(xy_l, oct_l, valid_l, xy_r, oct_r, valid_r, scales, fx: fl
     disp = xy_l[:, 0, None] - xy_r[None, :, 0]
     return ((dy <= row_r[None, :]) & (disp >= 0) & (disp <= fx) & valid_l[:, None]
             & valid_r[None, :] & ((oct_l[:, None] - oct_r[None, :]).abs() <= 1))
+
+
+def band_shift(H: int):
+    """(bs, nb): kernel 9's bands of 2^bs rows, nb of them over H rows."""
+    bs = BAND_SHIFT
+    while -(-H // 2 ** bs) > MAX_BANDS:
+        bs += 1
+    return bs, -(-H // 2 ** bs)
+
+
+def max_right_keypoints(H: int, L: int) -> int:
+    """The most right keypoints kernel 9 stages for H image rows and L
+    levels: a CTA's shared memory less the fixed part, the band starts and
+    the scales, over 24 B a keypoint (a 16-byte record, an index, a rank)."""
+    return (SMEM_PER_CTA - FIXED_SMEM - 4 * (band_shift(H)[1] + 1) - 4 * L) // 24
+
+
+def stereo_bands(y_l, y_r, scales, H: int):
+    """Kernel 9's row bands, its integer arithmetic in torch: (band of each
+    left row [N], band of each right keypoint [M], radius R).  The kernel
+    gates left row i only against the right keypoints whose band is within
+    R of i's, so ``stereo_candidates`` must be false for every other pair.
+
+    A band is bh = 2^bs image rows (4, more while the image would need over
+    1024 bands): floor(y) >> bs, saturated to int32 (NaN as 0) and clamped
+    to [0, nb).  R = floor(floor(tol_max) / bh) + 1 for tol_max the largest
+    2 scales[l] (NaN ignored, at least 0; every band when it is 1e9 or
+    more): a float |yl - yr| <= tol comes from a difference of at most tol
+    + half an ulp, below floor(tol_max) + 1, so the floored rows differ by
+    at most floor(tol_max) + 1 and the bands by at most R."""
+    bs, nb = band_shift(H)
+
+    def band(y):
+        r = torch.nan_to_num(torch.floor(y.double()), nan=0.0).clamp(-2.0 ** 31, 2.0 ** 31 - 1)
+        return torch.where(r < 0, 0, torch.clamp(torch.div(r, 2 ** bs, rounding_mode="floor"),
+                                                  max=nb - 1)).long()
+
+    tol = 2.0 * scales.float()
+    tol = tol[~torch.isnan(tol)]
+    tol_max = max(0.0, float(tol.max())) if tol.numel() else 0.0
+    R = min((math.floor(tol_max) >> bs) + 1, nb) if tol_max < 1e9 else nb
+    return band(y_l), band(y_r), R
 
 
 def sad_subpixel_refine(image_l, image_r, xy_l, xy_r, ur0):
@@ -112,8 +163,49 @@ def _lib():
     return fn
 
 
-_WORKSPACES: dict = {}   # device -> [2] int32: the ticket and the count of rows not accepted;
-                         # 0 between calls
+_WORKSPACES: dict = {}   # device -> [2] int32: the ticket and the count of rows not accepted
+                         # (one 64-bit word to the kernel); 0 between calls
+
+
+F32, I32, BOOL = torch.float32, torch.int32, torch.bool
+
+
+def check_inputs(xy_l, oct_l, valid_l, desc_l, xy_r, oct_r, valid_r, desc_r, x_und, image_l,
+                 image_r, scales, th: int, device):
+    """Kernel 9's checks, one fused test a tensor: types, shapes,
+    contiguity, `device`, the 16-byte descriptors and 8-byte xy_r, 1 <= M <=
+    max_right_keypoints(H, L) (8999 at VGA and 8 levels), th in [0, 2048], a
+    level table, 1 <= H, W < 2^23.  Returns (N, M, H, W, L, the twelve
+    pointers)."""
+    N, M = xy_l.shape[0], xy_r.shape[0]
+    H, W = image_l.shape
+    L = scales.shape[0]
+    c = _build.check_tensor
+    c(xy_l, "xy_l", F32, (N, 2), device)
+    c(oct_l, "oct_l", I32, (N,), device)
+    c(valid_l, "valid_l", BOOL, (N,), device)
+    c(desc_l, "desc_l", I32, (N, 16), device)
+    c(xy_r, "xy_r", F32, (M, 2), device)
+    c(oct_r, "oct_r", I32, (M,), device)
+    c(valid_r, "valid_r", BOOL, (M,), device)
+    c(desc_r, "desc_r", I32, (M, 16), device)
+    c(x_und, "x_und", F32, (N,), device)
+    c(image_l, "image_l", F32, (H, W), device)
+    c(image_r, "image_r", F32, (H, W), device)
+    c(scales, "scales", F32, (L,), device)
+    ptrs = (xy_l.data_ptr(), oct_l.data_ptr(), valid_l.data_ptr(), desc_l.data_ptr(),
+            xy_r.data_ptr(), oct_r.data_ptr(), valid_r.data_ptr(), desc_r.data_ptr(),
+            x_und.data_ptr(), image_l.data_ptr(), image_r.data_ptr(), scales.data_ptr())
+    if ptrs[3] % 16 or ptrs[7] % 16 or ptrs[4] % 8:
+        raise ValueError("stereo_match reads descriptors as 16-byte and xy as 8-byte vectors: "
+                         "misaligned input")
+    if (not (0 <= th <= NO_MATCH) or L == 0 or not (0 < H < (1 << 23) and 0 < W < (1 << 23))
+            or not (0 < M <= max_right_keypoints(H, L))):
+        raise ValueError(f"stereo_match takes th in [0, {NO_MATCH}], a level table, images of 1 to "
+                         f"2^23 - 1 rows and columns and 1 to max_right_keypoints(H, L) right "
+                         f"keypoints (its shared memory); got th {th}, L {L}, image {H} x {W}, "
+                         f"M {M}")
+    return N, M, H, W, L, ptrs
 
 
 def stereo_match(xy_l, oct_l, valid_l, desc_l, xy_r, oct_r, valid_r, desc_r, x_und, image_l,
@@ -125,38 +217,18 @@ def stereo_match(xy_l, oct_l, valid_l, desc_l, xy_r, oct_r, valid_r, desc_r, x_u
         return stereo_match_plain(xy_l, oct_l, valid_l, desc_l, xy_r, oct_r, valid_r, desc_r,
                                   x_und, image_l, image_r, scales, fx, bf, th)
     dev = xy_l.device
-    N, M = xy_l.shape[0], xy_r.shape[0]
-    H, W = image_l.shape
-    L = scales.shape[0]
-    i32, f32, b = torch.int32, torch.float32, torch.bool
-    for t, name, dtype, shape in (
-            (xy_l, "xy_l", f32, (N, 2)), (oct_l, "oct_l", i32, (N,)), (valid_l, "valid_l", b, (N,)),
-            (desc_l, "desc_l", i32, (N, 16)), (xy_r, "xy_r", f32, (M, 2)),
-            (oct_r, "oct_r", i32, (M,)), (valid_r, "valid_r", b, (M,)),
-            (desc_r, "desc_r", i32, (M, 16)), (x_und, "x_und", f32, (N,)),
-            (image_l, "image_l", f32, (H, W)), (image_r, "image_r", f32, (H, W)),
-            (scales, "scales", f32, (L,))):
-        _build.check_tensor(t, name, dtype, shape, dev)
-    if desc_l.data_ptr() % 16 or desc_r.data_ptr() % 16 or xy_r.data_ptr() % 8:
-        raise ValueError("stereo_match reads descriptors as 16-byte and xy as 8-byte vectors: "
-                         "misaligned input")
-    if not (0 < M < (1 << 20)) or not (0 <= th <= NO_MATCH) or L == 0:
-        raise ValueError(f"stereo_match takes 1 to 2^20 - 1 right keypoints, th in [0, {NO_MATCH}] "
-                         f"and a level table; got M {M}, th {th}, L {L}")
-    ur = torch.empty(N, dtype=f32, device=dev)
-    depth = torch.empty(N, dtype=f32, device=dev)
-    best = torch.empty(N, dtype=i32, device=dev)
-    bestd = torch.empty(N, dtype=i32, device=dev)
-    ok = torch.empty(N, dtype=b, device=dev)
+    N, M, H, W, L, ptrs = check_inputs(xy_l, oct_l, valid_l, desc_l, xy_r, oct_r, valid_r,
+                                       desc_r, x_und, image_l, image_r, scales, th, dev)
+    # outputs shaped and typed as checked inputs: empty_like is the cheapest allocation
+    ur, depth = torch.empty_like(x_und), torch.empty_like(x_und)
+    best, bestd = torch.empty_like(oct_l), torch.empty_like(oct_l)
+    ok = torch.empty_like(valid_l)
     ws = _WORKSPACES.get(dev)
     if ws is None:
-        ws = _WORKSPACES[dev] = torch.zeros(2, dtype=i32, device=dev)
-    err = _lib()(xy_l.data_ptr(), oct_l.data_ptr(), valid_l.data_ptr(), desc_l.data_ptr(),
-                 xy_r.data_ptr(), oct_r.data_ptr(), valid_r.data_ptr(), desc_r.data_ptr(),
-                 x_und.data_ptr(), image_l.data_ptr(), image_r.data_ptr(), scales.data_ptr(),
-                 N, M, H, W, L, int(th), float(fx), float(bf), ur.data_ptr(), depth.data_ptr(),
-                 best.data_ptr(), bestd.data_ptr(), ok.data_ptr(), ws.data_ptr(),
-                 _build.stream_ptr(dev))
+        ws = _WORKSPACES[dev] = torch.zeros(2, dtype=I32, device=dev)
+    err = _lib()(*ptrs, N, M, H, W, L, int(th), float(fx), float(bf), ur.data_ptr(),
+                 depth.data_ptr(), best.data_ptr(), bestd.data_ptr(), ok.data_ptr(),
+                 ws.data_ptr(), _build.stream_ptr(dev))
     _build.check_launch(err, "stereo_match")
     if N:
         stereo_match.launches += 1

@@ -95,3 +95,57 @@ def test_stereo_rectifier_agrees(rig):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-4, rtol=0)
     assert port.cam.fx == float(ref.cam.fx) and port.cam.cy == float(ref.cam.cy)
     assert inspect.signature(trect.StereoRectifier.__init__).parameters["device"].default == "cuda"
+
+
+def remap_inputs():
+    z = lambda *s: torch.zeros(s)
+    return [z(H, W), z(H, W), z(H, W, 2), z(H, W, 2)]
+
+
+REMAP_BAD = {
+    "dtype": (1, lambda t: t.double(), TypeError),
+    "shape": (3, lambda t: t[:, :-1].contiguous(), ValueError),
+    "image shape": (1, lambda t: t[:-1], ValueError),
+    "non-contiguous": (0, lambda t: t.t().contiguous().t(), ValueError),
+    "wrong device": (2, lambda t: t.to("meta"), ValueError),
+    "misaligned map": (3, lambda t: torch.zeros(t.numel() + 1)[1:].view(t.shape), ValueError),
+}
+
+
+@pytest.mark.parametrize("bad", list(REMAP_BAD))
+def test_remap_checks_raise(bad):
+    """Each bad input to kernel 10's fused checks (the maps' once, the
+    images' every call) raises, on CPU tensors."""
+    k, edit, err = REMAP_BAD[bad]
+    dev = torch.device("cpu")
+    args = remap_inputs()
+    assert k10.check_maps(args[2], args[3], dev)[:2] == (H, W)
+    assert k10.check_images(args[0], args[1], dev) == (H, W)
+    args[k] = edit(args[k])
+    with pytest.raises(err):
+        k10.check_images(args[0], args[1], dev)
+        k10.check_maps(args[2], args[3], dev)
+
+
+def test_stereo_rectifier_passes_f32_tensors_through():
+    """A rectifier on the CPU takes f32 contiguous tensors as they are and
+    converts anything else once; its device carries the maps' own."""
+    port = trect.StereoRectifier(K, np.zeros(5), np.eye(3), K, K, np.zeros(5), np.eye(3), K, H, W,
+                                 device="cpu")
+    im = torch.rand(H, W)
+    assert port._as_f32(im) is im
+    u8 = np.zeros((H, W), np.uint8)
+    got = port._as_f32(u8)
+    assert got.dtype == torch.float32 and got.is_contiguous() and port.device == port.map_l.device
+    assert port._as_f32(im.t().contiguous().t()).is_contiguous()
+
+
+def test_stereo_rectifier_maps_are_read_only():
+    """Kernel 10 reads the maps' pointers checked at construction, so the
+    rectifier's maps cannot be replaced."""
+    port = trect.StereoRectifier(K, np.zeros(5), np.eye(3), K, K, np.zeros(5), np.eye(3), K, H, W,
+                                 device="cpu")
+    for name in ("map_l", "map_r"):
+        assert getattr(port, name).shape == (H, W, 2)
+        with pytest.raises(AttributeError):
+            setattr(port, name, torch.zeros(H, W, 2))

@@ -263,3 +263,123 @@ def test_system_matches_jax_system():
     assert port.n_mappoints > 200
     assert ate_t <= max(1.5 * ate_j, ate_j + 0.01) and ate_t < 0.12, (ate_t, ate_j)
     assert abs(path_ratio - 1.0) < 0.15, path_ratio
+
+
+def band_case(name):
+    """(xy_l, oct_l, xy_r, oct_r, H) for kernel 9's band test: 512 x 512
+    keypoints at 8 levels, the right ones near the left rows."""
+    rng = np.random.RandomState(11)
+    n, H = 512, 480
+    xy_l = np.stack([rng.uniform(0, 640, n), rng.uniform(0, H, n)], 1)
+    oct_l = rng.randint(0, 8, n)
+    xy_r = xy_l + np.stack([-rng.uniform(0, 40, n), rng.uniform(-12, 12, n)], 1)
+    oct_r = rng.randint(0, 8, n)
+    if name == "rows exactly a tolerance apart":
+        tol = 2.0 * np.asarray(tpyr.level_scales(8, 1.2).numpy(), np.float32)[oct_r]
+        xy_r[:, 1] = np.float32(xy_l[:, 1]) + np.where(rng.rand(n) < 0.5, tol, -tol)
+    elif name == "the top octave":
+        oct_l[:] = 7
+        oct_r[:] = rng.randint(6, 8, n)
+    elif name == "rows at 0, H - 1 and outside the image":
+        edge = np.array([0.0, H - 1.0, -0.5, -7.9, H - 0.01, H + 3.5, -1e30, 1e30, np.inf, -np.inf])
+        xy_l[:, 1] = edge[rng.randint(0, len(edge), n)]
+        xy_r[:, 1] = xy_l[:, 1] + rng.uniform(-8, 8, n)
+    elif name == "a tall image: bands of more than 4 rows":
+        H = 20000
+        xy_l[:, 1] = rng.uniform(0, H, n)
+        xy_r[:, 1] = xy_l[:, 1] + rng.uniform(-8, 8, n)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    i = lambda a: torch.from_numpy(np.asarray(a, np.int32))
+    return f(xy_l), i(oct_l), f(xy_r), i(oct_r), H
+
+
+@pytest.mark.parametrize("name", ["random", "rows exactly a tolerance apart", "the top octave",
+                                  "rows at 0, H - 1 and outside the image",
+                                  "a tall image: bands of more than 4 rows"])
+def test_stereo_bands_hold_every_candidate(name):
+    """Kernel 9 gates a left row only against the right keypoints in the
+    bands within R of its own: every candidate of the twin's gate must lie
+    there (the band arithmetic is kernels/stereo.py stereo_bands, the
+    kernel's integer arithmetic in torch)."""
+    xy_l, oct_l, xy_r, oct_r, H = band_case(name)
+    scales = tpyr.level_scales(8, 1.2)
+    ones = lambda n: torch.ones(n, dtype=torch.bool)
+    cand = k9.stereo_candidates(xy_l, oct_l, ones(len(xy_l)), xy_r, oct_r, ones(len(xy_r)),
+                                scales, 500.0)
+    b_l, b_r, R = k9.stereo_bands(xy_l[:, 1], xy_r[:, 1], scales, H)
+    visited = (b_l[:, None] - b_r[None, :]).abs() <= R
+    assert int(cand.sum()) > 100
+    assert not bool((cand & ~visited).any())
+    if H == 480 and not name.startswith("rows at"):
+        assert R == 2 and float(visited.float().mean()) < 0.1     # bands of 4 rows, 5 visited
+    if name.startswith("rows exactly"):
+        dy = (xy_l[:, 1, None] - xy_r[None, :, 1]).abs()
+        tol = 2.0 * scales[oct_r.long()]
+        assert int((cand & (dy == tol[None, :])).sum()) > 10      # candidates right at the edge
+
+
+def test_stereo_bands_radius_edges():
+    """R from the largest tolerance: NaN ignored, at least 0, every band at
+    1e9 or more."""
+    y = torch.zeros(3)
+    assert k9.stereo_bands(y, y, torch.tensor([1.0, 1.2]), 480)[2] == 1     # floor(2.4) + 1 = 3
+    assert k9.stereo_bands(y, y, torch.tensor([1.0, 2.0]), 480)[2] == 2     # 4 + 1 = 5 rows
+    assert k9.stereo_bands(y, y, torch.tensor([float("nan"), -3.0]), 480)[2] == 1
+    assert k9.stereo_bands(y, y, torch.tensor([float("inf")]), 480)[2] == 120
+    assert k9.stereo_bands(y, y, torch.tensor([1.0]), 8192)[2] == 1         # bands of 8 rows
+    b = k9.stereo_bands(torch.tensor([0.0, 3.99, 4.0, 479.9, 480.0, -0.1, float("nan")]), y,
+                        torch.tensor([1.0]), 480)[0]
+    assert b.tolist() == [0, 0, 1, 119, 119, 0, 0]
+
+
+def stereo_inputs(n=8, m=6, h=12, w=16, dev="cpu"):
+    z = lambda *s, dtype=torch.float32: torch.zeros(s, dtype=dtype, device=dev)
+    return [z(n, 2), z(n, dtype=torch.int32), z(n, dtype=torch.bool), z(n, 16, dtype=torch.int32),
+            z(m, 2), z(m, dtype=torch.int32), z(m, dtype=torch.bool), z(m, 16, dtype=torch.int32),
+            z(n), z(h, w), z(h, w), z(4)]
+
+
+def misaligned(t, by):
+    """t's values in a buffer that starts `by` elements past an aligned one."""
+    buf = torch.zeros(t.numel() + by, dtype=t.dtype)
+    return buf[by:].view(t.shape)
+
+
+STEREO_BAD = {
+    "dtype": (3, lambda t: t.to(torch.int64), TypeError),
+    "shape": (8, lambda t: t[:-1], ValueError),
+    "non-contiguous": (0, lambda t: torch.zeros(2, t.shape[0])[0:1].expand(2, -1).t(), ValueError),
+    "wrong device": (10, lambda t: t.to("meta"), ValueError),
+    "misaligned descriptors": (7, lambda t: misaligned(t, 1), ValueError),
+    "misaligned xy_r": (4, lambda t: misaligned(t, 1), ValueError),
+    "no right keypoint": (None, None, ValueError),
+}
+
+
+@pytest.mark.parametrize("bad", list(STEREO_BAD))
+def test_stereo_check_inputs_raises(bad):
+    """Each bad input to kernel 9's fused checks raises, on CPU tensors."""
+    k, edit, err = STEREO_BAD[bad]
+    args = stereo_inputs(m=0) if k is None else stereo_inputs()
+    dev = torch.device("cpu")
+    assert k9.check_inputs(*stereo_inputs(), 159, dev)[:5] == (8, 6, 12, 16, 4)
+    if k is not None:
+        args[k] = edit(args[k])
+        if bad == "non-contiguous":
+            assert args[k].shape == (8, 2) and not args[k].is_contiguous()
+    with pytest.raises(err):
+        k9.check_inputs(*args, 159, dev)
+
+
+def test_stereo_check_inputs_holds_right_keypoints_to_shared_memory():
+    """Kernel 9 stages 24 B a right keypoint beside its fixed shared memory:
+    check_inputs takes max_right_keypoints(H, L) of them and refuses one
+    more, on CPU tensors (8999 at VGA and 8 levels)."""
+    dev = torch.device("cpu")
+    m = k9.max_right_keypoints(12, 4)
+    assert k9.FIXED_SMEM == 15936 and k9.max_right_keypoints(480, 8) == 8999
+    rest = k9.FIXED_SMEM + 4 * (3 + 1) + 4 * 4      # 3 bands of 4 rows, 4 levels
+    assert 24 * m + rest <= k9.SMEM_PER_CTA < 24 * (m + 1) + rest
+    assert k9.check_inputs(*stereo_inputs(m=m), 159, dev)[1] == m
+    with pytest.raises(ValueError, match="max_right_keypoints"):
+        k9.check_inputs(*stereo_inputs(m=m + 1), 159, dev)
