@@ -98,7 +98,41 @@ Phases (any failure exits non-zero):
      of the rectified rig (identity maps), whose output must equal its input
      bit for bit: the same bounds with the path length within 15% instead of
      the displacement, kernels 1 and 2 twice a frame, kernels 9 and 10 once
-     a frame; kernel 4 again on a local-map call with stereo rows.
+     a frame; kernel 4 again on a local-map call with stereo rows;
+  9. fuse in the keyframe chain (``enable_fuse=True``, so the stats refresh
+     in triangulation too): the slice (under the CPU profiler, whose
+     ``mapping/*`` spans give the chain's stages) and the RGB-D cell of
+     phase 7, counters reset before each: state, tracked >= 70% (mono) /
+     80% (RGB-D), the ATE within max(1.5 x, +0.01 m) of the JAX System's
+     with fuse on (tools/jax_depth_reference.py mono --fuse | rgbd --fuse)
+     and < 0.08 m (mono), kernel 3 once a ``fuse_neighbors`` (all its
+     targets in one launch), kernel 3b twice a keyframe chain; then the
+     fuse core on the card against its CPU result on one captured
+     keyframe's inputs and on a point that loses two merges to two winners
+     (``double_loser_case`` of tests/_fuse_cases.py): observations and
+     validity exactly equal, and the later pair's winner kept, as the
+     reference's CPU scatter keeps it;
+  10. pipelined tracking (``async_depth=2``) on the slice, each frame timed
+     to the return of ``track_mono`` and the run ended by ``flush()``: the
+     same outcome bounds against phase 4's ATE and the JAX System's
+     pipelined run (tools/jax_depth_reference.py mono --async-depth 2), a
+     record for every frame, and the launches of each host-read-free step
+     (``tracking.track_frame_device``: kernels 3 and 4 four times each with
+     a velocity, twice without); the median frame and frames/s against
+     phase 4's and against a synchronous run just before, timed the same way;
+     then phase 6's loop cell pipelined with SlamConfig()'s own defaults
+     (keyframe culling on as well), held to the JAX System's pipelined run
+     on the cell (tools/jax_loop_reference.py --qvga --async-depth 2
+     --kf-culling; it loses the map a third of the way round and closes
+     nothing): state OK, tracked >= 0.8 x its count, ATE within max(1.5 x,
+     +0.05 m) of its, each keyframe's loop detection resolved once through
+     the deferred read, the keyframe cull applied through it too, a
+     relocalization on the pipelined path (kernel 6), and the host's mirror
+     of the valid keyframes equal to the map's.  In both pipelined runs every step, its host bundle and
+     every prefetch run under torch's sync debug mode at "error", which
+     raises on any call that synchronizes with the card; each run prints how
+     many frames late each frame was resolved and how often the ready test
+     found a copy still in flight.
 Kernel times are one CUDA-event pair around 100 back-to-back calls after a
 warm-up, divided by the count; kernels 3b and 6 also give ``graph_us``, the
 device time a call in a replay of 50 calls captured into one CUDA graph (as
@@ -120,11 +154,13 @@ summary.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
 import json
 import math
 import os
+import runpy
 import statistics
 import subprocess
 import sys
@@ -143,6 +179,12 @@ LOOP_FRAMES = 180
 # ATE 0.043950252591681414 m over frame_trajectory() after the final fold
 # (python3 tools/jax_loop_reference.py --qvga, a CPU run)
 LOOP_ATE_JAX = 0.043950252591681414
+# and pipelined (async_depth 2) with keyframe culling on: it loses the map
+# at frame 61, relocalizes at 167, closes nothing; frames with a pose in
+# frame_trajectory() and their ATE (tools/jax_loop_reference.py --qvga
+# --async-depth 2 --kf-culling, a CPU run)
+LOOP_ASYNC_TRACKED_JAX = 69
+LOOP_ASYNC_ATE_JAX = 0.08619519865638416
 # kernel name: (source, the JAX code it replaces, its wrapper's __name__)
 SOURCES = {
     "fast_nms": ("orb_slam2_annotate_tpu_torch/csrc/fast_nms.cu",
@@ -178,6 +220,14 @@ BASELINE = 0.3
 # a CPU run): SE3-aligned ATE over frame_trajectory(), all 48 frames tracked
 RGBD_ATE_JAX = 0.0028807614141597984
 STEREO_ATE_JAX = 0.003443945486205791
+# phases 9 and 10: the JAX System on the slice with fuse on, on the RGB-D cell
+# with fuse on (SE3) and on the slice pipelined at async_depth 2, all 48
+# frames (python3 tools/jax_depth_reference.py mono --fuse | rgbd --fuse |
+# mono --async-depth 2, CPU runs): tracked 41 / 48 / 41
+FUSE_ATE_JAX = 0.003769911996766967
+RGBD_FUSE_ATE_JAX = 0.016868081563778278
+ASYNC_ATE_JAX = 0.003582911634125806
+ASYNC_DEPTH = 2
 PEAK_OPS = 67e12      # /s: f32 outside the tensor cores (H100 SXM); 32-bit integer work alike
 PEAK_INT8_TC = 1.979e15  # /s: int8 dense tensor cores (H100 SXM); kernel 5's 1-bit products
 PEAK_BYTES = 3.35e12  # /s: HBM3
@@ -1320,17 +1370,26 @@ def main():
     launches3 = read_launches()
     print(f"launches in phase 3's checks and timings: {json.dumps(launches3)}")
 
-    def drive(name, slam, images, counted, track=lambda slam, img, ts: slam.track_mono(img, ts)):
+    def drive(name, slam, images, counted, track=lambda slam, img, ts: slam.track_mono(img, ts),
+              sync=True):
         """One main-path run: counters zeroed just before, read just after;
-        fails unless every kernel in `counted` was launched."""
+        fails unless every kernel in `counted` was launched.  A frame's time
+        ends in a device synchronize, or, with `sync` off, when its call
+        returns (the run then ends in ``flush()`` and a synchronize)."""
         zero_launches()
         torch.cuda.synchronize()
         out, frame_s = [], []
         for k, img in enumerate(images):
             t0 = time.perf_counter()
             out.append(track(slam, img, k / 30.0))
-            torch.cuda.synchronize()
+            if sync:
+                torch.cuda.synchronize()
             frame_s.append(time.perf_counter() - t0)
+        if not sync:
+            t0 = time.perf_counter()
+            slam.flush()
+            torch.cuda.synchronize()
+            frame_s[-1] += time.perf_counter() - t0
         launches = read_launches()
         print(f"launches in the {name} run: {json.dumps(launches)}")
         print(f"{name}: frame wall time median {1e3 * statistics.median(frame_s):.2f} ms, "
@@ -1742,11 +1801,11 @@ def main():
                                             / np.linalg.norm(gt[-1] - gt[0])),
                 "path_ratio": path(est) / path(gt)}
 
-    def depth_run(name, sensor, images, track, counted):
+    def depth_run(name, sensor, images, track, counted, config=None):
         """One depth-sensor run with the matcher, optimize_pose and
         relocalization-polish calls counted, and the edges of one local-map
         optimize_pose with stereo rows from the second half kept."""
-        slam_d = System(cam_d, depth_config(sensor), device="cuda")
+        slam_d = System(cam_d, config or depth_config(sensor), device="cuda")
         kept, polishes = {}, [0]
 
         def keep_stereo_rows(c_, R0, t0, obs, *a, **kw):
@@ -1853,12 +1912,326 @@ def main():
     err_st8 = check_pose_lm("captured stereo local-map call", kept8["args"])
     r4["max_abs_err"] = max(r4["max_abs_err"], err_st8)
 
+    # ---- phase 9: fuse (SearchInNeighbors) in the keyframe chain, on the
+    # slice and on the RGB-D cell; kernel 3 once a fuse_neighbors (all its
+    # targets in one launch), kernel 3b twice a keyframe chain (the refresh
+    # in triangulation that fuse turns on, and the chain's last)
+    from torch.profiler import ProfilerActivity, profile
+
+    real_fuse, real_chain, real_core = (local_mapping.fuse_neighbors, local_mapping.keyframe_chain,
+                                        local_mapping._fuse_targets_core)
+    fuse_launches, chain_stats, captured_fuse = [], [], {}
+    slam9 = None
+
+    def count_chain_stats(*a, **kw):
+        n0 = k3.distinctive_descriptors.launches
+        out = real_chain(*a, **kw)
+        chain_stats.append(k3.distinctive_descriptors.launches - n0)
+        return out
+
+    def keep_core(m, cam_, targets, tgt_ok, src_masks, **kw):
+        # the inputs of one neighbour fuse from the second half of the slice
+        if "args" not in captured_fuse and slam9 is not None and slam9.frame_id >= N_FRAMES // 2:
+            captured_fuse["args"] = (m, cam_, targets, tgt_ok, src_masks, kw)
+        return real_core(m, cam_, targets, tgt_ok, src_masks, **kw)
+
+    local_mapping.fuse_neighbors = matcher_launches_in(real_fuse, fuse_launches)
+    local_mapping.keyframe_chain = count_chain_stats
+    local_mapping._fuse_targets_core = keep_core
+    counted9 = [w for n, (_, _, w) in SOURCES.items()
+                if n not in ("pnp_hypotheses",) + LOOP_ONLY + STEREO_ONLY]
+    try:
+        slam9 = System(cam, dataclasses.replace(slice_cfg, enable_fuse=True), device="cuda")
+        with profile(activities=[ProfilerActivity.CPU]) as prof9:
+            _, frame_s9, launches9m = drive("fuse", slam9, frames, counted9)
+        fuse9m, stats9m = list(fuse_launches), list(chain_stats)
+        fuse_launches.clear()
+        chain_stats.clear()
+        slam9, slam_keep = None, slam9
+        _, out9r, launches9r, _, checks9r = depth_run(
+            "rgbd fuse", "rgbd", list(zip(frames, depths)),
+            lambda slam, fd, ts: slam.track_rgbd(fd[0], fd[1], ts), counted9,
+            config=dataclasses.replace(depth_config("rgbd"), enable_fuse=True))
+        fuse9r, stats9r = list(fuse_launches), list(chain_stats)
+    finally:
+        local_mapping.fuse_neighbors, local_mapping.keyframe_chain = real_fuse, real_chain
+        local_mapping._fuse_targets_core = real_core
+    slam9 = slam_keep
+    spans9 = {e.key: {"count": e.count, "host_ms": e.cpu_time_total / 1e3}
+              for e in prof9.key_averages() if e.key.startswith("mapping/")}
+    print(f"fuse: keyframe-chain spans over the run (host time under the CPU profiler): "
+          f"{json.dumps(spans9)}, card {card}")
+    ate9, n9 = ate_of(slam9, poses, range(N_FRAMES))
+    bound9 = max(1.5 * FUSE_ATE_JAX, FUSE_ATE_JAX + 0.01)
+    out9m = {"ate_m": ate9, "ate_bound_m": bound9, "ate_jax_m": FUSE_ATE_JAX, "tracked": n9,
+             "frames": N_FRAMES, "state": slam9.state, "keyframes": slam9.n_keyframes,
+             "map_points": slam9.n_mappoints, "fuse_neighbors_calls": len(fuse9m),
+             "matcher_launches_per_fuse": sorted(set(fuse9m)),
+             "stats_launches_per_chain": sorted(set(stats9m)),
+             "frame_ms_median_profiled": 1e3 * statistics.median(frame_s9), "spans": spans9}
+    print(f"fuse (slice): {json.dumps({k: v for k, v in out9m.items() if k != 'spans'})}, card {card}")
+    checks = {"state OK": slam9.state == "OK", "tracked >= 70%": n9 >= 0.7 * N_FRAMES,
+              f"ATE <= {bound9:.5f} (JAX {FUSE_ATE_JAX:.5f})": ate9 <= bound9,
+              f"ATE < {ATE_BOUND}": ate9 < ATE_BOUND,
+              "one hamming_match launch per fuse_neighbors": len(fuse9m) > 0 and set(fuse9m) == {1},
+              "a fuse_neighbors per keyframe chain": len(fuse9m) == len(stats9m),
+              "two distinctive_descriptors launches per keyframe chain": set(stats9m) == {2},
+              "every chain stage span recorded": all(
+                  f"mapping/{n}" in spans9 for n in ("insert", "cull_recent", "triangulate", "fuse",
+                                                     "local_ba", "stats")),
+              "a fuse core call captured": "args" in captured_fuse}
+    checks.update({f"rgbd: {k}": v for k, v in checks9r.items()})
+    checks.update({f"rgbd: {k}": v for k, v in outcome_bounds(out9r, RGBD_FUSE_ATE_JAX).items()})
+    checks.update({"rgbd: one hamming_match launch per fuse_neighbors":
+                       len(fuse9r) > 0 and set(fuse9r) == {1},
+                   "rgbd: two distinctive_descriptors launches per keyframe chain":
+                       set(stats9r) == {2}})
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"fuse checks failed: {bad}")
+
+    # the fuse core on the card against its CPU result, on the captured
+    # keyframe's inputs and on a point that loses two merges to two winners:
+    # observations and validity exactly equal
+    def core_on(args, device):
+        m, cam_, targets, tgt_ok, src_masks, kw = args
+        m = map_state.MapState(**{f.name: getattr(m, f.name).to(device)
+                                  for f in dataclasses.fields(m)})
+        return real_core(m, cam_, targets.to(device), tgt_ok.to(device), src_masks.to(device), **kw)
+
+    core_checks, k3_fuse = {}, {}
+    real_match = matching.hamming_match
+
+    def keep_match(*a, **kw):
+        k3_fuse.setdefault("args", (a, kw))
+        return real_match(*a, **kw)
+
+    double_loser_case = runpy.run_path(os.path.join(ROOT, "tests", "_fuse_cases.py"))[
+        "double_loser_case"]
+    cam_dl, m_dl, *rest_dl = double_loser_case("cpu")
+    for what, args in (("captured keyframe", captured_fuse["args"]),
+                       ("double loser", (m_dl, cam_dl, *rest_dl, {}))):
+        matching.hamming_match = keep_match
+        try:
+            got = core_on(args, dev)
+        finally:
+            matching.hamming_match = real_match
+        want = core_on(args, "cpu")
+        core_checks[what] = {"kf_obs": torch.equal(got.kf_obs.cpu(), want.kf_obs),
+                             "mp_valid": torch.equal(got.mp_valid.cpu(), want.mp_valid),
+                             "merged": int((args[0].mp_valid.cpu() & ~want.mp_valid).sum()),
+                             "added": int(((args[0].kf_obs.cpu() < 0) & (want.kf_obs >= 0)).sum())}
+        if what == "double loser":
+            # point 0 loses to point 1 in target 0 and to point 2 in target 1:
+            # keyframe 2's observation of it goes to the later pair's winner
+            core_checks[what]["kept_winner"] = int(got.kf_obs[2, 1])
+    print(f"fuse core on the card against its CPU result: {json.dumps(core_checks)}")
+    if not all(c["kf_obs"] and c["mp_valid"] for c in core_checks.values()):
+        fail(f"the fuse core on the card differs from its CPU result: {core_checks}")
+    if core_checks["double loser"]["kept_winner"] != 2:
+        fail(f"double loser: the later merge pair's winner (point 2) was not kept: {core_checks}")
+    # kernel 3 on the captured neighbour fuse's own launch (B = 11)
+    a3, kw3 = k3_fuse["args"]
+    results["hamming_match"]["captured_fuse"] = {
+        "B": a3[0].shape[0], "Q": a3[0].shape[1], "N": a3[1].shape[-2],
+        "ms": time_ms(lambda: real_match(*a3, **kw3)),
+        "graph_us": graph_us(lambda: real_match(*a3, **kw3))}
+    print(f"kernel 3 on the captured fuse launch: "
+          f"{json.dumps(results['hamming_match']['captured_fuse'])}, card {card}")
+
+    # ---- phase 10: pipelined tracking (async_depth 2): each frame's step
+    # dispatched without a host read, resolved once its copy has landed
+    real_step = tracking.track_frame_device
+    step_launches = []
+
+    def count_step(*a, **kw):
+        n0 = (k3.hamming_match.launches, k4.optimize_pose_batched.launches)
+        out = real_step(*a, **kw)
+        step_launches.append((bool(a[9]), k3.hamming_match.launches - n0[0],
+                              k4.optimize_pose_batched.launches - n0[1]))
+        return out
+
+    guarded = [0]
+
+    def no_sync(fn):
+        # fn under torch's sync debug mode "error": any call in it that
+        # synchronizes with the card (.item(), a pageable copy, a stream
+        # synchronize) raises
+        def run(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                guarded[0] += 1
+        return run
+
+    def pipelined(name, slam, images, counted):
+        """drive() a pipelined System with its dispatch (the step, its host
+        bundle, every prefetch) under no_sync; also returns how many frames
+        late each frame was resolved, what the ready test answered, and the
+        number of guarded calls."""
+        lags, ready = collections.Counter(), collections.Counter()
+        real_resolve, real_ready = slam._resolve_oldest, slam._ready
+
+        def resolve():
+            lags[slam.frame_id - slam._inflight[0]["frame_id"]] += 1
+            return real_resolve()
+
+        def ready_test(e):
+            out = real_ready(e)
+            ready["ready" if out else "in flight"] += 1
+            return out
+
+        slam._resolve_oldest, slam._ready = resolve, ready_test
+        slam._prefetch = no_sync(slam._prefetch)
+        saved_step, saved_bundle = tracking.track_frame_device, tracking.TrackStep.host_bundle
+        tracking.track_frame_device = no_sync(saved_step)
+        tracking.TrackStep.host_bundle = no_sync(saved_bundle)
+        n0 = guarded[0]
+        try:
+            out = drive(name, slam, images, counted, sync=False)
+        except RuntimeError as e:
+            if "synchroniz" in str(e):
+                fail(f"{name}: the pipelined dispatch synchronized with the card: {e}")
+            raise
+        finally:
+            tracking.track_frame_device, tracking.TrackStep.host_bundle = saved_step, saved_bundle
+        lag = {"resolve_lag_frames": dict(sorted(lags.items())), "ready_test": dict(ready),
+               "guarded_calls": guarded[0] - n0}
+        print(f"{name}: frames resolved n frames late {json.dumps(lag['resolve_lag_frames'])}, "
+              f"ready test {json.dumps(lag['ready_test'])}, calls under sync debug mode "
+              f"'error' {lag['guarded_calls']}")
+        return (*out, lag)
+
+    # the synchronous System again first, timed the same way (to each call's
+    # return): phase 4's run also holds the first launch of every kernel
+    _, frame_s10s, _ = drive("synchronous, timed to the return", System(cam, slice_cfg, device="cuda"),
+                             frames, counted9, sync=False)
+    tracking.track_frame_device = count_step
+    try:
+        slam10 = System(cam, dataclasses.replace(slice_cfg, async_depth=ASYNC_DEPTH), device="cuda")
+        out10, frame_s10, launches10, lag10 = pipelined("pipelined", slam10, frames, counted9)
+    finally:
+        tracking.track_frame_device = real_step
+    ate10, n10 = ate_of(slam10, poses, range(N_FRAMES))
+    bound10 = {"port_sync": max(1.5 * ate, ate + 0.01),
+               "jax_async": max(1.5 * ASYNC_ATE_JAX, ASYNC_ATE_JAX + 0.01)}
+    per_step = sorted(set(step_launches))
+    out10m = {"ate_m": ate10, "ate_bounds_m": bound10, "ate_port_sync_m": ate,
+              "ate_jax_async_m": ASYNC_ATE_JAX, "tracked": n10, "frames": N_FRAMES,
+              "state": slam10.state, "keyframes": slam10.n_keyframes,
+              "map_points": slam10.n_mappoints, "steps": len(step_launches),
+              "launches_per_step (has_vel, hamming_match, pose_lm_solve)": per_step,
+              "frame_ms_median": 1e3 * statistics.median(frame_s10),
+              "frame_ms_median_sync_phase4": 1e3 * statistics.median(frame_s),
+              "frame_ms_median_sync_to_return": 1e3 * statistics.median(frame_s10s),
+              "frames_per_s": N_FRAMES / sum(frame_s10),
+              "frames_per_s_sync_phase4": N_FRAMES / sum(frame_s),
+              "frames_per_s_sync_to_return": N_FRAMES / sum(frame_s10s), **lag10}
+    print(f"pipelined: {json.dumps(out10m)}, card {card}")
+    checks = {"state OK": slam10.state == "OK", "tracked >= 70%": n10 >= 0.7 * N_FRAMES,
+              f"ATE < {ATE_BOUND}": ate10 < ATE_BOUND,
+              "a record for every frame, in order":
+                  [r.frame_id for r in slam10.records] == list(range(N_FRAMES)),
+              "drained": not slam10._inflight,
+              "a device pose returned for tracked frames": any(torch.is_tensor(T) and T.is_cuda
+                                                               for T in out10),
+              "four matcher and four pose-LM launches a step with a velocity, two without":
+                  len(per_step) > 0 and all((h, nm, nl) in ((True, 4, 4), (False, 2, 2))
+                                            for h, nm, nl in per_step)}
+    checks.update({f"ATE <= {b:.5f} ({k})": ate10 <= b for k, b in bound10.items()})
+    checks["the dispatch ran under sync debug mode"] = lag10["guarded_calls"] >= 2 * len(step_launches)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"pipelined checks failed: {bad}")
+
+    # phase 6's loop cell pipelined, SlamConfig()'s own defaults (keyframe
+    # culling on): the loop detection and the keyframe cull are read a
+    # keyframe late. Like the JAX System's pipelined run on the cell, the
+    # tracker loses the map about a third of the way round (the frame after
+    # a pipelined keyframe matches the step's observations only, not the
+    # points just triangulated) and relocalizes near the closure; so the run
+    # is held to that run, and also drives the pipelined LOST branch (kernel 6)
+    slam10l = System(cam6, dataclasses.replace(loop_cfg, enable_kf_culling=True,
+                                               async_depth=ASYNC_DEPTH), device="cuda")
+    lc10 = slam10l.loop_closer
+    deferred = {"dispatched": [], "resolved": [], "cull": [], "relocalized": []}
+    real_dispatch, real_resolve10, real_cull, real_reloc = (
+        lc10.dispatch_detection, lc10.resolve_detection, slam10l._apply_cull_info,
+        slam10l._try_relocalize)
+
+    def caller():
+        return sys._getframe(2).f_code.co_name
+
+    def dispatch10(m, slot):
+        deferred["dispatched"].append((caller(), slot))
+        return real_dispatch(m, slot)
+
+    def resolve10(m, slot, det):
+        deferred["resolved"].append((caller(), slot))
+        return real_resolve10(m, slot, det)
+
+    def cull10(info):
+        deferred["cull"].append((caller(), int(info.ok.sum())))
+        return real_cull(info)
+
+    def reloc10(frame):
+        ok = real_reloc(frame)
+        if ok:
+            deferred["relocalized"].append((caller(), slam10l.frame_id))
+        return ok
+
+    lc10.dispatch_detection, lc10.resolve_detection = dispatch10, resolve10
+    slam10l._apply_cull_info, slam10l._try_relocalize = cull10, reloc10
+    counted10l = [w for n, (_, _, w) in SOURCES.items()
+                  if n not in ("sim3_lm_solve",) + STEREO_ONLY]
+    _, frame_s10l, launches10l, lag10l = pipelined("pipelined loop", slam10l, images6, counted10l)
+    ate10l, n10l = ate_of(slam10l, gt6, range(LOOP_FRAMES))
+    pipelined_dispatch = [s for f, s in deferred["dispatched"] if f == "_create_keyframe_async"]
+    bound10l = max(1.5 * LOOP_ASYNC_ATE_JAX, LOOP_ASYNC_ATE_JAX + 0.05)
+    out10l = {"ate_m": ate10l, "ate_bound_m": bound10l, "ate_jax_async_m": LOOP_ASYNC_ATE_JAX,
+              "tracked": n10l, "tracked_jax_async": LOOP_ASYNC_TRACKED_JAX, "frames": LOOP_FRAMES,
+              "state": slam10l.state, "keyframes": slam10l.n_keyframes,
+              "loops_closed": lc10.n_loops_closed,
+              "detections_dispatched_pipelined": len(pipelined_dispatch),
+              "detections_resolved": len(deferred["resolved"]),
+              "culls_applied": len(deferred["cull"]),
+              "keyframes_culled": sum(n for _, n in deferred["cull"]),
+              "relocalized_at_frames": deferred["relocalized"],
+              "frame_ms_median": 1e3 * statistics.median(frame_s10l),
+              "frames_per_s": LOOP_FRAMES / sum(frame_s10l), **lag10l}
+    print(f"pipelined loop: {json.dumps(out10l)}, card {card}")
+    checks = {"state OK": slam10l.state == "OK",
+              f"tracked >= 0.8 x the JAX run's {LOOP_ASYNC_TRACKED_JAX}":
+                  n10l >= 0.8 * LOOP_ASYNC_TRACKED_JAX,
+              f"ATE <= {bound10l:.4f}": ate10l <= bound10l,
+              "each pipelined detection resolved once, through the deferred read":
+                  len(pipelined_dispatch) > 0
+                  and deferred["resolved"] == [("_resolve_pending", s) for s in pipelined_dispatch],
+              "the keyframe cull applied through the deferred read only":
+                  len(deferred["cull"]) > 0 and {f for f, _ in deferred["cull"]} == {"_resolve_pending"},
+              "relocalized on the pipelined path":
+                  any(f in ("_track_async", "_resolve_oldest") for f, _ in deferred["relocalized"]),
+              "the host's valid keyframes equal the map's":
+                  np.array_equal(slam10l._kf_valid_host, slam10l.map.kf_valid.cpu().numpy()),
+              "drained": not slam10l._inflight and slam10l._pending_det is None
+                         and slam10l._pending_cull is None,
+              "the dispatch ran under sync debug mode": lag10l["guarded_calls"] >= LOOP_FRAMES // 4}
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"pipelined loop checks failed: {bad}")
+
     kern = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
-             "launches": launches4[w] + launches5[w] + launches6[w] + launches7[w] + launches8[w],
+             "launches": (launches4[w] + launches5[w] + launches6[w] + launches7[w] + launches8[w]
+                          + launches9m[w] + launches9r[w] + launches10[w] + launches10l[w]),
              "launches_by_phase": {"1 card": launches1[w], "2 build": launches2[w],
                                    "3 twins": launches3[w], "4 slice": launches4[w],
                                    "5 kidnap": launches5[w], "6 loop": launches6[w],
-                                   "7 rgbd": launches7[w], "8 stereo": launches8[w]},
+                                   "7 rgbd": launches7[w], "8 stereo": launches8[w],
+                                   "9 fuse slice": launches9m[w], "9 fuse rgbd": launches9r[w],
+                                   "10 pipelined": launches10[w],
+                                   "10 pipelined loop": launches10l[w]},
              **results[n]}
             for n, (src, rep, w) in SOURCES.items()]
     print(json.dumps({"kernels": kern, "slice": slice_out,
@@ -1877,7 +2250,9 @@ def main():
                                "gba_folded": lc6.n_gba_folded, "keyframes": slam6.n_keyframes,
                                "stage_ms": stage_ms, "sim3_ransac_calls": calls6["sim3_ransac"],
                                "optimize_sim3_calls": calls6["optimize_sim3"]},
-                      "rgbd": out7, "stereo": out8, "card": card}))
+                      "rgbd": out7, "stereo": out8,
+                      "fuse": {"slice": out9m, "rgbd": out9r, "core_on_card": core_checks},
+                      "pipelined": out10m, "pipelined_loop": out10l, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

@@ -1,8 +1,10 @@
 """Local mapping: keyframe insertion, depth points (RGB-D / stereo),
-recent-point culling, triangulation, local BA, keyframe culling, and the
-projection fuse that loop closing's SearchAndFuse runs (port of
-pipeline/local_mapping.py; the keyframe chain's own fuse,
-``fuse_neighbors``, is not ported yet).
+recent-point culling, triangulation, neighbour fuse, local BA, keyframe
+culling, and the projection fuse that loop closing's SearchAndFuse runs
+(port of pipeline/local_mapping.py).  ``keyframe_chain`` puts a
+``torch.profiler.record_function`` span on each stage (mapping/insert,
+mapping/depth_points, mapping/cull_recent, mapping/triangulate,
+mapping/fuse, mapping/local_ba, mapping/kf_cull, mapping/stats).
 
 The reference's ``.at[]`` writes that route filler indices to a dump row
 (K) or column (P) keep that dump slot here explicitly: torch raises on an
@@ -14,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.profiler import record_function
 
 from ..geometry import lie
 from ..geometry.camera import CameraModel, backproject, in_image, project
@@ -111,10 +114,13 @@ def _median_depth(m: ms.MapState, s, R, t) -> torch.Tensor:
 
 
 def create_new_mappoints(m: ms.MapState, cam: CameraModel, slot: int,
-                         n_neighbors: int = 20) -> ms.MapState:
+                         n_neighbors: int = 20, update_stats: bool = False) -> ms.MapState:
     """Triangulate new points between the new keyframe and its best covisible
     neighbours that pass the baseline / median-depth gate; each unmatched
-    feature keeps its largest-parallax valid pair."""
+    feature keeps its largest-parallax valid pair.  With `update_stats` it
+    ends in the windowed stats refresh (the reference's default; here off by
+    default, as the keyframe chain refreshes once at its end unless fuse
+    needs fresh stats)."""
     K, P, N = m.K, m.P, m.N
     dev = m.device
     n_neighbors = min(n_neighbors, K - 1)
@@ -191,7 +197,10 @@ def create_new_mappoints(m: ms.MapState, cam: CameraModel, slot: int,
     kf_obs[slot] = torch.where(take, new_ids, m.kf_obs[slot])
     lin = nb_sel * N + torch.clamp_min(best_idx, 0).long()
     kf_obs = kf_obs.reshape(-1).scatter_reduce(0, lin, new_ids, "amax").reshape(K, N)
-    return _new_points(m, slots, take, X).replace(kf_obs=kf_obs)
+    m = _new_points(m, slots, take, X).replace(kf_obs=kf_obs)
+    if update_stats:
+        m = ms.update_mappoint_stats_touched(m, window_touched_points(m, slot))
+    return m
 
 
 def local_bundle_adjustment(m: ms.MapState, cam: CameraModel, slot: int, n_opt: int = 16,
@@ -281,7 +290,13 @@ def _fuse_targets_core(m: ms.MapState, cam: CameraModel, targets: torch.Tensor,
     launch, B = T); a matched feature without a point gains the association,
     one with another point close in 3D merges the two (the point with more
     observations wins).  The reference's add / merge switches and gates are
-    at the values its only ported caller, ``fuse_points_into``, uses."""
+    at the values both of its callers use.
+
+    One point can lose in several targets, each time to another winner.  The
+    reference's ``.at[].set`` keeps the last write on the CPU, i.e. the merge
+    pair with the largest flat position t * N + n; the port picks that pair
+    by an explicit ``amax`` over the positions, so the card and the CPU keep
+    the same winner (torch leaves duplicate ``index_put`` writes unordered)."""
     K, P, N = m.K, m.P, m.N
     dev = m.device
     T = targets.shape[0]
@@ -337,17 +352,50 @@ def _fuse_targets_core(m: ms.MapState, cam: CameraModel, targets: torch.Tensor,
     ex_wins = n_obs[ex] >= n_obs[pr]
     loser = torch.where(ex_wins, pr, ex)
     winner = torch.where(ex_wins, ex, pr)
-    remap = torch.arange(P + 1, dtype=torch.int32, device=dev)           # P = dump slot
-    remap = remap.index_put((torch.where(merge_mask, loser, P).reshape(-1),),
-                            torch.where(merge_mask, winner, P).to(torch.int32).reshape(-1))[:P]
+    # each loser's surviving merge pair: the largest flat position (P = dump slot)
+    last = torch.full((P + 1,), -1, dtype=torch.long, device=dev).scatter_reduce(
+        0, torch.where(merge_mask, loser, P).reshape(-1), torch.arange(T * N, device=dev),
+        "amax")[:P]
+    ar = torch.arange(P, dtype=torch.int32, device=dev)
+    remap = torch.where(last >= 0, winner.reshape(-1)[torch.clamp_min(last, 0)].to(torch.int32), ar)
     remap = remap[remap.long()]                                         # resolve 2-chains
 
     rows = torch.where(add_mask, prop, existing)
     kf_obs = torch.cat([m.kf_obs, m.kf_obs[:1]]).index_put((torch.where(tgt_ok, tl, K),),
                                                            rows)[:K]
-    live = remap == torch.arange(P, dtype=torch.int32, device=dev)
+    live = remap == ar
     kf_obs = torch.where(kf_obs >= 0, remap[torch.clamp_min(kf_obs, 0).long()], -1)
     return m.replace(kf_obs=kf_obs, mp_valid=m.mp_valid & live)
+
+
+def fuse_neighbors(m: ms.MapState, cam: CameraModel, slot: int) -> ms.MapState:
+    """Two-way fuse with the covisible neighbours (SearchInNeighbors): the
+    targets are keyframe `slot` and its 10 best covisible keyframes; the
+    neighbours' points fuse into `slot`, and `slot`'s points into each
+    neighbour, all targets in one kernel-3 launch (B = T).  The point stats
+    are left to the caller's windowed refresh (the reference's
+    ``update_stats=False``, as its keyframe chain calls it)."""
+    P = m.P
+    dev = m.device
+    n_neighbors = min(10, m.K - 1)
+    w_slot = torch.where(m.kf_valid, ms.covis_row(m, slot), -1)
+    w_slot[slot] = -1
+    _, nbrs = stable_topk(w_slot, n_neighbors)
+    nbr_ok = w_slot[nbrs] > 0
+    targets = torch.cat([torch.tensor([slot], device=dev), nbrs])
+    tgt_ok = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), nbr_ok])
+
+    own = m.kf_obs[slot]
+    own_pts = torch.zeros(P, dtype=torch.int32, device=dev).scatter_reduce(
+        0, torch.clamp_min(own, 0).long(), (own >= 0).to(torch.int32), "amax").bool()
+    # the reference's static loop of per-neighbour scatters, as one over [n_neighbors, N]
+    o = m.kf_obs[nbrs]
+    nbr_pts = torch.zeros(P, dtype=torch.int32, device=dev).scatter_reduce(
+        0, torch.clamp_min(o, 0).long().reshape(-1),
+        ((o >= 0) & nbr_ok[:, None]).to(torch.int32).reshape(-1), "amax").bool()
+    src_masks = torch.cat([(nbr_pts & m.mp_valid)[None],
+                           (own_pts & m.mp_valid)[None].expand(n_neighbors, P)])
+    return _fuse_targets_core(m, cam, targets, tgt_ok, src_masks)
 
 
 def fuse_points_into(m: ms.MapState, cam: CameraModel, targets: torch.Tensor, tgt_ok: torch.Tensor,
@@ -442,19 +490,35 @@ def cull_keyframes(m: ms.MapState, protect_slot: int, max_cull: int = 4,
 
 def keyframe_chain(m: ms.MapState, cam: CameraModel, frame: Frame, slot: int, R, t, obs,
                    frame_id: int, timestamp: float, max_depth: float | None = None,
+                   do_cull_recent: bool = True, stats_in_triangulate: bool = False,
+                   do_fuse: bool = False, do_local_ba: bool = True,
                    do_kf_cull: bool = True) -> tuple[ms.MapState, CullInfo]:
     """The per-keyframe mapping chain: insert -> (depth points, unless
-    max_depth is None) -> recent-point cull -> triangulate -> local BA ->
-    (keyframe cull) -> windowed stats refresh.  Returns the map and the
-    CullInfo (all zero when culling is off)."""
-    m = insert_keyframe_from_frame(m, frame, slot, R, t, obs, frame_id, timestamp)
+    max_depth is None) -> (recent-point cull) -> triangulate (with a stats
+    refresh when `stats_in_triangulate`) -> (fuse) -> (local BA) ->
+    (keyframe cull) -> windowed stats refresh, each stage in its own span.
+    Returns the map and the CullInfo (all zero when culling is off)."""
+    with record_function("mapping/insert"):
+        m = insert_keyframe_from_frame(m, frame, slot, R, t, obs, frame_id, timestamp)
     if max_depth is not None:
-        m = create_depth_mappoints(m, cam, slot, max_depth)
-    m = cull_recent_mappoints(m)
-    m = create_new_mappoints(m, cam, slot)
-    m = local_bundle_adjustment(m, cam, slot)
+        with record_function("mapping/depth_points"):
+            m = create_depth_mappoints(m, cam, slot, max_depth)
+    if do_cull_recent:
+        with record_function("mapping/cull_recent"):
+            m = cull_recent_mappoints(m)
+    with record_function("mapping/triangulate"):
+        m = create_new_mappoints(m, cam, slot, update_stats=stats_in_triangulate)
+    if do_fuse:
+        with record_function("mapping/fuse"):
+            m = fuse_neighbors(m, cam, slot)
+    if do_local_ba:
+        with record_function("mapping/local_ba"):
+            m = local_bundle_adjustment(m, cam, slot)
     if do_kf_cull:
-        m, info = cull_keyframes(m, slot, update_stats=False)
+        with record_function("mapping/kf_cull"):
+            m, info = cull_keyframes(m, slot, update_stats=False)
     else:
         info = CullInfo.zeros(device=m.device)
-    return ms.update_mappoint_stats_touched(m, window_touched_points(m, slot)), info
+    with record_function("mapping/stats"):
+        m = ms.update_mappoint_stats_touched(m, window_touched_points(m, slot))
+    return m, info

@@ -1,20 +1,25 @@
-"""System facade, synchronous path (port of pipeline/system.py).
+"""System facade (port of pipeline/system.py).
 
 Sequences frame build, initialization (two-view for mono, depth-seeded from
 one frame for RGB-D and stereo), the tracking step with relocalization, the
-keyframe policy, the keyframe chain with keyframe culling, and loop closing
-with its global BA on an explicit ``device``.  Each stage is a
-``torch.profiler.record_function`` span (frontend/extract, init/mono,
-init/depth, tracking/step, tracking/relocalize, mapping/keyframe, and loop
-closing's loop/detect, loop/sim3, loop/correct, loop/gba, loop/fold), which
-costs nothing unless a profiler is recording.
+keyframe policy, the keyframe chain (with fuse, culling and local BA as the
+config says), and loop closing with its global BA on an explicit
+``device``.  Each stage is a ``torch.profiler.record_function`` span
+(frontend/extract, init/mono, init/depth, tracking/step,
+tracking/relocalize, mapping/keyframe with the chain's mapping/* stages, and
+loop closing's loop/detect, loop/sim3, loop/correct, loop/gba, loop/fold),
+which costs nothing unless a profiler is recording.
 
-The port runs the mono, RGB-D and stereo sensors synchronously
-(``track_mono``, ``track_rgbd``, ``track_stereo``), with loop closing,
-relocalization and keyframe culling each on or off: ``SlamConfig()`` is the
-reference's default monocular configuration, and ``mono_slice_config`` the
-same minus loop closing; with depth, loop closing fixes the Sim3 scale.
-Fuse, pipelining and point sharding are not ported: they raise
+The port runs the mono, RGB-D and stereo sensors (``track_mono``,
+``track_rgbd``, ``track_stereo``) with every ``SlamConfig`` setting but
+``shard_points``: ``SlamConfig()`` is the reference's default monocular
+configuration, and ``mono_slice_config`` the same minus loop closing; with
+depth, loop closing fixes the Sim3 scale.  With ``async_depth > 0``
+tracking is pipelined: each frame's step is dispatched without a host
+read (``tracking.track_frame_device``), its counts and poses are copied to
+pinned host memory behind a CUDA event, and the keyframe / LOST policy of a
+frame runs once its copy has landed, at most ``async_depth`` frames later;
+``flush()`` drains the pipeline.  Point sharding raises
 ``NotImplementedError``.
 """
 
@@ -37,7 +42,7 @@ from . import local_mapping as lm
 from . import policy
 from . import tracking as tk
 from .frame import Frame, make_frame_mono, make_frame_rgbd, make_frame_stereo
-from .loop_closing import LoopCloser, LoopCloserConfig
+from .loop_closing import LoopCloser, LoopCloserConfig, LoopDetectOut
 
 
 @dataclasses.dataclass
@@ -74,17 +79,19 @@ class SlamConfig:
         return ExtractorConfig(n_features=self.n_features, n_levels=self.n_levels, scale=self.scale)
 
 
-# the sensors and settings the port implements; every other value raises
-# (loop closing, relocalization and keyframe culling take either value)
+# the sensors the port implements, and the one setting it does not: any
+# other value of it raises
 SENSORS = ("mono", "rgbd", "stereo")
-SLICE_SETTINGS = dict(enable_fuse=False, stats_in_triangulate=None, enable_cull=True,
-                      enable_local_ba=True, async_depth=0, shard_points=False)
+SLICE_SETTINGS = dict(shard_points=False)
 
 
 def mono_slice_config(**kw) -> SlamConfig:
-    """The reference's defaults minus loop closing (relocalization and
-    keyframe culling on), plus sizes and toggles from `kw`."""
-    return SlamConfig(**{**SLICE_SETTINGS, "enable_loop_closing": False, **kw})
+    """The reference's defaults minus loop closing (relocalization, keyframe
+    culling, recent-point culling and local BA on; fuse off; synchronous
+    tracking), plus sizes and toggles from `kw`."""
+    return SlamConfig(**{"enable_fuse": False, "stats_in_triangulate": None, "enable_cull": True,
+                         "enable_local_ba": True, "async_depth": 0, **SLICE_SETTINGS,
+                         "enable_loop_closing": False, **kw})
 
 
 @dataclasses.dataclass
@@ -119,6 +126,11 @@ class System:
         self._gen = torch.Generator(device=self.device)
         self._kf_valid_host = np.zeros(cfg.max_kf, bool)
         self._mp_upper = 0
+        # pipelined tracking: frames awaiting their host copies, and the
+        # previous keyframe's cull info and loop detection, read at the next
+        self._inflight: list[dict] = []
+        self._pending_cull = None
+        self._pending_det = None
         self.last_frame: Optional[Frame] = None
         self.last_obs = None
         self.R = torch.eye(3, device=self.device)
@@ -213,6 +225,8 @@ class System:
             self.last_obs = torch.full((frame.xy.shape[0],), -1, dtype=torch.int32,
                                        device=self.device)
             has_vel = False
+        if self.cfg.async_depth > 0:
+            return self._track_async(frame, timestamp, has_depth, has_vel, vel_R, vel_t)
         with record_function("tracking/step"):
             step = tk.track_frame(self.cam, self.map, frame, self.last_frame, self.last_obs,
                                   self.R, self.t, vel_R, vel_t, has_vel, self.ref_kf)
@@ -249,6 +263,162 @@ class System:
         self._record()
         return self._pose44()
 
+    # ---- pipelined tracking (async_depth > 0) ---------------------------
+
+    def _track_async(self, frame: Frame, timestamp: float, has_depth: bool, has_vel: bool,
+                     vel_R, vel_t):
+        """Dispatch this frame's step with no host read, then resolve every
+        in-flight frame whose copy has landed, blocking only while more than
+        async_depth frames are in flight.  Returns the frame's unresolved
+        4x4 Tcw as a device tensor (None or a numpy 4x4 while LOST)."""
+        if self.state == "LOST":
+            self.last_frame = frame
+            self.last_obs = torch.full((frame.xy.shape[0],), -1, dtype=torch.int32,
+                                       device=self.device)
+            if not self._try_relocalize(frame):
+                self._record(lost=True)
+                return None
+            # recovered: record this frame relative to the relocalization keyframe
+            Rr = self.map.kf_R[self.ref_kf].cpu().numpy()
+            tr = self.map.kf_t[self.ref_kf].cpu().numpy()
+            R_np, t_np = self.R.cpu().numpy(), self.t.cpu().numpy()
+            Rcr = R_np @ Rr.T
+            self._rel_np = (Rcr, t_np - Rcr @ tr)
+            self._pose_np = (R_np, t_np)
+            self._record()
+            return self._pose44()
+        with record_function("tracking/step"):
+            step = tk.track_frame_device(self.cam, self.map, frame, self.last_frame,
+                                         self.last_obs, self.R, self.t, vel_R, vel_t, has_vel,
+                                         self.ref_kf)
+            host, event = self._prefetch(*step.host_bundle())
+        self.map = self.map.replace(mp_visible=step.mp_visible, mp_found=step.mp_found)
+        self.R, self.t = step.R, step.t
+        self.vel = (step.vel_R, step.vel_t)
+        self.last_frame = frame
+        self.last_obs = step.obs
+        self._inflight.append(dict(frame_id=self.frame_id, ts=timestamp, ref_kf=self.ref_kf,
+                                   frame=frame, step=step, has_depth=has_depth, host=host,
+                                   event=event))
+        while self._inflight:
+            if not self._ready(self._inflight[0]) and len(self._inflight) <= self.cfg.async_depth:
+                break
+            if not self._resolve_oldest():
+                break
+        T = torch.eye(4, device=self.device)
+        T[:3, :3], T[:3, 3] = step.R, step.t
+        return T
+
+    def _prefetch(self, *tensors):
+        """Start copies of `tensors` to the host: (host tensors, the CUDA
+        event recorded after the copies).  On the CPU the tensors are their
+        own host copies and there is no event."""
+        if self.device.type != "cuda":
+            return list(tensors), None
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _ready(self, e: dict) -> bool:
+        """Whether an in-flight frame's copy has landed on the host (a CPU
+        tensor is ready once computed)."""
+        return e["event"] is None or e["event"].query()
+
+    @staticmethod
+    def _landed(host: list, event) -> list:
+        """The host copies, once their event has completed."""
+        if event is not None:
+            event.synchronize()
+        return host
+
+    def _lost_record(self, e: dict):
+        self.records.append(FrameRecord(e["frame_id"], e["ts"], e["ref_kf"],
+                                        np.eye(3, dtype=np.float32), np.zeros(3, np.float32), True))
+
+    def _resolve_oldest(self) -> bool:
+        """Resolve the oldest in-flight frame: its record, and the keyframe /
+        LOST policy.  Returns False if tracking was lost (pipeline drained)."""
+        e = self._inflight.pop(0)
+        stats, poses = (h.numpy() for h in self._landed(e["host"], e["event"]))
+        n_pre, n_local = int(stats[0]), int(stats[1])
+        if self.cfg.verbose:
+            print(f"  [track] f{e['frame_id']}: pre={n_pre} local={n_local} "
+                  f"(lag {self.frame_id - e['frame_id']})")
+        if n_pre < self.cfg.min_inliers_track or n_local < self.cfg.min_inliers_local:
+            # every later in-flight frame chained off this bad pose
+            self._lost_record(e)
+            for e2 in self._inflight:
+                self._lost_record(e2)
+            self._inflight.clear()
+            self.state = "LOST"
+            self.vel = None
+            if self._try_relocalize(self.last_frame):
+                self.state = "OK"
+            else:
+                self._maybe_auto_reset()
+            return False
+        self._last_n_local = n_local
+        self._peak_n_local = max(self._peak_n_local, n_local)
+        rec = FrameRecord(e["frame_id"], e["ts"], e["ref_kf"], poses[2, :9].reshape(3, 3).copy(),
+                          poses[2, 9:12].copy(), False)
+        if not self._localization_only and self._need_keyframe(n_local, e["frame_id"]):
+            with record_function("mapping/keyframe"):
+                slot = self._create_keyframe_async(e)
+            # this frame is the new reference keyframe
+            rec = FrameRecord(e["frame_id"], e["ts"], slot, np.eye(3, dtype=np.float32),
+                              np.zeros(3, np.float32), False)
+        self.records.append(rec)
+        return True
+
+    def _resolve_pending(self):
+        """Apply the previous keyframe's cull info and resolve its loop
+        detection, both copied to the host since."""
+        if self._pending_cull is not None:
+            self._apply_cull_info(lm.CullInfo(*self._landed(*self._pending_cull)))
+            self._pending_cull = None
+        if self._pending_det is not None:
+            det_slot, det, host, event = self._pending_det
+            self._pending_det = None
+            det = LoopDetectOut(det.db_bows, *self._landed(host, event))
+            self.map, closed = self.loop_closer.resolve_detection(self.map, det_slot, det)
+            if closed and self.cfg.verbose:
+                print(f"  [loop] closed at kf slot {det_slot}")
+
+    def _create_keyframe_async(self, e: dict) -> int:
+        """The keyframe chain for a lagged frame.  The cull info and the loop
+        detection it produces are copied to the host without waiting and
+        read at the next keyframe (or by ``flush``)."""
+        self._ensure_capacity()
+        self._resolve_pending()
+        if self.loop_closer is not None:
+            self.map = self.loop_closer.maybe_fold_gba(self.map)
+        slot = int(np.argmin(self._kf_valid_host))
+        step = e["step"]
+        self.map, cull_info = self._run_keyframe_chain(e["frame"], slot, step.R, step.t, step.obs,
+                                                       e["frame_id"], e["ts"], e["has_depth"])
+        self._kf_valid_host[slot] = True
+        if cull_info is not None:
+            self._pending_cull = self._prefetch(cull_info.slots, cull_info.ok, cull_info.new_ref,
+                                                cull_info.R_rel, cull_info.t_rel)
+        if self.loop_closer is not None:
+            # writes the keyframe's BoW row; the candidates are resolved at the next keyframe
+            det = self.loop_closer.dispatch_detection(self.map, slot)
+            if self.cfg.enable_loop_closing:
+                self._pending_det = (slot, det, *self._prefetch(det.cands, det.ok, det.cand_covis))
+        # as the reference, the tracker goes on from the step's pose and
+        # observations, not the keyframe's (ROADMAP.md §3: the pipelined
+        # tracker loses the map on the loop cell in both packages)
+        self.ref_kf = slot
+        self.last_kf_frame = e["frame_id"]
+        self.ref_tracked = self._last_n_local
+        self._peak_n_local = 0
+        return slot
+
+    # ------------------------------------------------------------------
+
     def _lose(self):
         self.state = "LOST"
         self.vel = None
@@ -276,9 +446,12 @@ class System:
         if self.state == "LOST" and 0 < self.n_keyframes <= 5:
             self.reset()
 
-    def _need_keyframe(self, n_tracked: int) -> bool:
+    def _need_keyframe(self, n_tracked: int, frame_id: int | None = None) -> bool:
+        """The keyframe decision for this frame, or for the pipelined frame
+        `frame_id`."""
+        since = (self.frame_id if frame_id is None else frame_id) - self.last_kf_frame
         return policy.need_new_keyframe(
-            self.frame_id - self.last_kf_frame, n_tracked, self._peak_n_local,
+            since, n_tracked, self._peak_n_local,
             min_frames=self.cfg.min_frames_between_kf, max_frames=self.cfg.max_frames_between_kf,
             ref_ratio=self.cfg.kf_ref_ratio, min_track=self.cfg.min_inliers_track)
 
@@ -286,15 +459,27 @@ class System:
         """The close-depth threshold: th_depth baselines."""
         return self.cfg.th_depth * (self.cam.bf / self.cam.fx)
 
+    def _run_keyframe_chain(self, frame: Frame, slot: int, R, t, obs, frame_id: int,
+                            timestamp: float, has_depth: bool):
+        """The keyframe chain with the config's stage toggles; returns (map,
+        CullInfo, or None when keyframe culling did not run)."""
+        cfg = self.cfg
+        # +1: the keyframe this chain inserts is not in _kf_valid_host yet
+        do_kf_cull = cfg.enable_kf_culling and self.n_keyframes + 1 > 8
+        m, cull_info = lm.keyframe_chain(
+            self.map, self.cam, frame, slot, R, t, obs, frame_id, timestamp,
+            self._max_depth() if has_depth else None, do_cull_recent=cfg.enable_cull,
+            stats_in_triangulate=(cfg.enable_fuse if cfg.stats_in_triangulate is None
+                                  else cfg.stats_in_triangulate),
+            do_fuse=cfg.enable_fuse, do_local_ba=cfg.enable_local_ba, do_kf_cull=do_kf_cull)
+        return m, (cull_info if do_kf_cull else None)
+
     def _create_keyframe(self, frame: Frame, timestamp: float, obs: torch.Tensor,
                          has_depth: bool = False):
         self._ensure_capacity()
         slot = int(np.argmin(self._kf_valid_host))
-        # +1: the keyframe this chain inserts is not in _kf_valid_host yet
-        do_kf_cull = self.cfg.enable_kf_culling and self.n_keyframes + 1 > 8
-        self.map, cull_info = lm.keyframe_chain(
-            self.map, self.cam, frame, slot, self.R, self.t, obs, self.frame_id, timestamp,
-            self._max_depth() if has_depth else None, do_kf_cull=do_kf_cull)
+        self.map, cull_info = self._run_keyframe_chain(frame, slot, self.R, self.t, obs,
+                                                       self.frame_id, timestamp, has_depth)
         self._kf_valid_host[slot] = True
         if self.loop_closer is not None:
             # writes the keyframe's BoW row; with loop closing on, resolves
@@ -306,7 +491,7 @@ class System:
                 if closed and self.cfg.verbose:
                     print(f"  [loop] closed at kf slot {slot}")
             self.map = self.loop_closer.maybe_fold_gba(self.map)
-        if do_kf_cull:
+        if cull_info is not None:
             self._apply_cull_info(cull_info)
         # adopt the keyframe's pose, which a loop correction may have moved
         self.R = self.map.kf_R[slot]
@@ -346,7 +531,7 @@ class System:
         """Relocalize against the BoW candidates (PnP RANSAC seeded with the
         frame id), then refine the winner with one local-map track; success
         needs >= 50 inliers."""
-        if self.loop_closer is None or self.n_keyframes < 2:
+        if self.loop_closer is None or not self.cfg.enable_relocalization or self.n_keyframes < 2:
             return False
         lc = self.loop_closer
         self._gen.manual_seed(self.frame_id)
@@ -464,8 +649,13 @@ class System:
                                         np.asarray(tcr, np.float32).copy(), False))
 
     def flush(self):
-        """Fold a pending global BA into the map (the synchronous path has no
-        other work in flight).  Call before reading trajectories or the map."""
+        """Drain the pipelined frames, apply the last keyframe's cull info and
+        loop detection, and fold a pending global BA into the map.  Call
+        before reading trajectories or the map."""
+        while self._inflight:
+            if not self._resolve_oldest():
+                break
+        self._resolve_pending()
         if self.loop_closer is not None:
             self.map = self.loop_closer.maybe_fold_gba(self.map, force=True)
 

@@ -1,8 +1,10 @@
 """Per-frame tracking (port of pipeline/tracking.py): motion model with the
 widen-retry, reference-keyframe fallback, local map + pose refinement.
 
-The reference's ``lax.cond`` fallbacks are Python branches on an inlier
-count read once per stage.  Relocalization runs its candidates batched
+In ``track_frame`` the reference's ``lax.cond`` fallbacks are Python
+branches on an inlier count read once per stage.  ``track_frame_device``,
+the pipelined path's step, reads nothing back: it runs every fallback and
+picks on the device.  Relocalization runs its candidates batched
 (``relocalize_candidates``).
 """
 
@@ -201,18 +203,43 @@ def relocalize_candidates(cam: CameraModel, m: MapState, frame: Frame, vocab, db
 
 @dataclasses.dataclass
 class TrackStep:
+    """One frame's tracking result; the counts are ints from ``track_frame``
+    and 0-d int32 tensors from ``track_frame_device``."""
+
     R: torch.Tensor
     t: torch.Tensor
     obs: torch.Tensor
     mp_visible: torch.Tensor
     mp_found: torch.Tensor
-    n_pre: int
-    n_local: int
-    n_local_kf: int
+    n_pre: int | torch.Tensor
+    n_local: int | torch.Tensor
+    n_local_kf: int | torch.Tensor
     vel_R: torch.Tensor
     vel_t: torch.Tensor
     R_cr: torch.Tensor
     t_cr: torch.Tensor
+
+    def host_bundle(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(stats [3] int32: n_pre, n_local, n_local_kf; poses [3,12] f32 rows
+        R|t, vel_R|vel_t, R_cr|t_cr), for one copy each to the host."""
+        stats = torch.stack([torch.as_tensor(n, device=self.R.device).to(torch.int32)
+                             for n in (self.n_pre, self.n_local, self.n_local_kf)])
+        poses = torch.stack([torch.cat([R.reshape(9), t]) for R, t in
+                             ((self.R, self.t), (self.vel_R, self.vel_t), (self.R_cr, self.t_cr))])
+        return stats, poses
+
+
+def _finish_step(cam: CameraModel, m: MapState, frame: Frame, R_last, t_last, ref_kf: int,
+                 R1, t1, obs1):
+    """Local map from (R1, t1, obs1), then the velocity and the pose relative
+    to the reference keyframe: (LocalMapTrack, vel_R, vel_t, R_cr, t_cr)."""
+    res = track_local_map(cam, m, frame, R1, t1, obs1)
+    Ri, ti = lie.se3_inverse(R_last, t_last)
+    vR_raw, vt_raw = lie.se3_compose(res.R, res.t, Ri, ti)
+    vR, vt = lie.se3_exp(GAMMA_VEL * lie.se3_log(vR_raw, vt_raw))
+    Rri, tri = lie.se3_inverse(m.kf_R[ref_kf], m.kf_t[ref_kf])
+    Rcr, tcr = lie.se3_compose(res.R, res.t, Rri, tri)
+    return res, vR, vt, Rcr, tcr
 
 
 def track_frame(cam: CameraModel, m: MapState, frame: Frame, last_frame: Frame,
@@ -238,12 +265,38 @@ def track_frame(cam: CameraModel, m: MapState, frame: Frame, last_frame: Frame,
         R1, t1, obs1, n1 = track_reference_keyframe(cam, m, frame, ref_kf, R_last, t_last)
         n1 = int(n1)
 
-    res = track_local_map(cam, m, frame, R1, t1, obs1)
-    Ri, ti = lie.se3_inverse(R_last, t_last)
-    vR_raw, vt_raw = lie.se3_compose(res.R, res.t, Ri, ti)
-    vR, vt = lie.se3_exp(GAMMA_VEL * lie.se3_log(vR_raw, vt_raw))
-    Rri, tri = lie.se3_inverse(m.kf_R[ref_kf], m.kf_t[ref_kf])
-    Rcr, tcr = lie.se3_compose(res.R, res.t, Rri, tri)
+    res, vR, vt, Rcr, tcr = _finish_step(cam, m, frame, R_last, t_last, ref_kf, R1, t1, obs1)
     stats = torch.stack([res.n_inliers.to(torch.int32), res.n_local_kf.to(torch.int32)]).tolist()
     return TrackStep(res.R, res.t, res.obs, res.mp_visible, res.mp_found, n1, stats[0], stats[1],
                      vR, vt, Rcr, tcr)
+
+
+def _pick(cond: torch.Tensor, a: tuple, b: tuple) -> tuple:
+    """Elementwise a if cond else b over (R, t, obs, n)."""
+    return tuple(torch.where(cond, x, y) for x, y in zip(a, b))
+
+
+def track_frame_device(cam: CameraModel, m: MapState, frame: Frame, last_frame: Frame,
+                       last_obs: torch.Tensor, R_last, t_last, vel_R, vel_t, has_vel: bool,
+                       ref_kf: int) -> TrackStep:
+    """``track_frame`` without a host read, as the reference's ``lax.cond``s
+    run: with a velocity, the 15-px and the widened 30-px motion-model
+    searches both run, then the reference-keyframe track; the branch is
+    picked on the device (the widened result when the first finds fewer than
+    20 inliers, the reference keyframe's when that one does too), so R, t
+    and obs are those of ``track_frame``.  Each search is one matcher and
+    one pose-LM launch: four of each a frame with a velocity, two without.
+    The counts are 0-d int32 tensors."""
+    if has_vel:
+        R_pred, t_pred = lie.se3_compose(vel_R, vel_t, R_last, t_last)
+        first = track_with_motion_model(cam, m, frame, last_frame, last_obs, R_pred, t_pred)
+        wide = track_with_motion_model(cam, m, frame, last_frame, last_obs, R_pred, t_pred,
+                                       th=30.0)
+        mm = _pick(first[3] < 20, wide, first)
+        ref = track_reference_keyframe(cam, m, frame, ref_kf, R_last, t_last)
+        R1, t1, obs1, n1 = _pick(mm[3] < 20, ref, mm)
+    else:
+        R1, t1, obs1, n1 = track_reference_keyframe(cam, m, frame, ref_kf, R_last, t_last)
+    res, vR, vt, Rcr, tcr = _finish_step(cam, m, frame, R_last, t_last, ref_kf, R1, t1, obs1)
+    return TrackStep(res.R, res.t, res.obs, res.mp_visible, res.mp_found, n1.to(torch.int32),
+                     res.n_inliers.to(torch.int32), res.n_local_kf.to(torch.int32), vR, vt, Rcr, tcr)

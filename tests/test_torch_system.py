@@ -1,8 +1,10 @@
 """The whole monocular slice of the port against the JAX System, plus the
 package-level rules: no jax import, numpy copies that agree with the
 reference, asset files that are byte-identical copies, CPU tensors taking the plain twins without touching the launch
-counters, the configuration guard (the RGB-D and stereo sensors construct
-with the Sim3 scale fixed), and localization mode.
+counters, the configuration guard (only point sharding raises; the RGB-D
+and stereo sensors construct with the Sim3 scale fixed; the keyframe
+chain's toggles and pipelined tracking construct and run), and
+localization mode.
 
 The pose that ``track_mono`` returns on a keyframe frame is the tracking
 step's, as the reference's is: within 1e-3 of the reference's 4x4 on the
@@ -115,7 +117,13 @@ def test_port_never_imports_jax():
     code = ("import sys, orb_slam2_annotate_tpu_torch, orb_slam2_annotate_tpu_torch.pipeline, "
             "orb_slam2_annotate_tpu_torch.io, orb_slam2_annotate_tpu_torch.convert, "
             "orb_slam2_annotate_tpu_torch.kernels, orb_slam2_annotate_tpu_torch.solvers, "
-            "orb_slam2_annotate_tpu_torch.pipeline.loop_closing; assert 'jax' not in sys.modules")
+            "orb_slam2_annotate_tpu_torch.pipeline.loop_closing, "
+            "orb_slam2_annotate_tpu_torch.pipeline.system, "
+            "orb_slam2_annotate_tpu_torch.pipeline.tracking, "
+            "orb_slam2_annotate_tpu_torch.pipeline.local_mapping; "
+            "from orb_slam2_annotate_tpu_torch.pipeline.tracking import track_frame_device; "
+            "from orb_slam2_annotate_tpu_torch.pipeline.local_mapping import fuse_neighbors; "
+            "assert 'jax' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=str(__import__("pathlib").Path(
         __file__).resolve().parents[1]))
 
@@ -270,11 +278,56 @@ def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
 
-@pytest.mark.parametrize("change", [dict(stats_in_triangulate=True), dict(shard_points=True),
-                                    dict(enable_fuse=True), dict(async_depth=2)])
+@pytest.mark.parametrize("change", [dict(shard_points=True)])
 def test_other_configurations_raise(change):
     with pytest.raises(NotImplementedError):
         TSystem(TCAM, mono_slice_config(**{**SIZES, **change}), device="cpu")
+
+
+@pytest.mark.parametrize("change", [dict(stats_in_triangulate=True), dict(stats_in_triangulate=False),
+                                    dict(enable_fuse=True), dict(enable_cull=False),
+                                    dict(enable_local_ba=False), dict(async_depth=2),
+                                    dict(enable_loop_closing=True, async_depth=2)],
+                         ids=["stats_in_triangulate", "no_stats_in_triangulate", "fuse",
+                              "no_recent_cull", "no_local_ba", "async_depth_2",
+                              "default_config_async_depth_2"])
+def test_ported_settings_construct_and_run(change):
+    # the settings test_other_configurations_raise held before they were
+    # ported: 14 frames of the slice, through initialization and the chain;
+    # with loop closing on (SlamConfig()'s own defaults) and pipelined, every
+    # keyframe's loop detection is resolved at the next keyframe or by flush
+    from orb_slam2_annotate_tpu_torch.pipeline import SlamConfig as TSlamConfig
+
+    scene = tsyn.PlaneScene(seed=1)
+    poses = tsyn.orbit_trajectory(14, step=0.06)
+    cfg = mono_slice_config(**{**SIZES, **change})
+    slam = TSystem(TCAM, cfg, device="cpu")
+    dispatched, resolved = [], []
+    if cfg.enable_loop_closing:
+        assert cfg == TSlamConfig(**SIZES, async_depth=2)
+        lc = slam.loop_closer
+        real_dispatch, real_resolve = lc.dispatch_detection, lc.resolve_detection
+
+        def dispatch(m, slot):
+            dispatched.append((sys._getframe(1).f_code.co_name, slot))
+            return real_dispatch(m, slot)
+
+        def resolve(m, slot, det):
+            resolved.append((sys._getframe(1).f_code.co_name, slot))
+            return real_resolve(m, slot, det)
+
+        lc.dispatch_detection, lc.resolve_detection = dispatch, resolve
+    for k in range(14):
+        slam.track_mono(scene.render(TCAM, *poses[k], h=240, w=320)[0], k / 30.0)
+    slam.flush()
+    assert all(getattr(slam.cfg, k) == v for k, v in change.items())
+    assert slam.state == "OK" and slam.n_keyframes >= 3 and slam.n_mappoints > 100
+    assert len(slam.records) == 14 and not slam._inflight
+    assert slam._pending_det is None and slam._pending_cull is None
+    if cfg.enable_loop_closing:
+        # each detection the pipelined chain dispatched, resolved once, later
+        assert len(resolved) >= 1 and {f for f, _ in resolved} == {"_resolve_pending"}, resolved
+        assert [s for f, s in dispatched if f == "_create_keyframe_async"] == [s for _, s in resolved]
 
 
 @pytest.mark.parametrize("sensor", ["rgbd", "stereo"])
@@ -291,6 +344,16 @@ def test_toggles_take_either_value(toggles):
     slam = TSystem(TCAM, mono_slice_config(**{**SIZES, **toggles}), device="cpu")
     assert (slam.loop_closer is not None) == toggles["enable_relocalization"]
     assert mono_slice_config().enable_relocalization and mono_slice_config().enable_kf_culling
+
+
+def test_relocalization_off_with_loop_closing_on():
+    # the loop closer (and with it the keyframe database) exists for loop
+    # closing, but relocalization stays off as the reference's does; before,
+    # the port tried to relocalize (here with no frame, so it raised)
+    slam = TSystem(TCAM, mono_slice_config(**SIZES, enable_loop_closing=True,
+                                           enable_relocalization=False), device="cpu")
+    slam._kf_valid_host[:2] = True
+    assert slam.loop_closer is not None and slam._try_relocalize(None) is False
 
 
 def test_localization_mode_adds_no_keyframes():

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The JAX System on the loop cell of ``chip_smoke.py``'s phase 6, on the CPU.
 
-    JAX_PLATFORMS=cpu python3 tools/jax_loop_reference.py [--qvga] [--frames N]
+    JAX_PLATFORMS=cpu python3 tools/jax_loop_reference.py [--qvga] [--frames N] [--async-depth N]
+                                                   [--kf-culling]
 
 Scene: ``RoomScene(seed=2)`` along ``circle_trajectory(180, radius=1.8,
 turns=1.04)`` (the scene of ``tests/test_e2e_loop.py``).  Default width:
@@ -10,7 +11,9 @@ turns=1.04)`` (the scene of ``tests/test_e2e_loop.py``).  Default width:
 4 levels, ``max_kf=64``, ``max_mp=8192``.  Settings:
 ``max_frames_between_kf=4``, ``init_min_matches=60``,
 ``enable_kf_culling=False`` and ``SlamConfig()``'s own
-``enable_loop_closing=True``.  Runs on one JAX device, so a global BA takes
+``enable_loop_closing=True``; ``--async-depth`` pipelines the tracking
+(default 0, synchronous) and ``--kf-culling`` turns keyframe culling on
+(``SlamConfig()``'s own default).  Runs on one JAX device, so a global BA takes
 the single-device branch.  Prints per-frame progress and, as its last line,
 a JSON object: closures, global BAs dispatched and folded, tracked frames,
 final state, keyframes, and the Sim3-aligned ATE of the live poses and of
@@ -38,6 +41,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--qvga", action="store_true")
     ap.add_argument("--frames", type=int, default=180)
+    ap.add_argument("--async-depth", type=int, default=0)
+    ap.add_argument("--kf-culling", action="store_true")
     args = ap.parse_args()
     if args.qvga:
         w, h, f, nf, nl, mkf, mmp = 320, 240, 250.0, 512, 4, 64, 8192
@@ -47,7 +52,8 @@ def main():
     scene = synthetic.RoomScene(seed=2)
     poses = synthetic.circle_trajectory(180, radius=1.8, turns=1.04)[:args.frames]
     cfg = SlamConfig(n_features=nf, n_levels=nl, max_kf=mkf, max_mp=mmp,
-                     max_frames_between_kf=4, init_min_matches=60, enable_kf_culling=False)
+                     max_frames_between_kf=4, init_min_matches=60,
+                     enable_kf_culling=args.kf_culling, async_depth=args.async_depth)
     assert cfg.enable_loop_closing
     slam = System(cam, cfg)
     lc = slam.loop_closer
@@ -87,7 +93,8 @@ def main():
 
     ate_live, n_live = ate(live)
     ate_traj, n_traj = ate(dict(slam.frame_trajectory()))
-    print(json.dumps({"width": w, "frames": len(poses), "n_loops_closed": lc.n_loops_closed,
+    print(json.dumps({"width": w, "frames": len(poses), "async_depth": args.async_depth,
+                      "kf_culling": args.kf_culling, "n_loops_closed": lc.n_loops_closed,
                       "closure_frames": closures, "gba": gba, "tracked": n_live,
                       "state": slam.state, "keyframes": slam.n_keyframes,
                       "ate_live_m": ate_live, "ate_trajectory_m": ate_traj,

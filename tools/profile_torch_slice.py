@@ -2,6 +2,7 @@
 """Where the time of the PyTorch port's slices goes, on one GPU.
 
     python3 tools/profile_torch_slice.py           # the slice
+    python3 tools/profile_torch_slice.py fuse      # the slice with fuse on (chip_smoke.py phase 9)
     python3 tools/profile_torch_slice.py kidnap    # the kidnap run's jump frame
     python3 tools/profile_torch_slice.py loop      # the loop cell's closure
     python3 tools/profile_torch_slice.py rgbd      # the RGB-D cell (chip_smoke.py phase 7)
@@ -26,8 +27,11 @@ frame's wall and device time.  With ``rgbd`` or ``stereo`` it runs the
 slice's frames through ``track_rgbd`` (the rendered depth) or
 ``track_stereo`` (chip_smoke.py's ``depth_setup``: the right images, each
 pair through the identity StereoRectifier of phase 8) and profiles the
-frames from PROFILE_FROM on like the slice.  Prints per-stage span
-totals and per-frame means (the System's record_function spans), the
+frames from PROFILE_FROM on like the slice; ``fuse`` is the slice with
+``enable_fuse=True``.  Prints per-stage span totals and per-frame means
+(the System's record_function spans), the keyframe chain's stages (the
+``mapping/*`` spans: host time, the device time of the kernels launched
+inside, and the span's extent on the device), the
 host-issued ``aten::mul`` calls per frame, the aten ops (and ``aten::sort``
 calls) under ``frontend/extract``, the device time of each
 hand-written kernel (in total and a profiled frame), the top device kernels
@@ -38,6 +42,7 @@ busy share of the profiled window, with the card's name and power limit.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import glob
 import os
 import re
@@ -53,6 +58,9 @@ RELOC_SPANS = ("tracking/relocalize", "reloc/bow", "reloc/match", "reloc/sample"
 LOOP_SPANS = ("loop/detect", "loop/sim3", "loop/correct", "loop/pose_graph", "loop/fuse",
               "loop/gba", "loop/fold")
 LOOP_AFTER = 8      # loop: frames recorded after the closure frame
+CHAIN_SPANS = ("mapping/insert", "mapping/depth_points", "mapping/cull_recent",
+               "mapping/triangulate", "mapping/fuse", "mapping/local_ba", "mapping/kf_cull",
+               "mapping/stats")
 
 
 def hand_kernels() -> set:
@@ -97,8 +105,8 @@ def main():
     from orb_slam2_annotate_tpu_torch.pipeline import System
 
     mode = sys.argv[1] if len(sys.argv) == 2 else "slice"
-    if len(sys.argv) > 2 or mode not in ("slice", "kidnap", "loop", "rgbd", "stereo"):
-        sys.exit(f"usage: {sys.argv[0]} [kidnap | loop | rgbd | stereo]")
+    if len(sys.argv) > 2 or mode not in ("slice", "fuse", "kidnap", "loop", "rgbd", "stereo"):
+        sys.exit(f"usage: {sys.argv[0]} [fuse | kidnap | loop | rgbd | stereo]")
     kidnap, loop = mode == "kidnap", mode == "loop"
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -107,6 +115,8 @@ def main():
     else:
         cam, poses, frames, depths, cfg = slice_setup()
     track = lambda slam, k: slam.track_mono(frames[k], k / 30.0)
+    if mode == "fuse":
+        cfg = dataclasses.replace(cfg, enable_fuse=True)
     if mode == "rgbd":
         cam, _, config = depth_setup(poses)
         cfg = config("rgbd")
@@ -182,6 +192,14 @@ def main():
         if hit:
             print(f"span {name}: count {hit[0].count} host total {hit[0].cpu_time_total / 1e3:.1f} ms, "
                   f"{hit[0].cpu_time_total / 1e3 / n_prof:.1f} ms a profiled frame")
+    for name in CHAIN_SPANS:
+        host = [e for e in events if e.key == name and e.device_type == DeviceType.CPU]
+        on_dev = [e for e in events if e.key == name and e.device_type == DeviceType.CUDA]
+        if host:
+            print(f"span {name}: count {host[0].count} host {host[0].cpu_time_total / 1e3:.3f} ms, "
+                  f"{host[0].cpu_time_total / 1e3 / host[0].count:.3f} ms a call, kernels inside "
+                  f"{host[0].device_time_total / 1e3:.3f} ms, extent on the device "
+                  f"{sum(e.device_time_total for e in on_dev) / 1e3:.3f} ms")
     if kidnap or loop:
         what = "jump frame" if kidnap else "closure frame"
         print(f"{what} {profile_from}: {kinds_ms[profile_from]:.2f} ms wall; frames after it "
