@@ -132,7 +132,37 @@ Phases (any failure exits non-zero):
      every prefetch run under torch's sync debug mode at "error", which
      raises on any call that synchronizes with the card; each run prints how
      many frames late each frame was resolved and how often the ready test
-     found a copy still in flight.
+     found a copy still in flight;
+  11. the free runner (``pipeline/device_loop.FreeRunner``) on bench.py's
+     mono cell (bench.py:132-198: VGA, 1024 features, loop closing and live
+     global BA on, auto_grow off): ``warmup()`` and ``warmup_sequence(48)``,
+     112 orbit frames one by one, then 48 frames bouncing back over the map
+     through ``track_mono_sequence(chunk=48)`` (scan mode): mode OK,
+     tracked >= 70%, the ATE within max(1.5 x, +0.01 m) of the JAX
+     FreeRunner's on the same frames (tools/jax_free_reference.py bench),
+     keyframes and map points within 0.5-1.5 x its; frames/s per frame and
+     in scan mode, the frame times beside phase 4's, and the synchronizing
+     calls of each frame (torch's sync debug mode "warn", the warnings
+     counted);
+  12. the free runner on the loop cell (phase 6's circle, max_kf 128):
+     mono must close live with a live global BA per closure, a closure record
+     with >= 15 entry matches, >= 6 pair inliers and the GBA flag, no loop
+     edge dropped, >= 70% tracked and the ATE within max(1.5 x, +0.05 m) of
+     the JAX FreeRunner's; the closure's stages timed; then with rendered
+     depth (bf 250 x 0.08): held to the JAX FreeRunner's outcome there (it
+     closes twice), every Sim3 launch with the scale fixed, the ATE within
+     max(1.5 x, +0.05 m) of the JAX runner's worst over its seeds 0-9 (the
+     draws decide the second closure's correction: 0.035-0.220 m there);
+  13. the free runner on phases 7-8's depth cell, RGB-D and stereo (through
+     phase 8's rectifier), with phases 7-8's bounds against the JAX
+     FreeRunner's ATE; scan mode against per-frame mode on phase 11's first
+     48 frames (the rings equal, poses within 1e-5); localization mode from
+     phase 11's state after frame 47: 12 frames, a blank frame that loses
+     tracking, then frames 4-7, which only relocalization (kernel 6) can
+     recover: no keyframe made.  In phases 11-13 every verified loop
+     candidate must launch kernels 7 and 8 twice and kernel 3 four times,
+     every loop stage kernel 5 once, every relocalization attempt kernel 6
+     once and kernel 4 at most once.
 Kernel times are one CUDA-event pair around 100 back-to-back calls after a
 warm-up, divided by the count; kernels 3b and 6 also give ``graph_us``, the
 device time a call in a replay of 50 calls captured into one CUDA graph (as
@@ -156,6 +186,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import copy
 import dataclasses
 import json
 import math
@@ -165,6 +196,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -228,6 +260,30 @@ FUSE_ATE_JAX = 0.003769911996766967
 RGBD_FUSE_ATE_JAX = 0.016868081563778278
 ASYNC_ATE_JAX = 0.003582911634125806
 ASYNC_DEPTH = 2
+# phases 11-13: the free runner's cells.  Phase 11 is bench.py's mono cell
+# (bench.py:132-198): the slice's width and orbit for 112 frames, then 48
+# frames bouncing back over it (frames 110 down to 63), with loop closing and
+# live global BA on; phase 12 the loop cell at max_kf 128 / max_mp 16384 /
+# max_frames_between_kf 4 (tests/test_free_running.py:168-209), mono and
+# with rendered depth (bf 250 x 0.08, th_depth 100); phase 13 phases 7-8's
+# depth cell.  The JAX FreeRunner on them (python3 tools/jax_free_reference.py
+# bench | loop | loop_rgbd | rgbd | stereo, CPU runs): tracked frames,
+# keyframes, map points, closures, ATE (Sim3 mono, SE3 with depth)
+FREE_BENCH_ORBIT, FREE_BENCH_BOUNCE = 112, 48
+FREE_BENCH_JAX = dict(tracked=153, keyframes=30, map_points=5490, ate=0.19209366891089696)
+FREE_LOOP_JAX = dict(tracked=176, keyframes=66, loops=1, ate=0.07542532429859167)
+FREE_LOOP_RGBD_JAX = dict(tracked=180, keyframes=64, loops=2, ate=0.04468715610689028)
+# with depth the runner's draws decide the second closure's correction in both
+# packages: the JAX FreeRunner's SE3 ATE over SlamConfig.seed 0-9 (all close
+# twice, track 180/180; tools/jax_free_reference.py loop_rgbd --seed S, CPU
+# runs); the port is held to the worst of them
+FREE_LOOP_RGBD_JAX_SEEDS = (0.04468715610689028, 0.09881848608167484, 0.034537973528983024,
+                            0.046201322201953166, 0.10208444135878096, 0.04363240713791778,
+                            0.21978905092479564, 0.055770558606931975, 0.05970467373767481,
+                            0.05492065771191613)
+FREE_RGBD_ATE_JAX = 0.0028807529139862663
+FREE_STEREO_ATE_JAX = 0.003443949556563205
+LOOP_DEPTH_BF = 250.0 * 0.08
 PEAK_OPS = 67e12      # /s: f32 outside the tensor cores (H100 SXM); 32-bit integer work alike
 PEAK_INT8_TC = 1.979e15  # /s: int8 dense tensor cores (H100 SXM); kernel 5's 1-bit products
 PEAK_BYTES = 3.35e12  # /s: HBM3
@@ -507,6 +563,48 @@ def depth_setup(poses):
     return cam, rights, config
 
 
+def bench_setup(frames):
+    """Phase 11's cell: (camera, ground-truth poses, uint8 frames, config):
+    bench.py's SensorBench("mono") at 112 orbit frames (the slice's 48 and 64
+    more rendered) and 48 bounce frames; loop closing and live GBA on."""
+    import numpy as np
+
+    from orb_slam2_annotate_tpu_torch.geometry.camera import CameraModel
+    from orb_slam2_annotate_tpu_torch.io import synthetic
+    from orb_slam2_annotate_tpu_torch.pipeline import SlamConfig
+
+    cam = CameraModel.create(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480)
+    scene = synthetic.PlaneScene(seed=1)
+    fwd = synthetic.orbit_trajectory(FREE_BENCH_ORBIT, step=0.05)
+    images = list(frames[:N_FRAMES]) + [
+        np.clip(scene.render(cam, R, t, h=480, w=640)[0], 0, 255).astype(np.uint8)
+        for R, t in fwd[N_FRAMES:]]
+    k, d, idx = FREE_BENCH_ORBIT - 1, -1, []
+    for _ in range(FREE_BENCH_BOUNCE):
+        k += d
+        if k < 0:
+            k, d = 1, 1
+        idx.append(k)
+    cfg = SlamConfig(n_features=1024, max_kf=128, max_mp=16384, max_frames_between_kf=6,
+                     init_min_matches=60)
+    return cam, fwd + [fwd[j] for j in idx], images + [images[j] for j in idx], cfg
+
+
+def free_ate(out, gt, with_scale=True):
+    """(ATE over a FreeRunner's finish() trajectory, tracked frames)."""
+    import numpy as np
+
+    from orb_slam2_annotate_tpu_torch.io import evaluation
+
+    ids = [k for k, T in out["trajectory"] if T is not None]
+    if len(ids) < 3:
+        fail(f"only {len(ids)} tracked frames")
+    est = np.stack([-T[:3, :3].T @ T[:3, 3] for _, T in out["trajectory"] if T is not None])
+    g = np.stack([-gt[k][0].T @ gt[k][1] for k in ids])
+    return float(evaluation.ate_rmse(est.astype(np.float64), g.astype(np.float64),
+                                     with_scale=with_scale)[0]), len(ids)
+
+
 def stereo_work(args, out):
     """(bytes, operations) of one kernel-9 call on these inputs: every pair
     through the gate, each candidate's distance, each accepted row's SAD."""
@@ -615,6 +713,415 @@ def ate_of(slam, gt, seq):
     gt_c = np.stack([-gt[seq[k]][0].T @ gt[seq[k]][1] for k in ids])
     return evaluation.ate_rmse(est_c.astype(np.float64), gt_c.astype(np.float64),
                                with_scale=True)[0], len(ids)
+
+
+def free_phases(ctx):
+    """Phases 11-13, the free runner (pipeline/device_loop.FreeRunner), on
+    what phases 1-10 set up (`ctx`: the card's line, the slice's frames,
+    depths and poses, phase 4's frame times, phase 6's loop cell, phases
+    7-8's depth camera, right images, config and rectifier, and the launch
+    counters).  Each frame's decisions are read in one small copy each; the
+    launches inside each verified loop candidate, each loop stage and each
+    relocalization attempt are counted per call.  Returns {"launches": each
+    run's launches, "outcomes": each run's outcome}."""
+    import numpy as np
+    import torch
+
+    from orb_slam2_annotate_tpu_torch.kernels import assign_words as k5
+    from orb_slam2_annotate_tpu_torch.kernels import hamming as k3
+    from orb_slam2_annotate_tpu_torch.kernels import pnp_score as k6
+    from orb_slam2_annotate_tpu_torch.kernels import pose_lm as k4
+    from orb_slam2_annotate_tpu_torch.kernels import sim3 as k7
+    from orb_slam2_annotate_tpu_torch.pipeline import loop_closing as loop_mod
+    from orb_slam2_annotate_tpu_torch.pipeline import tracking
+    from orb_slam2_annotate_tpu_torch.solvers import sim3 as sim3_mod
+
+    card, frames, depths, poses, frame_s = ctx.card, ctx.frames, ctx.depths, ctx.poses, ctx.frame_s4
+    cam6, gt6, images6, loop_cfg = ctx.cam6, ctx.gt6, ctx.images6, ctx.loop_cfg
+    cam_d, rights, depth_config, rect = ctx.cam_d, ctx.rights, ctx.depth_config, ctx.rect
+    zero_launches, read_launches = ctx.zero_launches, ctx.read_launches
+    import warnings
+
+    from orb_slam2_annotate_tpu_torch.pipeline import device_loop as dl
+
+    per_call = {"candidate": [], "loop_stage": [], "reloc": []}
+    fix_scales = {"sim3_ransac_solve": [], "sim3_lm_solve": []}
+
+    def launch_deltas(fn, key, wrappers):
+        def run(*a, **kw):
+            n0 = [w.launches for w in wrappers]
+            out = fn(*a, **kw)
+            per_call[key].append(tuple(w.launches - n for w, n in zip(wrappers, n0)))
+            return out
+        return run
+
+    def fix_scale_of(name, fn, pos):
+        def run(*a, **kw):
+            fix_scales[name].append(bool(a[pos]))
+            return fn(*a, **kw)
+        return run
+
+    free_saved = (loop_mod._free_sim3, dl.free_loop_stage, tracking.relocalize_candidates,
+                  sim3_mod.sim3_ransac_solve, sim3_mod.sim3_lm_solve)
+    loop_mod._free_sim3 = launch_deltas(free_saved[0], "candidate", (
+        k7.sim3_ransac_solve, k7.sim3_lm_solve, k3.hamming_match))
+    dl.free_loop_stage = launch_deltas(free_saved[1], "loop_stage", (k5.assign_words,))
+    tracking.relocalize_candidates = launch_deltas(free_saved[2], "reloc", (
+        k6.pnp_hypotheses, k4.optimize_pose_batched))
+    sim3_mod.sim3_ransac_solve = fix_scale_of("sim3_ransac_solve", free_saved[3], 13)
+    sim3_mod.sim3_lm_solve = fix_scale_of("sim3_lm_solve", free_saved[4], 14)
+
+    def synced(fn):
+        """fn() under torch's sync debug mode "warn": (its result, how many
+        synchronizing calls it made)."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return out, sum("synchroniz" in str(w.message) for w in caught)
+
+    def free_drive(name, runner, feeds, counted):
+        """One free-runner run: counters zeroed just before, read after the
+        final block(); every feed (a callable: one frame, or one sequence
+        call) timed on the host clock and its synchronizing calls counted.
+        Fails unless every kernel in `counted` was launched.  Returns
+        (feed seconds, syncs per feed, launches, the per-call launch lists)."""
+        zero_launches()
+        for v in per_call.values():
+            v.clear()
+        for v in fix_scales.values():
+            v.clear()
+        runner.block()
+        secs, syncs = [], []
+        for feed in feeds:
+            t = time.perf_counter()
+            _, n = synced(feed)
+            secs.append(time.perf_counter() - t)
+            syncs.append(n)
+        t = time.perf_counter()
+        runner.block()
+        secs[-1] += time.perf_counter() - t
+        launches = read_launches()
+        calls = {k: list(v) for k, v in per_call.items()}
+        print(f"launches in the {name} run: {json.dumps(launches)}")
+        idle = [n for n in counted if launches[n] == 0]
+        if idle:
+            fail(f"{name}: kernels never launched: {idle}")
+        return secs, syncs, launches, calls
+
+    def per_call_checks(calls, reloc_polish_max=1):
+        """Each verified candidate: kernels 7 and 8 twice, kernel 3 four times;
+        each loop stage: kernel 5 once (its BoW row); each relocalization
+        attempt: kernel 6 once, kernel 4 at most once (the polish)."""
+        return {"each verified loop candidate: 2 x K7, 2 x K8, 4 x K3a":
+                    all(c == (2, 2, 4) for c in calls["candidate"]),
+                "each loop stage: one K5 launch": all(c == (1,) for c in calls["loop_stage"]),
+                "each relocalization attempt: one K6, at most one K4":
+                    all(c[0] == 1 and c[1] <= reloc_polish_max for c in calls["reloc"])}
+
+    def free_outcome(out, runner, gt, with_scale=True):
+        a, n = free_ate(out, gt, with_scale)
+        return {"ate_m": a, "tracked": n, "frames": runner.frame_id + 1,
+                "mode": int(runner.state.mode), "keyframes": out["n_keyframes"],
+                "map_points": out["n_mappoints"], "loops_closed": out["n_loops_closed"],
+                "gba": out["n_gba"], "resets": out["n_resets"],
+                "kf_skipped_full": out["n_kf_skipped_full"],
+                "loop_edges_dropped": out["n_loop_edges_dropped"],
+                "closure_records": out["closure_records"].tolist()}
+
+    try:
+        # phase 11: bench.py's mono cell through FreeRunner, per frame then scan mode
+        t0 = time.perf_counter()
+        cam11, gt11, images11, cfg11 = bench_setup(frames)
+        n_pf = FREE_BENCH_ORBIT
+        print(f"render: {len(images11) - N_FRAMES} frames in {time.perf_counter() - t0:.1f} s "
+              f"(host numpy)")
+        runner11 = dl.FreeRunner(cam11, cfg11, max_frames=len(images11), auto_grow=False,
+                                 device="cuda")
+        t0 = time.perf_counter()
+        runner11.warmup()
+        runner11.warmup_sequence(FREE_BENCH_BOUNCE)
+        warm_s = time.perf_counter() - t0
+        kept11 = {}
+
+        def frame_feed(k):
+            def feed():
+                runner11.track_mono(images11[k], k / 30.0)
+                if k == N_FRAMES - 1:
+                    kept11["state"] = copy.deepcopy(runner11.state)   # for phase 13
+            return feed
+
+        bounce = np.stack(images11[n_pf:])
+        feeds = [frame_feed(k) for k in range(n_pf)] + [
+            lambda: runner11.track_mono_sequence(bounce, [k / 30.0 for k in range(n_pf, len(images11))],
+                                                 chunk=FREE_BENCH_BOUNCE)]
+        counted11 = ["fast_nms", "orb_describe", "hamming_match", "distinctive_descriptors",
+                     "optimize_pose_batched", "assign_words"]
+        secs11, syncs11, launches11, calls11 = free_drive("free bench", runner11, feeds, counted11)
+        out11 = runner11.finish()
+        o11 = free_outcome(out11, runner11, gt11)
+        jx = FREE_BENCH_JAX
+        bound11 = max(1.5 * jx["ate"], jx["ate"] + 0.01)
+        o11.update({
+            "ate_bound_m": bound11, "jax": jx, "warmup_s": warm_s,
+            "frames_per_s_per_frame": n_pf / sum(secs11[:-1]),
+            "frames_per_s_scan": FREE_BENCH_BOUNCE / secs11[-1],
+            "frames_per_s_per_frame_first_48": N_FRAMES / sum(secs11[:N_FRAMES]),
+            "frame_ms_median": 1e3 * statistics.median(secs11[:-1]),
+            "frame_ms_max": 1e3 * max(secs11[:-1]),
+            "frame_ms_median_system_phase4": 1e3 * statistics.median(frame_s),
+            "syncs_per_frame_median": statistics.median(syncs11[:-1]),
+            "syncs_per_frame_max": max(syncs11[:-1]),
+            "syncs_per_frame_scan": syncs11[-1] / FREE_BENCH_BOUNCE,
+            "verified_candidates": len(calls11["candidate"]),
+            "loop_stages": len(calls11["loop_stage"]), "reloc_attempts": len(calls11["reloc"]),
+            "launches": launches11})
+        print(f"free bench: {json.dumps(o11)}, card {card}")
+        checks = {"mode OK": o11["mode"] == dl.MODE_OK,
+                  "tracked >= 70%": o11["tracked"] >= 0.7 * len(images11),
+                  f"ATE <= {bound11:.5f}": o11["ate_m"] <= bound11,
+                  "keyframes within 0.5-1.5 x the JAX run's":
+                      0.5 * jx["keyframes"] <= o11["keyframes"] <= 1.5 * jx["keyframes"],
+                  "map points within 0.5-1.5 x the JAX run's":
+                      0.5 * jx["map_points"] <= o11["map_points"] <= 1.5 * jx["map_points"],
+                  "one fast_nms and one orb_describe launch per frame":
+                      launches11["fast_nms"] == launches11["orb_describe"] == len(images11),
+                  "a loop stage per keyframe after the bootstrap":
+                      len(calls11["loop_stage"]) == int(runner11.state.m.n_kf) - 2,
+                  **per_call_checks(calls11)}
+        bad = [k for k, v in checks.items() if not v]
+        if bad:
+            fail(f"free bench checks failed: {bad}")
+
+        # phase 12: the loop cell through FreeRunner, mono then RGB-D (scale
+        # fixed); the stages of a closure timed on the host, the card drained
+        # around each
+        stage12 = {"loop/sim3 (a candidate)": [], "loop/pose_graph": [], "loop/fuse (seam)": [],
+                   "loop/gba (live)": []}
+
+        def staged(name, fn):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                stage12[name].append(1e3 * (time.perf_counter() - t))
+                return out
+            return run
+
+        stage_saved = (loop_mod._free_sim3, loop_mod.optimize_pose_graph_cg, loop_mod._seam_fuse,
+                       dl.bundle_adjust_cg)
+        loop_mod._free_sim3 = staged("loop/sim3 (a candidate)", loop_mod._free_sim3)
+        loop_mod.optimize_pose_graph_cg = staged("loop/pose_graph", stage_saved[1])
+        loop_mod._seam_fuse = staged("loop/fuse (seam)", stage_saved[2])
+        dl.bundle_adjust_cg = staged("loop/gba (live)", stage_saved[3])
+        cfg12 = dataclasses.replace(loop_cfg, max_kf=128, max_mp=16384)
+        runner12 = dl.FreeRunner(cam6, cfg12, max_frames=LOOP_FRAMES, device="cuda")
+        counted12 = counted11 + list(LOOP_ONLY)
+        feeds = [(lambda k: lambda: runner12.track_mono(images6[k], k / 30.0))(k)
+                 for k in range(LOOP_FRAMES)]
+        try:
+            secs12, syncs12, launches12, calls12 = free_drive("free loop", runner12, feeds, counted12)
+        finally:
+            (loop_mod._free_sim3, loop_mod.optimize_pose_graph_cg, loop_mod._seam_fuse,
+             dl.bundle_adjust_cg) = stage_saved
+        out12 = runner12.finish()
+        o12 = free_outcome(out12, runner12, gt6)
+        bound12 = max(1.5 * FREE_LOOP_JAX["ate"], FREE_LOOP_JAX["ate"] + 0.05)
+        rec12 = out12["closure_records"]
+        closure_frames = [int(r[0]) for r in rec12]
+        o12.update({"ate_bound_m": bound12, "jax": FREE_LOOP_JAX,
+                    "frame_ms_median": 1e3 * statistics.median(secs12),
+                    "frame_ms_max": 1e3 * max(secs12),
+                    "closure_frame_ms": [1e3 * secs12[f] for f in closure_frames],
+                    "stage_ms": {k: {"calls": len(v), "total": sum(v),
+                                     "median": statistics.median(v) if v else None}
+                                 for k, v in stage12.items()},
+                    "syncs_per_frame_median": statistics.median(syncs12),
+                    "verified_candidates": len(calls12["candidate"]),
+                    "loop_stages": len(calls12["loop_stage"]), "launches": launches12})
+        print(f"free loop: {json.dumps(o12)}, card {card}")
+        checks = {"a live closure": o12["loops_closed"] >= 1,
+                  "a live global BA per closure": o12["gba"] == o12["loops_closed"],
+                  "closure record: entry matches >= 15, pair inliers >= 6, live GBA flag":
+                      len(rec12) > 0 and rec12[0, 3] >= 15 and rec12[0, 6] >= 6
+                      and rec12[0, 10] == 1.0,
+                  "no loop edge dropped": o12["loop_edges_dropped"] == 0,
+                  "tracked >= 70%": o12["tracked"] >= 0.7 * LOOP_FRAMES,
+                  f"ATE <= {bound12:.5f}": o12["ate_m"] <= bound12,
+                  "scale free in every Sim3 launch": not any(fix_scales["sim3_ransac_solve"])
+                                                     and not any(fix_scales["sim3_lm_solve"]),
+                  **per_call_checks(calls12)}
+        bad = [k for k, v in checks.items() if not v]
+        if bad:
+            fail(f"free loop checks failed: {bad}")
+
+        from orb_slam2_annotate_tpu_torch.geometry.camera import CameraModel as TCam
+        from orb_slam2_annotate_tpu_torch.io import synthetic
+
+        cam12d = TCam.create(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=320, height=240,
+                             bf=LOOP_DEPTH_BF)
+        scene12 = synthetic.RoomScene(seed=2)
+        t0 = time.perf_counter()
+        depths12 = [scene12.render(cam12d, R, t, h=240, w=320)[1] for R, t in gt6]
+        print(f"render: {LOOP_FRAMES} depth maps in {time.perf_counter() - t0:.1f} s (host numpy)")
+        runner12d = dl.FreeRunner(cam12d, dataclasses.replace(cfg12, sensor="rgbd", th_depth=100.0),
+                                  max_frames=LOOP_FRAMES, device="cuda")
+        feeds = [(lambda k: lambda: runner12d.track_rgbd(images6[k], depths12[k], k / 30.0))(k)
+                 for k in range(LOOP_FRAMES)]
+        jd = FREE_LOOP_RGBD_JAX
+        secs12d, syncs12d, launches12d, calls12d = free_drive(
+            "free loop rgbd", runner12d, feeds, counted11 + (list(LOOP_ONLY) if jd["loops"] else []))
+        out12d = runner12d.finish()
+        o12d = free_outcome(out12d, runner12d, gt6, with_scale=False)
+        worst = max(FREE_LOOP_RGBD_JAX_SEEDS)
+        bound12d = max(1.5 * worst, worst + 0.05)
+        o12d.update({"ate_se3_bound_m": bound12d, "jax": jd,
+                     "jax_ate_se3_over_seeds_0_9": FREE_LOOP_RGBD_JAX_SEEDS,
+                     "frame_ms_median": 1e3 * statistics.median(secs12d),
+                     "closure_frame_ms": [1e3 * secs12d[int(r[0])] for r in out12d["closure_records"]],
+                     "syncs_per_frame_median": statistics.median(syncs12d),
+                     "verified_candidates": len(calls12d["candidate"]),
+                     "fix_scale_launches": {k: [sum(v), len(v)] for k, v in fix_scales.items()},
+                     "launches": launches12d})
+        print(f"free loop rgbd: {json.dumps(o12d)}, card {card}")
+        checks = {"tracked >= 70%": o12d["tracked"] >= 0.7 * LOOP_FRAMES,
+                  f"SE3 ATE <= {bound12d:.5f} (the JAX runner's worst seed {worst:.5f})":
+                      o12d["ate_m"] <= bound12d,
+                  "every Sim3 launch with the scale fixed":
+                      all(fix_scales["sim3_ransac_solve"]) and all(fix_scales["sim3_lm_solve"]),
+                  **per_call_checks(calls12d)}
+        if jd["loops"]:
+            checks.update({"a live closure, as the JAX runner's": o12d["loops_closed"] >= 1,
+                           "kernels 7 and 8 launched with the scale fixed":
+                               len(fix_scales["sim3_ransac_solve"]) > 0
+                               and len(fix_scales["sim3_lm_solve"]) > 0,
+                           "a live global BA per closure": o12d["gba"] == o12d["loops_closed"]})
+        else:
+            print("free loop rgbd: the JAX FreeRunner closes no loop on this cell; tracking and "
+                  "ATE held only")
+        bad = [k for k, v in checks.items() if not v]
+        if bad:
+            fail(f"free loop rgbd checks failed: {bad}")
+
+        # phase 13: the depth cell through FreeRunner, RGB-D and stereo (the
+        # pairs through phase 8's identity rectifier)
+        def free_depth(name, sensor, feed_of, ate_jax, counted):
+            runner = dl.FreeRunner(cam_d, depth_config(sensor), max_frames=N_FRAMES, device="cuda")
+            feeds = [(lambda k: lambda: feed_of(runner, k))(k) for k in range(N_FRAMES)]
+            secs, syncs, launches, calls = free_drive(name, runner, feeds, counted)
+            out = free_outcome(runner.finish(), runner, poses, with_scale=False)
+            traj = runner.finish()["trajectory"]
+            est = np.stack([-T[:3, :3].T @ T[:3, 3] for _, T in traj if T is not None])
+            g = np.stack([-poses[k][0].T @ poses[k][1] for k, T in traj if T is not None])
+            path = lambda c: float(np.linalg.norm(np.diff(c, axis=0), axis=1).sum())
+            bound_d = max(1.5 * ate_jax, ate_jax + 0.01)
+            out.update({"ate_se3_bound_m": bound_d, "ate_se3_jax_m": ate_jax,
+                        "displacement_ratio": float(np.linalg.norm(est[-1] - est[0])
+                                                    / np.linalg.norm(g[-1] - g[0])),
+                        "path_ratio": path(est) / path(g),
+                        "frame_ms_median": 1e3 * statistics.median(secs),
+                        "syncs_per_frame_median": statistics.median(syncs), "launches": launches})
+            print(f"{name}: {json.dumps(out)}, card {card}")
+            checks = {"mode OK": out["mode"] == dl.MODE_OK,
+                      "tracked >= 80%": out["tracked"] >= 0.8 * N_FRAMES,
+                      "keyframes >= 3": out["keyframes"] >= 3, "map points > 200": out["map_points"] > 200,
+                      f"SE3 ATE <= {bound_d:.5f}": out["ate_m"] <= bound_d, **per_call_checks(calls)}
+            return out, launches, checks
+
+        counted13 = counted11
+        o13r, launches13r, checks = free_depth(
+            "free rgbd", "rgbd", lambda r, k: r.track_rgbd(frames[k], depths[k], k / 30.0),
+            FREE_RGBD_ATE_JAX, counted13)
+        checks.update({"displacement within 5%": abs(o13r["displacement_ratio"] - 1.0) < 0.05,
+                       "one fast_nms launch per frame": launches13r["fast_nms"] == N_FRAMES,
+                       "no stereo_match or remap_pair launch":
+                           launches13r["stereo_match"] == launches13r["remap_pair"] == 0})
+        bad = [k for k, v in checks.items() if not v]
+        if bad:
+            fail(f"free rgbd checks failed: {bad}")
+        o13s, launches13s, checks = free_depth(
+            "free stereo", "stereo", lambda r, k: r.track_stereo(*rect(frames[k], rights[k]), k / 30.0),
+            FREE_STEREO_ATE_JAX, counted13 + list(STEREO_ONLY))
+        checks.update({"path length within 15%": abs(o13s["path_ratio"] - 1.0) < 0.15,
+                       "two fast_nms and two orb_describe launches per frame":
+                           launches13s["fast_nms"] == launches13s["orb_describe"] == 2 * N_FRAMES,
+                       "one stereo_match and one remap_pair launch per frame":
+                           launches13s["stereo_match"] == launches13s["remap_pair"] == N_FRAMES})
+        bad = [k for k, v in checks.items() if not v]
+        if bad:
+            fail(f"free stereo checks failed: {bad}")
+
+        # scan mode == per-frame on the card: phase 11's first 48 frames again
+        # through track_mono_sequence (two chunks of 24), against the state
+        # phase 11's per-frame run held after them
+        ref13 = kept11["state"]
+        runner13 = dl.FreeRunner(cam11, cfg11, max_frames=len(images11), auto_grow=False,
+                                 device="cuda")
+        secs13c, syncs13c, launches13c, calls13c = free_drive(
+            "free scan", runner13, [lambda: runner13.track_mono_sequence(
+                np.stack(images11[:N_FRAMES]), [k / 30.0 for k in range(N_FRAMES)], chunk=24)],
+            counted11)
+        a, b = runner13.state, ref13
+        ring_diff = [f for f in ("traj_ref", "traj_ok", "ring_mode", "ring_nlocal")
+                     if not torch.equal(getattr(a, f)[:N_FRAMES], getattr(b, f)[:N_FRAMES])]
+        pose_err = max(float((a.traj[:N_FRAMES] - b.traj[:N_FRAMES]).abs().max()),
+                       float((a.R - b.R).abs().max()), float((a.t - b.t).abs().max()),
+                       float((a.m.kf_R - b.m.kf_R).abs().max()), float((a.m.kf_t - b.m.kf_t).abs().max()))
+        same_kf = torch.equal(a.m.kf_valid, b.m.kf_valid) and int(a.m.n_kf) == int(b.m.n_kf)
+        o13c = {"rings_that_differ": ring_diff, "max_pose_diff": pose_err, "same_keyframes": same_kf,
+                "frames_per_s_scan": N_FRAMES / sum(secs13c), "syncs_per_frame": syncs13c[0] / N_FRAMES}
+        print(f"free scan vs per-frame: {json.dumps(o13c)}, card {card}")
+        if ring_diff or pose_err > 1e-5 or not same_kf:
+            fail(f"free scan != per-frame: {o13c}")
+
+        # localization mode: phase 11's runner as it stood after frame 47,
+        # 12 more frames, then back to frames 4-7: no keyframe is made
+        runner13l = dl.FreeRunner(cam11, cfg11, max_frames=len(images11), auto_grow=False,
+                                  device="cuda")
+        runner13l.state, runner13l.frame_id = ref13, N_FRAMES - 1
+        runner13l._timestamps = [k / 30.0 for k in range(N_FRAMES)]
+        kf_before = (runner13l.state.m.kf_valid.clone(), int(runner13l.state.m.n_kf))
+        runner13l.activate_localization_mode()
+        # a blank frame (no keypoint) loses tracking; a LOST tracker recovers
+        # only by relocalization, so frames 4-7 drive it (kernel 6)
+        blank = np.zeros_like(images11[0])
+        seq13 = list(range(N_FRAMES, N_FRAMES + 12)) + [-1] + [KIDNAP_JUMP + i for i in range(4)]
+        feeds = [(lambda i, k: lambda: runner13l.track_mono(blank if k < 0 else images11[k],
+                                                            (N_FRAMES + i) / 30.0))(i, k)
+                 for i, k in enumerate(seq13)]
+        _, _, launches13l, calls13l = free_drive("free localization", runner13l, feeds,
+                                                 counted11[:2] + ["pnp_hypotheses"])
+        traj13l = runner13l.finish()["trajectory"][N_FRAMES:]
+        o13l = {"frames": len(seq13), "tracked": sum(T is not None for _, T in traj13l),
+                "blank_then_jump_tracked": [T is not None for _, T in traj13l[12:]],
+                "reloc_attempts": len(calls13l["reloc"]),
+                "keyframes_before": int(kf_before[0].sum()),
+                "keyframes_after": int(runner13l.state.m.kf_valid.sum()),
+                "launches": launches13l}
+        print(f"free localization: {json.dumps(o13l)}, card {card}")
+        checks = {"no keyframe made": torch.equal(runner13l.state.m.kf_valid, kf_before[0])
+                                      and int(runner13l.state.m.n_kf) == kf_before[1],
+                  "tracked before the blank frame": all(T is not None for _, T in traj13l[:12]),
+                  "the blank frame lost": traj13l[12][1] is None,
+                  "relocalization attempted after it": len(calls13l["reloc"]) >= 1,
+                  **per_call_checks(calls13l)}
+        bad = [k for k, v in checks.items() if not v]
+        if bad:
+            fail(f"free localization checks failed: {bad}")
+    finally:
+        (loop_mod._free_sim3, dl.free_loop_stage, tracking.relocalize_candidates,
+         sim3_mod.sim3_ransac_solve, sim3_mod.sim3_lm_solve) = free_saved
+
+    return {"launches": {"11 free bench": launches11, "12 free loop": launches12,
+                         "12 free loop rgbd": launches12d, "13 free rgbd": launches13r,
+                         "13 free stereo": launches13s, "13 free scan": launches13c,
+                         "13 free localization": launches13l},
+            "outcomes": {"bench": o11, "loop": o12, "loop_rgbd": o12d, "rgbd": o13r,
+                         "stereo": o13s, "scan": o13c, "localization": o13l}}
 
 
 def main():
@@ -2222,16 +2729,26 @@ def main():
     if bad:
         fail(f"pipelined loop checks failed: {bad}")
 
+    # ---- phases 11-13: the free runner
+    free = free_phases(types.SimpleNamespace(
+        card=card, frames=frames, depths=depths, poses=poses, frame_s4=frame_s, cam6=cam6,
+        gt6=gt6, images6=images6, loop_cfg=loop_cfg, cam_d=cam_d, rights=rights,
+        depth_config=depth_config, rect=rect, zero_launches=zero_launches,
+        read_launches=read_launches))
+    fl = free["launches"]
+
     kern = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
              "launches": (launches4[w] + launches5[w] + launches6[w] + launches7[w] + launches8[w]
-                          + launches9m[w] + launches9r[w] + launches10[w] + launches10l[w]),
+                          + launches9m[w] + launches9r[w] + launches10[w] + launches10l[w]
+                          + sum(v[w] for v in fl.values())),
              "launches_by_phase": {"1 card": launches1[w], "2 build": launches2[w],
                                    "3 twins": launches3[w], "4 slice": launches4[w],
                                    "5 kidnap": launches5[w], "6 loop": launches6[w],
                                    "7 rgbd": launches7[w], "8 stereo": launches8[w],
                                    "9 fuse slice": launches9m[w], "9 fuse rgbd": launches9r[w],
                                    "10 pipelined": launches10[w],
-                                   "10 pipelined loop": launches10l[w]},
+                                   "10 pipelined loop": launches10l[w],
+                                   **{k: v[w] for k, v in fl.items()}},
              **results[n]}
             for n, (src, rep, w) in SOURCES.items()]
     print(json.dumps({"kernels": kern, "slice": slice_out,
@@ -2252,7 +2769,9 @@ def main():
                                "optimize_sim3_calls": calls6["optimize_sim3"]},
                       "rgbd": out7, "stereo": out8,
                       "fuse": {"slice": out9m, "rgbd": out9r, "core_on_card": core_checks},
-                      "pipelined": out10m, "pipelined_loop": out10l, "card": card}))
+                      "pipelined": out10m, "pipelined_loop": out10l,
+                      "free": free["outcomes"],
+                      "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

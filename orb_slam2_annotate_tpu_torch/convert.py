@@ -15,6 +15,7 @@ import torch
 
 from .geometry.camera import CameraModel
 from .ops.orb import OrbTables, rotated_offsets
+from .pipeline.device_loop import FreeState
 from .pipeline.frame import Frame
 from .pipeline.local_mapping import CullInfo
 from .worldmap.map_state import MapState
@@ -112,3 +113,21 @@ def orb_tables_from_numpy(pattern: np.ndarray, rot_offsets: np.ndarray | None = 
     if rot_offsets is not None and not np.array_equal(rot, np.asarray(rot_offsets)):
         raise ValueError("ROT_OFFSETS do not match the steered PATTERN")
     return OrbTables(rot)
+
+
+_FREE_NESTED = {"m": (map_state_from_numpy, map_state_to_numpy),
+                "last": (frame_from_numpy, frame_to_numpy),
+                "init_f": (frame_from_numpy, frame_to_numpy)}
+
+
+def free_state_from_numpy(d: dict, device="cpu") -> FreeState:
+    """A free runner's state from the reference's FreeState as numpy: its
+    fields, with ``m``, ``last`` and ``init_f`` as dicts of their fields."""
+    return FreeState(**{f.name: _FREE_NESTED[f.name][0](d[f.name], device) if f.name in _FREE_NESTED
+                        else _to_torch(f.name, d[f.name], device)
+                        for f in dataclasses.fields(FreeState)})
+
+
+def free_state_to_numpy(st: FreeState) -> dict:
+    return {f.name: _FREE_NESTED[f.name][1](getattr(st, f.name)) if f.name in _FREE_NESTED
+            else _to_numpy(f.name, getattr(st, f.name)) for f in dataclasses.fields(FreeState)}

@@ -43,7 +43,10 @@ from ..worldmap import vocabulary as voc
 TRAINED_VOCAB = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                              "worldmap", "trained_vocab.npz")
 MIN_COVIS_LOOP = 100  # essential-graph covisibility edge weight
-MAX_LOOP_EDGES = 16   # historic loop edges in an essential-graph solve
+MAX_LOOP_EDGES = 16   # historic loop edges in an essential-graph solve (the free runner's ring)
+MAX_CLOSURE_REC = 32  # the free runner's per-closure record ring
+CLOSURE_REC_W = 12    # a record: [frame_id, slot, cand, n_matches, seed_inl, n_proj, pair_inl,
+                      # s12, n_loops_after, n_edges_dropped, gba_ran, stats_overflow]
 
 
 @dataclasses.dataclass
@@ -76,6 +79,48 @@ def detect_loop_device(vocab: voc.Vocabulary, db_bows: torch.Tensor, m: ms.MapSt
     db_new = db_bows.clone()
     db_new[slot] = bow
     return LoopDetectOut(db_new, slots, ok, ms.covis_rows(m, slots, ok).to(torch.int32))
+
+
+def batch_detect_loops(vocab: voc.Vocabulary, m: ms.MapState, bows_all: torch.Tensor,
+                       gap_kf: int = 3, chunk: int = 8):
+    """Loop detection for every keyframe at once (the offline replay's):
+    each keyframe scored against the keyframes inserted before it (rank by
+    frame id), without its covisible group and the `gap_kf` keyframes just
+    before it, thresholded at its covisible neighbours' lowest score.
+    Covisibility is the final map's.  Returns (cands [K,8] int64, ok [K,8]
+    bool, cand_covis [K,8,K] int32) indexed by slot; invalid slots get ok
+    False.  The [K,K] scores are taken `chunk` rows at a time."""
+    K = m.K
+    dev = m.device
+    W = ms.covisibility(m)
+    big = torch.iinfo(torch.int32).max
+    order = torch.argsort(torch.where(m.kf_valid, m.kf_frame_id, big), stable=True)
+    rank = torch.argsort(order, stable=True)
+    S = torch.cat([1.0 - 0.5 * torch.abs(bows_all[None] - bows_all[i:i + chunk, None]).sum(-1)
+                   for i in range(0, K, chunk)])                                   # [K,K]
+    eye = torch.eye(K, dtype=torch.bool, device=dev)
+    covis_mask = (W > 0) | eye
+    prefix = m.kf_valid[None, :] & (rank[None, :] < rank[:, None])
+    others = covis_mask & prefix & ~eye
+    min_score = torch.where(others, S, float("inf")).min(1).values
+    min_score = torch.where(torch.isfinite(min_score), min_score, 0.0)
+    exclude = covis_mask | (rank[None, :] >= rank[:, None] - gap_kf)
+    s = torch.where(prefix & ~exclude, S, -1.0)
+    ok = s >= torch.clamp_min(min_score, 0.0)[:, None]
+    top, cands = stable_topk(torch.where(ok, s, -1.0), 8)
+    return cands, (top > 0) & m.kf_valid[:, None], W[cands]
+
+
+def push_loop_edge(loop_a, loop_b, loop_ok, n_loops, slot, cand):
+    """The historic loop-edge ring with (slot, cand) written at n_loops mod
+    its capacity: past capacity the oldest edge is recycled (the closure
+    record counts them).  Returns new tensors."""
+    i = torch.remainder(torch.as_tensor(n_loops, device=loop_a.device), loop_a.shape[0]).long()
+    loop_a, loop_b, loop_ok = loop_a.clone(), loop_b.clone(), loop_ok.clone()
+    loop_a[i] = torch.as_tensor(slot, dtype=torch.int32, device=loop_a.device)
+    loop_b[i] = torch.as_tensor(cand, dtype=torch.int32, device=loop_a.device)
+    loop_ok[i] = True
+    return loop_a, loop_b, loop_ok
 
 
 @dataclasses.dataclass
@@ -267,6 +312,221 @@ def loop_projection_count(cam: CameraModel, m: ms.MapState, slot: int, cand: int
     return (feat_pt >= 0).sum(), feat_pt
 
 
+@dataclasses.dataclass
+class FreeLoopOut:
+    """What free_loop_stage returns: the new map, database and loop state,
+    whether a loop closed (a host bool), and the funnel diag of the last
+    candidate tried: [go, n_matches, seed_inliers, n_proj, pair_inliers,
+    drift_ok, streak_max, closed]."""
+
+    m: ms.MapState
+    bows: torch.Tensor
+    streaks: torch.Tensor
+    loop_a: torch.Tensor
+    loop_b: torch.Tensor
+    loop_ok: torch.Tensor
+    n_loops: torch.Tensor
+    last_loop_nkf: torch.Tensor
+    closed: bool
+    diag: torch.Tensor
+    closure_rec: torch.Tensor
+
+
+def _seam_fuse(cam: CameraModel, m: ms.MapState, slot: int, cand: int):
+    """SearchAndFuse across a corrected seam: the loop neighbourhood's points
+    into `slot` and its 11 strongest covisible keyframes; then geometry for
+    every point and the stats of the points it touched.  Returns (map,
+    touched points over MAX_TOUCHED, 0-d)."""
+    from . import local_mapping
+
+    K = m.K
+    dev = m.device
+    T_FUSE = min(12, K)
+    W2 = ms.covisibility(m)
+    w_cur = torch.where(m.kf_valid, W2[slot], -1)
+    w_cur[slot] = -1
+    _, cur_nb = stable_topk(w_cur, T_FUSE - 1)
+    targets = torch.cat([torch.tensor([slot], device=dev), cur_nb])
+    tgt_ok = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), w_cur[cur_nb] > 0])
+    loop_nb = W2[cand] > 0
+    loop_nb[cand] = True
+    loop_nb &= m.kf_valid
+    loop_pts = (ms.observation_matrix(m) & loop_nb[:, None]).any(0)
+    with record_function("loop/fuse"):
+        m = local_mapping.fuse_points_into(m, cam, targets, tgt_ok, loop_pts)
+    m = ms.update_mappoint_geometry(m)
+    tgt_mask = torch.zeros(K, dtype=torch.int32, device=dev).scatter_reduce(
+        0, targets, tgt_ok.to(torch.int32), "amax").bool()
+    touched = loop_pts | (ms.observation_matrix(m) & tgt_mask[:, None]).any(0)
+    over = torch.clamp_min(touched.sum() - ms.MAX_TOUCHED, 0)
+    return ms.update_mappoint_stats_touched(m, touched), over
+
+
+def free_loop_stage(cfg: LoopCloserConfig, cam: CameraModel, vocab: voc.Vocabulary,
+                    m: ms.MapState, bows, slot: int, streaks, loop_a, loop_b, loop_ok, n_loops,
+                    last_loop_nkf, draw, frame_id: int = -1, closure_rec=None) -> FreeLoopOut:
+    """The free runner's whole loop closing for keyframe `slot`: detection
+    (writing its BoW row), the consistency streaks over [K] slots, the
+    cooldown, then for up to min(max_sim3_candidates, 8) confirmed
+    candidates in score order until one closes: the ComputeSim3 funnel with
+    no early exit (entry match, Sim3 RANSAC, two guided match + Sim3 LM
+    rounds, the projection count, the pair-set RANSAC), the drift gate, and
+    on acceptance the correction (essential graph by PCG, corrected poses
+    and points, SearchAndFuse, stats), the loop-edge ring and a closure
+    record.  `draw(i, stage, valid, n_hyp)` gives candidate i's sampled
+    triples, stage 0 for the seed RANSAC and 1 for the pair-set one.
+
+    The reference runs it as one traced program of where-masks and
+    ``lax.cond``s; here each decision is one read: the candidates to try
+    (one copy of their flags and slots) and each tried candidate's
+    acceptance; only a taken branch runs.  Per tried candidate: kernel 3
+    four times (entry match, two guided matches, projection count), kernel
+    7 twice, kernel 8 twice."""
+    K = m.K
+    dev = m.device
+    MAXL = loop_a.shape[0]
+    if closure_rec is None:
+        closure_rec = torch.zeros((MAX_CLOSURE_REC, CLOSURE_REC_W), device=dev)
+    with record_function("loop/detect"):
+        det = detect_loop_device(vocab, bows, m, slot, cfg.gap_kf)
+    bows = det.db_bows
+    # consistency streaks: a candidate extends the streak of a slot it
+    # equals or is covisible with
+    covm = (det.cand_covis > 0) | (torch.arange(K, device=dev)[None, :] == det.cands[:, None])
+    streak_cand = 1 + torch.where(covm, streaks[None, :], 0).max(1).values
+    streak_cand = torch.where(det.ok, streak_cand, 0).to(torch.int32)
+    new_streaks = torch.zeros(K, dtype=torch.int32, device=dev).scatter_reduce(
+        0, det.cands.long(), streak_cand, "amax")
+    in_cooldown = m.n_kf < last_loop_nkf + cfg.cooldown_kf
+    new_streaks = torch.where(in_cooldown, 0, new_streaks)
+    confirmed = det.ok & (streak_cand >= cfg.consistency_th) & ~in_cooldown
+    n_try = min(cfg.max_sim3_candidates, det.cands.shape[0])
+    go = confirmed & (det.cands != slot)
+    go_h, cands_h = torch.stack([go[:n_try].long(), det.cands[:n_try].long()]).tolist()
+    streak_max = streak_cand.max().to(torch.float32)
+    diag = torch.zeros(8, device=dev)
+    diag[6] = streak_max
+    closed = False
+    for i in range(n_try):
+        if closed or not go_h[i]:
+            continue
+        cand = cands_h[i]
+        with record_function("loop/sim3"):
+            f = _free_sim3(cfg, cam, m, slot, cand, lambda stage, valid, n: draw(i, stage, valid, n))
+        accept = bool(f["accept"])
+        if accept:
+            with record_function("loop/correct"):
+                prob = build_essential_graph(m, slot, cand, f["s_c"], f["R_c"], f["t_c"],
+                                             f["s12"], f["R12"], f["t12"], loop_a, loop_b, loop_ok)
+                with record_function("loop/pose_graph"):
+                    s_o, R_o, t_o, _ = optimize_pose_graph_cg(prob, cfg.pose_graph_iters)
+                m = apply_loop_correction(m, s_o, R_o, t_o)
+                m, over = _seam_fuse(cam, m, slot, cand)
+            loop_a, loop_b, loop_ok = push_loop_edge(loop_a, loop_b, loop_ok, n_loops, slot, cand)
+            n_after = n_loops + 1
+            f32 = lambda v: torch.as_tensor(v, device=dev).to(torch.float32)
+            rec = torch.stack([f32(frame_id), f32(slot), f32(cand), f32(f["n_matches"]),
+                               f32(f["seed_inliers"]), f32(f["n_proj"]), f32(f["pair_inliers"]),
+                               f32(f["s12"]), f32(n_after), f32(torch.clamp_min(n_after - MAXL, 0)),
+                               f32(0.0), f32(over)])
+            closure_rec = closure_rec.clone()
+            closure_rec[torch.remainder(n_loops, MAX_CLOSURE_REC).long()] = rec
+            n_loops, last_loop_nkf, closed = n_after, m.n_kf.clone(), True
+        diag = torch.stack([torch.ones((), device=dev), *(f[k].to(torch.float32) for k in (
+            "n_matches", "seed_inliers", "n_proj", "pair_inliers", "drift_ok")),
+            streak_max, torch.full((), float(closed), device=dev)])
+    if closed:
+        new_streaks = torch.zeros_like(new_streaks)
+    return FreeLoopOut(m, bows, new_streaks, loop_a, loop_b, loop_ok, n_loops, last_loop_nkf,
+                       closed, diag, closure_rec)
+
+
+def _free_sim3(cfg: LoopCloserConfig, cam: CameraModel, m: ms.MapState, slot: int, cand: int,
+               draw) -> dict:
+    """free_loop_stage's ComputeSim3 funnel and drift gate for one candidate,
+    every stage run (the gates are device masks): the Sim3 (s12, R12, t12),
+    the corrected pose of `slot` (s_c, R_c, t_c), the funnel's counts and
+    the 0-d acceptance."""
+    P = m.P
+    obs1, obs2 = m.kf_obs[slot], m.kf_obs[cand]
+    mp1 = torch.clamp(obs1, 0, P - 1).long()
+    has1 = (obs1 >= 0) & m.kf_feat_valid[slot] & m.mp_valid[mp1]
+    has2 = (obs2 >= 0) & m.kf_feat_valid[cand] & m.mp_valid[torch.clamp(obs2, 0, P - 1).long()]
+    res = matching.match_gated(m.kf_desc[slot], m.kf_desc[cand], has1, has2, matching.TH_LOW,
+                               0.92, False)
+    n_matches = res.count
+    R1, t1, R2, t2 = m.kf_R[slot], m.kf_t[slot], m.kf_R[cand], m.kf_t[cand]
+    x1_all = m.mp_pos[mp1] @ R1.T + t1
+
+    def gather_pairs(idx):
+        idx2 = torch.clamp_min(idx, 0).long()
+        mp2 = torch.clamp(obs2[idx2], 0, P - 1).long()
+        return (x1_all, m.mp_pos[mp2] @ R2.T + t2, m.kf_xy[slot], m.kf_xy[cand][idx2],
+                (idx >= 0) & has1)
+
+    x1, x2, uv1, uv2, valid = gather_pairs(res.idx)
+    valid = valid & (n_matches >= cfg.min_seed_matches)
+    r = sim3_solver.sim3_from_samples(cam, draw(0, valid, cfg.seed_hyp), x2, x1, uv2, uv1,
+                                      cfg.fix_scale, valid, cfg.seed_th_chi2,
+                                      min_inliers=cfg.min_seed_inliers)
+    seed_idx = torch.where((res.idx >= 0) & r.inliers, res.idx, -1)
+    s_k, R_k, t_k = r.s, r.R, r.t
+    for it in range(2):
+        g_idx = sim3_guided_match(cam, m, slot, cand, s_k, R_k, t_k,
+                                  radius_scale=3.0 if it == 0 else 1.5)
+        x1, x2, uv1, uv2, vg = gather_pairs(torch.where(seed_idx >= 0, seed_idx, g_idx))
+        r2 = sim3_solver.optimize_sim3(cam, s_k, R_k, t_k, x2, x1, uv2, uv1, cfg.fix_scale,
+                                       valid=vg, chi2_th=cfg.seed_th_chi2)
+        keep = r2.n_inliers >= cfg.min_seed_inliers
+        s_k, R_k, t_k = (torch.where(keep, a, b) for a, b in ((r2.s, s_k), (r2.R, R_k), (r2.t, t_k)))
+    n_proj, feat_pt = loop_projection_count(cam, m, slot, cand, s_k, R_k, t_k)
+    pair_ok = (feat_pt >= 0) & has1
+    x2p = m.mp_pos[torch.clamp(feat_pt, 0, P - 1).long()] @ R2.T + t2
+    r3 = sim3_solver.sim3_from_samples(cam, draw(1, pair_ok, cfg.seed_hyp), x2p, x1_all,
+                                       _project_px(cam, x2p), m.kf_xy[slot], cfg.fix_scale, pair_ok,
+                                       cfg.verify_th_chi2, min_inliers=cfg.min_ransac_inliers)
+    s12, R12, t12 = r3.s, r3.R, r3.t
+    # the drift gate, _drift_plausible's formulas on the card
+    acc_rot, acc_tr, n_seg = drift_accumulators(m, cand, slot)
+    s_c, R_c, t_c = lie.sim3_compose(s12, R12, t12, torch.ones((), device=m.device), R2, t2)
+    c_new = -R_c.T @ (t_c / torch.clamp_min(s_c, 1e-9))
+    c_old = -R1.T @ t1
+    dR = R_c @ R1.T
+    rot_corr = torch.abs(torch.arccos(torch.clamp((dR[0, 0] + dR[1, 1] + dR[2, 2] - 1.0) / 2.0,
+                                                  -1.0, 1.0)))
+    tr_corr = torch.linalg.norm(c_new - c_old)
+    tr_budget = torch.maximum(cfg.drift_trans_frac * acc_tr,
+                              cfg.drift_trans_abs_baselines * (acc_tr / torch.clamp_min(n_seg, 1)))
+    drift_ok = ((n_seg >= 1) & (rot_corr <= cfg.drift_rot_frac * acc_rot + cfg.drift_rot_abs)
+                & (tr_corr <= tr_budget)
+                & (torch.abs(torch.log(torch.clamp_min(s12, 1e-9))) <= cfg.drift_log_scale_max))
+    accept = ((n_matches >= cfg.min_seed_matches) & r.success & (n_proj >= cfg.min_total_matches)
+              & r3.success & drift_ok)
+    return dict(accept=accept, s12=s12, R12=R12, t12=t12, s_c=s_c, R_c=R_c, t_c=t_c,
+                n_matches=n_matches, seed_inliers=r.n_inliers, n_proj=n_proj,
+                pair_inliers=r3.n_inliers, drift_ok=drift_ok)
+
+
+def full_map_ba_problem(m: ms.MapState, anchor) -> BAProblem:
+    """The global BA over every valid keyframe and point, keyframe `anchor`
+    (an int or a 0-d tensor) and the invalid slots held fixed."""
+    K, N = m.K, m.N
+    dev = m.device
+    obs = m.kf_obs
+    feat_ok = m.kf_feat_valid & m.kf_valid[:, None]
+    e_valid = feat_ok & (obs >= 0) & m.mp_valid[torch.clamp(obs, 0, m.P - 1).long()]
+    octv = m.kf_octave.reshape(-1).to(torch.float32)
+    cam_fixed = torch.zeros(K, dtype=torch.bool, device=dev)
+    cam_fixed[anchor] = True
+    return BAProblem(
+        R=m.kf_R, t=m.kf_t, points=m.mp_pos, cam_fixed=cam_fixed | ~m.kf_valid,
+        cam_valid=m.kf_valid, pt_valid=m.mp_valid,
+        cam_idx=torch.arange(K, device=dev).repeat_interleave(N),
+        pt_idx=torch.clamp_min(obs, 0).reshape(-1), uv=m.kf_xy.reshape(-1, 2),
+        ur=m.kf_ur.reshape(-1), inv_sigma2=1.0 / (1.2 ** (2.0 * octv)),
+        edge_valid=e_valid.reshape(-1))
+
+
 def fold_gba_device(m: ms.MapState, gba_R, gba_t, gba_X, snap_kf, snap_mp, old_R,
                     old_t) -> ms.MapState:
     """Fold a global-BA result into the (possibly advanced) map: keyframes
@@ -346,13 +606,15 @@ class LoopCloser:
         self.db = voc.KeyFrameDatabase(out.db_bows)
         return out
 
-    def resolve_detection(self, m: ms.MapState, slot: int, det: LoopDetectOut):
+    def resolve_detection(self, m: ms.MapState, slot: int, det: LoopDetectOut,
+                          seq_i: int | None = None):
         """Consistency streaks over consecutive keyframes, then, for a
         confirmed candidate, the Sim3 and the loop correction.  Returns
         (map, closed).  The cooldown counts keyframes by the map's
-        monotonic keyframe counter."""
+        monotonic keyframe counter, or by `seq_i` when an offline replay
+        over a finished map gives it."""
         cfg = self.cfg
-        seq = int(m.n_kf)
+        seq = int(m.n_kf) if seq_i is None else seq_i
         self._seq = seq
         if seq < self._last_loop_kf + cfg.cooldown_kf:
             self._streaks = {}
@@ -507,28 +769,8 @@ class LoopCloser:
             m = apply_loop_correction(m, s_o, R_o, t_o)
             # SearchAndFuse: the loop neighbourhood's points into the
             # corrected current-side keyframes
-            T_FUSE = min(12, K)
-            W2 = ms.covisibility(m)
-            w_cur = torch.where(m.kf_valid, W2[slot], -1)
-            w_cur[slot] = -1
-            _, cur_nb = stable_topk(w_cur, T_FUSE - 1)
-            targets = torch.cat([torch.tensor([slot], device=dev), cur_nb])
-            tgt_ok = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), w_cur[cur_nb] > 0])
-            loop_nb = W2[cand] > 0
-            loop_nb[cand] = True
-            loop_nb &= m.kf_valid
-            loop_pts = (ms.observation_matrix(m) & loop_nb[:, None]).any(0)
-            from . import local_mapping
-
-            with record_function("loop/fuse"):
-                m = local_mapping.fuse_points_into(m, self.cam, targets, tgt_ok, loop_pts)
-            # geometry for every point (all moved), descriptors for the touched
-            m = ms.update_mappoint_geometry(m)
-            tgt_mask = torch.zeros(K, dtype=torch.int32, device=dev).scatter_reduce(
-                0, targets, tgt_ok.to(torch.int32), "amax").bool()
-            touched = loop_pts | (ms.observation_matrix(m) & tgt_mask[:, None]).any(0)
-            self.n_stats_overflow += max(0, int(touched.sum()) - ms.MAX_TOUCHED)
-            m = ms.update_mappoint_stats_touched(m, touched)
+            m, over = _seam_fuse(self.cam, m, slot, cand)
+            self.n_stats_overflow += int(over)
         if cfg.run_global_ba:
             self._dispatch_global_ba(m, anchor=cand)
         self.loop_edges.append((slot, cand))
@@ -539,25 +781,11 @@ class LoopCloser:
         newer loop supersedes one not yet folded.  On the card a CUDA event
         recorded after it says when it is done."""
         with record_function("loop/gba"):
-            K, N = m.K, m.N
-            dev = m.device
-            obs = m.kf_obs
-            feat_ok = m.kf_feat_valid & m.kf_valid[:, None]
-            e_valid = feat_ok & (obs >= 0) & m.mp_valid[torch.clamp(obs, 0, m.P - 1).long()]
-            octv = m.kf_octave.reshape(-1).to(torch.float32)
-            cam_fixed = torch.zeros(K, dtype=torch.bool, device=dev)
-            cam_fixed[anchor] = True
-            prob = BAProblem(
-                R=m.kf_R, t=m.kf_t, points=m.mp_pos, cam_fixed=cam_fixed | ~m.kf_valid,
-                cam_valid=m.kf_valid, pt_valid=m.mp_valid,
-                cam_idx=torch.arange(K, device=dev).repeat_interleave(N),
-                pt_idx=torch.clamp_min(obs, 0).reshape(-1), uv=m.kf_xy.reshape(-1, 2),
-                ur=m.kf_ur.reshape(-1), inv_sigma2=1.0 / (1.2 ** (2.0 * octv)),
-                edge_valid=e_valid.reshape(-1))
+            prob = full_map_ba_problem(m, anchor)
             R, t, X, _, cost = bundle_adjust_cg(self.cam, prob, iters=self.cfg.global_ba_iters,
                                                 cg_iters=25)
             done = None
-            if dev.type == "cuda":
+            if m.device.type == "cuda":
                 done = torch.cuda.Event()
                 done.record()
         self._gba_pending = dict(R=R, t=t, X=X, cost=cost, done=done, snap_kf=m.kf_valid,

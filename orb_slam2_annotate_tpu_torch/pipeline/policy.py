@@ -12,13 +12,32 @@ from ..worldmap import map_state as ms
 from .frame import Frame
 
 
-def need_new_keyframe(since: int, n_local: int, peak: int, *, min_frames: int,
-                      max_frames: int, ref_ratio: float, min_track: int) -> bool:
+def need_new_keyframe(since, n_local, peak, *, min_frames: int, max_frames: int,
+                      ref_ratio: float, min_track: int):
     """NeedNewKeyFrame (Tracking.cc:1075): too long since the last keyframe,
-    or the tracked count decayed well below its in-window peak."""
+    or the tracked count decayed well below its in-window peak.  Host ints
+    give a bool, device scalars a 0-d bool tensor."""
+    peak1 = torch.clamp_min(peak, 1) if torch.is_tensor(peak) else max(peak, 1)
     c1 = since >= max_frames
-    c2 = n_local < ref_ratio * max(peak, 1)
-    return (since >= min_frames) and (c1 or c2) and (n_local > min_track)
+    c2 = n_local < ref_ratio * peak1
+    return (since >= min_frames) & (c1 | c2) & (n_local > min_track)
+
+
+def keyframe_bows(vocab, m: ms.MapState) -> torch.Tensor:
+    """[K, W] BoW rows of every valid keyframe, zeros elsewhere: the
+    keyframe database rebuilt from a map.  All K x N descriptors go through
+    one word assignment (kernel 5 on the card)."""
+    from ..worldmap import vocabulary as voc
+
+    K, N = m.K, m.N
+    valid = (m.kf_feat_valid & m.kf_valid[:, None]).reshape(-1)
+    w = voc.assign_words(vocab, m.kf_desc.reshape(K * N, -1), valid)
+    rows = torch.arange(K, device=m.device).repeat_interleave(N)
+    flat = rows * vocab.n_words + torch.clamp_min(w, 0).long()
+    counts = torch.zeros(K * vocab.n_words, dtype=torch.float32, device=m.device).index_add(
+        0, flat, valid.to(torch.float32)).reshape(K, vocab.n_words) * vocab.idf
+    bows = counts / torch.clamp_min(counts.sum(1, keepdim=True), 1e-9)
+    return torch.where(m.kf_valid[:, None], bows, 0.0)
 
 
 def build_mono_init_map(m: ms.MapState, cam: CameraModel, f0: Frame, frame: Frame,

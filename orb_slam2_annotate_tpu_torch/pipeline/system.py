@@ -71,6 +71,12 @@ class SlamConfig:
     enable_loop_closing: bool = True
     enable_relocalization: bool = True
     enable_kf_culling: bool = True
+    # the free runner's (pipeline/device_loop.py): a global BA right after
+    # each live closure while max_kf <= free_live_gba_max_kf, and the reset
+    # after an early loss; System ignores them
+    free_live_gba: bool = True
+    free_live_gba_max_kf: int = 256
+    free_auto_reset: bool = True
     shard_points: bool = False
     async_depth: int = 0
 

@@ -93,6 +93,12 @@ def empty_map(max_kf: int = 256, max_mp: int = 16384, n_feat: int = 1024,
                     n_kf=torch.zeros((), dtype=i32, device=device), **fields)
 
 
+def clear_map(m: MapState) -> MapState:
+    """A map of the same shapes holding empty_map's fill values, on m's
+    device (the free runner's auto-reset)."""
+    return empty_map(m.K, m.P, m.N, device=m.device)
+
+
 def grow_map(m: MapState, new_K: int | None = None, new_P: int | None = None) -> MapState:
     """Enlarged capacity; existing slots keep their indices."""
     K, P = m.K, m.P
