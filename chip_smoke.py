@@ -162,7 +162,28 @@ Phases (any failure exits non-zero):
      recover: no keyframe made.  In phases 11-13 every verified loop
      candidate must launch kernels 7 and 8 twice and kernel 3 four times,
      every loop stage kernel 5 once, every relocalization attempt kernel 6
-     once and kernel 4 at most once.
+     once and kernel 4 at most once;
+  14. map I/O, the merge and the dataset drivers: a System over phase 5's
+     64-frame sweep saved (``save_map``) and loaded into a fresh one
+     (``load_map``): every field
+     bit for bit, the keyframe database rows it had written within 1e-6,
+     then frames 4-7 relocalized (kernels 5, 6 and 4) with each camera
+     centre within 0.30 m of the truth once the saved run is Sim3-aligned
+     to it; the same through ``FreeRunner.save_map`` / ``load_map`` on
+     phase 11's finished map, and the System's file loaded into a runner;
+     two RGB-D sessions of phases 7-8's cell (frames 0-27 and 20-47) merged
+     by ``worldmap/merge.merge_maps(fix_scale=True)``: success, the scale
+     within 0.1 of 1 and the median merged-keyframe centre error below
+     0.15 m (tests/test_merge.py's bounds), kernels 3a, 3b, 5, 7 and 8
+     launched, each stage timed; the drivers on VGA fixtures written here
+     (tools/driver_fixtures.py: the port's renderer, PNGs of numpy and
+     zlib): ``run_tum`` mono on a distorted capture (ATE < 0.12 m) and
+     rgbd on 16-bit depth, ``run_euroc`` stereo on distorted, yawed raw
+     pairs rectified by kernel 10 (>= 12 rows, ATE < 0.2 m), ``run_kitti``
+     mono as a subprocess, ``run_synthetic --free``, each ATE within
+     max(1.5 x, +0.01 m) of the JAX driver's on the same fixture
+     (tools/jax_io_reference.py); and the first RGB-D frames of a fresh
+     process timed without and with ``System.warmup()``.
 Kernel times are one CUDA-event pair around 100 back-to-back calls after a
 warm-up, divided by the count; kernels 3b and 6 also give ``graph_us``, the
 device time a call in a replay of 50 calls captured into one CUDA graph (as
@@ -284,6 +305,25 @@ FREE_LOOP_RGBD_JAX_SEEDS = (0.04468715610689028, 0.09881848608167484, 0.03453797
 FREE_RGBD_ATE_JAX = 0.0028807529139862663
 FREE_STEREO_ATE_JAX = 0.003443949556563205
 LOOP_DEPTH_BF = 250.0 * 0.08
+# phase 14: map I/O relocalizes frames 4-7 of phase 5's sweep into the map a
+# System saved after the sweep, each camera centre within
+# tests/test_checkpoint.py:57's bound once the saved run's trajectory is
+# Sim3-aligned to the truth; the merge runs two
+# RGB-D sessions of phases 7-8's cell (tests/test_merge.py's bounds); the
+# drivers run on tools/driver_fixtures.py's VGA cells of 32 frames and
+# run_synthetic --free on 40.  The JAX package on the same cells
+# (python3 tools/jax_io_reference.py, a CPU run): the merge's outcome, and
+# each driver's Sim3-aligned ATE over its trajectory file (KITTI: the
+# keyframe trajectory)
+RELOC_FRAMES = (4, 5, 6, 7)
+RELOC_BOUND = 0.30
+MERGE_A, MERGE_B = range(0, 28), range(20, 48)
+DRIVER_FRAMES, SYNTHETIC_FRAMES, FIRST_FRAMES = 32, 40, 4
+MERGE_JAX = dict(success=True, scale=1.0, median_kf_err_m=0.012890535163916542, keyframes_a=6,
+                 keyframes_b=6)
+DRIVER_ATE_JAX = {"tum_mono": 0.008611342531422888, "tum_rgbd": 0.004566327891771606,
+                  "kitti_mono": 0.002335408708058427, "euroc_stereo": 0.010501911240129799,
+                  "synthetic_free": 0.012052084054321609}
 PEAK_OPS = 67e12      # /s: f32 outside the tensor cores (H100 SXM); 32-bit integer work alike
 PEAK_INT8_TC = 1.979e15  # /s: int8 dense tensor cores (H100 SXM); kernel 5's 1-bit products
 PEAK_BYTES = 3.35e12  # /s: HBM3
@@ -1121,7 +1161,352 @@ def free_phases(ctx):
                          "13 free stereo": launches13s, "13 free scan": launches13c,
                          "13 free localization": launches13l},
             "outcomes": {"bench": o11, "loop": o12, "loop_rgbd": o12d, "rgbd": o13r,
-                         "stereo": o13s, "scan": o13c, "localization": o13l}}
+                         "stereo": o13s, "scan": o13c, "localization": o13l},
+            "bench_runner": (runner11, cam11, gt11, images11, cfg11)}
+
+
+def first_frames(mode: str, settings: str, seq: str, assoc: str):
+    """``python3 chip_smoke.py --first-frames cold|warm <settings> <seq>
+    <associations>``: in a fresh process, an RGB-D System on the TUM
+    fixture's first frames, each timed to a device synchronize, after
+    ``warmup()`` when `mode` is warm.  Prints one JSON line."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from orb_slam2_annotate_tpu_torch.io import config, datasets
+    from orb_slam2_annotate_tpu_torch.pipeline import System
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    st = config.load_settings(settings, sensor="rgbd")
+    samples = datasets.read_tum_rgbd(seq, assoc)[:FIRST_FRAMES]
+    images = [datasets.load_image_gray(s.rgb_path) for s in samples]
+    depths = [datasets.load_image_gray(s.depth_path) / st.depth_map_factor for s in samples]
+    slam = System(st.cam, st.slam, device="cuda")
+    torch.cuda.synchronize()
+    warm_s = None
+    if mode == "warm":
+        t0 = time.perf_counter()
+        slam.warmup()
+        warm_s = time.perf_counter() - t0
+    frame_s = []
+    for k, (img, dep) in enumerate(zip(images, depths)):
+        t0 = time.perf_counter()
+        slam.track_rgbd(img, dep, samples[k].timestamp)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+    print(json.dumps({"mode": mode, "warmup_s": warm_s, "frame_s": frame_s, "state": slam.state,
+                      "keyframes": slam.n_keyframes}))
+
+
+def io_phases(ctx):
+    """Phase 14: map I/O, the multi-session merge and the dataset drivers,
+    on what phases 1-13 left (`ctx`: the card's line, the slice's camera,
+    poses, frames, depths and config, phase 5's sweep and its poses, phases
+    7-8's depth camera and config, phase 11's runner, and the launch
+    counters).
+    Returns {"launches": each part's launches, "outcomes": each part's}."""
+    import contextlib
+    import io as io_mod
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from orb_slam2_annotate_tpu_torch.drivers import run_euroc, run_synthetic, run_tum
+    from orb_slam2_annotate_tpu_torch.io import evaluation, synthetic
+    from orb_slam2_annotate_tpu_torch.pipeline import System, local_mapping
+    from orb_slam2_annotate_tpu_torch.pipeline import device_loop as dl
+    from orb_slam2_annotate_tpu_torch.solvers import ba_cg
+    from orb_slam2_annotate_tpu_torch.worldmap import map_state, merge
+
+    fx = types.SimpleNamespace(**runpy.run_path(os.path.join(ROOT, "tools", "driver_fixtures.py")))
+    card, cam, poses, frames = ctx.card, ctx.cam, ctx.poses, ctx.frames
+    zero_launches, read_launches = ctx.zero_launches, ctx.read_launches
+    fields = [f.name for f in dataclasses.fields(map_state.MapState)]
+    centre = lambda T: -np.asarray(T[:3, :3], np.float64).T @ np.asarray(T[:3, 3], np.float64)
+    true_centre = lambda R, t: -np.asarray(R, np.float64).T @ np.asarray(t, np.float64)
+
+    def alignment(traj, gt):
+        """The Sim3 taking a run's camera centres onto the truth."""
+        ids = [k for k, T in traj if T is not None]
+        est = np.stack([centre(T) for _, T in traj if T is not None])
+        return evaluation.umeyama_alignment(est, np.stack([true_centre(*gt[k]) for k in ids]))
+
+    def reloc_errors(traj, sim, gt, frame_ids):
+        s, R, t = sim
+        return [None if T is None else float(np.linalg.norm(s * R @ centre(T) + t
+                                                            - true_centre(*gt[k])))
+                for T, k in zip(traj, frame_ids)]
+
+    def db_rows_err(old, new, kf_valid):
+        """(max difference on the rows the live run wrote, every row of an
+        invalid slot zero)."""
+        written = old.abs().sum(1) > 0
+        return float((new[written] - old[written]).abs().max()), not new[~kf_valid].any()
+
+    def added(a, b):
+        return {k: a.get(k, 0) + b[k] for k in b}
+
+    def check(name, checks):
+        bad = [k for k, v in checks.items() if not v]
+        if bad:
+            fail(f"{name} checks failed: {bad}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    try:
+        # ---- (a) map I/O: a System over phase 5's sweep (before its jump),
+        # then phase 11's runner.  (On phase 4's shorter slice a loaded
+        # System tracks frames 4-7 through its reference keyframe and never
+        # relocalizes; after the sweep they are out of that keyframe's view.)
+        gt5, sweep = ctx.gt5, ctx.sweep
+        slam = System(cam, ctx.slice_cfg, device="cuda")
+        for k, img in enumerate(sweep):
+            slam.track_mono(img, k / 30.0)
+        path = os.path.join(tmp, "system_map.npz")
+        t0 = time.perf_counter()
+        slam.save_map(path)
+        save_s = time.perf_counter() - t0
+        sim4 = alignment(slam.frame_trajectory(), gt5)
+        zero_launches()
+        torch.cuda.synchronize()
+        slam_l = System(cam, ctx.slice_cfg, device="cuda")
+        t0 = time.perf_counter()
+        slam_l.load_map(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        differ = [f for f in fields if not torch.equal(getattr(slam.map, f), getattr(slam_l.map, f))]
+        db_err, db_zero = db_rows_err(slam.loop_closer.db.bows, slam_l.loop_closer.db.bows,
+                                      slam.map.kf_valid)
+        traj, frame_s = [], []
+        for i, k in enumerate(RELOC_FRAMES):
+            t0 = time.perf_counter()
+            traj.append(slam_l.track_mono(sweep[k], (len(sweep) + i) / 30.0))
+            torch.cuda.synchronize()
+            frame_s.append(time.perf_counter() - t0)
+        launches_io = read_launches()
+        errs = reloc_errors(traj, sim4, gt5, RELOC_FRAMES)
+        o_sys = {"sweep_frames": len(sweep), "keyframes_saved": slam.n_keyframes, "save_s": save_s, "load_s": load_s, "file_bytes": os.path.getsize(path),
+                 "fields_that_differ": differ, "db_written_rows_max_err": db_err,
+                 "db_invalid_rows_zero": db_zero, "keyframes": slam_l.n_keyframes,
+                 "reloc_frames": list(RELOC_FRAMES), "reloc_centre_err_m": errs,
+                 "reloc_frame_ms": [1e3 * x for x in frame_s], "state": slam_l.state,
+                 "launches": launches_io}
+        print(f"map io, System: {json.dumps(o_sys)}, card {card}")
+        check("map io, System", {
+            "every field bit for bit": not differ, "database rows within 1e-6": db_err <= 1e-6,
+            "invalid slots' rows zero": db_zero, "state OK after the frames": slam_l.state == "OK",
+            f"each frame relocalized within {RELOC_BOUND} m":
+                all(e is not None and e < RELOC_BOUND for e in errs),
+            "kernels 5, 6 and 4 launched": all(launches_io[w] > 0 for w in (
+                "assign_words", "pnp_hypotheses", "optimize_pose_batched"))})
+
+        def free_load(name, file, cam_r, cfg_r, images, gt, frame_ids, ref_map, ref_bows, sim):
+            zero_launches()
+            torch.cuda.synchronize()
+            runner = dl.FreeRunner(cam_r, cfg_r, max_frames=len(frame_ids), auto_grow=False,
+                                   device="cuda")
+            t0 = time.perf_counter()
+            runner.load_map(file)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            m = runner.state.m
+            differ = [f for f in fields if not torch.equal(getattr(ref_map, f), getattr(m, f))]
+            err, zero = db_rows_err(ref_bows, runner.state.bows, ref_map.kf_valid)
+            for i, k in enumerate(frame_ids):
+                runner.track_mono(images[k], i / 30.0)
+            runner.block()
+            launches = read_launches()
+            traj = [T for _, T in runner.finish()["trajectory"]]
+            errs = reloc_errors(traj, sim, gt, frame_ids)
+            out = {"load_s": load_s, "fields_that_differ": differ, "bows_written_rows_max_err": err,
+                   "bows_invalid_rows_zero": zero, "reloc_frames": list(frame_ids),
+                   "reloc_centre_err_m": errs, "mode": int(runner.state.mode),
+                   "launches": launches}
+            print(f"map io, {name}: {json.dumps(out)}, card {card}")
+            check(f"map io, {name}", {
+                "every field bit for bit": not differ, "BoW rows within 1e-6": err <= 1e-6,
+                "invalid slots' rows zero": zero, "mode OK after the frames": out["mode"] == dl.MODE_OK,
+                f"each frame relocalized within {RELOC_BOUND} m":
+                    all(e is not None and e < RELOC_BOUND for e in errs),
+                "kernel 6 launched": launches["pnp_hypotheses"] > 0})
+            return out, launches
+
+        runner11, cam11, gt11, images11, cfg11 = ctx.bench_runner
+        out11 = runner11.finish()
+        free_path = os.path.join(tmp, "free_map.npz")
+        t0 = time.perf_counter()
+        runner11.save_map(free_path)
+        free_save_s = time.perf_counter() - t0
+        o_free, l_free = free_load("FreeRunner (phase 11's map)", free_path, cam11, cfg11,
+                                   images11, gt11, RELOC_FRAMES, out11["map"], runner11.state.bows,
+                                   alignment(out11["trajectory"], gt11))
+        o_free.update(save_s=free_save_s, file_bytes=os.path.getsize(free_path))
+        o_cross, l_cross = free_load("FreeRunner (the System's file)", path, cam, ctx.slice_cfg,
+                                     sweep, gt5, RELOC_FRAMES, slam.map,
+                                     slam.loop_closer.db.bows, sim4)
+        launches_io = added(added(launches_io, l_free), l_cross)
+
+        # ---- (b) merge: two RGB-D sessions of phases 7-8's depth cell
+        cfg_d = ctx.depth_config("rgbd")
+
+        def session(span):
+            s_ = System(ctx.cam_d, cfg_d, device="cuda")
+            for k in span:
+                s_.track_rgbd(frames[k], ctx.depths[k], k / 30.0)
+            s_.flush()
+            return s_
+
+        sess_a, sess_b = session(MERGE_A), session(MERGE_B)
+        stage_s = collections.defaultdict(float)
+        stage_n = collections.Counter()
+
+        def timed(name, fn):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                stage_s[name] += time.perf_counter() - t
+                stage_n[name] += 1
+                return out
+            return run
+
+        saved = (merge.find_cross_map_pair, merge.solve_inter_map_sim3, merge.place_session,
+                 map_state.update_mappoint_stats, local_mapping.fuse_points_into,
+                 ba_cg.bundle_adjust_cg)
+        merge.find_cross_map_pair = timed("bow", saved[0])
+        merge.solve_inter_map_sim3 = timed("sim3", saved[1])
+        merge.place_session = timed("reindex", saved[2])
+        map_state.update_mappoint_stats = timed("stats", saved[3])
+        local_mapping.fuse_points_into = timed("seam_fuse", saved[4])
+        ba_cg.bundle_adjust_cg = timed("joint_ba", saved[5])
+        zero_launches()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = merge.merge_maps(sess_a.map, sess_b.map, ctx.cam_d, vocab=sess_a.loop_closer.vocab,
+                                   fix_scale=True)
+            torch.cuda.synchronize()
+            merge_s = time.perf_counter() - t0
+        finally:
+            (merge.find_cross_map_pair, merge.solve_inter_map_sim3, merge.place_session,
+             map_state.update_mappoint_stats, local_mapping.fuse_points_into,
+             ba_cg.bundle_adjust_cg) = saved
+        launches_merge = read_launches()
+        m = res.map
+        fid = m.kf_frame_id.cpu().numpy()
+        kf_R, kf_t = m.kf_R.cpu().numpy(), m.kf_t.cpu().numpy()
+        errs = []
+        for s_ in np.nonzero(m.kf_valid.cpu().numpy())[0]:
+            f = int(fid[s_])
+            f = f - merge.FRAME_ID_OFFSET + MERGE_B[0] if f >= merge.FRAME_ID_OFFSET else f
+            errs.append(float(np.linalg.norm(centre(np.c_[kf_R[s_], kf_t[s_]])
+                                             - true_centre(*poses[f]))))
+        o_merge = {"success": res.success, "scale": res.scale, "kf_a": res.kf_a, "kf_b": res.kf_b,
+                   "median_kf_err_m": float(np.median(errs)), "jax": MERGE_JAX,
+                   "keyframes_a": sess_a.n_keyframes, "keyframes_b": sess_b.n_keyframes,
+                   "keyframe_slots_used": f"{int(m.kf_valid.sum())} / {m.K}",
+                   "point_slots_used": f"{int(m.mp_valid.sum())} / {m.P}",
+                   "merge_ms": 1e3 * merge_s,
+                   "stage_ms": {k: 1e3 * v for k, v in stage_s.items()},
+                   "stage_calls": dict(stage_n), "launches": launches_merge}
+        print(f"merge: {json.dumps(o_merge)}, card {card}")
+        check("merge", {"success": res.success, "scale within 0.1 of 1": abs(res.scale - 1.0) < 0.1,
+                        "median merged-keyframe error < 0.15 m": o_merge["median_kf_err_m"] < 0.15,
+                        "kernels 3a, 3b, 5, 7 and 8 launched": all(launches_merge[w] > 0 for w in (
+                            "hamming_match", "distinctive_descriptors", "assign_words",
+                            "sim3_ransac_solve", "sim3_lm_solve"))})
+
+        # ---- (c) the drivers on fixtures written here (VGA, numpy + zlib PNGs)
+        root = os.path.join(tmp, "fixtures")
+        cells = fx.build_cells(root, synthetic, DRIVER_FRAMES)
+        launches_drv, o_drv = {}, {}
+
+        def in_dir(name, fn):
+            d = os.path.join(root, "out_" + name)
+            os.makedirs(d, exist_ok=True)
+            cwd, buf = os.getcwd(), io_mod.StringIO()
+            os.chdir(d)
+            try:
+                with contextlib.redirect_stdout(buf):
+                    out = fn()
+            finally:
+                os.chdir(cwd)
+            return out, buf.getvalue(), d
+
+        def driver_ate(name, d, traj_file):
+            cell = cells[name]
+            est, gt = fx.matched_centres(np.loadtxt(os.path.join(d, traj_file)), cell["times"],
+                                         cell["centres"])
+            return float(evaluation.ate_rmse(est, gt, with_scale=True)[0]), len(est)
+
+        for name, mod in (("tum_mono", run_tum), ("tum_rgbd", run_tum), ("euroc_stereo", run_euroc)):
+            zero_launches()
+            out, stdout, d = in_dir(name, lambda: mod.main(cells[name]["args"]))
+            launches = read_launches()
+            launches_drv = added(launches_drv, launches)
+            ate, rows = driver_ate(name, d, "CameraTrajectory.txt")
+            o_drv[name] = {"ate_m": ate, "rows": rows, "frames": out["frames"],
+                           "tracked": out["tracked"], "frames_per_s": out["frames_per_s"],
+                           "frame_ms_median": out["frame_ms_median"],
+                           "rectified": "rectifying with LEFT./RIGHT." in stdout,
+                           "launches": launches}
+        # KITTI mono as a user runs it: a process of its own (its launches are
+        # not in this one's counters)
+        d = os.path.join(root, "out_kitti_mono")
+        os.makedirs(d, exist_ok=True)
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "orb_slam2_annotate_tpu_torch.drivers.run_kitti",
+                            *cells["kitti_mono"]["args"]], cwd=d, capture_output=True, text=True,
+                           env=dict(os.environ, PYTHONPATH=ROOT), timeout=600)
+        if r.returncode != 0:
+            fail(f"run_kitti as a subprocess: rc {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+        ate, rows = driver_ate("kitti_mono", d, "KeyFrameTrajectory.txt")
+        med = [ln for ln in r.stdout.splitlines() if ln.startswith("median tracking time")]
+        o_drv["kitti_mono"] = {"ate_m": ate, "keyframe_rows": rows, "process_s": time.perf_counter() - t0,
+                               "camera_rows": len(np.loadtxt(os.path.join(d, "CameraTrajectory.txt"))),
+                               "frames": DRIVER_FRAMES, "stdout_timing": med[-1] if med else None}
+        zero_launches()
+        out, _, d = in_dir("synthetic_free",
+                           lambda: run_synthetic.main([str(SYNTHETIC_FRAMES), "--free"]))
+        launches = read_launches()
+        launches_drv = added(launches_drv, launches)
+        o_drv["synthetic_free"] = {**out, "launches": launches}
+        for name, o in o_drv.items():
+            jx = DRIVER_ATE_JAX[name]
+            o.update(ate_jax_m=jx, ate_bound_m=max(1.5 * jx, jx + 0.01))
+            print(f"driver {name}: {json.dumps(o)}, card {card}")
+        # first-frame times in fresh processes, without and with warmup()
+        rgbd = cells["tum_rgbd"]["args"]
+        first = {}
+        for mode in ("cold", "warm"):
+            r = subprocess.run([sys.executable, os.path.abspath(__file__), "--first-frames", mode,
+                                *rgbd[1:]], cwd=ROOT, capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                fail(f"--first-frames {mode}: rc {r.returncode}\n{r.stderr[-2000:]}")
+            first[mode] = json.loads(r.stdout.strip().splitlines()[-1])
+        o_drv["first_frames"] = first
+        print(f"first RGB-D frames in a fresh process, s: {json.dumps(first)}, card {card}")
+        within = lambda name: o_drv[name]["ate_m"] <= o_drv[name]["ate_bound_m"]
+        check("drivers", {
+            "TUM distorted mono ATE < 0.12 m": o_drv["tum_mono"]["ate_m"] < 0.12,
+            "EuRoC stereo rectified": o_drv["euroc_stereo"]["rectified"],
+            "EuRoC stereo >= 12 rows, ATE < 0.2 m":
+                o_drv["euroc_stereo"]["rows"] >= 12 and o_drv["euroc_stereo"]["ate_m"] < 0.2,
+            "kernels 9 and 10 once a stereo frame": o_drv["euroc_stereo"]["launches"]["stereo_match"]
+                == o_drv["euroc_stereo"]["launches"]["remap_pair"] == DRIVER_FRAMES,
+            "synthetic --free tracks > 60%": o_drv["synthetic_free"]["tracked"] > 0.6 * SYNTHETIC_FRAMES,
+            **{f"{n} ATE within max(1.5 x, +0.01 m) of the JAX driver's": within(n) for n in o_drv
+               if n != "first_frames"},
+            "both first-frame runs OK": all(v["state"] == "OK" for v in first.values())})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches": {"14 map io": launches_io, "14 merge": launches_merge,
+                         "14 drivers": launches_drv},
+            "outcomes": {"system_io": o_sys, "free_io": o_free, "free_io_system_file": o_cross,
+                         "merge": o_merge, "drivers": o_drv}}
 
 
 def main():
@@ -2737,6 +3122,13 @@ def main():
         read_launches=read_launches))
     fl = free["launches"]
 
+    # ---- phase 14: map I/O, the merge and the dataset drivers
+    io14 = io_phases(types.SimpleNamespace(
+        card=card, cam=cam, poses=poses, frames=frames, depths=depths, slice_cfg=slice_cfg,
+        gt5=gt5, sweep=images5[:KIDNAP_SWEEP], cam_d=cam_d, depth_config=depth_config, bench_runner=free["bench_runner"],
+        zero_launches=zero_launches, read_launches=read_launches))
+    fl = {**fl, **io14["launches"]}
+
     kern = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
              "launches": (launches4[w] + launches5[w] + launches6[w] + launches7[w] + launches8[w]
                           + launches9m[w] + launches9r[w] + launches10[w] + launches10l[w]
@@ -2770,11 +3162,14 @@ def main():
                       "rgbd": out7, "stereo": out8,
                       "fuse": {"slice": out9m, "rgbd": out9r, "core_on_card": core_checks},
                       "pipelined": out10m, "pipelined_loop": out10l,
-                      "free": free["outcomes"],
+                      "free": free["outcomes"], "io": io14["outcomes"],
                       "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--first-frames"]:
+        first_frames(*sys.argv[2:6])
+    else:
+        main()

@@ -1,10 +1,13 @@
-"""Build a ``csrc/*.cu`` file with nvcc into a shared library and load it.
+"""Build a ``csrc/*.cu`` file with nvcc, or a host C++ source with g++, into
+a shared library and load it.
 
 Each source has a plain C interface (no PyTorch headers), so ``nvcc``
 builds it in seconds.  The library lands in ``_build/`` beside the package
 (listed in .gitignore), named by a hash of the source and flags, and is
 built at first use by the process that needs it.  There is no fallback: a
-missing ``nvcc`` or a failed build raises.
+missing compiler or a failed build raises.  ``load_host`` builds the
+repository's ``native/loader.cpp`` (the image loader) the same way, and
+never reads or writes ``native/`` beyond its source.
 """
 
 from __future__ import annotations
@@ -29,6 +32,13 @@ SOURCES = {"fast_nms": ("--fmad=false",), "orb_describe": ("--fmad=false",),
            "pnp_score": ("--fmad=false",), "sim3": ("--fmad=false",),
            "stereo": ("--fmad=false",), "remap": ("--fmad=false",)}
 
+# host C++ sources outside the package: name -> (path, g++ flags, link flags);
+# the loader's flags are native/build.sh's, so that both packages' builds
+# convert colour to gray with the same float contractions
+HOST_SOURCES = {"loader": (os.path.join(os.path.dirname(PKG_DIR), "native", "loader.cpp"),
+                           ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"),
+                           ("-lz", "-lpthread"))}
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: dict[str, float] = {}
 
@@ -44,29 +54,47 @@ def _nvcc() -> str:
     return found
 
 
+def _build_and_load(key: str, src: str, compiler: str, flags: list, post: list) -> ctypes.CDLL:
+    """Build `src` (once per content and flags) into _build/ and load it."""
+    lib = _LIBS.get(key)
+    if lib is not None:
+        return lib
+    with open(src, "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(flags + post).encode()).hexdigest()[:12]
+    out = os.path.join(BUILD_DIR, f"lib{key}-{digest}.so")
+    if not os.path.exists(out):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        proc = subprocess.run([compiler, *flags, "-o", tmp, src, *post],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{os.path.basename(compiler)} failed for {src}:\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+        BUILD_SECONDS[key] = time.perf_counter() - t0
+    lib = ctypes.CDLL(out)
+    _LIBS[key] = lib
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (once) and load ``csrc/<name>.cu``."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    flags = ARCH_FLAGS + BASE_FLAGS + list(SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(flags).encode()).hexdigest()[:12]
-    out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
-    if not os.path.exists(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, src],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-        BUILD_SECONDS[name] = time.perf_counter() - t0
-    lib = ctypes.CDLL(out)
-    _LIBS[name] = lib
-    return lib
+    return _build_and_load(name, os.path.join(CSRC_DIR, f"{name}.cu"), _nvcc(),
+                           ARCH_FLAGS + BASE_FLAGS + list(SOURCES[name]), [])
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """Build (once) with g++ and load the host C++ source `name` of
+    HOST_SOURCES."""
+    src, flags, libs = HOST_SOURCES[name]
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        raise RuntimeError("g++ not found (set CXX); the host library cannot be built")
+    return _build_and_load(f"host_{name}", src, cxx, list(flags), list(libs))
 
 
 def check_launch(err: int, name: str) -> None:

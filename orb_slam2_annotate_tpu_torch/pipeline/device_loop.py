@@ -472,8 +472,8 @@ class FreeRunner:
     the map once and returns the trajectory.  With the System it shares
     capacity growth (``grow`` / auto-growth by the read-free upper bound of
     one keyframe per ``min_frames_between_kf`` frames), the auto-reset after
-    an early loss, and localization mode.  Map save / load wait for the
-    checkpoint module; point sharding is not ported."""
+    an early loss, localization mode and map save / load; point sharding is
+    not ported."""
 
     def __init__(self, cam: CameraModel, config: SlamConfig | None = None,
                  max_frames: int = 4096, auto_grow: bool = True, device="cuda"):
@@ -481,7 +481,7 @@ class FreeRunner:
         if cfg.shard_points:
             raise NotImplementedError("not ported yet: {'shard_points': True} (point sharding)")
         if cfg.sensor not in SENSORS:
-            raise NotImplementedError(f"not ported yet: {{'sensor': {cfg.sensor!r}}}")
+            raise ValueError(f"unknown sensor {cfg.sensor!r}: one of {SENSORS}")
         if cfg.max_mp < cfg.n_features:
             raise ValueError("the mono bootstrap maps feature index -> point slot: "
                              "max_mp must be >= n_features")
@@ -699,12 +699,36 @@ class FreeRunner:
     # -- map save / load ---------------------------------------------------
 
     def save_map(self, path: str):
-        raise NotImplementedError("FreeRunner.save_map needs io/checkpoint.py, not ported yet "
-                                  "(module 7, map I/O)")
+        """Persist the map: the finished one after ``finish()`` (its global BA
+        folded in), else the live state's.  The header's extra holds
+        frame_id."""
+        from ..io import checkpoint
+
+        m = self._finished["map"] if self._finished is not None else self.state.m
+        checkpoint.save_map(path, m, extra={"frame_id": self.frame_id})
 
     def load_map(self, path: str):
-        raise NotImplementedError("FreeRunner.load_map needs io/checkpoint.py, not ported yet "
-                                  "(module 7, map I/O)")
+        """Restore a saved map (of either runner or a System) before
+        tracking: the runner starts LOST and relocalizes into it.  The
+        configured tiers grow to fit the file; the BoW rows are rebuilt from
+        its keyframes (one kernel-5 launch over all K slots)."""
+        from ..io import checkpoint
+
+        if self.frame_id != -1:
+            raise RuntimeError("load_map must precede tracking")
+        m, _ = checkpoint.load_map(path, self.device)
+        if m.N != self.cfg.n_features:
+            raise ValueError(f"the map has N={m.N} features a keyframe, the runner "
+                             f"n_features={self.cfg.n_features}")
+        m = ms.grow_map(m, new_K=max(m.K, self.cfg.max_kf), new_P=max(m.P, self.cfg.max_mp))
+        if m.K > self.cfg.max_kf or m.P > self.cfg.max_mp:
+            self.cfg = dataclasses.replace(self.cfg, max_kf=m.K, max_mp=m.P)
+            self.state = self._init_state(self.cfg)
+        # re-pin the P/K ratio to the (maybe larger) loaded tiers, so a later
+        # auto-grow (new_P = 2 K ratio) cannot ask grow_map to shrink P
+        self._mp_ratio = max(self._mp_ratio, -(-self.cfg.max_mp // self.cfg.max_kf))
+        self.state = self.state.replace(m=m, bows=policy.keyframe_bows(self.vocab, m),
+                                        mode=_i32(MODE_LOST, self.device))
 
     # -- one readback ------------------------------------------------------
 

@@ -29,14 +29,7 @@ def keyframe_bows(vocab, m: ms.MapState) -> torch.Tensor:
     one word assignment (kernel 5 on the card)."""
     from ..worldmap import vocabulary as voc
 
-    K, N = m.K, m.N
-    valid = (m.kf_feat_valid & m.kf_valid[:, None]).reshape(-1)
-    w = voc.assign_words(vocab, m.kf_desc.reshape(K * N, -1), valid)
-    rows = torch.arange(K, device=m.device).repeat_interleave(N)
-    flat = rows * vocab.n_words + torch.clamp_min(w, 0).long()
-    counts = torch.zeros(K * vocab.n_words, dtype=torch.float32, device=m.device).index_add(
-        0, flat, valid.to(torch.float32)).reshape(K, vocab.n_words) * vocab.idf
-    bows = counts / torch.clamp_min(counts.sum(1, keepdim=True), 1e-9)
+    bows = voc.bow_rows(vocab, m.kf_desc, m.kf_feat_valid & m.kf_valid[:, None])
     return torch.where(m.kf_valid[:, None], bows, 0.0)
 
 

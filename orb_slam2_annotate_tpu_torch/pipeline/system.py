@@ -19,7 +19,9 @@ tracking is pipelined: each frame's step is dispatched without a host
 read (``tracking.track_frame_device``), its counts and poses are copied to
 pinned host memory behind a CUDA event, and the keyframe / LOST policy of a
 frame runs once its copy has landed, at most ``async_depth`` frames later;
-``flush()`` drains the pipeline.  Point sharding raises
+``flush()`` drains the pipeline.  ``save_map`` / ``load_map`` persist the
+map in the reference's file format (io/checkpoint.py); ``warmup`` runs each
+stage once on throwaway state.  Point sharding raises
 ``NotImplementedError``.
 """
 
@@ -38,11 +40,12 @@ from ..ops.extractor import ExtractorConfig
 from ..ops.orb import OrbTables
 from ..solvers import initializer
 from ..worldmap import map_state as ms
+from ..worldmap import vocabulary as voc
 from . import local_mapping as lm
 from . import policy
 from . import tracking as tk
 from .frame import Frame, make_frame_mono, make_frame_rgbd, make_frame_stereo
-from .loop_closing import LoopCloser, LoopCloserConfig, LoopDetectOut
+from .loop_closing import LoopCloser, LoopCloserConfig, LoopDetectOut, detect_loop_device
 
 
 @dataclasses.dataclass
@@ -85,8 +88,8 @@ class SlamConfig:
         return ExtractorConfig(n_features=self.n_features, n_levels=self.n_levels, scale=self.scale)
 
 
-# the sensors the port implements, and the one setting it does not: any
-# other value of it raises
+# the reference's sensors, and the one setting the port does not implement:
+# any other value of it raises NotImplementedError
 SENSORS = ("mono", "rgbd", "stereo")
 SLICE_SETTINGS = dict(shard_points=False)
 
@@ -115,9 +118,9 @@ class System:
 
     def __init__(self, cam: CameraModel, config: SlamConfig | None = None, device="cuda"):
         cfg = config or SlamConfig()
-        unsupported = {k: getattr(cfg, k) for k, v in SLICE_SETTINGS.items() if getattr(cfg, k) != v}
         if cfg.sensor not in SENSORS:
-            unsupported["sensor"] = cfg.sensor
+            raise ValueError(f"unknown sensor {cfg.sensor!r}: one of {SENSORS}")
+        unsupported = {k: getattr(cfg, k) for k, v in SLICE_SETTINGS.items() if getattr(cfg, k) != v}
         if unsupported:
             raise NotImplementedError(f"not ported yet: {unsupported}")
         self.cam = cam
@@ -202,6 +205,84 @@ class System:
 
     def reset(self):
         self.__init__(self.cam, self.cfg, self.device)
+
+    def change_calibration(self, cam: CameraModel):
+        """Runtime recalibration (Tracking::ChangeCalibration,
+        Tracking.cc:1683).  As in the reference, only the tracker's camera
+        changes: the loop closer keeps the one it was made with (ROADMAP.md
+        §3)."""
+        self.cam = cam
+
+    def warmup(self):
+        """Run every stage the steady-state pipeline can reach once, on
+        throwaway state: a zero frame's tracking step, the keyframe chain in
+        each keyframe-cull variant the config reaches, a database row and a
+        relocalization.  Nothing of the System's state is touched.  On the
+        card this pays the first-use costs (the kernels' builds, cuBLAS
+        handles, the allocator's pools) before the first real frame."""
+        cam, cfg, dev = self.cam, self.cfg, self.device
+        h, w = int(cam.height), int(cam.width)
+        img = torch.zeros((h, w), dtype=torch.uint8, device=dev)
+        has_depth = cfg.sensor in ("stereo", "rgbd")
+        if cfg.sensor == "stereo":
+            frame = make_frame_stereo(img, img, cam, self.tab, cfg.extractor)
+        elif cfg.sensor == "rgbd":
+            frame = make_frame_rgbd(img, torch.ones((h, w), device=dev), cam, self.tab,
+                                    cfg.extractor)
+        else:
+            frame = make_frame_mono(img, cam, self.tab, cfg.extractor)
+        m0 = ms.MapState(**{f.name: getattr(self.map, f.name).clone()
+                            for f in dataclasses.fields(ms.MapState)})
+        obs0 = torch.full((frame.xy.shape[0],), -1, dtype=torch.int32, device=dev)
+        eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+        track = tk.track_frame_device if cfg.async_depth > 0 else tk.track_frame
+        step = track(cam, m0, frame, frame, obs0, eye, zero, eye, zero, False, self.ref_kf)
+        slot = int(np.argmin(self._kf_valid_host))
+        for do_cull in ((False, True) if cfg.enable_kf_culling else (False,)):
+            m, _ = lm.keyframe_chain(
+                m0, cam, frame, slot, step.R, step.t, step.obs, 0, 0.0,
+                self._max_depth() if has_depth else None, do_cull_recent=cfg.enable_cull,
+                stats_in_triangulate=(cfg.enable_fuse if cfg.stats_in_triangulate is None
+                                      else cfg.stats_in_triangulate),
+                do_fuse=cfg.enable_fuse, do_local_ba=cfg.enable_local_ba, do_kf_cull=do_cull)
+        if self.loop_closer is not None:
+            lc = self.loop_closer
+            det = detect_loop_device(lc.vocab, lc.db.bows.clone(), m, slot, lc.cfg.gap_kf)
+            cand = tk.relocalize_candidates(cam, m, frame, lc.vocab, det.db_bows,
+                                            torch.Generator(device=dev).manual_seed(0))
+            tk.track_local_map(cam, m, frame, cand.R, cand.t, cand.obs)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def save_map(self, path: str):
+        """Persist the map (the reference's System.h:115 SaveMap TODO), after
+        ``flush()``; the header's extra holds frame_id and ref_kf."""
+        self.flush()
+        from ..io import checkpoint
+
+        checkpoint.save_map(path, self.map, extra={"frame_id": self.frame_id,
+                                                   "ref_kf": int(self.ref_kf)})
+
+    def load_map(self, path: str):
+        """Restore a saved map: the tracker is LOST with no velocity and must
+        relocalize into it; the keyframe database is rebuilt from the
+        keyframes (one kernel-5 launch over all K slots) and the pipelined
+        queue is cleared.  ``_mp_upper`` stays as it was, as in the
+        reference (its system.py:565-568): the next keyframe's capacity
+        check reads the true count once it exceeds the map's tier."""
+        from ..io import checkpoint
+
+        self.map, extra = checkpoint.load_map(path, self.device)
+        self.state = "LOST"
+        self.vel = None
+        self.ref_kf = int(extra.get("ref_kf", 0))
+        self._kf_valid_host = self.map.kf_valid.cpu().numpy().copy()
+        self._inflight = []
+        self._pending_cull = None
+        self._pending_det = None
+        if self.loop_closer is not None:
+            lc = self.loop_closer
+            lc.db = voc.KeyFrameDatabase(policy.keyframe_bows(lc.vocab, self.map))
 
     # ------------------------------------------------------------------
 

@@ -235,7 +235,9 @@ def observation_table(m: MapState):
         obs_ft = torch.nn.functional.pad(obs_ft, pad)
     obs_cnt = torch.clamp(has.sum(1), max=MAX_OBS).to(torch.int32)
     obs_mask = torch.arange(MAX_OBS, device=dev)[None, :] < obs_cnt[:, None]
-    return obs_kf, obs_ft, obs_cnt, obs_mask
+    # row-major, as kernel 3b takes them: with K >= MAX_OBS the tables keep
+    # Ft's transposed strides
+    return obs_kf.contiguous(), obs_ft.contiguous(), obs_cnt, obs_mask
 
 
 def _geometry_from_table(m: MapState, pos, obs_kf, obs_ft, obs_mask):

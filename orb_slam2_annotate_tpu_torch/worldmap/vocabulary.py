@@ -74,6 +74,20 @@ def bow_vector(vocab: Vocabulary, desc: torch.Tensor, valid: torch.Tensor) -> to
     return counts / torch.clamp_min(counts.sum(), 1e-9)
 
 
+def bow_rows(vocab: Vocabulary, desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """``bow_vector`` of each row: desc [R, N, 16], valid [R, N] -> [R, W],
+    all R x N descriptors in one word assignment (one kernel-5 launch on the
+    card)."""
+    R, N = valid.shape
+    v = valid.reshape(-1)
+    w = assign_words(vocab, desc.reshape(R * N, -1), v)
+    rows = torch.arange(R, device=desc.device).repeat_interleave(N)
+    flat = rows * vocab.n_words + torch.clamp_min(w, 0).long()
+    counts = torch.zeros(R * vocab.n_words, dtype=torch.float32, device=desc.device).index_add(
+        0, flat, v.to(torch.float32)).reshape(R, vocab.n_words) * vocab.idf
+    return counts / torch.clamp_min(counts.sum(1, keepdim=True), 1e-9)
+
+
 def l1_scores(bows: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """DBoW2 L1 similarity of q [W] against each row of bows [K, W]."""
     return 1.0 - 0.5 * torch.abs(bows - q[None, :]).sum(1)
