@@ -183,7 +183,31 @@ Phases (any failure exits non-zero):
      mono as a subprocess, ``run_synthetic --free``, each ATE within
      max(1.5 x, +0.01 m) of the JAX driver's on the same fixture
      (tools/jax_io_reference.py); and the first RGB-D frames of a fresh
-     process timed without and with ``System.warmup()``.
+     process timed without and with ``System.warmup()``;
+  15. the global BA beyond the CG solver, on phase 6's map at its closure
+     padded to bench.py's mono capacities (K = 128, P = 16,384, N = 1,024):
+     (a) the dense ``ba_core.bundle_adjust`` and the distributed BA at a
+     world of one (an NCCL group of one) against the same functions on the
+     CPU (the dense BA on its returned state, the distributed BA's 10
+     steps on its returned cost, its state after 4 steps on the state's
+     cost and each edge's residual: the comments of DIST_TOL and
+     DIST_FULL_TOL say why), with the reprojection RMSE before and after, the
+     normal equations', the Schur solve's and one LM step's times and the
+     dense BA's peak memory; (b) two gloo ranks on the one card, as
+     subprocesses (``python3 chip_smoke.py --dist-rank RANK PORT DIR``, each
+     with a time limit): the distributed BA and the LoopCloser's distributed
+     branch with its fold after ``load_map``, both ranks equal bit for bit
+     and within tolerance of the world-one run and fold, as in (a);
+     ``--keep-ba DIR`` keeps the BA problem (tests/_ba_spread.py reads
+     it); (c) ``shard_points=True`` on
+     phase 4's slice at a world of one, the trajectory and map bit for bit
+     phase 4's; (d) phase 4's ``System.telemetry.report()``, a
+     frontend/extract a frame, a tracking/step a tracking step, a
+     mapping/keyframe a keyframe after initialization; (e)
+     ``train_vocabulary`` (4,096 words, 8 iterations) on phase 4's frames'
+     descriptors, kernel 5 once a chunk an iteration, words and IDF equal
+     to the CPU twin's bit for bit.  The viewer (viz/viewer.py) has no
+     phase: it needs matplotlib, which the GPU machine lacks.
 Kernel times are one CUDA-event pair around 100 back-to-back calls after a
 warm-up, divided by the count; kernels 3b and 6 also give ``graph_us``, the
 device time a call in a replay of 50 calls captured into one CUDA graph (as
@@ -324,6 +348,44 @@ MERGE_JAX = dict(success=True, scale=1.0, median_kf_err_m=0.012890535163916542, 
 DRIVER_ATE_JAX = {"tum_mono": 0.008611342531422888, "tum_rgbd": 0.004566327891771606,
                   "kitti_mono": 0.002335408708058427, "euroc_stereo": 0.010501911240129799,
                   "synthetic_free": 0.012052084054321609}
+# phase 15: phase 6's map at its closure, padded to bench.py's mono capacities
+# (bench.py:153-180: 128 keyframe slots, 16,384 point slots, 1,024 features)
+DIST_K, DIST_P, DIST_N = 128, 16384, 1024
+DIST_ITERS = 10                    # LoopCloserConfig.global_ba_iters
+DIST_RANK_TIMEOUT_S = 300          # a rank of phase 15(b); every rendezvous and collective: 120 s
+# card against CPU, two ranks against one (chip_smoke.ba_agreement).  Float32
+# runs whose sums add in another order end apart along the map's flat
+# directions (its scale, a weakly triangulated point's depth), where the
+# objective hardly moves.  The dense BA (a Cholesky, each step's new cost
+# tested) stays close: held on the returned state's cost (relative) and the
+# reprojection RMSE (px).  Its returned cost is the last step's, kept or
+# not (the reference's ``costs[-1]``), and a step whose Cholesky refuses the
+# damped system (lambda <= ~1e-6 on this map, up to 3 of 10 steps in both
+# packages) costs the barrier of a NaN state (16,245,795 here).  On which
+# step a solve fails follows rounding (tests/_ba_spread.py --dense-steps):
+# 1 of 13 CPU edge orders ends on one in the port; JAX's 4 steps on the
+# given order do, where the port's do not.
+# So the two runs' returned costs are printed, not compared, and each is
+# held to be its last step's: not below its returned state's cost.
+DIST_TOL = dict(state_cost=1e-5, rmse_px=5e-3, cost_below_state=1e-5)
+# The distributed BA copies the reference's LM (ROADMAP.md §3): an LU of a
+# camera system whose scale direction, once the damping has fallen (x 0.5 a
+# kept step), is float32 rounding, and a last step applied untested.  Its
+# 10-step state is then a draw: on phase 6's closure map, over 16 edge
+# orders on the CPU, JAX's 1-device runs ended at states costing up to 27%
+# more than the best and the port's up to 1.6% more, while their returned
+# costs agreed within 4e-6 (tests/_ba_spread.py).  So its 10-step
+# run is held on the returned cost, and its state after DIST_SHORT_ITERS
+# steps, before the draw starts, on the state's cost and each valid edge's
+# residual (px): there 8 edge orders spread them by 3.1e-7 and 0.0024 px,
+# and one step fewer moves them by 2.7e-5 and 0.051 px.
+DIST_FULL_TOL = dict(cost=1e-5)
+DIST_SHORT_ITERS = 4
+DIST_SHORT_TOL = dict(cost=1e-5, state_cost=4e-6, residual_px=0.012)
+# ``python3 chip_smoke.py --keep-ba DIR`` also keeps phase 15's BA problem
+# and camera (DIR/phase15_ba_problem.npz), for tests/_ba_spread.py
+KEEP_BA = None
+VOCAB_WORDS, VOCAB_ITERS = 4096, 8  # phase 15(e): train_vocabulary on phase 4's descriptors
 PEAK_OPS = 67e12      # /s: f32 outside the tensor cores (H100 SXM); 32-bit integer work alike
 PEAK_INT8_TC = 1.979e15  # /s: int8 dense tensor cores (H100 SXM); kernel 5's 1-bit products
 PEAK_BYTES = 3.35e12  # /s: HBM3
@@ -1509,6 +1571,410 @@ def io_phases(ctx):
                          "merge": o_merge, "drivers": o_drv}}
 
 
+def pad_map(m, K: int, P: int, N: int):
+    """`m` with K keyframe slots, P point slots and N feature slots a
+    keyframe, every new slot empty (map_state's fill values)."""
+    import torch
+
+    from orb_slam2_annotate_tpu_torch.worldmap import map_state
+
+    m = map_state.grow_map(m, new_K=K, new_P=P)
+    n0 = m.N
+    out = {}
+    for f in dataclasses.fields(map_state.MapState):
+        a = getattr(m, f.name)
+        if f.name.startswith("kf_") and a.dim() >= 2 and a.shape[1] == n0 and N > n0:
+            pad = torch.full((a.shape[0], N - n0) + tuple(a.shape[2:]), map_state._FILL[f.name],
+                             dtype=a.dtype, device=a.device)
+            a = torch.cat([a, pad], 1)
+        out[f.name] = a
+    return map_state.MapState(**out)
+
+
+def ba_agreement(cam, prob, a: dict, b: dict) -> dict:
+    """How far two global-BA results a, b ({R, t, X, cost} as numpy) of the
+    BA problem `prob` (on the CPU) agree: the returned costs and the costs
+    of the returned states (relative), how far either returned cost lies
+    below its own state's (relative), the largest differences of R, t and
+    the valid points X, of each valid edge's residual (px, the largest and
+    the RMS) and of the reprojection RMSE over the valid edges (px), and of
+    the points and camera centres after a Sim3 alignment of a onto b (m),
+    which move along the map's flat directions (a monocular map with one
+    fixed keyframe keeps a free scale; a weakly triangulated point, its
+    depth).  The callers hold some of these (DIST_TOL, DIST_FULL_TOL,
+    DIST_SHORT_TOL) and print all."""
+    import numpy as np
+    import torch
+
+    from orb_slam2_annotate_tpu_torch.io import evaluation
+    from orb_slam2_annotate_tpu_torch.solvers import ba_core
+
+    pv, kv = prob.pt_valid.numpy(), prob.cam_valid.numpy()
+    out = {k: float(np.abs(np.asarray(a[k], np.float64)[m] - np.asarray(b[k], np.float64)[m]).max())
+           for k, m in (("R", kv), ("t", kv), ("X", pv))}
+    out["cost"] = float(abs(float(a["cost"]) - float(b["cost"])) / abs(float(b["cost"])))
+
+    def state(r):
+        return prob.replace(R=torch.from_numpy(np.array(r["R"])),
+                            t=torch.from_numpy(np.array(r["t"])),
+                            points=torch.from_numpy(np.array(r["X"])))
+
+    # the cost of the returned states (the returned cost may be another state's)
+    ca, cb = (float(ba_core.edge_cost(cam, state(r))) for r in (a, b))
+    out["state_cost"] = abs(ca - cb) / abs(cb)
+    # a returned cost below its own state's (relative; <= 0 when it is a
+    # kept last step's or above, a refused one's)
+    out["cost_below_state"] = max((ca - float(a["cost"])) / abs(ca), (cb - float(b["cost"])) / abs(cb))
+
+    def residuals(r):
+        return ba_core.edge_residual_jac(cam, state(r))[0][prob.edge_valid].numpy().astype(np.float64)
+
+    ra, rb = residuals(a), residuals(b)
+    out["residual_px"] = float(np.abs(ra - rb).max())
+    out["residual_rms_px"] = float(np.sqrt(((ra - rb) ** 2).sum(1).mean()))
+    out["rmse_px"] = float(abs(np.sqrt((ra[:, :2] ** 2).sum(1).mean())
+                               - np.sqrt((rb[:, :2] ** 2).sum(1).mean())))
+
+    def geometry(r):
+        R, t = np.asarray(r["R"], np.float64)[kv], np.asarray(r["t"], np.float64)[kv]
+        centres = -np.einsum("kji,kj->ki", R, t)
+        return np.concatenate([centres, np.asarray(r["X"], np.float64)[pv]])
+
+    ga, gb = geometry(a), geometry(b)
+    sc, Rs, ts = evaluation.umeyama_alignment(ga, gb)
+    out["aligned_m"] = float(np.abs(sc * ga @ Rs.T + ts - gb).max())
+    out["aligned_scale"] = float(sc)
+    return out
+
+
+def agrees(d: dict, tol: dict) -> bool:
+    """The measures of ba_agreement that `tol` holds, within it."""
+    return all(d[k] <= tol[k] for k in tol)
+
+
+def dist_rank(rank: str, port: str, d: str):
+    """``python3 chip_smoke.py --dist-rank RANK PORT DIR``: one of phase
+    15(b)'s two ranks, both on cuda:0 in a gloo group at localhost:PORT.
+    Reads DIR/in.npz (the full-map BA problem, the camera, the anchor) and
+    DIR/map.npz; runs the distributed BA on the problem sharded over the two
+    ranks (DIST_ITERS steps, then DIST_SHORT_ITERS), then a System that
+    loads the map (``load_map``), dispatches the loop closer's global BA
+    through its distributed branch and folds it
+    (``maybe_fold_gba(force=True)``); writes DIR/out<RANK>.npz."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from orb_slam2_annotate_tpu_torch import convert
+    from orb_slam2_annotate_tpu_torch.geometry.camera import CameraModel
+    from orb_slam2_annotate_tpu_torch.parallel import dist_ba, mesh
+    from orb_slam2_annotate_tpu_torch.pipeline import SlamConfig, System
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    rank = int(rank)
+    mesh.init_multi_host(f"localhost:{port}", 2, rank, device="cuda", backend="gloo",
+                         timeout_s=120)
+    z = dict(np.load(os.path.join(d, "in.npz")))
+    cam = CameraModel(**{f.name: float(z["cam_" + f.name]) for f in dataclasses.fields(CameraModel)})
+    prob = convert.ba_problem_from_numpy({k[5:]: v for k, v in z.items() if k.startswith("prob_")},
+                                         device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp, perm = dist_ba.shard_ba_problem(prob, 2, return_perm=True)
+    R, t, Xs, cost = dist_ba.make_distributed_ba(mesh.map_mesh(), iters=DIST_ITERS)(cam, sp)
+    X = Xs[torch.from_numpy(perm).cuda()]
+    torch.cuda.synchronize()
+    ba_s = time.perf_counter() - t0
+    R5, t5, X5, cost5 = dist_ba.make_distributed_ba(mesh.map_mesh(), iters=DIST_SHORT_ITERS)(cam, sp)
+    X5 = X5[torch.from_numpy(perm).cuda()]
+    slam = System(cam, SlamConfig(n_features=DIST_N, n_levels=4, max_kf=DIST_K, max_mp=DIST_P),
+                  device="cuda")
+    slam.load_map(os.path.join(d, "map.npz"))
+    lc = slam.loop_closer
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lc._dispatch_global_ba(slam.map, anchor=int(z["anchor"]))
+    g = lc._gba_pending
+    m = lc.maybe_fold_gba(slam.map, force=True)
+    torch.cuda.synchronize()
+    gba_s = time.perf_counter() - t0
+    np.savez(os.path.join(d, f"out{rank}.npz"), R=R.cpu().numpy(), t=t.cpu().numpy(),
+             X=X.cpu().numpy(), cost=cost.cpu().numpy(), short_R=R5.cpu().numpy(),
+             short_t=t5.cpu().numpy(), short_X=X5.cpu().numpy(), short_cost=cost5.cpu().numpy(),
+             gba_R=g["R"].cpu().numpy(),
+             gba_t=g["t"].cpu().numpy(), gba_X=g["X"].cpu().numpy(), gba_cost=g["cost"].cpu().numpy(),
+             world=mesh.world_size(), ba_s=ba_s, gba_s=gba_s, folded=lc.n_gba_folded,
+             **{"fold_" + k: v for k, v in convert.map_state_to_numpy(m).items()})
+    torch.distributed.destroy_process_group()
+
+
+def dist_phases(ctx):
+    """Phase 15: the dense BA and the distributed BA (world of one, then two
+    ranks on the card), shard_points at a world of one, System.telemetry,
+    and train_vocabulary, on what phases 4 and 6 left (`ctx`: the card's
+    line; phase 4's camera, frames, config, System, tracking-step calls,
+    trajectory and map; phase 6's camera and its closure's map and anchor;
+    the launch counters and phase 4's drive).  Returns {"launches": the
+    main-path runs' launches, "outcomes": each part's}."""
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from orb_slam2_annotate_tpu_torch import convert
+    from orb_slam2_annotate_tpu_torch.io import checkpoint
+    from orb_slam2_annotate_tpu_torch.ops import extractor
+    from orb_slam2_annotate_tpu_torch.ops.orb import OrbTables
+    from orb_slam2_annotate_tpu_torch.parallel import dist_ba, mesh
+    from orb_slam2_annotate_tpu_torch.pipeline import System
+    from orb_slam2_annotate_tpu_torch.pipeline import loop_closing as loop_mod
+    from orb_slam2_annotate_tpu_torch.solvers import ba_core
+    from orb_slam2_annotate_tpu_torch.worldmap import map_state, vocabulary
+
+    card, cam6 = ctx.card, ctx.cam6
+    out, launches = {}, {}
+
+    def check(name, checks):
+        bad = [k for k, v in checks.items() if not v]
+        if bad:
+            fail(f"{name} checks failed: {bad}")
+
+    def free_port():
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            return sk.getsockname()[1]
+
+    def wall(fn, reps=1):
+        """(result of the last call, median host seconds a call, the card
+        drained before and after each)."""
+        ts, r = [], None
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return r, statistics.median(ts)
+
+    def on_cpu(p):
+        return ba_core.BAProblem(**{f.name: getattr(p, f.name).cpu()
+                                    for f in dataclasses.fields(ba_core.BAProblem)})
+
+    def rmse(p, R, t, X):
+        """Reprojection RMSE (px) over the valid edges."""
+        r = ba_core.edge_residual_jac(cam6, p.replace(R=R, t=t, points=X))[0][:, :2]
+        return float(torch.sqrt((r[p.edge_valid] ** 2).sum(1).mean()))
+
+    def as_np(R, t, X, cost):
+        return {"R": R.cpu().numpy(), "t": t.cpu().numpy(), "X": X.cpu().numpy(),
+                "cost": float(cost)}
+
+    # ---- (a) the dense BA and the distributed BA at a world of one, at full width
+    m = pad_map(ctx.gba_map, DIST_K, DIST_P, DIST_N)
+    anchor = ctx.gba_anchor
+    prob = loop_mod.full_map_ba_problem(m, anchor)
+    prob_c = on_cpu(prob)
+    valid_pts = prob_c.pt_valid.numpy()
+    n_edges = int(prob.edge_valid.sum())
+    free = prob.cam_valid & ~prob.cam_fixed
+    lam = torch.tensor(1e-5, device="cuda")
+    blocks, t_normal = wall(lambda: ba_core.build_normal_eqs(cam6, prob, True), 5)
+    _, t_schur = wall(lambda: ba_core.schur_solve_dense(*blocks[:5], lam, free), 5)
+    del blocks
+    _, t_step = wall(lambda: ba_core.bundle_adjust(cam6, prob, 1), 3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dense, t_dense = wall(lambda: ba_core.bundle_adjust(cam6, prob, DIST_ITERS))
+    peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    dense_c = ba_core.bundle_adjust(cam6, prob_c, DIST_ITERS)
+    t_dense_cpu = time.perf_counter() - t0
+    d_dense = ba_agreement(cam6, prob_c, as_np(*dense[:3], dense[4]), as_np(*dense_c[:3], dense_c[4]))
+    inlier_diff = int((dense[3].cpu() != dense_c[3]).sum())
+    mesh.init_multi_host(f"localhost:{free_port()}", 1, 0, device="cuda", timeout_s=120)
+    mesh1 = mesh.map_mesh()
+    (sp, perm), t_shard = wall(lambda: dist_ba.shard_ba_problem(prob, 1, return_perm=True))
+    step1 = dist_ba.make_distributed_ba(mesh1, iters=DIST_ITERS)
+    _, t_dist_first = wall(lambda: step1(cam6, sp))      # with NCCL's first-call setup
+    (R1, t1, X1, c1), t_dist = wall(lambda: step1(cam6, sp), 3)
+    R5, t5, X5, c5 = dist_ba.make_distributed_ba(mesh1, iters=DIST_SHORT_ITERS)(cam6, sp)
+    torch.distributed.destroy_process_group()
+    world1 = as_np(R1, t1, X1[torch.from_numpy(perm).cuda()], c1)
+    world1_short = as_np(R5, t5, X5[torch.from_numpy(perm).cuda()], c5)
+    t0 = time.perf_counter()
+    R1c, t1c, X1c, c1c = dist_ba.make_distributed_ba(mesh.Mesh(None, 1, 0), iters=DIST_ITERS)(
+        cam6, on_cpu(sp))
+    t_dist_cpu = time.perf_counter() - t0
+    d_dist = ba_agreement(cam6, prob_c, world1, as_np(R1c, t1c, X1c[torch.from_numpy(perm)], c1c))
+    R5c, t5c, X5c, c5c = dist_ba.make_distributed_ba(mesh.Mesh(None, 1, 0),
+                                                     iters=DIST_SHORT_ITERS)(cam6, on_cpu(sp))
+    d_dist_short = ba_agreement(cam6, prob_c, world1_short,
+                                as_np(R5c, t5c, X5c[torch.from_numpy(perm)], c5c))
+    out["a"] = {"K": m.K, "P": m.P, "N": m.N, "live_keyframes": int(m.kf_valid.sum()),
+                "live_points": int(valid_pts.sum()), "valid_edges": n_edges, "anchor": int(anchor),
+                "rmse_px": {"before": rmse(prob, prob.R, prob.t, prob.points),
+                            "dense": rmse(prob, *dense[:3]), "distributed": rmse(prob, R1, t1, X1[
+                                torch.from_numpy(perm).cuda()])},
+                "normal_eqs_ms": 1e3 * t_normal, "schur_solve_ms": 1e3 * t_schur,
+                "lm_step_ms": 1e3 * t_step, "dense_ba_ms": 1e3 * t_dense,
+                "distributed_ba_ms": 1e3 * t_dist, "distributed_first_call_ms": 1e3 * t_dist_first,
+                "shard_ba_problem_ms": 1e3 * t_shard, "dense_cpu_s": t_dense_cpu,
+                "distributed_cpu_s": t_dist_cpu, "dense_peak_mb": peak / 2**20,
+                "dense_vs_cpu": d_dense, "dense_inlier_mask_differs": inlier_diff,
+                "distributed_vs_cpu": d_dist,
+                f"distributed_{DIST_SHORT_ITERS}_steps_vs_cpu": d_dist_short,
+                "cost": {"dense": float(dense[4]), "distributed": world1["cost"]}}
+    print(f"phase 15(a) global BA at K {m.K}, P {m.P}, N {m.N} ({out['a']['live_keyframes']} "
+          f"keyframes, {out['a']['live_points']} points, {n_edges} edges live): "
+          f"{json.dumps(out['a'])}, card {card}")
+    check("phase 15(a)", {"dense BA within tolerance of the CPU's": agrees(d_dense, DIST_TOL),
+                          "dense inlier masks within 0.1% of the edges": inlier_diff <= 1e-3 * n_edges,
+                          "world-one distributed BA's cost within tolerance of the CPU's":
+                              agrees(d_dist, DIST_FULL_TOL),
+                          f"world-one distributed BA after {DIST_SHORT_ITERS} steps within "
+                          "tolerance of the CPU's": agrees(d_dist_short, DIST_SHORT_TOL),
+                          "the dense BA lowered the reprojection error":
+                              out["a"]["rmse_px"]["dense"] < out["a"]["rmse_px"]["before"]})
+
+    # ---- (b) two ranks on the one card (gloo), as subprocesses
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        np.savez(os.path.join(tmp, "in.npz"), anchor=np.int32(anchor),
+                 **{"cam_" + f.name: np.float32(getattr(cam6, f.name))
+                    for f in dataclasses.fields(type(cam6))},
+                 **{"prob_" + k: v for k, v in convert.ba_problem_to_numpy(prob).items()})
+        checkpoint.save_map(os.path.join(tmp, "map.npz"), m, extra={})
+        if KEEP_BA is not None:
+            os.makedirs(KEEP_BA, exist_ok=True)
+            shutil.copy(os.path.join(tmp, "in.npz"), os.path.join(KEEP_BA, "phase15_ba_problem.npz"))
+        port = str(free_port())
+        procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                                   "--dist-rank", str(r), port, tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                  env=dict(os.environ, PYTHONPATH=ROOT)) for r in range(2)]
+        logs, t0 = [], time.perf_counter()
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=max(1.0, DIST_RANK_TIMEOUT_S
+                                                      - (time.perf_counter() - t0)))[0])
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.communicate()
+            fail(f"phase 15(b): a rank did not finish in {DIST_RANK_TIMEOUT_S} s")
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                fail(f"phase 15(b): rank {r} exited {p.returncode}:\n{log[-3000:]}")
+        ranks = [dict(np.load(os.path.join(tmp, f"out{r}.npz"))) for r in range(2)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = [k for k in ranks[0] if k not in ("ba_s", "gba_s")
+            and not np.array_equal(ranks[0][k], ranks[1][k])]
+    d_two = ba_agreement(cam6, prob_c, {k: ranks[0][k] for k in ("R", "t", "X", "cost")}, world1)
+    d_two_short = ba_agreement(cam6, prob_c, {k: ranks[0]["short_" + k]
+                                              for k in ("R", "t", "X", "cost")}, world1_short)
+    d_gba = ba_agreement(cam6, prob_c, {k: ranks[0]["gba_" + k] for k in ("R", "t", "X", "cost")},
+                         world1)
+    # the fold writes the branch's result into every slot live at the dispatch
+    kv, pv = prob_c.cam_valid.numpy(), valid_pts
+    fold_holds_ba = all(np.array_equal(ranks[0]["fold_" + f][m], ranks[0]["gba_" + g][m])
+                        for f, g, m in (("kf_R", "R", kv), ("kf_t", "t", kv), ("mp_pos", "X", pv)))
+    # and its integer and boolean fields are the world-one fold's
+    fold1 = convert.map_state_to_numpy(loop_mod.fold_gba_device(
+        m, *(torch.from_numpy(world1[k]).cuda() for k in ("R", "t", "X")), m.kf_valid,
+        m.mp_valid, m.kf_R, m.kf_t))
+    fold_exact = [k for k, v in fold1.items() if v.dtype.kind != "f"
+                  and not np.array_equal(ranks[0]["fold_" + k], v)]
+    out["b"] = {"world": int(ranks[0]["world"]), "ranks_differ_in": same,
+                "two_ranks_vs_world_one": d_two,
+                f"two_ranks_vs_world_one_{DIST_SHORT_ITERS}_steps": d_two_short,
+                "loop_closer_branch_vs_world_one": d_gba,
+                "fold_holds_the_branch_result": fold_holds_ba, "fold_fields_not_equal": fold_exact,
+                "ba_s": [float(r["ba_s"]) for r in ranks], "gba_s": [float(r["gba_s"]) for r in ranks],
+                "rmse_px": rmse(prob, *(torch.from_numpy(ranks[0][k]).cuda() for k in ("R", "t", "X")))}
+    print(f"phase 15(b) two ranks on the card: {json.dumps(out['b'])}, card {card}")
+    check("phase 15(b)", {"world of two": out["b"]["world"] == 2,
+                          "both ranks equal bit for bit (BA, branch, fold)": not same,
+                          "two ranks' cost within tolerance of one's": agrees(d_two, DIST_FULL_TOL),
+                          f"two ranks after {DIST_SHORT_ITERS} steps within tolerance of one":
+                              agrees(d_two_short, DIST_SHORT_TOL),
+                          "the LoopCloser's distributed branch's cost within tolerance of one's":
+                              agrees(d_gba, DIST_FULL_TOL),
+                          "a global BA folded on each rank": all(int(r["folded"]) == 1 for r in ranks),
+                          "the fold holds the branch's result": fold_holds_ba,
+                          "the fold's integer and boolean fields are the world-one fold's":
+                              not fold_exact})
+
+    # ---- (c) shard_points=True on phase 4's slice at a world of one
+    slam_c = System(ctx.cam, dataclasses.replace(ctx.slice_cfg, shard_points=True), device="cuda")
+    _, frame_s_c, launches["15 shard slice"] = ctx.drive("shard_points slice", slam_c, ctx.frames,
+                                                         ctx.slice_kernels)
+    traj_c = slam_c.frame_trajectory()
+    traj_same = len(traj_c) == len(ctx.traj4) and all(
+        k == k0 and ((T is None and T0 is None) or (T is not None and T0 is not None
+                                                    and np.array_equal(T, T0)))
+        for (k, T), (k0, T0) in zip(traj_c, ctx.traj4))
+    map_c = convert.map_state_to_numpy(slam_c.map)
+    map_differs = [k for k, v in map_c.items() if not np.array_equal(v, ctx.map4[k])]
+    out["c"] = {"trajectory_equal": traj_same, "map_fields_not_equal": map_differs,
+                "frames_per_s": len(ctx.frames) / sum(frame_s_c)}
+    print(f"phase 15(c) shard_points=True at a world of one: {json.dumps(out['c'])}")
+    check("phase 15(c)", {"trajectory bit for bit phase 4's": traj_same,
+                          "map bit for bit phase 4's": not map_differs})
+
+    # ---- (d) System.telemetry after phase 4
+    tel = ctx.slam4.telemetry
+    report = tel.report()
+    print("phase 15(d) phase 4's System.telemetry.report():\n" + report)
+    st = tel.stages
+    out["d"] = {k: {"n": v.count, "median_ms": 1e3 * v.median, "mean_ms": 1e3 * v.mean,
+                    "worst_ms": 1e3 * v.worst} for k, v in st.items()}
+    check("phase 15(d)", {
+        "the three stages": set(st) == {"frontend/extract", "tracking/step", "mapping/keyframe"},
+        "frontend/extract once a frame": st["frontend/extract"].count == len(ctx.frames),
+        "tracking/step once a tracking step": st["tracking/step"].count == ctx.track_calls4 > 0,
+        "mapping/keyframe once a keyframe after initialization":
+            st["mapping/keyframe"].count == int(ctx.slam4.map.n_kf) - 2 > 0,
+        "one report line a stage": len(report.splitlines()) == 3})
+
+    # ---- (e) train_vocabulary on the card: phase 4's frames' descriptors
+    tab = OrbTables().to("cuda")
+    descs, docs = [], []
+    for k, img in enumerate(ctx.frames):
+        f = extractor.extract(torch.from_numpy(img).cuda(), tab, ctx.slice_cfg.extractor)
+        descs.append(f.desc[f.valid])
+        docs.append(np.full(int(f.valid.sum()), k))
+    D, doc = torch.cat(descs).contiguous(), np.concatenate(docs)
+    ctx.zero_launches()
+    voc_card, t_voc = wall(lambda: vocabulary.train_vocabulary(D, VOCAB_WORDS, VOCAB_ITERS, seed=0,
+                                                               doc_ids=doc, device="cuda"))
+    launches["15 vocabulary"] = ctx.read_launches()
+    t0 = time.perf_counter()
+    voc_cpu = vocabulary.train_vocabulary(D.cpu(), VOCAB_WORDS, VOCAB_ITERS, seed=0, doc_ids=doc,
+                                          device="cpu")
+    t_voc_cpu = time.perf_counter() - t0
+    chunk = max(1, min(D.shape[0], (1 << 28) // VOCAB_WORDS))
+    k5_expected = (VOCAB_ITERS + 1) * -(-D.shape[0] // chunk)
+    words_equal = torch.equal(voc_card.words.cpu(), voc_cpu.words)
+    idf_equal = torch.equal(voc_card.idf.cpu(), voc_cpu.idf)
+    out["e"] = {"descriptors": int(D.shape[0]), "words": VOCAB_WORDS, "iters": VOCAB_ITERS,
+                "card_s": t_voc, "cpu_s": t_voc_cpu, "k5_launches": launches["15 vocabulary"][
+                    "assign_words"], "k5_expected": k5_expected, "words_equal": words_equal,
+                "idf_equal": idf_equal, "words_used": int((voc_card.idf > 0).sum())}
+    print(f"phase 15(e) train_vocabulary: {json.dumps(out['e'])}, card {card}")
+    check("phase 15(e)", {"centroids equal the CPU twin's bit for bit": words_equal,
+                          "IDF exact": idf_equal,
+                          "kernel 5 once a chunk an iteration (and the IDF's)":
+                              launches["15 vocabulary"]["assign_words"] == k5_expected,
+                          "no other kernel": all(v == 0 for k, v in launches["15 vocabulary"].items()
+                                                 if k != "assign_words")})
+    return {"launches": launches, "outcomes": out}
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()
@@ -2336,15 +2802,28 @@ def main():
             captured_lm["table"] = (m.kf_desc.clone(), obs_kf.clone(), obs_ft.clone(), obs_cnt.clone())
         return real_stats(m, pos, obs_kf, obs_ft, obs_cnt, obs_mask)
 
+    # tracking steps, for phase 15(d)'s telemetry counts
+    real_track, track_calls = tracking.track_frame, [0]
+
+    def count_track(*a, **kw):
+        track_calls[0] += 1
+        return real_track(*a, **kw)
+
     pose_opt.optimize_pose = count_opt
     matching.match_gated = count_match
     map_state._stats_from_table = count_stats
     local_mapping.create_new_mappoints = matcher_launches_in(real_tri, tri_launches)
     tracking.relocalize_candidates = matcher_launches_in(real_reloc, reloc_launches)
+    tracking.track_frame = count_track
     lm_calls[0] = 0
-    _, frame_s, launches4 = drive("slice", slam, frames,
-                                  [w for n, (_, _, w) in SOURCES.items()
-                                   if n not in ("pnp_hypotheses",) + LOOP_ONLY + STEREO_ONLY])
+    slice_kernels = [w for n, (_, _, w) in SOURCES.items()
+                     if n not in ("pnp_hypotheses",) + LOOP_ONLY + STEREO_ONLY]
+    try:
+        _, frame_s, launches4 = drive("slice", slam, frames, slice_kernels)
+    finally:
+        tracking.track_frame = real_track
+    from orb_slam2_annotate_tpu_torch import convert
+    traj4, map4 = slam.frame_trajectory(), convert.map_state_to_numpy(slam.map)
     calls4, match_calls4, tri4 = lm_calls[0], match_calls[0], list(tri_launches)
     stats4 = stats_calls[0]
     counts4 = list(refresh_counts)
@@ -2565,6 +3044,17 @@ def main():
                 captured6.setdefault(("closure", name), latest6[name])
         return out
 
+    real_gba6, gba6 = lc6._dispatch_global_ba, {}
+
+    def keep_gba(m, anchor):
+        # the map and anchor of the run's first global BA, for phase 15
+        if not gba6:
+            gba6["map"] = map_state.MapState(**{f.name: getattr(m, f.name).clone()
+                                                for f in dataclasses.fields(map_state.MapState)})
+            gba6["anchor"] = int(anchor)
+        return real_gba6(m, anchor)
+
+    lc6._dispatch_global_ba = keep_gba
     lc6.dispatch_detection = timed("loop/detect", lc6.dispatch_detection)
     lc6._compute_sim3 = timed("loop/sim3", lc6._compute_sim3)
     lc6._correct_loop = timed("loop/correct", lc6._correct_loop)
@@ -3129,6 +3619,17 @@ def main():
         zero_launches=zero_launches, read_launches=read_launches))
     fl = {**fl, **io14["launches"]}
 
+    # ---- phase 15: the dense and distributed global BA, shard_points,
+    # telemetry and the vocabulary trainer
+    if not gba6:
+        fail("phase 6 dispatched no global BA")
+    d15 = dist_phases(types.SimpleNamespace(
+        card=card, cam=cam, frames=frames, slice_cfg=slice_cfg, slam4=slam,
+        track_calls4=track_calls[0], traj4=traj4, map4=map4, cam6=cam6, gba_map=gba6["map"],
+        gba_anchor=gba6["anchor"], drive=drive, slice_kernels=slice_kernels,
+        zero_launches=zero_launches, read_launches=read_launches))
+    fl = {**fl, **d15["launches"]}
+
     kern = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
              "launches": (launches4[w] + launches5[w] + launches6[w] + launches7[w] + launches8[w]
                           + launches9m[w] + launches9r[w] + launches10[w] + launches10l[w]
@@ -3163,7 +3664,7 @@ def main():
                       "fuse": {"slice": out9m, "rgbd": out9r, "core_on_card": core_checks},
                       "pipelined": out10m, "pipelined_loop": out10l,
                       "free": free["outcomes"], "io": io14["outcomes"],
-                      "card": card}))
+                      "dist": d15["outcomes"], "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 
@@ -3171,5 +3672,9 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--first-frames"]:
         first_frames(*sys.argv[2:6])
+    elif sys.argv[1:2] == ["--dist-rank"]:
+        dist_rank(*sys.argv[2:5])
     else:
+        if sys.argv[1:2] == ["--keep-ba"]:
+            KEEP_BA = sys.argv[2]
         main()

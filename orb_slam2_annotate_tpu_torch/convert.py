@@ -18,6 +18,7 @@ from .ops.orb import OrbTables, rotated_offsets
 from .pipeline.device_loop import FreeState
 from .pipeline.frame import Frame
 from .pipeline.local_mapping import CullInfo
+from .solvers.ba_core import BAProblem
 from .worldmap.map_state import MapState
 from .worldmap.vocabulary import KeyFrameDatabase, Vocabulary
 
@@ -59,6 +60,17 @@ def map_state_from_numpy(d: dict, device="cpu") -> MapState:
 
 def map_state_to_numpy(m: MapState) -> dict:
     return {f.name: _to_numpy(f.name, getattr(m, f.name)) for f in dataclasses.fields(MapState)}
+
+
+def ba_problem_from_numpy(d: dict, device="cpu") -> BAProblem:
+    """A BAProblem from the reference's (fields as numpy; index arrays
+    keep their integer type as int32)."""
+    return BAProblem(**{f.name: _to_torch(f.name, d[f.name], device)
+                        for f in dataclasses.fields(BAProblem)})
+
+
+def ba_problem_to_numpy(p: BAProblem) -> dict:
+    return {f.name: _to_numpy(f.name, getattr(p, f.name)) for f in dataclasses.fields(BAProblem)}
 
 
 def vocabulary_from_numpy(d: dict, device="cpu") -> Vocabulary:

@@ -1,15 +1,16 @@
 """Synthetic sequences with exact ground truth, numpy only.
 
-A copy of the parts of orb_slam2_annotate_tpu/io/synthetic.py that the
-monocular slice and the loop scenes use (PlaneScene, orbit_trajectory,
-RoomScene, circle_trajectory, loop_trajectory): importing the
-reference package would import jax, and the machines that run the port
-need not have OpenCV.  ``warp_perspective`` therefore reimplements the
+A copy of orb_slam2_annotate_tpu/io/synthetic.py (BlobScene, PlaneScene,
+RoomScene, StructuredScene and make_structured_texture; orbit, loop,
+circle and multi-loop trajectories; true_correspondence;
+render_frames_cached): importing the reference package would import jax,
+and the machines that run the port need not have OpenCV.  ``warp_perspective`` therefore reimplements the
 arithmetic of ``cv2.warpPerspective(INTER_LINEAR, BORDER_CONSTANT)`` as
 OpenCV 5 evaluates it for float32 images: float32 coefficients of the
 inverse map, a per-row constant, one fused multiply-add per coordinate, a
 float32 division, and fused multiply-add lerps.  tests/test_torch_system.py
-checks that frames are bit-identical to the reference renderer's.
+and tests/test_torch_trainers.py check that frames are bit-identical to the
+reference renderer's.
 """
 
 from __future__ import annotations
@@ -78,6 +79,69 @@ def warp_perspective(src: np.ndarray, H: np.ndarray, size: tuple[int, int],
     out = _fma32(b, (h1 - h0).astype(_F32), h0)
     outside = (ix >= ws) | (ix + 1 < 0) | (iy >= hs) | (iy + 1 < 0)
     return np.where(outside, bv, out).astype(_F32)
+
+
+class BlobScene:
+    """A cloud of Gaussian blobs at varied depths, each with a world-fixed
+    asymmetric lobe (so its intensity-centroid angle is view-consistent),
+    rendered far to near with exact depth."""
+
+    def __init__(self, n_blobs: int = 1500, seed: int = 0,
+                 extent=((-4.0, 4.0), (-3.0, 3.0), (4.0, 12.0))):
+        rng = np.random.RandomState(seed)
+        lo = np.array([e[0] for e in extent])
+        hi = np.array([e[1] for e in extent])
+        self.pts = rng.uniform(lo, hi, (n_blobs, 3)).astype(np.float32)
+        self.amp = rng.uniform(60, 200, n_blobs).astype(np.float32)
+        self.sign = np.where(rng.rand(n_blobs) > 0.3, 1.0, -1.0).astype(np.float32)
+        # mostly sharp dots (1-3 px at typical depth) and a few broad patches
+        sharp = rng.uniform(0.06, 0.30, n_blobs)
+        broad = rng.uniform(1.0, 2.5, n_blobs)
+        self.size = np.where(rng.rand(n_blobs) < 0.9, sharp, broad).astype(np.float32)
+        d = np.random.RandomState(12345).randn(n_blobs, 3).astype(np.float32)
+        self._lobe = d / np.linalg.norm(d, axis=1, keepdims=True)
+
+    def render(self, cam, R: np.ndarray, t: np.ndarray, h: int = 480, w: int = 640,
+               background: float = 90.0):
+        """(image [h,w] f32, depth [h,w] f32) at pose Tcw = (R, t)."""
+        fx, fy = float(cam.fx), float(cam.fy)
+        cx, cy = float(cam.cx), float(cam.cy)
+        xc = self.pts @ R.T + t
+        z = xc[:, 2]
+        vis = z > 0.5
+        u = fx * xc[:, 0] / np.maximum(z, 1e-6) + cx
+        v = fy * xc[:, 1] / np.maximum(z, 1e-6) + cy
+        sigma_px = self.size * fx / np.maximum(z, 1e-6) / 8.0
+        img = np.full((h, w), background, np.float32)
+        img += np.linspace(0, 15, w, dtype=np.float32)[None, :]
+        img += np.linspace(0, 10, h, dtype=np.float32)[:, None]
+        depth = np.full((h, w), 0.0, np.float32)
+        lc = (self.pts + self._lobe * (self.size[:, None] * 1.5)) @ R.T + t
+        lz = np.maximum(lc[:, 2], 1e-6)
+        lu = fx * lc[:, 0] / lz + cx
+        lv = fy * lc[:, 1] / lz + cy
+        for i in np.argsort(-z):  # far to near, so near blobs overwrite depth
+            if not vis[i]:
+                continue
+            s = max(float(sigma_px[i]), 0.8)
+            rad = int(3 * s + 1) + int(abs(lu[i] - u[i]) + abs(lv[i] - v[i]) + 2)
+            ui, vi = int(round(u[i])), int(round(v[i]))
+            if ui < -rad or ui >= w + rad or vi < -rad or vi >= h + rad:
+                continue
+            x0, x1 = max(ui - rad, 0), min(ui + rad + 1, w)
+            y0, y1 = max(vi - rad, 0), min(vi + rad + 1, h)
+            if x0 >= x1 or y0 >= y1:
+                continue
+            xs = np.arange(x0, x1, dtype=np.float32) - u[i]
+            ys = np.arange(y0, y1, dtype=np.float32) - v[i]
+            g = np.exp(-(ys[:, None] ** 2 + xs[None, :] ** 2) / (2 * s * s))
+            xs2 = np.arange(x0, x1, dtype=np.float32) - lu[i]
+            ys2 = np.arange(y0, y1, dtype=np.float32) - lv[i]
+            g2 = np.exp(-(ys2[:, None] ** 2 + xs2[None, :] ** 2) / (2 * s * s * 1.5))
+            img[y0:y1, x0:x1] += self.sign[i] * self.amp[i] * (g + 0.55 * g2)
+            m = g > 0.3
+            depth[y0:y1, x0:x1][m] = z[i]
+        return np.clip(img, 0, 255), depth
 
 
 def orbit_trajectory(n_frames: int, radius: float = 0.0, step: float = 0.05,
@@ -204,3 +268,133 @@ def circle_trajectory(n_frames: int, radius: float = 1.0, turns: float = 1.0):
         R = np.array([[ca, 0, -sa], [0, 1, 0], [sa, 0, ca]], np.float32)
         poses.append((R, -R @ p))
     return poses
+
+
+def true_correspondence(cam, Ra, ta, Rb, tb, depth_a, xy_a):
+    """Pixels xy_a [N,2] of view A mapped into view B through A's depth
+    map: (xy_b [N,2] f32, valid [N])."""
+    fx, fy = float(cam.fx), float(cam.fy)
+    cx, cy = float(cam.cx), float(cam.cy)
+    h, w = depth_a.shape
+    xi = np.clip(np.round(xy_a[:, 0]).astype(int), 0, w - 1)
+    yi = np.clip(np.round(xy_a[:, 1]).astype(int), 0, h - 1)
+    z = depth_a[yi, xi]
+    ok = z > 0
+    xc = np.stack([(xy_a[:, 0] - cx) / fx * z, (xy_a[:, 1] - cy) / fy * z, z], 1)
+    xw = (xc - ta) @ Ra  # Ra^T (xc - ta)
+    xb = xw @ Rb.T + tb
+    zb = np.maximum(xb[:, 2], 1e-6)
+    xy_b = np.stack([fx * xb[:, 0] / zb + cx, fy * xb[:, 1] / zb + cy], 1)
+    ok &= xb[:, 2] > 0.1
+    return xy_b.astype(np.float32), ok
+
+
+def make_structured_texture(rng: np.random.RandomState, tex_size: int = 768) -> np.ndarray:
+    """Shape-rich texture: overlapping rectangles, circles and stripe bands
+    on a smooth gradient (repeated high-contrast structure, which starves
+    descriptor matching where the noise textures are unique)."""
+    t = np.zeros((tex_size, tex_size), np.float32)
+    yy, xx = np.mgrid[0:tex_size, 0:tex_size].astype(np.float32)
+    t += 40.0 + 30.0 * (xx / tex_size) + 20.0 * (yy / tex_size)
+    for _ in range(60):
+        x0, y0 = rng.randint(0, tex_size - 40, 2)
+        w, h = rng.randint(20, 160, 2)
+        shade = rng.uniform(30, 230)
+        t[y0:y0 + h, x0:x0 + w] = 0.35 * t[y0:y0 + h, x0:x0 + w] + 0.65 * shade
+    for _ in range(30):
+        cx, cy = rng.randint(40, tex_size - 40, 2)
+        r = rng.randint(10, 60)
+        shade = rng.uniform(30, 230)
+        mask = (xx - cx) ** 2 + (yy - cy) ** 2 < r * r
+        t[mask] = 0.3 * t[mask] + 0.7 * shade
+    for _ in range(6):
+        y0 = rng.randint(0, tex_size - 30)
+        h = rng.randint(8, 24)
+        period = rng.randint(16, 48)
+        shade = rng.uniform(40, 220)
+        stripes = ((xx[y0:y0 + h] // period) % 2).astype(np.float32)
+        t[y0:y0 + h] = np.where(stripes > 0, shade, t[y0:y0 + h])
+    return np.clip(t, 5, 250)
+
+
+class StructuredScene(PlaneScene):
+    """PlaneScene's geometry with shape-rich textures (make_structured_texture)."""
+
+    def __init__(self, seed: int = 0, tex_size: int = 768):
+        rng = np.random.RandomState(seed)
+        geometry = [(np.array([-6.0, -4.0, 9.0]), np.array([12.0, 0, 0]), np.array([0, 8.0, 0])),
+                    (np.array([-6.0, 2.0, 9.5]), np.array([12.0, 0, 0]), np.array([0, 0.0, -8.0])),
+                    (np.array([-2.5, -1.5, 6.5]), np.array([2.0, 0, 0.3]), np.array([0, 2.0, 0])),
+                    (np.array([1.0, -1.0, 5.5]), np.array([1.8, 0, -0.4]), np.array([0, 1.8, 0]))]
+        self.planes = [(O, U, V, make_structured_texture(rng, tex_size)) for O, U, V in geometry]
+
+
+def multi_loop_trajectory(n_frames: int, laps: float = 3.1, r0: float = 1.5, dr: float = 0.35):
+    """Outward-facing spiral: `laps` revolutions, the radius growing `dr` a
+    lap (world->cam poses); each revolution revisits the same walls."""
+    poses = []
+    for k in range(n_frames):
+        frac = laps * k / n_frames
+        a = 2.0 * np.pi * frac
+        r = r0 + dr * frac
+        sa, ca = np.sin(a), np.cos(a)
+        p = np.array([r * sa, 0.0, r * ca], np.float32)
+        R = np.array([[ca, 0, -sa], [0, 1, 0], [sa, 0, ca]], np.float32)
+        poses.append((R, -R @ p))
+    return poses
+
+
+def render_frames_cached(scene, cam, poses, h: int, w: int, scene_key: str,
+                         with_depth: bool = False, cache_dir: str | None = None,
+                         n_workers: int = 2, verbose: bool = False):
+    """Render a pose sequence, memoized on disk as one uint8 .npy (and
+    float16 depth) keyed by the scene key, camera, size and poses; the
+    cache directory is `cache_dir`, else $ORBTPU_RENDER_CACHE, else
+    orbtpu_render_cache under the temporary directory.
+    Returns (frames [F,h,w] uint8, depth [F,h,w] float32 | None)."""
+    import hashlib
+    import os
+    import sys
+    import tempfile
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    cache_dir = cache_dir or os.environ.get(
+        "ORBTPU_RENDER_CACHE", os.path.join(tempfile.gettempdir(), "orbtpu_render_cache"))
+    pose_bytes = np.ascontiguousarray(
+        np.stack([np.hstack([R.reshape(-1), t.reshape(-1)]) for R, t in poses])
+        .astype(np.float32)).tobytes()
+    cam_sig = (float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy))
+    key = hashlib.sha1(f"{scene_key}|{cam_sig}|{h}x{w}|d{int(with_depth)}|".encode()
+                       + pose_bytes).hexdigest()[:16]
+    base = os.path.join(cache_dir, key)
+    try:
+        img = np.load(base + "_img.npy")
+        dep = np.load(base + "_dep.npy").astype(np.float32) if with_depth else None
+        if img.shape == (len(poses), h, w):
+            return img, dep
+    except (OSError, ValueError):
+        pass
+    t0 = time.perf_counter()
+
+    def one(args):
+        R, t = args
+        im, dp = scene.render(cam, R, t, h=h, w=w)
+        return (np.clip(im, 0, 255).astype(np.uint8),
+                dp.astype(np.float16) if with_depth else None)
+
+    with ThreadPoolExecutor(max_workers=n_workers) as ex:
+        rendered = list(ex.map(one, poses))
+    img = np.stack([r[0] for r in rendered])
+    dep16 = np.stack([r[1] for r in rendered]) if with_depth else None
+    if verbose:
+        print(f"render_frames_cached: {len(poses)} frames in {time.perf_counter() - t0:.1f}s",
+              file=sys.stderr)
+    try:
+        os.makedirs(cache_dir, exist_ok=True)
+        np.save(base + "_img.npy", img)
+        if with_depth:
+            np.save(base + "_dep.npy", dep16)
+    except OSError:  # the cache is best-effort
+        pass
+    return img, dep16.astype(np.float32) if with_depth else None

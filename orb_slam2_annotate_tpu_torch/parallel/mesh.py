@@ -1,0 +1,91 @@
+"""Process groups for single- and multi-process runs (port of parallel/mesh.py).
+
+One JAX device is one torch rank here: one process a card, in the default
+process group.  ``init_multi_host`` starts that group; ``map_mesh`` is the
+1-D mesh the distributed BA (``dist_ba``) shards map points over.  The
+backend is NCCL for CUDA tensors and gloo on the CPU; gloo also moves CUDA
+tensors (through the host), which is the only way to run two ranks on one
+card, since NCCL refuses two ranks on one GPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+
+import torch
+import torch.distributed as dist
+
+# the split of the live map's point axis over ranks is not ported (module 9b)
+POINT_SHARDING = ("sharding the live map's point axis over ranks (shard_points=True at a "
+                  "world above one) is not ported yet")
+
+
+def world_size() -> int:
+    """Ranks in the default process group: 1 when none was started."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def init_multi_host(coordinator: str | None = None, num_processes: int | None = None,
+                    process_id: int | None = None, device="cuda",
+                    backend: str | None = None, timeout_s: float | None = None) -> None:
+    """Start the default process group from the arguments, or else from
+    torch's environment (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, as
+    ``torchrun`` sets them).  Does nothing when neither names a coordinator.
+
+    coordinator: "host:port" of rank 0.  The backend is NCCL when `device`
+    is a CUDA device, else gloo; `backend` overrides it (gloo for two ranks
+    on one card).  With NCCL each process takes the card LOCAL_RANK (as
+    ``torchrun`` sets it), else process_id modulo the cards.  `timeout_s`
+    bounds the rendezvous and every collective (torch's default if None).
+    """
+    if coordinator is None and "MASTER_ADDR" in os.environ:
+        coordinator = f"{os.environ['MASTER_ADDR']}:{os.environ.get('MASTER_PORT', '29500')}"
+    if coordinator is None:
+        return
+    if num_processes is None:
+        num_processes = int(os.environ["WORLD_SIZE"])
+    if process_id is None:
+        # process 0 is a value: `process_id or env` would misroute it
+        process_id = int(os.environ["RANK"])
+    if backend is None:
+        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    if backend == "nccl":
+        local = int(os.environ.get("LOCAL_RANK", process_id % torch.cuda.device_count()))
+        torch.cuda.set_device(local)
+    kw = {} if timeout_s is None else {"timeout": datetime.timedelta(seconds=timeout_s)}
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                            world_size=num_processes, rank=process_id, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A 1-D mesh: `size` ranks of `group` (None: a world of one with no
+    process group), this process being `rank`."""
+
+    group: object
+    size: int
+    rank: int
+    axis: str = "mp"
+
+
+def map_mesh(n_devices: int | None = None, axis: str = "mp") -> Mesh:
+    """1-D mesh over every rank of the default group (a rank is a device);
+    a world of one when no group was started.  `n_devices`, when given,
+    must be that count."""
+    if dist.is_available() and dist.is_initialized():
+        mesh = Mesh(dist.group.WORLD, dist.get_world_size(), dist.get_rank(), axis)
+    else:
+        mesh = Mesh(None, 1, 0, axis)
+    if n_devices not in (None, mesh.size):
+        raise ValueError(f"map_mesh: {n_devices} devices asked, the world has {mesh.size}")
+    return mesh
+
+
+def shard_map_state(m, mesh: Mesh):
+    """The map placed on the mesh: at a world of one, the map as it is.
+    Splitting its point axis over several ranks is not ported (module 9b)."""
+    if mesh.size > 1:
+        raise NotImplementedError(POINT_SHARDING)
+    return m

@@ -60,7 +60,7 @@ from .frame import Frame, make_frame_mono, make_frame_rgbd, make_frame_stereo
 from .loop_closing import (CLOSURE_REC_W, MAX_CLOSURE_REC, MAX_LOOP_EDGES, LoopCloser,
                            LoopCloserConfig, LoopDetectOut, batch_detect_loops, free_loop_stage,
                            full_map_ba_problem)
-from .system import SENSORS, SlamConfig
+from .system import SENSORS, SlamConfig, check_shard_points
 
 # tracker modes
 MODE_FIRST = 0      # waiting for a usable init frame
@@ -472,14 +472,13 @@ class FreeRunner:
     the map once and returns the trajectory.  With the System it shares
     capacity growth (``grow`` / auto-growth by the read-free upper bound of
     one keyframe per ``min_frames_between_kf`` frames), the auto-reset after
-    an early loss, localization mode and map save / load; point sharding is
-    not ported."""
+    an early loss, localization mode and map save / load.  ``shard_points``
+    does nothing at a world of one and raises above it, as in System."""
 
     def __init__(self, cam: CameraModel, config: SlamConfig | None = None,
                  max_frames: int = 4096, auto_grow: bool = True, device="cuda"):
         cfg = config or SlamConfig()
-        if cfg.shard_points:
-            raise NotImplementedError("not ported yet: {'shard_points': True} (point sharding)")
+        check_shard_points(cfg)
         if cfg.sensor not in SENSORS:
             raise ValueError(f"unknown sensor {cfg.sensor!r}: one of {SENSORS}")
         if cfg.max_mp < cfg.n_features:

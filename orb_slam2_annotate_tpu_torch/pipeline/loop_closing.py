@@ -9,7 +9,10 @@ funnel (entry match, Sim3 RANSAC on kernel 7, guided matching, Sim3 LM on
 kernel 8, the loop-neighbourhood projection count, the pair-set RANSAC), the
 drift gate, and the correction: the essential graph, the corrected poses
 and points, SearchAndFuse across the seam, and a global BA whose result
-``maybe_fold_gba`` folds in once the device has finished it.  The stages
+``maybe_fold_gba`` folds in once the device has finished it.  With
+``use_dist_gba`` and a process group of several ranks the global BA is the
+distributed one of ``parallel/dist_ba.py``, its points sharded over the
+ranks; otherwise the matrix-free ``solvers/ba_cg.py``.  The stages
 are ``torch.profiler.record_function`` spans: loop/detect, loop/sim3,
 loop/correct (with loop/pose_graph and loop/fuse inside), loop/gba and
 loop/fold.
@@ -30,6 +33,8 @@ from ..kernels.hamming import WindowGate
 from ..ops import matching
 from ..ops.orb import DESC_WORDS
 from ..ops.sorting import stable_topk
+from ..parallel import dist_ba
+from ..parallel import mesh as mesh_mod
 from ..solvers import sim3 as sim3_solver
 from ..solvers.ba_cg import bundle_adjust_cg
 from ..solvers.ba_core import BAProblem
@@ -777,13 +782,26 @@ class LoopCloser:
         return m
 
     def _dispatch_global_ba(self, m: ms.MapState, anchor: int):
-        """Queue a full-map BA (the reference's single-device branch); a
-        newer loop supersedes one not yet folded.  On the card a CUDA event
+        """Queue a full-map BA; a newer loop supersedes one not yet folded.
+        With ``use_dist_gba`` and a process group of several ranks (every
+        rank on the same replicated map) its points are sharded over the
+        ranks (``dist_ba``); otherwise it is ``bundle_adjust_cg``, the
+        reference's single-device branch.  On the card a CUDA event
         recorded after it says when it is done."""
         with record_function("loop/gba"):
             prob = full_map_ba_problem(m, anchor)
-            R, t, X, _, cost = bundle_adjust_cg(self.cam, prob, iters=self.cfg.global_ba_iters,
-                                                cg_iters=25)
+            n = mesh_mod.world_size()
+            if self.cfg.use_dist_gba and n > 1:
+                # the host-side re-layout reads the map: acceptable for the
+                # rare closure, as in the reference
+                sprob, perm = dist_ba.shard_ba_problem(prob, n, return_perm=True)
+                step = dist_ba.make_distributed_ba(mesh_mod.map_mesh(),
+                                                   iters=self.cfg.global_ba_iters)
+                R, t, Xs, cost = step(self.cam, sprob)
+                X = Xs[torch.from_numpy(perm).to(Xs.device)]   # back to the map's order
+            else:
+                R, t, X, _, cost = bundle_adjust_cg(self.cam, prob,
+                                                    iters=self.cfg.global_ba_iters, cg_iters=25)
             done = None
             if m.device.type == "cuda":
                 done = torch.cuda.Event()

@@ -8,21 +8,27 @@ config says), and loop closing with its global BA on an explicit
 (frontend/extract, init/mono, init/depth, tracking/step,
 tracking/relocalize, mapping/keyframe with the chain's mapping/* stages, and
 loop closing's loop/detect, loop/sim3, loop/correct, loop/gba, loop/fold),
-which costs nothing unless a profiler is recording.
+which costs nothing unless a profiler is recording; frontend/extract,
+tracking/step and mapping/keyframe are opened by ``System.telemetry``
+(utils/telemetry.py), which also keeps their host times.
 
 The port runs the mono, RGB-D and stereo sensors (``track_mono``,
-``track_rgbd``, ``track_stereo``) with every ``SlamConfig`` setting but
-``shard_points``: ``SlamConfig()`` is the reference's default monocular
-configuration, and ``mono_slice_config`` the same minus loop closing; with
-depth, loop closing fixes the Sim3 scale.  With ``async_depth > 0``
-tracking is pipelined: each frame's step is dispatched without a host
-read (``tracking.track_frame_device``), its counts and poses are copied to
+``track_rgbd``, ``track_stereo``) with every ``SlamConfig`` setting:
+``SlamConfig()`` is the reference's default monocular configuration, and
+``mono_slice_config`` the same minus loop closing; with depth, loop closing
+fixes the Sim3 scale.  With ``async_depth > 0`` tracking is pipelined: each
+frame's step is dispatched without a host read
+(``tracking.track_frame_device``), its counts and poses are copied to
 pinned host memory behind a CUDA event, and the keyframe / LOST policy of a
 frame runs once its copy has landed, at most ``async_depth`` frames later;
 ``flush()`` drains the pipeline.  ``save_map`` / ``load_map`` persist the
 map in the reference's file format (io/checkpoint.py); ``warmup`` runs each
-stage once on throwaway state.  Point sharding raises
-``NotImplementedError``.
+stage once on throwaway state.  In a process group of several ranks
+(parallel/mesh.py) every rank runs the same frames on a replicated map and
+loop closing's global BA is sharded over the ranks; ``shard_points`` does
+nothing at a world of one, as the reference on one device, and raises
+``NotImplementedError`` above it (the split of the map's point axis over
+ranks is not ported).
 """
 
 from __future__ import annotations
@@ -38,7 +44,9 @@ from ..geometry.camera import CameraModel
 from ..ops import matching
 from ..ops.extractor import ExtractorConfig
 from ..ops.orb import OrbTables
+from ..parallel import mesh as mesh_mod
 from ..solvers import initializer
+from ..utils.telemetry import Telemetry
 from ..worldmap import map_state as ms
 from ..worldmap import vocabulary as voc
 from . import local_mapping as lm
@@ -88,10 +96,15 @@ class SlamConfig:
         return ExtractorConfig(n_features=self.n_features, n_levels=self.n_levels, scale=self.scale)
 
 
-# the reference's sensors, and the one setting the port does not implement:
-# any other value of it raises NotImplementedError
 SENSORS = ("mono", "rgbd", "stereo")
-SLICE_SETTINGS = dict(shard_points=False)
+
+
+def check_shard_points(cfg) -> None:
+    """shard_points at a world above one splits the live map's point axis
+    over the ranks, which is not ported (module 9b); at a world of one it
+    does nothing, as the reference on one device."""
+    if cfg.shard_points and mesh_mod.world_size() > 1:
+        raise NotImplementedError(mesh_mod.POINT_SHARDING)
 
 
 def mono_slice_config(**kw) -> SlamConfig:
@@ -99,7 +112,7 @@ def mono_slice_config(**kw) -> SlamConfig:
     culling, recent-point culling and local BA on; fuse off; synchronous
     tracking), plus sizes and toggles from `kw`."""
     return SlamConfig(**{"enable_fuse": False, "stats_in_triangulate": None, "enable_cull": True,
-                         "enable_local_ba": True, "async_depth": 0, **SLICE_SETTINGS,
+                         "enable_local_ba": True, "async_depth": 0, "shard_points": False,
                          "enable_loop_closing": False, **kw})
 
 
@@ -120,9 +133,7 @@ class System:
         cfg = config or SlamConfig()
         if cfg.sensor not in SENSORS:
             raise ValueError(f"unknown sensor {cfg.sensor!r}: one of {SENSORS}")
-        unsupported = {k: getattr(cfg, k) for k, v in SLICE_SETTINGS.items() if getattr(cfg, k) != v}
-        if unsupported:
-            raise NotImplementedError(f"not ported yet: {unsupported}")
+        check_shard_points(cfg)
         self.cam = cam
         self.cfg = cfg
         self.device = torch.device(device)
@@ -161,6 +172,7 @@ class System:
                                       seed=cfg.seed + 1, device=self.device) \
             if cfg.enable_loop_closing or cfg.enable_relocalization else None
         self.frames_since_reloc = 0
+        self.telemetry = Telemetry()
         # reset() keeps the mode, as the reference's does
         self._localization_only = getattr(self, "_localization_only", False)
 
@@ -176,14 +188,14 @@ class System:
 
     def track_mono(self, image, timestamp: float):
         """image [H,W] grayscale uint8 or float32.  Returns 4x4 Tcw or None."""
-        with record_function("frontend/extract"):
+        with self.telemetry.stage("frontend/extract"):
             frame = make_frame_mono(self._upload(image), self.cam, self.tab, self.cfg.extractor)
         return self._track(frame, timestamp)
 
     def track_rgbd(self, image, depth, timestamp: float):
         """image [H,W] grayscale, depth [H,W] metric (0 = invalid), registered
         to the image.  Returns 4x4 Tcw or None."""
-        with record_function("frontend/extract"):
+        with self.telemetry.stage("frontend/extract"):
             frame = make_frame_rgbd(self._upload(image),
                                     torch.as_tensor(depth).to(self.device, torch.float32),
                                     self.cam, self.tab, self.cfg.extractor)
@@ -191,7 +203,7 @@ class System:
 
     def track_stereo(self, image_l, image_r, timestamp: float):
         """A rectified pair [H,W] (numpy or tensors).  Returns 4x4 Tcw or None."""
-        with record_function("frontend/extract"):
+        with self.telemetry.stage("frontend/extract"):
             frame = make_frame_stereo(self._upload(image_l), self._upload(image_r), self.cam,
                                       self.tab, self.cfg.extractor)
         return self._track(frame, timestamp, has_depth=True)
@@ -314,7 +326,7 @@ class System:
             has_vel = False
         if self.cfg.async_depth > 0:
             return self._track_async(frame, timestamp, has_depth, has_vel, vel_R, vel_t)
-        with record_function("tracking/step"):
+        with self.telemetry.stage("tracking/step"):
             step = tk.track_frame(self.cam, self.map, frame, self.last_frame, self.last_obs,
                                   self.R, self.t, vel_R, vel_t, has_vel, self.ref_kf)
         if self.cfg.verbose:
@@ -326,7 +338,7 @@ class System:
                 self._maybe_auto_reset()
                 return None
             # relocalized: run the step again from the recovered pose
-            with record_function("tracking/step"):
+            with self.telemetry.stage("tracking/step"):
                 step = tk.track_frame(self.cam, self.map, frame, self.last_frame, self.last_obs,
                                       self.R, self.t, eye, zero, False, self.ref_kf)
             if step.n_local < self.cfg.min_inliers_local:
@@ -345,7 +357,7 @@ class System:
         self.last_frame = frame
         self.last_obs = step.obs
         if not self._localization_only and self._need_keyframe(step.n_local):
-            with record_function("mapping/keyframe"):
+            with self.telemetry.stage("mapping/keyframe"):
                 self._create_keyframe(frame, timestamp, step.obs, has_depth)
         self._record()
         return self._pose44()
@@ -374,7 +386,7 @@ class System:
             self._pose_np = (R_np, t_np)
             self._record()
             return self._pose44()
-        with record_function("tracking/step"):
+        with self.telemetry.stage("tracking/step"):
             step = tk.track_frame_device(self.cam, self.map, frame, self.last_frame,
                                          self.last_obs, self.R, self.t, vel_R, vel_t, has_vel,
                                          self.ref_kf)
@@ -452,7 +464,7 @@ class System:
         rec = FrameRecord(e["frame_id"], e["ts"], e["ref_kf"], poses[2, :9].reshape(3, 3).copy(),
                           poses[2, 9:12].copy(), False)
         if not self._localization_only and self._need_keyframe(n_local, e["frame_id"]):
-            with record_function("mapping/keyframe"):
+            with self.telemetry.stage("mapping/keyframe"):
                 slot = self._create_keyframe_async(e)
             # this frame is the new reference keyframe
             rec = FrameRecord(e["frame_id"], e["ts"], slot, np.eye(3, dtype=np.float32),

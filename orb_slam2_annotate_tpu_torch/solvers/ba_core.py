@@ -1,12 +1,16 @@
 """Bundle adjustment (port of solvers/ba_core.py): the grid BA of local
 mapping, a robust LM with a dense Schur solve over a [C, N] keyframe-feature
-grid, and the padded edge-list problem (``BAProblem``, ``edge_residual_jac``)
-that the global BA of ``solvers/ba_cg.py`` solves.
+grid; and the padded edge-list problem (``BAProblem``) with its dense
+robust LM (``build_normal_eqs``, ``schur_solve_dense``, ``bundle_adjust``),
+whose normal equations the distributed BA of ``parallel/dist_ba.py`` builds
+per shard, and which the global BA of ``solvers/ba_cg.py`` solves matrix-free.
 
 Same plane layout as the reference (Jacobian axes first, big axes last).
 The 6C x 6C reduced camera system is solved by Cholesky; where it is not
 positive definite the step is NaN, as the reference's
-``jax.scipy.linalg.solve(assume_a="pos")`` gives, and is rejected.
+``jax.scipy.linalg.solve(assume_a="pos")`` gives, and is rejected.  The
+edge-list sums are ``index_put_(..., accumulate=True)`` scatters: on the
+card their order of addition varies from run to run.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 
 from ..geometry import lie
 from ..geometry.camera import CameraModel
+from ..geometry.smallsolve import inv3
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -61,9 +66,9 @@ class BAProblem:
         return dataclasses.replace(self, **kw)
 
 
-def edge_residual_jac(cam: CameraModel, prob: BAProblem):
-    """r [E,3], Jc [E,3,6] (left se3 update of the edge's camera), Jp [E,3,3]
-    (the world point), is_stereo [E], depth_ok [E]."""
+def _edge_residuals(cam: CameraModel, prob: BAProblem):
+    """(r [E,3], the camera-frame points xc [E,3], 1/z [E], the edges'
+    rotations [E,3,3], is_stereo [E], depth_ok [E])."""
     ci, pi = prob.cam_idx.long(), prob.pt_idx.long()
     Re = prob.R[ci]
     xc = torch.einsum("eij,ej->ei", Re, prob.points[pi]) + prob.t[ci]
@@ -71,14 +76,22 @@ def edge_residual_jac(cam: CameraModel, prob: BAProblem):
     depth_ok = z > 1e-3
     z_safe = torch.where(z < 1e-3, torch.full_like(z, 1e-3), z)
     iz = 1.0 / z_safe
-    iz2 = iz * iz
     u = cam.fx * x * iz + cam.cx
     v = cam.fy * y * iz + cam.cy
     ur_pred = u - cam.bf * iz
     is_stereo = prob.ur >= 0
-    zeros = torch.zeros_like(x)
     r = torch.stack([u - prob.uv[:, 0], v - prob.uv[:, 1],
-                     torch.where(is_stereo, ur_pred - prob.ur, zeros)], dim=1)
+                     torch.where(is_stereo, ur_pred - prob.ur, torch.zeros_like(x))], dim=1)
+    return r, xc, iz, Re, is_stereo, depth_ok
+
+
+def edge_residual_jac(cam: CameraModel, prob: BAProblem):
+    """r [E,3], Jc [E,3,6] (left se3 update of the edge's camera), Jp [E,3,3]
+    (the world point), is_stereo [E], depth_ok [E]."""
+    r, xc, iz, Re, is_stereo, depth_ok = _edge_residuals(cam, prob)
+    x, y = xc[:, 0], xc[:, 1]
+    iz2 = iz * iz
+    zeros = torch.zeros_like(x)
     du = torch.stack([cam.fx * iz, zeros, -cam.fx * x * iz2], dim=1)
     dv = torch.stack([zeros, cam.fy * iz, -cam.fy * y * iz2], dim=1)
     dr = du + torch.stack([zeros, zeros, cam.bf * iz2], dim=1)
@@ -91,6 +104,119 @@ def edge_residual_jac(cam: CameraModel, prob: BAProblem):
 
 def edge_chi2(r, inv_sigma2):
     return torch.sum(r * r, dim=1) * inv_sigma2
+
+
+def edge_cost(cam: CameraModel, prob: BAProblem) -> torch.Tensor:
+    """The Huberized cost over the valid edges (behind-camera edges pay a
+    flat barrier), without Jacobians: the number ``build_normal_eqs``
+    returns for the same state."""
+    r, _, _, _, _, depth_ok = _edge_residuals(cam, prob)
+    chi2 = edge_chi2(r, prob.inv_sigma2)
+    return torch.sum(_huber(chi2, _delta2(prob.ur), depth_ok) * prob.edge_valid.to(chi2.dtype))
+
+
+def _scatter_add(shape, index, vals):
+    out = torch.zeros(shape, dtype=vals.dtype, device=vals.device)
+    return out.index_put_(index, vals, accumulate=True)
+
+
+def build_normal_eqs(cam: CameraModel, prob: BAProblem, robust: bool):
+    """One linearization: Hcc [C,6,6] (diagonal blocks), Hpp [P,3,3],
+    B [P,C,6,3] (camera-point coupling, summed per (point, camera)),
+    gc [C,6], gp [P,3] and the cost."""
+    C, P = prob.R.shape[0], prob.points.shape[0]
+    ci, pi = prob.cam_idx.long(), prob.pt_idx.long()
+    r, Jc, Jp, is_stereo, depth_ok = edge_residual_jac(cam, prob)
+    chi2 = edge_chi2(r, prob.inv_sigma2)
+    delta2 = _delta2(prob.ur)
+    w_h = torch.ones_like(chi2)
+    if robust:
+        w_h = torch.where(chi2 > delta2, torch.sqrt(delta2 / torch.clamp_min(chi2, 1e-12)), w_h)
+    w = prob.inv_sigma2 * w_h * (prob.edge_valid & depth_ok).to(chi2.dtype)
+    Jc = torch.where(prob.cam_fixed[ci][:, None, None], 0.0, Jc)
+    Jcw, Jpw = Jc * w[:, None, None], Jp * w[:, None, None]
+    Hcc = _scatter_add((C, 6, 6), (ci,), torch.einsum("eij,eik->ejk", Jcw, Jc))
+    Hpp = _scatter_add((P, 3, 3), (pi,), torch.einsum("eij,eik->ejk", Jpw, Jp))
+    gc = _scatter_add((C, 6), (ci,), torch.einsum("eij,ei->ej", Jcw, r))
+    gp = _scatter_add((P, 3), (pi,), torch.einsum("eij,ei->ej", Jpw, r))
+    B = _scatter_add((P, C, 6, 3), (pi, ci), torch.einsum("eij,eik->ejk", Jcw, Jp))
+    cost = torch.sum(_huber(chi2, delta2, depth_ok) * prob.edge_valid.to(chi2.dtype))
+    return Hcc, Hpp, B, gc, gp, cost
+
+
+def schur_terms(Hpp, B, gp, lam):
+    """The point side of the Schur complement: (Hpp^-1 [P,3,3] of the
+    damped blocks, -B Hpp^-1 B^T [C,C,6,6] and B Hpp^-1 gp [C,6])."""
+    eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
+    # closed-form batched 3x3 inverse, as the reference's
+    Hpp_inv = inv3(_damp_blocks(Hpp, lam) + 1e-8 * eye3)
+    BH = torch.einsum("pcij,pjk->pcik", B, Hpp_inv)            # [P,C,6,3]
+    S_off = -torch.einsum("pcik,pdlk->cdil", BH, B)             # [C,C,6,6]
+    return Hpp_inv, S_off, torch.einsum("pcik,pk->ci", BH, gp)
+
+
+def reduced_system(S, rhs, cam_free_mask):
+    """S [C,C,6,6], rhs [C,6] -> the flat [6C,6C] system and its right-hand
+    side, cameras not free held by identity rows."""
+    C = S.shape[0]
+    Sf = S.permute(0, 2, 1, 3).reshape(C * 6, C * 6)
+    mask6 = cam_free_mask.repeat_interleave(6)
+    Sf = torch.where(mask6[:, None] & mask6[None, :], Sf, torch.zeros_like(Sf))
+    Sf = Sf + torch.diag(torch.where(mask6, 0.0, 1.0).to(Sf.dtype))
+    rf = torch.where(mask6, rhs.reshape(-1), torch.zeros_like(rhs.reshape(-1)))
+    return Sf, rf
+
+
+def _cholesky_solve(Sf, rf, C: int):
+    """The reduced system by Cholesky: NaN where it is not positive definite."""
+    L, info = torch.linalg.cholesky_ex(Sf)
+    dc = torch.cholesky_solve(rf[:, None], L)[:, 0]
+    return torch.where(info == 0, dc, torch.full_like(dc, float("nan"))).reshape(C, 6)
+
+
+def schur_solve_dense(Hcc, Hpp, B, gc, gp, lam, cam_free_mask):
+    """Direct dense solve of the Schur-reduced camera system.  Hcc [C,6,6],
+    Hpp [P,3,3], B [P,C,6,3], gc [C,6], gp [P,3]; cam_free_mask [C] bool,
+    the cameras allowed to move.  Returns (dc [C,6], dp [P,3])."""
+    C = Hcc.shape[0]
+    Hpp_inv, S, rhs_p = schur_terms(Hpp, B, gp, lam)
+    ar = torch.arange(C, device=Hcc.device)
+    S[ar, ar] += _damp_blocks(Hcc, lam)
+    dc = _cholesky_solve(*reduced_system(S, rhs_p - gc, cam_free_mask), C)
+    dc = torch.where(cam_free_mask[:, None], dc, torch.zeros_like(dc))
+    Btdc = torch.einsum("pcij,ci->pj", B, dc)
+    return dc, torch.einsum("pij,pj->pi", Hpp_inv, -gp - Btdc)
+
+
+def bundle_adjust(cam: CameraModel, prob: BAProblem, iters: int = 10, robust: bool = True,
+                  lam0: float = 1e-5):
+    """Robust LM bundle adjustment with the dense Schur solve: `iters` LM
+    steps with Huber IRLS weights, a step kept when it lowers the cost
+    (lambda x 0.3, else x 8).  Returns (R [C,3,3], t [C,3], points [P,3],
+    edge_inlier [E] by the final chi2 and depth test, the last step's
+    cost)."""
+    dev = prob.points.device
+    cam_free = prob.cam_valid & ~prob.cam_fixed
+    ptv = prob.pt_valid[:, None].to(prob.points.dtype)
+    R, t, X = prob.R, prob.t, prob.points
+    lam = torch.tensor(lam0, device=dev)
+    cost_new = None
+    for _ in range(iters):
+        Hcc, Hpp, B, gc, gp, cost = build_normal_eqs(cam, prob.replace(R=R, t=t, points=X), robust)
+        dc, dp = schur_solve_dense(Hcc, Hpp, B, gc, gp, lam, cam_free)
+        del B
+        R_new, t_new = lie.se3_retract(R, t, dc)
+        X_new = X + dp * ptv
+        # the reference rebuilds every block only to read this number
+        cost_new = edge_cost(cam, prob.replace(R=R_new, t=t_new, points=X_new))
+        better = cost_new < cost
+        R = torch.where(better, R_new, R)
+        t = torch.where(better, t_new, t)
+        X = torch.where(better, X_new, X)
+        lam = torch.where(better, lam * 0.3, lam * 8.0)
+    r, _, _, _, is_stereo, depth_ok = _edge_residuals(cam, prob.replace(R=R, t=t, points=X))
+    inlier = prob.edge_valid & (edge_chi2(r, prob.inv_sigma2) <= _delta2(prob.ur)) & depth_ok
+    return R, t, X, inlier, cost_new
 
 
 def _project_planes(cam, R, t, X, g):
@@ -195,14 +321,7 @@ def schur_solve_planes(Hcc, Hpp, B, gc, gp, lam, cam_free_mask):
     ar = torch.arange(C, device=dev)
     S[ar, ar] += Hcc_d
     rhs = -gc + torch.einsum("ikcp,kp->ci", BH, gp)
-    Sf = S.permute(0, 2, 1, 3).reshape(C * 6, C * 6)
-    mask6 = cam_free_mask.repeat_interleave(6)
-    Sf = torch.where(mask6[:, None] & mask6[None, :], Sf, torch.zeros_like(Sf))
-    Sf = Sf + torch.diag(torch.where(mask6, 0.0, 1.0))
-    rf = torch.where(mask6, rhs.reshape(-1), torch.zeros_like(rhs.reshape(-1)))
-    L, info = torch.linalg.cholesky_ex(Sf)
-    dc = torch.cholesky_solve(rf[:, None], L)[:, 0]
-    dc = torch.where(info == 0, dc, torch.full_like(dc, float("nan"))).reshape(C, 6)
+    dc = _cholesky_solve(*reduced_system(S, rhs, cam_free_mask), C)
     dc = torch.where(cam_free_mask[:, None], dc, torch.zeros_like(dc))
     Btdc = torch.einsum("ikcp,ci->kp", B, dc)
     dp = torch.einsum("jkp,kp->jp", Hpp_inv, -gp - Btdc)

@@ -1,0 +1,69 @@
+"""A rank of a CPU process group for the port's distributed tests
+(tests/test_torch_dist_ba.py).
+
+    python tests/_torch_dist_worker.py MODE RANK WORLD PORT DIR
+
+Joins a gloo group of WORLD ranks at localhost:PORT (60 s timeouts), reads
+DIR/in.npz, runs MODE and writes DIR/out{RANK}.npz:
+  allreduce  init_multi_host from the arguments, an all_reduce of ones;
+  env        the same with the group's address in torch's environment
+             variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK);
+  ba         make_distributed_ba on the sharded problem in in.npz;
+  loop       LoopCloser._dispatch_global_ba on the map in in.npz (anchor,
+             iterations), then maybe_fold_gba(force=True).
+"""
+
+import dataclasses
+import os
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from orb_slam2_annotate_tpu_torch import convert  # noqa: E402
+from orb_slam2_annotate_tpu_torch.geometry.camera import CameraModel  # noqa: E402
+from orb_slam2_annotate_tpu_torch.parallel import dist_ba, mesh  # noqa: E402
+
+
+def main(mode, rank, world, port, out_dir):
+    torch.set_num_threads(1)
+    rank, world = int(rank), int(world)
+    if mode == "env":
+        os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE=str(world),
+                          RANK=str(rank))
+        mesh.init_multi_host(device="cpu", timeout_s=60)
+    else:
+        mesh.init_multi_host(f"localhost:{port}", world, rank, device="cpu", timeout_s=60)
+    d = dict(np.load(os.path.join(out_dir, "in.npz"), allow_pickle=True)) \
+        if mode in ("ba", "loop") else {}
+    out = {"world": mesh.world_size(), "rank": torch.distributed.get_rank()}
+    if mode in ("allreduce", "env"):
+        x = torch.ones(4) * (rank + 1)
+        torch.distributed.all_reduce(x)
+        out["sum"] = x.numpy()
+    elif mode == "ba":
+        cam = CameraModel(**{f.name: float(d["cam_" + f.name]) for f in dataclasses.fields(CameraModel)})
+        prob = convert.ba_problem_from_numpy({k[5:]: v for k, v in d.items() if k.startswith("prob_")})
+        step = dist_ba.make_distributed_ba(mesh.map_mesh(), iters=int(d["iters"]))
+        R, t, X, cost = step(cam, prob)
+        out.update(R=R.numpy(), t=t.numpy(), X=X.numpy(), cost=cost.numpy())
+    elif mode == "loop":
+        from orb_slam2_annotate_tpu_torch.pipeline.loop_closing import LoopCloser, LoopCloserConfig
+
+        cam = CameraModel(**{f.name: float(d["cam_" + f.name]) for f in dataclasses.fields(CameraModel)})
+        m = convert.map_state_from_numpy({k[2:]: v for k, v in d.items() if k.startswith("m_")})
+        lc = LoopCloser(cam, m.K, LoopCloserConfig(n_words=64, global_ba_iters=int(d["iters"])),
+                        device="cpu")
+        lc._dispatch_global_ba(m, anchor=int(d["anchor"]))
+        g = lc._gba_pending
+        out.update(R=g["R"].numpy(), t=g["t"].numpy(), X=g["X"].numpy(), cost=g["cost"].numpy())
+        folded = lc.maybe_fold_gba(m, force=True)
+        out.update({"fold_" + k: v for k, v in convert.map_state_to_numpy(folded).items()})
+    np.savez(os.path.join(out_dir, f"out{rank}.npz"), **out)
+    torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(*sys.argv[1:6])

@@ -268,13 +268,25 @@ def test_localization_mode_makes_no_keyframe(data, port_mono):
     assert int(m.kf_frame_id[m.kf_valid].max()) < 16
 
 
-def test_unported_entry_points_raise(tmp_path):
-    # map save / load are ported (tests/test_torch_checkpoint.py); point
-    # sharding is not
+def test_unported_entry_points_raise(tmp_path, data):
+    # map save / load are ported (tests/test_torch_checkpoint.py), and so is
+    # point sharding at a world of one, where it does nothing: the run is bit
+    # for bit the unsharded one (above a world of one it raises:
+    # tests/test_torch_system.py::test_shard_points_raises_above_a_world_of_one)
     r = dl.FreeRunner(TCAM, SlamConfig(**_kw()), max_frames=4, device="cpu")
     r.save_map(str(tmp_path / "map.npz"))
     r.load_map(str(tmp_path / "map.npz"))
     assert int(r.state.mode) == dl.MODE_LOST
-    with pytest.raises(NotImplementedError, match="shard_points"):
-        dl.FreeRunner(TCAM, dataclasses.replace(SlamConfig(**_kw()), shard_points=True),
-                      device="cpu")
+    _, frames = data
+    runs = []
+    for shard in (True, False):
+        r = dl.FreeRunner(TCAM, SlamConfig(**_kw(shard_points=shard)), max_frames=14,
+                          auto_grow=False, device="cpu")
+        for k in range(14):
+            r.track_mono(frames[k][0], k / 30.0)
+        runs.append(r.finish())
+    for (k, T), (k0, T0) in zip(runs[0]["trajectory"], runs[1]["trajectory"]):
+        assert k == k0 and ((T is None and T0 is None) or np.array_equal(T, T0))
+    assert sum(T is not None for _, T in runs[0]["trajectory"]) >= 3
+    for k, v in convert.map_state_to_numpy(runs[0]["map"]).items():
+        np.testing.assert_array_equal(v, convert.map_state_to_numpy(runs[1]["map"])[k], err_msg=k)

@@ -1,7 +1,8 @@
 """The whole monocular slice of the port against the JAX System, plus the
 package-level rules: no jax import, numpy copies that agree with the
 reference, asset files that are byte-identical copies, CPU tensors taking the plain twins without touching the launch
-counters, the configuration guard (only point sharding raises; the RGB-D
+counters, the configuration guard (point sharding does nothing at a world
+of one, the run bit for bit the unsharded one, and raises above it; the RGB-D
 and stereo sensors construct with the Sim3 scale fixed; the keyframe
 chain's toggles and pipelined tracking construct and run), and
 localization mode.
@@ -113,6 +114,17 @@ def test_track_mono_returns_the_tracking_pose_on_keyframe_frames(slice_runs):
     assert np.abs(T_port - T_ref).max() <= 1e-3
 
 
+def test_telemetry_stages_match_jax_system(slice_runs):
+    # System.telemetry (utils/telemetry.py): the reference's three stages,
+    # one frontend/extract a frame, keyframes made within the slice test's 2
+    _, ref, port, _ = slice_runs
+    tp, tr = port.telemetry.stages, ref.telemetry.stages
+    assert set(tp) == set(tr) == {"frontend/extract", "tracking/step", "mapping/keyframe"}
+    assert tp["frontend/extract"].count == tr["frontend/extract"].count == N_FRAMES
+    assert abs(tp["mapping/keyframe"].count - tr["mapping/keyframe"].count) <= 2
+    assert [line.split()[0] for line in port.telemetry.report().splitlines()] == sorted(tr)
+
+
 def test_port_never_imports_jax():
     code = ("import sys, orb_slam2_annotate_tpu_torch, orb_slam2_annotate_tpu_torch.pipeline, "
             "orb_slam2_annotate_tpu_torch.io, orb_slam2_annotate_tpu_torch.convert, "
@@ -120,10 +132,12 @@ def test_port_never_imports_jax():
             "orb_slam2_annotate_tpu_torch.pipeline.loop_closing, "
             "orb_slam2_annotate_tpu_torch.pipeline.system, "
             "orb_slam2_annotate_tpu_torch.pipeline.tracking, "
-            "orb_slam2_annotate_tpu_torch.pipeline.local_mapping; "
+            "orb_slam2_annotate_tpu_torch.pipeline.local_mapping, "
+            "orb_slam2_annotate_tpu_torch.parallel, orb_slam2_annotate_tpu_torch.utils, "
+            "orb_slam2_annotate_tpu_torch.viz, orb_slam2_annotate_tpu_torch.ops.pattern_train; "
             "from orb_slam2_annotate_tpu_torch.pipeline.tracking import track_frame_device; "
             "from orb_slam2_annotate_tpu_torch.pipeline.local_mapping import fuse_neighbors; "
-            "assert 'jax' not in sys.modules")
+            "assert 'jax' not in sys.modules and 'matplotlib' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=str(__import__("pathlib").Path(
         __file__).resolve().parents[1]))
 
@@ -278,10 +292,43 @@ def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
 
+def _short_run(cfg, n_frames=14):
+    """The port's System on the slice's first frames: (trajectory, map)."""
+    scene = tsyn.PlaneScene(seed=1)
+    slam = TSystem(TCAM, cfg, device="cpu")
+    for k, (R, t) in enumerate(tsyn.orbit_trajectory(n_frames, step=0.06)):
+        slam.track_mono(scene.render(TCAM, R, t, h=240, w=320)[0], k / 30.0)
+    return slam.frame_trajectory(), convert.map_state_to_numpy(slam.map)
+
+
 @pytest.mark.parametrize("change", [dict(shard_points=True)])
 def test_other_configurations_raise(change):
-    with pytest.raises(NotImplementedError):
-        TSystem(TCAM, mono_slice_config(**{**SIZES, **change}), device="cpu")
+    # point sharding was the last setting that raised.  At a world of one it
+    # does nothing, as the reference on one device: the run is bit for bit
+    # the unsharded one.  Above a world of one it still raises
+    # (test_shard_points_raises_above_a_world_of_one).
+    traj, m = _short_run(mono_slice_config(**{**SIZES, **change}))
+    traj0, m0 = _short_run(mono_slice_config(**SIZES))
+    assert sum(T is not None for _, T in traj) >= 3
+    assert [k for k, _ in traj] == [k for k, _ in traj0]
+    for (_, T), (_, T0) in zip(traj, traj0):
+        assert (T is None and T0 is None) or np.array_equal(T, T0)
+    for k, v in m.items():
+        np.testing.assert_array_equal(v, m0[k], err_msg=k)
+
+
+def test_shard_points_raises_above_a_world_of_one(monkeypatch):
+    from orb_slam2_annotate_tpu_torch.parallel import mesh as tmesh
+    from orb_slam2_annotate_tpu_torch.pipeline import device_loop as dl
+
+    cfg = mono_slice_config(**{**SIZES, "shard_points": True})
+    monkeypatch.setattr(tmesh, "world_size", lambda: 2)
+    for make in (lambda: TSystem(TCAM, cfg, device="cpu"),
+                 lambda: dl.FreeRunner(TCAM, cfg, max_frames=4, device="cpu")):
+        with pytest.raises(NotImplementedError, match="point axis"):
+            make()
+    # the unsharded configuration runs on a replicated map at any world size
+    assert TSystem(TCAM, mono_slice_config(**SIZES), device="cpu").map.P == SIZES["max_mp"]
 
 
 @pytest.mark.parametrize("change", [dict(stats_in_triangulate=True), dict(stats_in_triangulate=False),
