@@ -206,8 +206,21 @@ Phases (any failure exits non-zero):
      mapping/keyframe a keyframe after initialization; (e)
      ``train_vocabulary`` (4,096 words, 8 iterations) on phase 4's frames'
      descriptors, kernel 5 once a chunk an iteration, words and IDF equal
-     to the CPU twin's bit for bit.  The viewer (viz/viewer.py) has no
-     phase: it needs matplotlib, which the GPU machine lacks.
+     to the CPU twin's bit for bit;
+  16. the live map's point axis split over two gloo ranks on the one card
+     (``shard_points=True``; subprocesses ``python3 chip_smoke.py
+     --shard-rank MODE RANK PORT DIR``, each with a time limit and every
+     collective with one): (a) phase 4's slice (8,192 point rows a rank),
+     its trajectory and gathered map bit for bit phase 4's and both ranks'
+     keyframe state equal, each rank's launches, frames/s and peak memory
+     beside phase 4's; then, at once, (b) phase 6's loop cell with the
+     global BA on the live shards: a closure and a folded global BA, >= 60%
+     tracked, ATE within phase 6's bound, the BA's returned cost within
+     DIST_FULL_TOL of a world-one distributed BA on the map it was
+     dispatched on; (c) the FreeRunner on phase 11's first 48 frames, its
+     state (rings, poses, gathered map) bit for bit phase 11's after frame
+     47.  The viewer (viz/viewer.py) has no phase: it needs matplotlib,
+     which the GPU machine lacks.
 Kernel times are one CUDA-event pair around 100 back-to-back calls after a
 warm-up, divided by the count; kernels 3b and 6 also give ``graph_us``, the
 device time a call in a replay of 50 calls captured into one CUDA graph (as
@@ -386,6 +399,7 @@ DIST_SHORT_TOL = dict(cost=1e-5, state_cost=4e-6, residual_px=0.012)
 # and camera (DIR/phase15_ba_problem.npz), for tests/_ba_spread.py
 KEEP_BA = None
 VOCAB_WORDS, VOCAB_ITERS = 4096, 8  # phase 15(e): train_vocabulary on phase 4's descriptors
+SHARD_RANK_TIMEOUT_S = 300  # a rank of phase 16; every rendezvous and collective: 120 s
 PEAK_OPS = 67e12      # /s: f32 outside the tensor cores (H100 SXM); 32-bit integer work alike
 PEAK_INT8_TC = 1.979e15  # /s: int8 dense tensor cores (H100 SXM); kernel 5's 1-bit products
 PEAK_BYTES = 3.35e12  # /s: HBM3
@@ -844,6 +858,7 @@ def free_phases(ctx):
     zero_launches, read_launches = ctx.zero_launches, ctx.read_launches
     import warnings
 
+    from orb_slam2_annotate_tpu_torch import convert
     from orb_slam2_annotate_tpu_torch.pipeline import device_loop as dl
 
     per_call = {"candidate": [], "loop_stage": [], "reloc": []}
@@ -964,6 +979,8 @@ def free_phases(ctx):
                      "optimize_pose_batched", "assign_words"]
         secs11, syncs11, launches11, calls11 = free_drive("free bench", runner11, feeds, counted11)
         out11 = runner11.finish()
+        # phase 11's state after frame 47 as it stood (phase 13 tracks on from it)
+        kept11["numpy"] = convert.free_state_to_numpy(kept11["state"])
         o11 = free_outcome(out11, runner11, gt11)
         jx = FREE_BENCH_JAX
         bound11 = max(1.5 * jx["ate"], jx["ate"] + 0.01)
@@ -1015,11 +1032,11 @@ def free_phases(ctx):
             return run
 
         stage_saved = (loop_mod._free_sim3, loop_mod.optimize_pose_graph_cg, loop_mod._seam_fuse,
-                       dl.bundle_adjust_cg)
+                       dl.global_ba_cg)
         loop_mod._free_sim3 = staged("loop/sim3 (a candidate)", loop_mod._free_sim3)
         loop_mod.optimize_pose_graph_cg = staged("loop/pose_graph", stage_saved[1])
         loop_mod._seam_fuse = staged("loop/fuse (seam)", stage_saved[2])
-        dl.bundle_adjust_cg = staged("loop/gba (live)", stage_saved[3])
+        dl.global_ba_cg = staged("loop/gba (live)", stage_saved[3])
         cfg12 = dataclasses.replace(loop_cfg, max_kf=128, max_mp=16384)
         runner12 = dl.FreeRunner(cam6, cfg12, max_frames=LOOP_FRAMES, device="cuda")
         counted12 = counted11 + list(LOOP_ONLY)
@@ -1029,7 +1046,7 @@ def free_phases(ctx):
             secs12, syncs12, launches12, calls12 = free_drive("free loop", runner12, feeds, counted12)
         finally:
             (loop_mod._free_sim3, loop_mod.optimize_pose_graph_cg, loop_mod._seam_fuse,
-             dl.bundle_adjust_cg) = stage_saved
+             dl.global_ba_cg) = stage_saved
         out12 = runner12.finish()
         o12 = free_outcome(out12, runner12, gt6)
         bound12 = max(1.5 * FREE_LOOP_JAX["ate"], FREE_LOOP_JAX["ate"] + 0.05)
@@ -1224,7 +1241,7 @@ def free_phases(ctx):
                          "13 free localization": launches13l},
             "outcomes": {"bench": o11, "loop": o12, "loop_rgbd": o12d, "rgbd": o13r,
                          "stereo": o13s, "scan": o13c, "localization": o13l},
-            "bench_runner": (runner11, cam11, gt11, images11, cfg11)}
+            "bench_runner": (runner11, cam11, gt11, images11, cfg11), "kept11": kept11["numpy"]}
 
 
 def first_frames(mode: str, settings: str, seq: str, assoc: str):
@@ -1972,6 +1989,273 @@ def dist_phases(ctx):
                               launches["15 vocabulary"]["assign_words"] == k5_expected,
                           "no other kernel": all(v == 0 for k, v in launches["15 vocabulary"].items()
                                                  if k != "assign_words")})
+    return {"launches": launches, "outcomes": out}
+
+
+def shard_rank(mode: str, rank: str, port: str, d: str):
+    """``python3 chip_smoke.py --shard-rank MODE RANK PORT DIR``: one of a
+    phase-16 run's two ranks, both on cuda:0 in a gloo group at
+    localhost:PORT, the live map's point axis split over them
+    (``shard_points=True``).  Reads DIR/in.npz (the frames, the camera, the
+    config as JSON); MODE ``slice`` or ``loop`` drives a System over the
+    frames, ``free`` a FreeRunner.  Writes DIR/out<RANK>.npz: the
+    trajectory (or the runner's state) and the gathered map, the rank's
+    keyframe fields and point rows, each kernel's launches, the frame times
+    and the peak memory (above what the card held before the System was
+    made, as phase 4's); ``loop`` also the first global BA's returned cost,
+    anchor and (rank 0) the gathered map it was dispatched on."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from orb_slam2_annotate_tpu_torch import convert, kernels
+    from orb_slam2_annotate_tpu_torch.geometry.camera import CameraModel
+    from orb_slam2_annotate_tpu_torch.parallel import mesh
+    from orb_slam2_annotate_tpu_torch.pipeline import SlamConfig, System
+    from orb_slam2_annotate_tpu_torch.pipeline import device_loop as dl
+    from orb_slam2_annotate_tpu_torch.worldmap import map_state
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    rank = int(rank)
+    mesh.init_multi_host(f"localhost:{port}", 2, rank, device="cuda", backend="gloo",
+                         timeout_s=120)
+    z = dict(np.load(os.path.join(d, "in.npz")))
+    cam = CameraModel(**{f.name: float(z["cam_" + f.name]) for f in dataclasses.fields(CameraModel)})
+    cfg = SlamConfig(**json.loads(str(z["cfg"])), shard_points=True)
+    frames = z["frames"]
+    out = {}
+    base = torch.cuda.memory_allocated()
+    if mode == "free":
+        runner = dl.FreeRunner(cam, cfg, max_frames=int(z["max_frames"]), auto_grow=False,
+                               device="cuda")
+        track = runner.track_mono
+    else:
+        slam = System(cam, cfg, device="cuda")
+        track = slam.track_mono
+        lc = slam.loop_closer
+        real_gba = lc._dispatch_global_ba
+
+        def keep_gba(m, anchor):
+            # the first global BA: the map it runs on (gathered: every rank
+            # calls this) and its returned cost
+            first = "gba_cost" not in out
+            whole = convert.map_state_to_numpy(m) if first else None
+            real_gba(m, anchor)
+            if first:
+                out.update(gba_cost=lc._gba_pending["cost"].cpu().numpy(), gba_anchor=int(anchor))
+                if rank == 0:
+                    np.savez(os.path.join(d, "gba_map.npz"), **whole)
+
+        lc._dispatch_global_ba = keep_gba
+    for w in kernels.WRAPPERS:
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for k, img in enumerate(frames):
+        t0 = time.perf_counter()
+        track(img, k / 30.0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    peak = torch.cuda.max_memory_allocated() - base
+    if mode == "free":
+        m = runner.state.m
+        for k, v in convert.free_state_to_numpy(runner.state).items():
+            for k2, v2 in (v.items() if isinstance(v, dict) else [(None, v)]):
+                out["st_" + k + ("" if k2 is None else "__" + k2)] = v2
+    else:
+        traj = slam.frame_trajectory()          # flushes: folds a pending global BA
+        m = slam.map
+        out.update(traj=np.stack([np.full((4, 4), np.nan, np.float32) if T is None else T
+                                  for _, T in traj]),
+                   loops=lc.n_loops_closed, gba_dispatched=lc.n_gba_dispatched,
+                   gba_folded=lc.n_gba_folded,
+                   **{"m_" + k: v for k, v in convert.map_state_to_numpy(m).items()})
+    out.update({"kf_" + f.name: getattr(m, f.name).cpu().numpy()
+                for f in dataclasses.fields(map_state.MapState) if not f.name.startswith("mp_")})
+    out.update(world=mesh.world_size(), P=m.P, P_local=m.P_local, secs=np.array(secs),
+               peak_mb=peak / 2**20, launches=json.dumps(launches),
+               point_mb=sum(getattr(m, k).numel() * getattr(m, k).element_size()
+                            for k in map_state.POINT_FIELDS) / 2**20)
+    np.savez(os.path.join(d, f"out{rank}.npz"), **out)
+    torch.distributed.destroy_process_group()
+
+
+def shard_phases(ctx):
+    """Phase 16: the live map's point axis split over two gloo ranks on the
+    one card, each a subprocess (``shard_rank``): (a) phase 4's slice
+    alone, then (b) phase 6's loop cell and (c) phase 11's first 48 frames
+    through the FreeRunner at once (`ctx`: the card's line; phases 4, 6
+    and 11's cameras, frames, configs and results).  Returns {"launches":
+    rank 0's and rank 1's per run, "outcomes": each run's}."""
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from orb_slam2_annotate_tpu_torch import convert
+    from orb_slam2_annotate_tpu_torch.io import evaluation
+    from orb_slam2_annotate_tpu_torch.parallel import dist_ba, mesh
+    from orb_slam2_annotate_tpu_torch.pipeline import loop_closing as loop_mod
+
+    card = ctx.card
+    out, launches = {}, {}
+
+    def check(name, checks):
+        bad = [k for k, v in checks.items() if not v]
+        if bad:
+            fail(f"{name} checks failed: {bad}")
+
+    def free_port():
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            return sk.getsockname()[1]
+
+    def start(mode, cam, cfg, frames, **extra):
+        tmp = tempfile.mkdtemp(prefix=f"chip_smoke_shard_{mode}_")
+        fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+                  if f.name != "shard_points"}
+        np.savez(os.path.join(tmp, "in.npz"), frames=np.stack(frames), cfg=json.dumps(fields),
+                 **{"cam_" + f.name: np.float32(getattr(cam, f.name))
+                    for f in dataclasses.fields(type(cam))}, **extra)
+        port = str(free_port())
+        procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                                   "--shard-rank", mode, str(r), port, tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                  env=dict(os.environ, PYTHONPATH=ROOT)) for r in range(2)]
+        return mode, tmp, procs, time.perf_counter()
+
+    def wait(started):
+        mode, tmp, procs, t0 = started
+        try:
+            logs = []
+            try:
+                for p in procs:
+                    logs.append(p.communicate(timeout=max(1.0, SHARD_RANK_TIMEOUT_S
+                                                          - (time.perf_counter() - t0)))[0])
+            except subprocess.TimeoutExpired:
+                for p in procs:
+                    p.kill()
+                    p.communicate()
+                fail(f"phase 16 ({mode}): a rank did not finish in {SHARD_RANK_TIMEOUT_S} s")
+            for r, (p, log) in enumerate(zip(procs, logs)):
+                if p.returncode != 0:
+                    fail(f"phase 16 ({mode}): rank {r} exited {p.returncode}:\n{log[-3000:]}")
+            ranks = [dict(np.load(os.path.join(tmp, f"out{r}.npz"))) for r in range(2)]
+            gba = os.path.join(tmp, "gba_map.npz")
+            whole = dict(np.load(gba)) if os.path.exists(gba) else None
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        for r, o in enumerate(ranks):
+            launches[f"16 shard {mode} rank {r}"] = json.loads(str(o["launches"]))
+        return ranks, whole, time.perf_counter() - t0
+
+    def bits(a):
+        a = np.asarray(a)
+        return a.view(np.int32) if a.dtype == np.float32 else a
+
+    def differ(got: dict, ref: dict, prefix: str):
+        return [k for k, v in ref.items() if not np.array_equal(bits(got[prefix + k]), bits(v))]
+
+    def rank_common(ranks):
+        """Per rank: launches, frames/s, frame median, peak memory, point rows;
+        and the fields where the ranks' keyframe state differs."""
+        kf_differ = [k for k in ranks[0] if k.startswith("kf_")
+                     and not np.array_equal(bits(ranks[0][k]), bits(ranks[1][k]))]
+        per = [{"world": int(o["world"]), "P": int(o["P"]), "P_local": int(o["P_local"]),
+                "point_mb": float(o["point_mb"]), "peak_mb": float(o["peak_mb"]),
+                "frames_per_s": len(o["secs"]) / float(o["secs"].sum()),
+                "frame_ms_median": 1e3 * float(np.median(o["secs"])),
+                "launches": json.loads(str(o["launches"]))} for o in ranks]
+        return per, kf_differ
+
+    def traj_same(a, ref):
+        return len(a) == len(ref) and all(
+            (T0 is None and not np.isfinite(T).any()) or (T0 is not None and np.array_equal(T, T0))
+            for T, (_, T0) in zip(a, ref))
+
+    # ---- (a) phase 4's slice at a world of two
+    ranks, _, wall_a = wait(start("slice", ctx.cam, ctx.slice_cfg, ctx.frames))
+    per, kf_differ = rank_common(ranks)
+    map_differs = [differ(o, ctx.map4, "m_") for o in ranks]
+    out["a"] = {"ranks": per, "trajectory_equal": [traj_same(o["traj"], ctx.traj4) for o in ranks],
+                "map_fields_not_equal": map_differs, "kf_fields_differ_between_ranks": kf_differ,
+                "frames_per_s_phase4": ctx.fps4, "peak_mb_phase4": ctx.peak4_mb,
+                "point_mb_phase4": ctx.point_mb4, "wall_s": wall_a}
+    print(f"phase 16(a) phase 4's slice on two ranks: {json.dumps(out['a'])}, card {card}")
+    check("phase 16(a)", {
+        "world of two": all(p["world"] == 2 for p in per),
+        "each rank holds P / 2 point rows": all(2 * p["P_local"] == p["P"] == ctx.slice_cfg.max_mp
+                                                for p in per),
+        "trajectory bit for bit phase 4's on both ranks": all(out["a"]["trajectory_equal"]),
+        "gathered map bit for bit phase 4's on both ranks": not any(map_differs),
+        "both ranks' keyframe state equal": not kf_differ,
+        "every slice kernel launched on each rank": all(
+            p["launches"][w] > 0 for p in per for w in ctx.slice_kernels)})
+
+    # ---- (b) phase 6's loop cell and (c) phase 11's first 48 frames, at once
+    b_started = start("loop", ctx.cam6, ctx.loop_cfg, ctx.images6)
+    c_started = start("free", ctx.cam11, ctx.cfg11, ctx.images11[:N_FRAMES],
+                      max_frames=np.int32(len(ctx.images11)))
+    ranks_b, whole, wall_b = wait(b_started)
+    ranks_c, _, wall_c = wait(c_started)
+
+    per, kf_differ = rank_common(ranks_b)
+    o = ranks_b[0]
+    ok = np.isfinite(o["traj"][:, 0, 0])
+    ids = np.nonzero(ok)[0]
+    est = np.stack([-T[:3, :3].T @ T[:3, 3] for T in o["traj"][ok]])
+    gt = np.stack([-ctx.gt6[k][0].T @ ctx.gt6[k][1] for k in ids])
+    ate_b = float(evaluation.ate_rmse(est.astype(np.float64), gt.astype(np.float64),
+                                      with_scale=True)[0]) if len(ids) >= 3 else float("inf")
+    # the global BA at a world of one on the map the ranks dispatched it on
+    gba_rel = float("inf")
+    if whole is not None:
+        m_w = convert.map_state_from_numpy(whole, device="cuda")
+        sp = dist_ba.shard_ba_problem(loop_mod.full_map_ba_problem(m_w, int(o["gba_anchor"])), 1)
+        cost1 = float(dist_ba.make_distributed_ba(mesh.Mesh(None, 1, 0), iters=DIST_ITERS)(
+            ctx.cam6, sp)[3])
+        gba_rel = abs(float(o["gba_cost"]) - cost1) / abs(cost1)
+    out["b"] = {"ranks": per, "kf_fields_differ_between_ranks": kf_differ,
+                "tracked": int(ok.sum()), "frames": len(ok), "ate_m": ate_b,
+                "ate_bound_m": ctx.ate_bound6, "ate_phase6_m": ctx.ate6,
+                "loops": [int(r["loops"]) for r in ranks_b],
+                "gba_dispatched": [int(r["gba_dispatched"]) for r in ranks_b],
+                "gba_folded": [int(r["gba_folded"]) for r in ranks_b],
+                "gba_cost": float(o["gba_cost"]) if "gba_cost" in o else None,
+                "gba_cost_rel_vs_world_one": gba_rel, "wall_s": wall_b}
+    print(f"phase 16(b) phase 6's loop cell on two ranks: {json.dumps(out['b'])}, card {card}")
+    check("phase 16(b)", {
+        "both ranks' keyframe state equal": not kf_differ,
+        "a loop closed": min(out["b"]["loops"]) >= 1,
+        "a global BA folded": min(out["b"]["gba_folded"]) >= 1,
+        "tracked >= 60%": out["b"]["tracked"] >= 0.6 * LOOP_FRAMES,
+        f"ATE <= {ctx.ate_bound6:.5f}": ate_b <= ctx.ate_bound6,
+        "the global BA's cost within tolerance of a world of one's":
+            gba_rel <= DIST_FULL_TOL["cost"]})
+
+    per, kf_differ = rank_common(ranks_c)
+    ref = ctx.kept11
+    state_differs = []
+    for k, v in ref.items():
+        for k2, v2 in (v.items() if isinstance(v, dict) else [(None, v)]):
+            key = "st_" + k + ("" if k2 is None else "__" + k2)
+            if any(not np.array_equal(bits(r[key]), bits(v2)) for r in ranks_c):
+                state_differs.append(key[3:])
+    out["c"] = {"ranks": per, "kf_fields_differ_between_ranks": kf_differ,
+                "state_fields_not_equal": state_differs,
+                "frames_per_s_phase11_first_48": ctx.fps11_48, "wall_s": wall_c}
+    print(f"phase 16(c) the FreeRunner on phase 11's first 48 frames on two ranks: "
+          f"{json.dumps(out['c'])}, card {card}")
+    check("phase 16(c)", {
+        "state bit for bit phase 11's after frame 47 on both ranks": not state_differs,
+        "both ranks' keyframe state equal": not kf_differ,
+        "each rank holds P / 2 point rows": all(2 * p["P_local"] == p["P"] for p in per)})
+    torch.cuda.synchronize()
     return {"launches": launches, "outcomes": out}
 
 
@@ -2758,6 +3042,7 @@ def main():
         return out, frame_s, launches
 
     # ---- phase 4: the mono System through System.track_mono
+    base4 = torch.cuda.memory_allocated()     # what earlier phases still hold
     slam = System(cam, slice_cfg, device="cuda")
     real_opt = pose_opt.optimize_pose
     lm_calls, captured_lm = [0], {}
@@ -2818,10 +3103,12 @@ def main():
     lm_calls[0] = 0
     slice_kernels = [w for n, (_, _, w) in SOURCES.items()
                      if n not in ("pnp_hypotheses",) + LOOP_ONLY + STEREO_ONLY]
+    torch.cuda.reset_peak_memory_stats()
     try:
         _, frame_s, launches4 = drive("slice", slam, frames, slice_kernels)
     finally:
         tracking.track_frame = real_track
+    peak4 = torch.cuda.max_memory_allocated() - base4
     from orb_slam2_annotate_tpu_torch import convert
     traj4, map4 = slam.frame_trajectory(), convert.map_state_to_numpy(slam.map)
     calls4, match_calls4, tri4 = lm_calls[0], match_calls[0], list(tri_launches)
@@ -2850,7 +3137,8 @@ def main():
     bad = [k for k, v in checks.items() if not v]
     if bad:
         fail(f"slice checks failed: {bad}")
-    slice_out = {"frames_per_s": N_FRAMES / wall, "ate_m": ate, "tracked": n_tracked,
+    slice_out = {"frames_per_s": N_FRAMES / wall, "peak_mb": peak4 / 2**20, "ate_m": ate,
+                 "tracked": n_tracked,
                  "keyframes": slam.n_keyframes, "map_points": slam.n_mappoints,
                  "optimize_pose_calls": calls4, "matcher_calls": match_calls4,
                  "triangulations": len(tri4), "stats_refreshes": stats4}
@@ -3630,6 +3918,19 @@ def main():
         zero_launches=zero_launches, read_launches=read_launches))
     fl = {**fl, **d15["launches"]}
 
+    # ---- phase 16: the live map's point axis split over two ranks
+    runner11, cam11, gt11, images11, cfg11 = free["bench_runner"]
+    d16 = shard_phases(types.SimpleNamespace(
+        card=card, cam=cam, frames=frames, slice_cfg=slice_cfg, traj4=traj4, map4=map4,
+        fps4=slice_out["frames_per_s"], peak4_mb=slice_out["peak_mb"],
+        point_mb4=sum(getattr(slam.map, k).numel() * getattr(slam.map, k).element_size()
+                      for k in map_state.POINT_FIELDS) / 2**20,
+        slice_kernels=slice_kernels, cam6=cam6, images6=images6,
+        loop_cfg=loop_cfg, gt6=gt6, ate6=ate6, ate_bound6=ate_bound6, cam11=cam11,
+        images11=images11, cfg11=cfg11, kept11=free["kept11"],
+        fps11_48=free["outcomes"]["bench"]["frames_per_s_per_frame_first_48"]))
+    fl = {**fl, **d16["launches"]}
+
     kern = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
              "launches": (launches4[w] + launches5[w] + launches6[w] + launches7[w] + launches8[w]
                           + launches9m[w] + launches9r[w] + launches10[w] + launches10l[w]
@@ -3664,7 +3965,7 @@ def main():
                       "fuse": {"slice": out9m, "rgbd": out9r, "core_on_card": core_checks},
                       "pipelined": out10m, "pipelined_loop": out10l,
                       "free": free["outcomes"], "io": io14["outcomes"],
-                      "dist": d15["outcomes"], "card": card}))
+                      "dist": d15["outcomes"], "shard": d16["outcomes"], "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 
@@ -3674,6 +3975,8 @@ if __name__ == "__main__":
         first_frames(*sys.argv[2:6])
     elif sys.argv[1:2] == ["--dist-rank"]:
         dist_rank(*sys.argv[2:5])
+    elif sys.argv[1:2] == ["--shard-rank"]:
+        shard_rank(*sys.argv[2:6])
     else:
         if sys.argv[1:2] == ["--keep-ba"]:
             KEEP_BA = sys.argv[2]

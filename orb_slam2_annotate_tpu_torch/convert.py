@@ -15,6 +15,7 @@ import torch
 
 from .geometry.camera import CameraModel
 from .ops.orb import OrbTables, rotated_offsets
+from .parallel.points import full_map
 from .pipeline.device_loop import FreeState
 from .pipeline.frame import Frame
 from .pipeline.local_mapping import CullInfo
@@ -59,6 +60,9 @@ def map_state_from_numpy(d: dict, device="cpu") -> MapState:
 
 
 def map_state_to_numpy(m: MapState) -> dict:
+    """The map's fields as numpy; a map split over ranks is gathered whole
+    (every rank calls this)."""
+    m = full_map(m)
     return {f.name: _to_numpy(f.name, getattr(m, f.name)) for f in dataclasses.fields(MapState)}
 
 

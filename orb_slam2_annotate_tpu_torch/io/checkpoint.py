@@ -17,6 +17,7 @@ import json
 import numpy as np
 import torch
 
+from ..parallel.points import full_map
 from ..worldmap.map_state import MapState
 
 FORMAT_VERSION = 1
@@ -24,7 +25,13 @@ _DESC_FIELDS = ("kf_desc", "mp_desc")
 
 
 def save_map(path: str, m: MapState, extra: dict | None = None) -> None:
-    """Write the map (and optional JSON-able metadata) to an .npz file."""
+    """Write the map (and optional JSON-able metadata) to an .npz file.  A
+    map split over ranks is gathered whole (every rank calls this) and
+    written by rank 0, so the file is the same at any world size."""
+    mesh = m.mesh
+    m = full_map(m)
+    if mesh is not None and mesh.rank != 0:
+        return
     arrays = {}
     for f in dataclasses.fields(MapState):
         a = getattr(m, f.name).detach().cpu().numpy()

@@ -1,3 +1,3 @@
-from . import dist_ba, mesh
+from . import dist_ba, mesh, points
 
-__all__ = ["dist_ba", "mesh"]
+__all__ = ["dist_ba", "mesh", "points"]

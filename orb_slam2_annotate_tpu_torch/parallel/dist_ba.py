@@ -8,7 +8,10 @@ over the group in one packed ``all_reduce`` a step, every rank solves the
 same small camera system, and each updates its own landmark block.
 
 Layout contract (``shard_ba_problem``): edges are grouped so that the edges
-of point p live on p's shard; cameras are replicated.
+of point p live on p's shard; cameras are replicated.  A map whose point
+axis is already split over the mesh (parallel/points.py, the same cyclic
+layout) needs no re-layout: each rank passes its live block as it stands
+(``make_distributed_ba(..., live=True)``).
 """
 
 from __future__ import annotations
@@ -107,18 +110,24 @@ def _all_reduce(mesh: Mesh, *tensors):
                                                      tensors))
 
 
-def make_distributed_ba(mesh: Mesh, iters: int = 10, robust: bool = True, lam0: float = 1e-4):
+def make_distributed_ba(mesh: Mesh, iters: int = 10, robust: bool = True, lam0: float = 1e-4,
+                        live: bool = False):
     """The distributed LM over `mesh` (one rank a shard).  Returns
     fn(cam, prob) -> (R, t, points, cost), where every rank passes the same
     whole problem in the ``shard_ba_problem`` layout (point and edge axes
-    divisible by the mesh size) and gets back the whole solved problem."""
+    divisible by the mesh size) and gets back the whole solved problem.
+    With `live`, every rank passes its own block (its points, the edges of
+    its points with block-local point ids, every camera) and gets back its
+    block's points."""
     n, me = mesh.size, mesh.rank
 
     def step(cam, prob: BAProblem):
         C = prob.R.shape[0]
-        Pl = prob.points.shape[0] // n
         dev = prob.points.device
-        blk = shard_block(prob, n, me)
+        if live:
+            blk = prob.replace(cam_valid=torch.ones_like(prob.cam_valid))
+        else:
+            blk = shard_block(prob, n, me)
         free = ~prob.cam_fixed
         ptv = blk.pt_valid[:, None].to(blk.points.dtype)
         ar = torch.arange(C, device=dev)
@@ -151,8 +160,11 @@ def make_distributed_ba(mesh: Mesh, iters: int = 10, robust: bool = True, lam0: 
             X = torch.where(better, X_new, X)
             lam = torch.where(better, lam * 0.5, lam * 5.0)
             last_cost = torch.minimum(cost, last_cost)
+        if live:
+            return R, t, X, last_cost
         # every rank's block into zeros, summed: the whole point array on
         # each rank (adding zeros is exact)
+        Pl = prob.points.shape[0] // n
         X_all = torch.zeros_like(prob.points)
         X_all[me * Pl:(me + 1) * Pl] = X
         (X_all,) = _all_reduce(mesh, X_all)

@@ -2,7 +2,8 @@
 
 One JAX device is one torch rank here: one process a card, in the default
 process group.  ``init_multi_host`` starts that group; ``map_mesh`` is the
-1-D mesh the distributed BA (``dist_ba``) shards map points over.  The
+1-D mesh the live map's points (``shard_map_state``, parallel/points.py)
+and the distributed BA (``dist_ba``) are split over.  The
 backend is NCCL for CUDA tensors and gloo on the CPU; gloo also moves CUDA
 tensors (through the host), which is the only way to run two ranks on one
 card, since NCCL refuses two ranks on one GPU.
@@ -16,11 +17,6 @@ import os
 
 import torch
 import torch.distributed as dist
-
-# the split of the live map's point axis over ranks is not ported (module 9b)
-POINT_SHARDING = ("sharding the live map's point axis over ranks (shard_points=True at a "
-                  "world above one) is not ported yet")
-
 
 def world_size() -> int:
     """Ranks in the default process group: 1 when none was started."""
@@ -84,8 +80,19 @@ def map_mesh(n_devices: int | None = None, axis: str = "mp") -> Mesh:
 
 
 def shard_map_state(m, mesh: Mesh):
-    """The map placed on the mesh: at a world of one, the map as it is.
-    Splitting its point axis over several ranks is not ported (module 9b)."""
-    if mesh.size > 1:
-        raise NotImplementedError(POINT_SHARDING)
-    return m
+    """The map placed on the mesh: every rank keeps the rows of the points
+    it owns (global id g on rank g % n at local row g // n,
+    parallel/points.py), keyframe state replicated.  `m` is a whole map
+    (the same on every rank); its point capacity grows to a multiple of
+    the mesh size first.  At a world of one, the map as it is."""
+    if mesh.size == 1:
+        return m
+    from ..worldmap import map_state as ms
+
+    if m.n_shards != 1:
+        raise ValueError("shard_map_state takes a whole map (points.full_map undoes a split)")
+    n = mesh.size
+    m = ms.grow_map(m, new_P=-(-m.P // n) * n)
+    out = m.replace(**{k: getattr(m, k)[mesh.rank::n].contiguous() for k in ms.POINT_FIELDS})
+    out.mesh = mesh
+    return out

@@ -48,8 +48,9 @@ from torch.profiler import record_function
 from ..geometry.camera import CameraModel
 from ..ops import matching
 from ..ops.orb import DESC_WORDS, OrbTables
+from ..parallel import mesh as mesh_mod
+from ..parallel import points as pts
 from ..solvers import initializer
-from ..solvers.ba_cg import bundle_adjust_cg
 from ..solvers.sim3 import sample_sim3_sets
 from ..worldmap import map_state as ms
 from ..worldmap import vocabulary as voc
@@ -59,8 +60,8 @@ from . import tracking as tk
 from .frame import Frame, make_frame_mono, make_frame_rgbd, make_frame_stereo
 from .loop_closing import (CLOSURE_REC_W, MAX_CLOSURE_REC, MAX_LOOP_EDGES, LoopCloser,
                            LoopCloserConfig, LoopDetectOut, batch_detect_loops, free_loop_stage,
-                           full_map_ba_problem)
-from .system import SENSORS, SlamConfig, check_shard_points
+                           global_ba_cg)
+from .system import SENSORS, SlamConfig, point_mesh
 
 # tracker modes
 MODE_FIRST = 0      # waiting for a usable init frame
@@ -127,12 +128,14 @@ def _empty_frame(n: int, device=None) -> Frame:
                  desc=z(n, DESC_WORDS, dt=torch.int32), valid=z(n, dt=torch.bool))
 
 
-def init_state(cfg: SlamConfig, n_words: int, max_frames: int, device=None) -> FreeState:
+def init_state(cfg: SlamConfig, n_words: int, max_frames: int, device=None,
+               mesh=None) -> FreeState:
+    """A fresh state; with a `mesh` the map holds this rank's point rows."""
     n, K, F = cfg.n_features, cfg.max_kf, max_frames
     z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=device)
     eye = torch.eye(3, device=device)
     return FreeState(
-        m=ms.empty_map(K, cfg.max_mp, n, device=device), bows=z(K, n_words),
+        m=ms.empty_map(K, cfg.max_mp, n, device=device, mesh=mesh), bows=z(K, n_words),
         R=eye.clone(), t=z(3), vel_R=eye.clone(), vel_t=z(3), has_vel=z(dt=torch.bool),
         mode=_i32(MODE_FIRST, device), ref_kf=_i32(0, device), last_kf_frame=_i32(-999, device),
         peak_n_local=_i32(0, device), last=_empty_frame(n, device),
@@ -189,8 +192,7 @@ def make_step(cfg: SlamConfig):
         with record_function("loop/gba"):
             big = torch.iinfo(torch.int32).max
             anchor = torch.argmin(torch.where(m.kf_valid, m.kf_frame_id, big))
-            R, t, X, _, _ = bundle_adjust_cg(cam, full_map_ba_problem(m, anchor),
-                                             iters=LCFG.global_ba_iters, cg_iters=25)
+            R, t, X, _ = global_ba_cg(cam, m, anchor, LCFG.global_ba_iters, cg_iters=25)
             return ms.update_mappoint_geometry(m.replace(kf_R=R, kf_t=t, mp_pos=X))
 
     def write_rec(st: FreeState, i: int, ref, Rcr, tcr, ok, mode, n_local) -> FreeState:
@@ -472,13 +474,13 @@ class FreeRunner:
     the map once and returns the trajectory.  With the System it shares
     capacity growth (``grow`` / auto-growth by the read-free upper bound of
     one keyframe per ``min_frames_between_kf`` frames), the auto-reset after
-    an early loss, localization mode and map save / load.  ``shard_points``
-    does nothing at a world of one and raises above it, as in System."""
+    an early loss, localization mode and map save / load.  With
+    ``shard_points`` at a world above one the map's point axis is split
+    over the ranks, as in System."""
 
     def __init__(self, cam: CameraModel, config: SlamConfig | None = None,
                  max_frames: int = 4096, auto_grow: bool = True, device="cuda"):
         cfg = config or SlamConfig()
-        check_shard_points(cfg)
         if cfg.sensor not in SENSORS:
             raise ValueError(f"unknown sensor {cfg.sensor!r}: one of {SENSORS}")
         if cfg.max_mp < cfg.n_features:
@@ -490,6 +492,7 @@ class FreeRunner:
         self.max_frames = max_frames
         self.auto_grow = auto_grow
         self.tab = OrbTables().to(self.device)
+        self._mesh = point_mesh(cfg)
         # the vocabulary through LoopCloser's loader (the trained one)
         self._lc = LoopCloser(cam, cfg.max_kf, LoopCloserConfig(fix_scale=cfg.sensor != "mono"),
                               seed=cfg.seed + 1, device=self.device)
@@ -507,7 +510,7 @@ class FreeRunner:
         self.growth_events: list[tuple] = []   # (frame_id, K, P, max_frames)
 
     def _init_state(self, cfg: SlamConfig) -> FreeState:
-        return init_state(cfg, self._lc.cfg.n_words, self.max_frames, self.device)
+        return init_state(cfg, self._lc.cfg.n_words, self.max_frames, self.device, self._mesh)
 
     # -- mode control ---------------------------------------------------
 
@@ -565,7 +568,13 @@ class FreeRunner:
         minf = max(self.cfg.min_frames_between_kf, 1)
         while 2 + (fid - self._grow_base) // minf >= self.cfg.max_kf:
             new_K = 2 * self.cfg.max_kf
-            self.grow(new_max_kf=new_K, new_max_mp=new_K * self._mp_ratio)
+            self.grow(new_max_kf=new_K, new_max_mp=self._tier_mp(new_K))
+
+    def _tier_mp(self, K: int) -> int:
+        """The point tier that goes with keyframe tier K: the pinned ratio,
+        rounded up to a multiple of the ranks a split map is over."""
+        n = pts.size(self._mesh)
+        return -(-K * self._mp_ratio // n) * n
 
     def grow_tiers_for(self, n_frames: int) -> list[int]:
         """The keyframe tiers the auto-grow bound passes through over an
@@ -599,7 +608,7 @@ class FreeRunner:
             tiers = self.grow_tiers_for(n_frames)
         shape = image_shape or (int(self.cam.height), int(self.cam.width))
         for K in tiers:
-            cfgK = dataclasses.replace(self.cfg, max_kf=K, max_mp=K * self._mp_ratio)
+            cfgK = dataclasses.replace(self.cfg, max_kf=K, max_mp=self._tier_mp(K))
             st = self._init_state(cfgK)
             step = make_step(cfgK)
             for fid in (0, 1):
@@ -720,6 +729,8 @@ class FreeRunner:
             raise ValueError(f"the map has N={m.N} features a keyframe, the runner "
                              f"n_features={self.cfg.n_features}")
         m = ms.grow_map(m, new_K=max(m.K, self.cfg.max_kf), new_P=max(m.P, self.cfg.max_mp))
+        if self._mesh is not None:
+            m = mesh_mod.shard_map_state(m, self._mesh)
         if m.K > self.cfg.max_kf or m.P > self.cfg.max_mp:
             self.cfg = dataclasses.replace(self.cfg, max_kf=m.K, max_mp=m.P)
             self.state = self._init_state(self.cfg)
@@ -781,7 +792,8 @@ class FreeRunner:
         self._finished = dict(
             trajectory=out, map=m, modes=st.ring_mode[:n].cpu().numpy(),
             n_local=st.ring_nlocal[:n].cpu().numpy(), loop_diag=st.ring_loop[:n].cpu().numpy(),
-            n_keyframes=int(m.kf_valid.sum()), n_mappoints=int(m.mp_valid.sum()),
+            n_keyframes=int(m.kf_valid.sum()),
+            n_mappoints=int(pts.sum_points(m.mesh, m.mp_valid.sum())),
             n_loops_closed=n_loops, n_gba=n_gba, n_resets=int(st.n_resets),
             n_kf_skipped_full=int(st.n_kf_skipped),
             n_loop_edges_dropped=max(0, n_loops - MAX_LOOP_EDGES), closure_records=records,
@@ -792,8 +804,7 @@ class FreeRunner:
         """Full-map BA anchored at the oldest keyframe."""
         fid = m.kf_frame_id.cpu().numpy()
         anchor = int(np.argmin(np.where(m.kf_valid.cpu().numpy(), fid, 1 << 30)))
-        R, t, X, _, _ = bundle_adjust_cg(self.cam, full_map_ba_problem(m, anchor),
-                                         iters=self._lc.cfg.global_ba_iters)
+        R, t, X, _ = global_ba_cg(self.cam, m, anchor, self._lc.cfg.global_ba_iters)
         return ms.update_mappoint_geometry(m.replace(kf_R=R, kf_t=t, mp_pos=X))
 
     def _replay_loops(self, m: ms.MapState, st: FreeState):

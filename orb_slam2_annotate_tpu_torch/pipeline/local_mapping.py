@@ -9,6 +9,12 @@ mapping/fuse, mapping/local_ba, mapping/kf_cull, mapping/stats).
 The reference's ``.at[]`` writes that route filler indices to a dump row
 (K) or column (P) keep that dump slot here explicitly: torch raises on an
 out-of-range index where JAX drops the write.
+
+On a map whose point axis is split over ranks (worldmap/map_state.py) the
+per-point tests run on each rank's own rows; point selections are top-k
+over all ranks, their rows gathered, the keyframe-side work (matching,
+triangulation, the grid BA) runs on every rank and each rank writes back
+the rows it owns (parallel/points.py).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from ..geometry.camera import CameraModel, backproject, in_image, project
 from ..geometry.twoview import triangulate_dlt
 from ..ops import matching
 from ..ops.sorting import nanmedian, stable_topk
+from ..parallel import points as pts
 from ..solvers import ba_core
 from ..worldmap import map_state as ms
 from .frame import Frame
@@ -44,16 +51,14 @@ def insert_keyframe_from_frame(m: ms.MapState, frame: Frame, slot: int, R, t, ob
 
 def _new_points(m: ms.MapState, slots: torch.Tensor, take: torch.Tensor,
                 pos: torch.Tensor) -> ms.MapState:
-    """Points at `pos` [n,3] in the free `slots` [n] where `take`: valid,
-    created by the newest keyframe (mp_first_kf = n_kf - 1), seen and
-    found once."""
+    """Points at `pos` [n,3] in the free `slots` [n] (global ids) where
+    `take`: valid, created by the newest keyframe (mp_first_kf = n_kf - 1),
+    seen and found once."""
     def put(a, v):
-        return a.index_put((slots,), torch.where(take.reshape((-1,) + (1,) * (v.dim() - 1)), v,
-                                                 a[slots]))
+        return pts.put_rows(m.mesh, a, slots, v, take)
 
-    ones = torch.ones_like(m.mp_visible[slots])
-    return m.replace(mp_pos=put(m.mp_pos, pos),
-                     mp_valid=m.mp_valid.index_put((slots,), m.mp_valid[slots] | take),
+    ones = torch.ones(slots.shape[0], dtype=m.mp_visible.dtype, device=m.device)
+    return m.replace(mp_pos=put(m.mp_pos, pos), mp_valid=put(m.mp_valid, True),
                      mp_first_kf=put(m.mp_first_kf, (m.n_kf - 1).expand(slots.shape[0])
                                      .to(torch.int32)),
                      mp_visible=put(m.mp_visible, ones), mp_found=put(m.mp_found, ones))
@@ -68,7 +73,7 @@ def create_depth_mappoints(m: ms.MapState, cam: CameraModel, slot: int,
     depth = m.kf_depth[slot]
     need = m.kf_feat_valid[slot] & (m.kf_obs[slot] < 0) & (depth > 0) & (depth < max_depth)
     slots = ms.free_mp_slots(m, m.N)
-    take = need & ~m.mp_valid[slots]
+    take = need & ~ms.point_rows(m, slots, "mp_valid")[0]
     xw = (backproject(cam, m.kf_xy[slot], depth) - m.kf_t[slot]) @ m.kf_R[slot]   # R^T (xc - t)
     kf_obs = m.kf_obs.clone()
     kf_obs[slot] = torch.where(take, slots.to(torch.int32), m.kf_obs[slot])
@@ -83,7 +88,7 @@ def cull_recent_mappoints(m: ms.MapState) -> ms.MapState:
     found_ratio = m.mp_found.float() / torch.clamp_min(m.mp_visible.float(), 1.0)
     bad = recent & (found_ratio < 0.15) & (ms.mp_observation_counts(m) <= 2)
     obs = m.kf_obs
-    obs_bad = (obs >= 0) & bad[torch.clamp(obs, 0, m.P - 1).long()]
+    obs_bad = (obs >= 0) & pts.gather_rows(m.mesh, obs, bad)[0]
     return m.replace(mp_valid=m.mp_valid & ~bad, kf_obs=torch.where(obs_bad, -1, obs))
 
 
@@ -107,7 +112,7 @@ def _median_depth(m: ms.MapState, s, R, t) -> torch.Tensor:
     """Median depth of the points keyframe(s) `s` observe at pose(s) R [...,3,3], t [...,3]."""
     obs = m.kf_obs[s]
     has = (obs >= 0) & m.kf_feat_valid[s]
-    z = (m.mp_pos[torch.clamp(obs, 0, m.P - 1).long()] @ R.transpose(-1, -2)
+    z = (ms.point_rows(m, obs, "mp_pos")[0] @ R.transpose(-1, -2)
          + t[..., None, :])[..., 2]
     return torch.nan_to_num(nanmedian(torch.where(has, z, torch.full_like(z, float("nan")))),
                             nan=1.0)
@@ -191,7 +196,7 @@ def create_new_mappoints(m: ms.MapState, cam: CameraModel, slot: int,
     nb_sel = nbrs[best_nb]
 
     slots = ms.free_mp_slots(m, N)
-    take = good & ~m.mp_valid[slots]
+    take = good & ~ms.point_rows(m, slots, "mp_valid")[0]
     new_ids = torch.where(take, slots.to(torch.int32), -1)
     kf_obs = m.kf_obs.clone()
     kf_obs[slot] = torch.where(take, new_ids, m.kf_obs[slot])
@@ -218,8 +223,9 @@ def local_bundle_adjustment(m: ms.MapState, cam: CameraModel, slot: int, n_opt: 
     opt_ok = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), w_slot[nb] > 0])
     pts_mask = ms.point_mask_rows(m, opt_kfs, opt_ok) & m.mp_valid
 
-    all_ok = (m.kf_obs >= 0) & m.kf_feat_valid & m.kf_valid[:, None]
-    sees_local = (pts_mask[torch.clamp(m.kf_obs, 0, P - 1).long()] & all_ok).any(1)
+    all_ok, all_loc = pts.owned_rows(m.mesh, torch.clamp(m.kf_obs, max=P - 1),
+                                     m.kf_feat_valid & m.kf_valid[:, None])
+    sees_local = pts.any_points(m.mesh, (pts_mask[all_loc] & all_ok).any(1))
     is_opt = torch.zeros(K, dtype=torch.int32, device=dev).scatter_reduce(
         0, opt_kfs, opt_ok.to(torch.int32), "amax").bool()
     fixed_cand = sees_local & m.kf_valid & ~is_opt
@@ -238,8 +244,9 @@ def local_bundle_adjustment(m: ms.MapState, cam: CameraModel, slot: int, n_opt: 
     cam_fixed[oldest] = cam_fixed[oldest] | no_frontier
 
     P_BA = min(2048, P)
-    _, psel = stable_topk(pts_mask.to(torch.int32), P_BA)
-    psel_ok = pts_mask[psel]
+    top, psel = pts.topk_points(m.mesh, pts_mask.to(torch.int32), P_BA)
+    psel_ok = top > 0
+    # global point id -> BA point index, on every rank
     g2l = torch.full((P,), -1, dtype=torch.int32, device=dev)
     g2l[psel] = torch.where(psel_ok, torch.arange(P_BA, dtype=torch.int32, device=dev), -1)
 
@@ -248,7 +255,7 @@ def local_bundle_adjustment(m: ms.MapState, cam: CameraModel, slot: int, n_opt: 
     pt_loc = torch.where(feat_ok & (obs_grid >= 0), g2l[torch.clamp(obs_grid, 0, P - 1).long()], -1)
     e_valid = feat_ok & (pt_loc >= 0)
     prob = ba_core.GridBA(
-        R=m.kf_R[cams_all], t=m.kf_t[cams_all], points=m.mp_pos[psel],
+        R=m.kf_R[cams_all], t=m.kf_t[cams_all], points=ms.point_rows(m, psel, "mp_pos")[0],
         cam_fixed=cam_fixed | ~cams_ok, cam_valid=cams_ok, pt_valid=psel_ok, pt_loc=pt_loc,
         uv=m.kf_xy[cams_all], ur=m.kf_ur[cams_all],
         inv_sigma2=inv_sigma2(m.kf_octave[cams_all]), edge_valid=e_valid)
@@ -261,8 +268,7 @@ def local_bundle_adjustment(m: ms.MapState, cam: CameraModel, slot: int, n_opt: 
     cam_tgt = torch.where(upd_cam, cams_all, K)
     kf_R = torch.cat([m.kf_R, m.kf_R[:1]]).index_put((cam_tgt,), R2)[:K]
     kf_t = torch.cat([m.kf_t, m.kf_t[:1]]).index_put((cam_tgt,), t2)[:K]
-    pt_tgt = torch.where(psel_ok, psel, P)
-    mp_pos = torch.cat([m.mp_pos, m.mp_pos[:1]]).index_put((pt_tgt,), X2)[:P]
+    mp_pos = pts.put_rows(m.mesh, m.mp_pos, psel, X2, psel_ok)
     obs_rows = torch.where(e_valid & ~inl2, -1, m.kf_obs[cams_all])
     obs_tgt = torch.where(cams_ok, cams_all, K)
     kf_obs = torch.cat([m.kf_obs, m.kf_obs[:1]]).index_put((obs_tgt,), obs_rows)[:K]
@@ -296,8 +302,11 @@ def _fuse_targets_core(m: ms.MapState, cam: CameraModel, targets: torch.Tensor,
     reference's ``.at[].set`` keeps the last write on the CPU, i.e. the merge
     pair with the largest flat position t * N + n; the port picks that pair
     by an explicit ``amax`` over the positions, so the card and the CPU keep
-    the same winner (torch leaves duplicate ``index_put`` writes unordered)."""
+    the same winner (torch leaves duplicate ``index_put`` writes unordered).
+    src_masks are local ([T, P_local]); the remap table is built on every
+    rank from the gathered proposals."""
     K, P, N = m.K, m.P, m.N
+    mesh = m.mesh
     dev = m.device
     T = targets.shape[0]
     MAXC = min(1024, P)
@@ -316,21 +325,18 @@ def _fuse_targets_core(m: ms.MapState, cam: CameraModel, targets: torch.Tensor,
     pred_oct = torch.minimum(torch.clamp_min(
         torch.ceil(torch.log(dist_ratio) / torch.log(torch.tensor(SCALE))).to(torch.int32), 0),
         top_oct)
-    cand = stable_topk(okp.to(torch.int32), MAXC)[1].contiguous()        # [T,MAXC]
-    take = lambda a: torch.gather(a, 1, cand if a.dim() == 2 else cand[..., None].expand(
-        -1, -1, a.shape[-1]))
-    cvalid = take(okp)
-    c_oct = take(pred_oct)
-    c_uv = take(uv)
+    cand = pts.topk_points(mesh, okp.to(torch.int32), MAXC)[1].contiguous()   # [T,MAXC]
+    cvalid, c_oct, c_uv, z_pt = pts.gather_rows(mesh, cand, okp, pred_oct, uv, xc[..., 2],
+                                                batch=True)
     radius = 3.0 * (SCALE ** c_oct.to(torch.float32))
-    res = matching.search_map_points(m.mp_desc[cand], cvalid, c_uv, c_oct, radius,
+    res = matching.search_map_points(ms.point_rows(m, cand, "mp_desc")[0], cvalid, c_uv, c_oct,
+                                     radius,
                                      _kf_frame(m, tl), ratio=ratio, max_dist=matching.TH_LOW)
     tgt = torch.clamp_min(res.idx, 0).long()                            # [T,MAXC]
     f_oct = torch.gather(m.kf_octave[tl], 1, tgt)
     sig2 = SCALE ** (2.0 * f_oct.to(torch.float32))
     f_xy = torch.gather(m.kf_xy[tl], 1, tgt[..., None].expand(-1, -1, 2))
     e2 = ((c_uv - f_xy) ** 2).sum(-1)
-    z_pt = take(xc[..., 2])
     f_depth = torch.gather(m.kf_depth[tl], 1, tgt)
     depth_ok = (f_depth <= 0) | ((z_pt - f_depth).abs() < 0.05 * f_depth)
     ok = res.matched & (e2 < 2.0 * sig2) & depth_ok
@@ -345,11 +351,12 @@ def _fuse_targets_core(m: ms.MapState, cam: CameraModel, targets: torch.Tensor,
     merge_mask = (existing >= 0) & (prop >= 0) & (existing != prop)
     ex = torch.clamp_min(existing, 0).long()
     pr = torch.clamp_min(prop, 0).long()
-    p_ex = m.mp_pos[ex]
-    d3 = torch.linalg.norm(p_ex - m.mp_pos[pr], dim=-1)
+    g_obs, g_pos = pts.gather_rows(mesh, torch.stack([ex, pr]), n_obs, m.mp_pos)
+    p_ex = g_pos[0]
+    d3 = torch.linalg.norm(p_ex - g_pos[1], dim=-1)
     depth_scale = torch.clamp_min(torch.linalg.norm(p_ex - centre[:, None], dim=-1), 1e-3)
     merge_mask &= d3 < 0.015 * depth_scale
-    ex_wins = n_obs[ex] >= n_obs[pr]
+    ex_wins = g_obs[0] >= g_obs[1]
     loser = torch.where(ex_wins, pr, ex)
     winner = torch.where(ex_wins, ex, pr)
     # each loser's surviving merge pair: the largest flat position (P = dump slot)
@@ -363,7 +370,7 @@ def _fuse_targets_core(m: ms.MapState, cam: CameraModel, targets: torch.Tensor,
     rows = torch.where(add_mask, prop, existing)
     kf_obs = torch.cat([m.kf_obs, m.kf_obs[:1]]).index_put((torch.where(tgt_ok, tl, K),),
                                                            rows)[:K]
-    live = remap == ar
+    live = (remap == ar)[(mesh.rank if mesh else 0)::m.n_shards]       # this rank's rows
     kf_obs = torch.where(kf_obs >= 0, remap[torch.clamp_min(kf_obs, 0).long()], -1)
     return m.replace(kf_obs=kf_obs, mp_valid=m.mp_valid & live)
 
@@ -375,7 +382,7 @@ def fuse_neighbors(m: ms.MapState, cam: CameraModel, slot: int) -> ms.MapState:
     neighbour, all targets in one kernel-3 launch (B = T).  The point stats
     are left to the caller's windowed refresh (the reference's
     ``update_stats=False``, as its keyframe chain calls it)."""
-    P = m.P
+    P = m.P_local
     dev = m.device
     n_neighbors = min(10, m.K - 1)
     w_slot = torch.where(m.kf_valid, ms.covis_row(m, slot), -1)
@@ -386,13 +393,10 @@ def fuse_neighbors(m: ms.MapState, cam: CameraModel, slot: int) -> ms.MapState:
     tgt_ok = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), nbr_ok])
 
     own = m.kf_obs[slot]
-    own_pts = torch.zeros(P, dtype=torch.int32, device=dev).scatter_reduce(
-        0, torch.clamp_min(own, 0).long(), (own >= 0).to(torch.int32), "amax").bool()
+    own_pts = pts.scatter_owned(m.mesh, P, torch.clamp_min(own, 0), own >= 0)
     # the reference's static loop of per-neighbour scatters, as one over [n_neighbors, N]
     o = m.kf_obs[nbrs]
-    nbr_pts = torch.zeros(P, dtype=torch.int32, device=dev).scatter_reduce(
-        0, torch.clamp_min(o, 0).long().reshape(-1),
-        ((o >= 0) & nbr_ok[:, None]).to(torch.int32).reshape(-1), "amax").bool()
+    nbr_pts = pts.scatter_owned(m.mesh, P, torch.clamp_min(o, 0), (o >= 0) & nbr_ok[:, None])
     src_masks = torch.cat([(nbr_pts & m.mp_valid)[None],
                            (own_pts & m.mp_valid)[None].expand(n_neighbors, P)])
     return _fuse_targets_core(m, cam, targets, tgt_ok, src_masks)
@@ -404,7 +408,7 @@ def fuse_points_into(m: ms.MapState, cam: CameraModel, targets: torch.Tensor, tg
     loop neighbourhood's) fused into every target keyframe [T].  The point
     statistics are left stale: the caller refreshes the points it touched."""
     T = targets.shape[0]
-    src_masks = (src_mask & m.mp_valid)[None].expand(T, m.P)
+    src_masks = (src_mask & m.mp_valid)[None].expand(T, m.P_local)
     return _fuse_targets_core(m, cam, targets, tgt_ok, src_masks, ratio=0.8)
 
 
@@ -444,11 +448,12 @@ def cull_keyframes(m: ms.MapState, protect_slot: int, max_cull: int = 4,
     _, win = stable_topk(w_slot, C_WIN)
     win_ok = w_slot[win] > 0
     obs_w = m.kf_obs[win]                                               # [C_WIN, N]
-    pid = torch.clamp(obs_w, 0, P - 1).long()
+    own, pid = pts.owned_rows(m.mesh, torch.clamp(obs_w, 0, P - 1))
     has = (obs_w >= 0) & m.kf_feat_valid[win] & win_ok[:, None]
     fine = obs_mask[pid] & (obs_oct[pid] <= m.kf_octave[win][..., None] + 1) & (
         obs_kf[pid] != win[:, None, None])                              # [C_WIN, N, MAX_OBS]
-    red = has & (fine.sum(-1) >= 3)
+    # each rank counts the observations of its own points; summed
+    red = has & (pts.sum_points(m.mesh, torch.where(own, fine.sum(-1), 0)) >= 3)
     ratio_win = red.sum(1) / torch.clamp_min(has.sum(1), 1)
     # window ratios back to [K]; invalid window entries go to the dump row K
     ratio = torch.zeros(K + 1, device=dev).index_put((torch.where(win_ok, win, K),),

@@ -12,7 +12,12 @@ and points, SearchAndFuse across the seam, and a global BA whose result
 ``maybe_fold_gba`` folds in once the device has finished it.  With
 ``use_dist_gba`` and a process group of several ranks the global BA is the
 distributed one of ``parallel/dist_ba.py``, its points sharded over the
-ranks; otherwise the matrix-free ``solvers/ba_cg.py``.  The stages
+ranks; otherwise the matrix-free ``solvers/ba_cg.py``.  On a map whose
+point axis is split over the ranks (worldmap/map_state.py) the distributed
+BA takes each rank's live rows as its block, and the matrix-free one runs
+on the whole map on every rank; the replicated solves (the pose graph, that
+BA) are broadcast from rank 0, so every rank goes on from the same bits.
+The stages
 are ``torch.profiler.record_function`` spans: loop/detect, loop/sim3,
 loop/correct (with loop/pose_graph and loop/fuse inside), loop/gba and
 loop/fold.
@@ -35,6 +40,7 @@ from ..ops.orb import DESC_WORDS
 from ..ops.sorting import stable_topk
 from ..parallel import dist_ba
 from ..parallel import mesh as mesh_mod
+from ..parallel import points as pts
 from ..solvers import sim3 as sim3_solver
 from ..solvers.ba_cg import bundle_adjust_cg
 from ..solvers.ba_core import BAProblem
@@ -255,21 +261,21 @@ def sim3_guided_match(cam: CameraModel, m: ms.MapState, slot: int, cand: int, s1
     its inverse) into the other image and matched in a scale-predicted
     window, both directions in one kernel-3 launch (B = 2); mutually
     agreeing pairs kept.  Returns idx [N]: slot feature -> cand feature."""
-    N, P = m.N, m.P
+    N = m.N
     dev = m.device
     obs1, obs2 = m.kf_obs[slot], m.kf_obs[cand]
-    mp1 = torch.clamp(obs1, 0, P - 1).long()
-    mp2 = torch.clamp(obs2, 0, P - 1).long()
-    has1 = (obs1 >= 0) & m.kf_feat_valid[slot] & m.mp_valid[mp1]
-    has2 = (obs2 >= 0) & m.kf_feat_valid[cand] & m.mp_valid[mp2]
-    x1 = m.mp_pos[mp1] @ m.kf_R[slot].T + m.kf_t[slot]
-    x2 = m.mp_pos[mp2] @ m.kf_R[cand].T + m.kf_t[cand]
+    g_valid, g_pos, g_maxd = ms.point_rows(m, torch.stack([obs1, obs2]), "mp_valid", "mp_pos",
+                                           "mp_max_dist")
+    has1 = (obs1 >= 0) & m.kf_feat_valid[slot] & g_valid[0]
+    has2 = (obs2 >= 0) & m.kf_feat_valid[cand] & g_valid[1]
+    x1 = g_pos[0] @ m.kf_R[slot].T + m.kf_t[slot]
+    x2 = g_pos[1] @ m.kf_R[cand].T + m.kf_t[cand]
     top_oct = _top_octave(m)
     s12 = torch.as_tensor(s12, dtype=torch.float32, device=dev)
     si, Ri, ti = lie.sim3_inverse(s12, R12, t12)
     # problem 0: cand points into the slot image; problem 1: slot points into the cand image
     y = torch.stack([s12 * (x2 @ R12.T) + t12, si * (x1 @ Ri.T) + ti])      # [2,N,3]
-    src_maxd = torch.stack([s12 * m.mp_max_dist[mp2], si * m.mp_max_dist[mp1]])
+    src_maxd = torch.stack([s12 * g_maxd[1], si * g_maxd[0]])
     pred = _pred_octave(src_maxd, torch.linalg.norm(y, dim=-1), top_oct)
     radius = radius_scale * 7.5 * (1.2 ** pred.to(torch.float32))
     ok = torch.stack([has2, has1]) & (y[..., 2] > 0.05)
@@ -305,12 +311,13 @@ def loop_projection_count(cam: CameraModel, m: ms.MapState, slot: int, cand: int
     okp = loop_pts & (xc[:, 2] > 0.05) & in_image(cam, uv)
     pred = _pred_octave(m.mp_max_dist, torch.linalg.norm(xc, dim=1), _top_octave(m))
     MAXC = min(2048, P)
-    _, cnd = stable_topk(okp.to(torch.int32), MAXC)
-    radius = 20.0 * (1.2 ** pred[cnd].to(torch.float32))
+    _, cnd = pts.topk_points(m.mesh, okp.to(torch.int32), MAXC)
+    c_pred, c_uv, c_ok, c_desc = pts.gather_rows(m.mesh, cnd, pred, uv, okp, m.mp_desc)
+    radius = 20.0 * (1.2 ** c_pred.to(torch.float32))
     res = matching.match_gated(
-        m.mp_desc[cnd], m.kf_desc[slot], okp[cnd], m.kf_feat_valid[slot],
+        c_desc, m.kf_desc[slot], c_ok, m.kf_feat_valid[slot],
         (matching.TH_LOW + matching.TH_HIGH) // 2, 1.0,
-        gate=WindowGate(uv[cnd], radius, m.kf_xy[slot], pred[cnd], m.kf_octave[slot], -1, 1))
+        gate=WindowGate(c_uv, radius, m.kf_xy[slot], c_pred, m.kf_octave[slot], -1, 1))
     feat_pt = torch.full((N,), -1, dtype=torch.int32, device=dev).scatter_reduce(
         0, torch.clamp_min(res.idx, 0).long(), torch.where(res.matched, cnd.to(torch.int32), -1),
         "amax")
@@ -363,7 +370,7 @@ def _seam_fuse(cam: CameraModel, m: ms.MapState, slot: int, cand: int):
     tgt_mask = torch.zeros(K, dtype=torch.int32, device=dev).scatter_reduce(
         0, targets, tgt_ok.to(torch.int32), "amax").bool()
     touched = loop_pts | (ms.observation_matrix(m) & tgt_mask[:, None]).any(0)
-    over = torch.clamp_min(touched.sum() - ms.MAX_TOUCHED, 0)
+    over = torch.clamp_min(pts.sum_points(m.mesh, touched.sum()) - ms.MAX_TOUCHED, 0)
     return ms.update_mappoint_stats_touched(m, touched), over
 
 
@@ -425,6 +432,7 @@ def free_loop_stage(cfg: LoopCloserConfig, cam: CameraModel, vocab: voc.Vocabula
                                              f["s12"], f["R12"], f["t12"], loop_a, loop_b, loop_ok)
                 with record_function("loop/pose_graph"):
                     s_o, R_o, t_o, _ = optimize_pose_graph_cg(prob, cfg.pose_graph_iters)
+                    s_o, R_o, t_o = pts.broadcast(m.mesh, s_o, R_o, t_o)
                 m = apply_loop_correction(m, s_o, R_o, t_o)
                 m, over = _seam_fuse(cam, m, slot, cand)
             loop_a, loop_b, loop_ok = push_loop_edge(loop_a, loop_b, loop_ok, n_loops, slot, cand)
@@ -452,21 +460,16 @@ def _free_sim3(cfg: LoopCloserConfig, cam: CameraModel, m: ms.MapState, slot: in
     every stage run (the gates are device masks): the Sim3 (s12, R12, t12),
     the corrected pose of `slot` (s_c, R_c, t_c), the funnel's counts and
     the 0-d acceptance."""
-    P = m.P
-    obs1, obs2 = m.kf_obs[slot], m.kf_obs[cand]
-    mp1 = torch.clamp(obs1, 0, P - 1).long()
-    has1 = (obs1 >= 0) & m.kf_feat_valid[slot] & m.mp_valid[mp1]
-    has2 = (obs2 >= 0) & m.kf_feat_valid[cand] & m.mp_valid[torch.clamp(obs2, 0, P - 1).long()]
+    has1, has2, pos1, pos2 = _pair_rows(m, slot, cand)
     res = matching.match_gated(m.kf_desc[slot], m.kf_desc[cand], has1, has2, matching.TH_LOW,
                                0.92, False)
     n_matches = res.count
     R1, t1, R2, t2 = m.kf_R[slot], m.kf_t[slot], m.kf_R[cand], m.kf_t[cand]
-    x1_all = m.mp_pos[mp1] @ R1.T + t1
+    x1_all = pos1 @ R1.T + t1
 
     def gather_pairs(idx):
         idx2 = torch.clamp_min(idx, 0).long()
-        mp2 = torch.clamp(obs2[idx2], 0, P - 1).long()
-        return (x1_all, m.mp_pos[mp2] @ R2.T + t2, m.kf_xy[slot], m.kf_xy[cand][idx2],
+        return (x1_all, pos2[idx2] @ R2.T + t2, m.kf_xy[slot], m.kf_xy[cand][idx2],
                 (idx >= 0) & has1)
 
     x1, x2, uv1, uv2, valid = gather_pairs(res.idx)
@@ -486,7 +489,7 @@ def _free_sim3(cfg: LoopCloserConfig, cam: CameraModel, m: ms.MapState, slot: in
         s_k, R_k, t_k = (torch.where(keep, a, b) for a, b in ((r2.s, s_k), (r2.R, R_k), (r2.t, t_k)))
     n_proj, feat_pt = loop_projection_count(cam, m, slot, cand, s_k, R_k, t_k)
     pair_ok = (feat_pt >= 0) & has1
-    x2p = m.mp_pos[torch.clamp(feat_pt, 0, P - 1).long()] @ R2.T + t2
+    x2p = ms.point_rows(m, feat_pt, "mp_pos")[0] @ R2.T + t2
     r3 = sim3_solver.sim3_from_samples(cam, draw(1, pair_ok, cfg.seed_hyp), x2p, x1_all,
                                        _project_px(cam, x2p), m.kf_xy[slot], cfg.fix_scale, pair_ok,
                                        cfg.verify_th_chi2, min_inliers=cfg.min_ransac_inliers)
@@ -512,14 +515,26 @@ def _free_sim3(cfg: LoopCloserConfig, cam: CameraModel, m: ms.MapState, slot: in
                 pair_inliers=r3.n_inliers, drift_ok=drift_ok)
 
 
+def _pair_rows(m: ms.MapState, slot: int, cand: int):
+    """(has1, has2, pos1, pos2): which features of keyframes `slot` and
+    `cand` hold a valid point, and those points' positions [N, 3]."""
+    obs = torch.stack([m.kf_obs[slot], m.kf_obs[cand]])
+    valid, pos = ms.point_rows(m, obs, "mp_valid", "mp_pos")
+    has = (obs >= 0) & m.kf_feat_valid[[slot, cand]] & valid
+    return has[0], has[1], pos[0], pos[1]
+
+
 def full_map_ba_problem(m: ms.MapState, anchor) -> BAProblem:
     """The global BA over every valid keyframe and point, keyframe `anchor`
-    (an int or a 0-d tensor) and the invalid slots held fixed."""
+    (an int or a 0-d tensor) and the invalid slots held fixed.  On a split
+    map, this rank's block: its own points and the edges that observe them
+    (point ids local), every camera."""
     K, N = m.K, m.N
     dev = m.device
     obs = m.kf_obs
     feat_ok = m.kf_feat_valid & m.kf_valid[:, None]
-    e_valid = feat_ok & (obs >= 0) & m.mp_valid[torch.clamp(obs, 0, m.P - 1).long()]
+    own, loc = pts.owned_rows(m.mesh, obs, feat_ok)
+    e_valid = own & m.mp_valid[loc]
     octv = m.kf_octave.reshape(-1).to(torch.float32)
     cam_fixed = torch.zeros(K, dtype=torch.bool, device=dev)
     cam_fixed[anchor] = True
@@ -527,9 +542,23 @@ def full_map_ba_problem(m: ms.MapState, anchor) -> BAProblem:
         R=m.kf_R, t=m.kf_t, points=m.mp_pos, cam_fixed=cam_fixed | ~m.kf_valid,
         cam_valid=m.kf_valid, pt_valid=m.mp_valid,
         cam_idx=torch.arange(K, device=dev).repeat_interleave(N),
-        pt_idx=torch.clamp_min(obs, 0).reshape(-1), uv=m.kf_xy.reshape(-1, 2),
+        pt_idx=torch.where(own, loc, torch.clamp(obs, 0, m.P_local - 1)).reshape(-1),
+        uv=m.kf_xy.reshape(-1, 2),
         ur=m.kf_ur.reshape(-1), inv_sigma2=1.0 / (1.2 ** (2.0 * octv)),
         edge_valid=e_valid.reshape(-1))
+
+
+def global_ba_cg(cam: CameraModel, m: ms.MapState, anchor, iters: int, cg_iters: int = 30):
+    """``bundle_adjust_cg`` over the whole map: (R, t, points, cost), the
+    points in m's layout.  On a map split over ranks it runs on the whole
+    map on every rank and rank 0's result is kept (the order of its edge
+    sums is not fixed on the card), each rank taking its own rows."""
+    R, t, X, _, cost = bundle_adjust_cg(cam, full_map_ba_problem(pts.full_map(m), anchor),
+                                        iters=iters, cg_iters=cg_iters)
+    if m.n_shards > 1:
+        R, t, X, cost = pts.broadcast(m.mesh, R, t, X, cost)
+        X = X[m.mesh.rank::m.n_shards]
+    return R, t, X, cost
 
 
 def fold_gba_device(m: ms.MapState, gba_R, gba_t, gba_X, snap_kf, snap_mp, old_R,
@@ -694,23 +723,18 @@ class LoopCloser:
         -> RANSAC on the projection pairs.  Returns (s, R, t) with
         x_slot ~ s R x_cand + t, or None."""
         cfg, cam = self.cfg, self.cam
-        P = m.P
-        obs1, obs2 = m.kf_obs[slot], m.kf_obs[cand]
-        mp1 = torch.clamp(obs1, 0, P - 1).long()
-        has1 = (obs1 >= 0) & m.kf_feat_valid[slot] & m.mp_valid[mp1]
-        has2 = (obs2 >= 0) & m.kf_feat_valid[cand] & m.mp_valid[torch.clamp(obs2, 0, P - 1).long()]
+        has1, has2, pos1, pos2 = _pair_rows(m, slot, cand)
         # one-directional best + ratio 0.92 over the pairs both keyframes map
         res = matching.match_gated(m.kf_desc[slot], m.kf_desc[cand], has1, has2, matching.TH_LOW,
                                    0.92, False)
         if int(res.count) < cfg.min_seed_matches:
             return None
         R1, t1, R2, t2 = m.kf_R[slot], m.kf_t[slot], m.kf_R[cand], m.kf_t[cand]
-        x1_all = m.mp_pos[mp1] @ R1.T + t1
+        x1_all = pos1 @ R1.T + t1
 
         def gather_pairs(idx):
             idx2 = torch.clamp_min(idx, 0).long()
-            mp2 = torch.clamp(obs2[idx2], 0, P - 1).long()
-            return (x1_all, m.mp_pos[mp2] @ R2.T + t2, m.kf_xy[slot], m.kf_xy[cand][idx2],
+            return (x1_all, pos2[idx2] @ R2.T + t2, m.kf_xy[slot], m.kf_xy[cand][idx2],
                     (idx >= 0) & has1)
 
         x1, x2, uv1, uv2, valid = gather_pairs(res.idx)
@@ -736,7 +760,7 @@ class LoopCloser:
             return None
         # each slot feature's own point paired with the loop point it matched
         pair_ok = (feat_pt >= 0) & has1
-        x2p = m.mp_pos[torch.clamp(feat_pt, 0, P - 1).long()] @ R2.T + t2
+        x2p = ms.point_rows(m, feat_pt, "mp_pos")[0] @ R2.T + t2
         self._gen.manual_seed(int(m.n_kf) + 1)
         r3 = sim3_solver.sim3_ransac(self._gen, cam, x2p, x1_all, _project_px(cam, x2p),
                                      m.kf_xy[slot], cfg.seed_hyp, cfg.fix_scale, valid=pair_ok,
@@ -771,6 +795,7 @@ class LoopCloser:
             solve = optimize_pose_graph if K <= 128 else optimize_pose_graph_cg
             with record_function("loop/pose_graph"):
                 s_o, R_o, t_o, _ = solve(prob, cfg.pose_graph_iters)
+                s_o, R_o, t_o = pts.broadcast(m.mesh, s_o, R_o, t_o)
             m = apply_loop_correction(m, s_o, R_o, t_o)
             # SearchAndFuse: the loop neighbourhood's points into the
             # corrected current-side keyframes
@@ -783,15 +808,21 @@ class LoopCloser:
 
     def _dispatch_global_ba(self, m: ms.MapState, anchor: int):
         """Queue a full-map BA; a newer loop supersedes one not yet folded.
-        With ``use_dist_gba`` and a process group of several ranks (every
-        rank on the same replicated map) its points are sharded over the
-        ranks (``dist_ba``); otherwise it is ``bundle_adjust_cg``, the
-        reference's single-device branch.  On the card a CUDA event
-        recorded after it says when it is done."""
+        With ``use_dist_gba`` and a process group of several ranks its
+        points are sharded over the ranks (``dist_ba``): a split map's live
+        rows are each rank's block as they stand, a replicated map is
+        re-laid out on the host.  Otherwise it is ``bundle_adjust_cg``, the
+        reference's single-device branch (on a split map: on the whole map,
+        rank 0's result on every rank, each keeping its rows).  On the card
+        a CUDA event recorded after it says when it is done."""
         with record_function("loop/gba"):
-            prob = full_map_ba_problem(m, anchor)
             n = mesh_mod.world_size()
-            if self.cfg.use_dist_gba and n > 1:
+            if m.n_shards > 1 and self.cfg.use_dist_gba:
+                step = dist_ba.make_distributed_ba(m.mesh, iters=self.cfg.global_ba_iters,
+                                                   live=True)
+                R, t, X, cost = step(self.cam, full_map_ba_problem(m, anchor))
+            elif self.cfg.use_dist_gba and n > 1 and m.n_shards == 1:
+                prob = full_map_ba_problem(m, anchor)
                 # the host-side re-layout reads the map: acceptable for the
                 # rare closure, as in the reference
                 sprob, perm = dist_ba.shard_ba_problem(prob, n, return_perm=True)
@@ -800,8 +831,8 @@ class LoopCloser:
                 R, t, Xs, cost = step(self.cam, sprob)
                 X = Xs[torch.from_numpy(perm).to(Xs.device)]   # back to the map's order
             else:
-                R, t, X, _, cost = bundle_adjust_cg(self.cam, prob,
-                                                    iters=self.cfg.global_ba_iters, cg_iters=25)
+                R, t, X, cost = global_ba_cg(self.cam, m, anchor, self.cfg.global_ba_iters,
+                                             cg_iters=25)
             done = None
             if m.device.type == "cuda":
                 done = torch.cuda.Event()
@@ -820,7 +851,7 @@ class LoopCloser:
             return m
         self._gba_pending = None
         with record_function("loop/fold"):
-            dK, dP = m.K - g["R"].shape[0], m.P - g["X"].shape[0]
+            dK, dP = m.K - g["R"].shape[0], m.P_local - g["X"].shape[0]
             if dK or dP:
                 # capacity grew since the dispatch: pad the snapshot
                 dev = m.device

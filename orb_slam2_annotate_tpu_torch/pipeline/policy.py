@@ -7,6 +7,7 @@ import torch
 
 from ..geometry.camera import CameraModel
 from ..ops.sorting import nanmedian
+from ..parallel import points as pts
 from ..solvers.initializer import InitResult
 from ..worldmap import map_state as ms
 from .frame import Frame
@@ -42,7 +43,7 @@ def build_mono_init_map(m: ms.MapState, cam: CameraModel, f0: Frame, frame: Fram
     Returns (map, obs1 [N] frame feature -> point id)."""
     from . import local_mapping as lm
 
-    N, P = f0.xy.shape[0], m.P
+    N = f0.xy.shape[0]
     dev = m.device
     good, X = init.good, init.points
     z = torch.where(good & (X[:, 2] > 0), X[:, 2], torch.full_like(X[:, 2], float("nan")))
@@ -61,10 +62,11 @@ def build_mono_init_map(m: ms.MapState, cam: CameraModel, f0: Frame, frame: Fram
                            f0.valid, obs0)
     m = ms.insert_keyframe(m, 1, init.R, t1, frame_id, ts, frame.xy, frame.ur, frame.depth,
                            frame.octave, frame.angle, frame.desc, frame.valid, obs1)
-    mp_valid = torch.zeros(P, dtype=torch.bool, device=dev)
-    mp_valid[:N] = good
-    mp_pos = torch.zeros(P, 3, device=dev)
-    mp_pos[:N] = torch.where(good[:, None], X, torch.zeros_like(X))
+    # point n at global id n, written by the rank that owns it
+    ids = torch.arange(N, device=dev)
+    mp_valid = pts.put_rows(m.mesh, torch.zeros_like(m.mp_valid), ids, good)
+    mp_pos = pts.put_rows(m.mesh, torch.zeros_like(m.mp_pos), ids,
+                          torch.where(good[:, None], X, torch.zeros_like(X)))
     m = m.replace(mp_pos=mp_pos, mp_valid=mp_valid,
                   mp_first_kf=torch.where(mp_valid, 0, m.mp_first_kf).to(torch.int32))
     m = ms.update_mappoint_stats_touched(m, mp_valid)

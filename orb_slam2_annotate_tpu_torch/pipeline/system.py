@@ -24,11 +24,12 @@ frame runs once its copy has landed, at most ``async_depth`` frames later;
 ``flush()`` drains the pipeline.  ``save_map`` / ``load_map`` persist the
 map in the reference's file format (io/checkpoint.py); ``warmup`` runs each
 stage once on throwaway state.  In a process group of several ranks
-(parallel/mesh.py) every rank runs the same frames on a replicated map and
-loop closing's global BA is sharded over the ranks; ``shard_points`` does
-nothing at a world of one, as the reference on one device, and raises
-``NotImplementedError`` above it (the split of the map's point axis over
-ranks is not ported).
+(parallel/mesh.py) every rank runs the same frames, and loop closing's
+global BA is sharded over the ranks.  The map is replicated, or with
+``shard_points`` its point axis is split over the ranks (each holds
+max_mp / n rows, parallel/points.py; keyframe state stays replicated);
+``shard_points`` does nothing at a world of one, as the reference on one
+device.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from ..ops import matching
 from ..ops.extractor import ExtractorConfig
 from ..ops.orb import OrbTables
 from ..parallel import mesh as mesh_mod
+from ..parallel import points as pts
 from ..solvers import initializer
 from ..utils.telemetry import Telemetry
 from ..worldmap import map_state as ms
@@ -99,12 +101,18 @@ class SlamConfig:
 SENSORS = ("mono", "rgbd", "stereo")
 
 
-def check_shard_points(cfg) -> None:
-    """shard_points at a world above one splits the live map's point axis
-    over the ranks, which is not ported (module 9b); at a world of one it
-    does nothing, as the reference on one device."""
-    if cfg.shard_points and mesh_mod.world_size() > 1:
-        raise NotImplementedError(mesh_mod.POINT_SHARDING)
+def point_mesh(cfg):
+    """The mesh the live map's point axis is split over: every rank of the
+    default process group when shard_points is set and it holds more than
+    one, else None (a whole map; at a world of one shard_points does
+    nothing, as the reference on one device)."""
+    if not cfg.shard_points or mesh_mod.world_size() == 1:
+        return None
+    mesh = mesh_mod.map_mesh()
+    if cfg.max_mp % mesh.size:
+        raise ValueError(f"shard_points: max_mp={cfg.max_mp} is not a multiple of the "
+                         f"{mesh.size} ranks")
+    return mesh
 
 
 def mono_slice_config(**kw) -> SlamConfig:
@@ -133,12 +141,12 @@ class System:
         cfg = config or SlamConfig()
         if cfg.sensor not in SENSORS:
             raise ValueError(f"unknown sensor {cfg.sensor!r}: one of {SENSORS}")
-        check_shard_points(cfg)
         self.cam = cam
         self.cfg = cfg
         self.device = torch.device(device)
         self.tab = OrbTables().to(self.device)
-        self.map = ms.empty_map(cfg.max_kf, cfg.max_mp, cfg.n_features, device=self.device)
+        self.map = ms.empty_map(cfg.max_kf, cfg.max_mp, cfg.n_features, device=self.device,
+                                mesh=point_mesh(cfg))
         self.state = "NO_IMAGES"
         self.frame_id = -1
         self.records: list[FrameRecord] = []
@@ -243,8 +251,8 @@ class System:
                                     cfg.extractor)
         else:
             frame = make_frame_mono(img, cam, self.tab, cfg.extractor)
-        m0 = ms.MapState(**{f.name: getattr(self.map, f.name).clone()
-                            for f in dataclasses.fields(ms.MapState)})
+        m0 = self.map.replace(**{f.name: getattr(self.map, f.name).clone()
+                                 for f in dataclasses.fields(ms.MapState)})
         obs0 = torch.full((frame.xy.shape[0],), -1, dtype=torch.int32, device=dev)
         eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
         track = tk.track_frame_device if cfg.async_depth > 0 else tk.track_frame
@@ -268,7 +276,8 @@ class System:
 
     def save_map(self, path: str):
         """Persist the map (the reference's System.h:115 SaveMap TODO), after
-        ``flush()``; the header's extra holds frame_id and ref_kf."""
+        ``flush()``; the header's extra holds frame_id and ref_kf.  A map
+        split over ranks is written whole by rank 0 (every rank calls it)."""
         self.flush()
         from ..io import checkpoint
 
@@ -285,6 +294,9 @@ class System:
         from ..io import checkpoint
 
         self.map, extra = checkpoint.load_map(path, self.device)
+        mesh = point_mesh(self.cfg)
+        if mesh is not None:
+            self.map = mesh_mod.shard_map_state(self.map, mesh)
         self.state = "LOST"
         self.vel = None
         self.ref_kf = int(extra.get("ref_kf", 0))
@@ -802,4 +814,4 @@ class System:
 
     @property
     def n_mappoints(self) -> int:
-        return int(self.map.mp_valid.sum())
+        return int(pts.sum_points(self.map.mesh, self.map.mp_valid.sum()))

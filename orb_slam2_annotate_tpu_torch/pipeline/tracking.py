@@ -19,6 +19,7 @@ from ..geometry import lie
 from ..geometry.camera import CameraModel, in_image, project
 from ..ops import matching
 from ..ops.sorting import stable_topk
+from ..parallel import points as pts
 from ..solvers import pose_opt
 from ..worldmap import map_state as ms
 from ..worldmap.map_state import MapState
@@ -34,9 +35,9 @@ def inv_sigma2(octave: torch.Tensor) -> torch.Tensor:
 
 
 def _pose_obs_from_obs(m: MapState, frame: Frame, obs: torch.Tensor) -> pose_opt.PoseObs:
-    ids = torch.clamp(obs, 0, m.P - 1).long()
-    valid = (obs >= 0) & frame.valid & m.mp_valid[ids]
-    return pose_opt.PoseObs(xw=m.mp_pos[ids], uv=frame.xy, ur=frame.ur,
+    mp_valid, mp_pos = ms.point_rows(m, obs, "mp_valid", "mp_pos")
+    valid = (obs >= 0) & frame.valid & mp_valid
+    return pose_opt.PoseObs(xw=mp_pos, uv=frame.xy, ur=frame.ur,
                             inv_sigma2=inv_sigma2(frame.octave), valid=valid)
 
 
@@ -50,9 +51,9 @@ def track_with_motion_model(cam: CameraModel, m: MapState, frame: Frame, last_fr
                             last_obs: torch.Tensor, R_pred, t_pred, th: float = 15.0):
     """Project last frame's points at the predicted pose and match.
     Returns (R, t, obs [N], n_inliers)."""
-    ids = torch.clamp(last_obs, 0, m.P - 1).long()
-    has = (last_obs >= 0) & m.mp_valid[ids]
-    xc = m.mp_pos[ids] @ R_pred.T + t_pred
+    mp_valid, mp_pos = ms.point_rows(m, last_obs, "mp_valid", "mp_pos")
+    has = (last_obs >= 0) & mp_valid
+    xc = mp_pos @ R_pred.T + t_pred
     uv = project(cam, xc)
     pvalid = has & (xc[:, 2] > 0.05) & in_image(cam, uv)
     radius = th * (SCALE ** last_frame.octave.to(torch.float32))
@@ -70,7 +71,7 @@ def track_reference_keyframe(cam: CameraModel, m: MapState, frame: Frame, kf_id:
     """Descriptor match against the reference keyframe's point features,
     then pose optimization from the last pose."""
     kf_obs = m.kf_obs[kf_id]
-    kf_has = (kf_obs >= 0) & m.kf_feat_valid[kf_id] & m.mp_valid[torch.clamp(kf_obs, 0, m.P - 1).long()]
+    kf_has = (kf_obs >= 0) & m.kf_feat_valid[kf_id] & ms.point_rows(m, kf_obs, "mp_valid")[0]
     res = matching.match_gated(m.kf_desc[kf_id], frame.desc, kf_has, frame.valid,
                                max_dist=matching.TH_LOW, ratio=0.7)
     ang2 = frame.angle[torch.clamp_min(res.idx, 0).long()]
@@ -97,17 +98,21 @@ class LocalMapTrack:
 def track_local_map(cam: CameraModel, m: MapState, frame: Frame, R, t, obs,
                     max_local_kf: int = 32, max_local_pts: int = MAX_LOCAL_PTS,
                     th: float = 1.0) -> LocalMapTrack:
-    """SearchLocalPoints + final pose refinement."""
+    """SearchLocalPoints + final pose refinement.  On a split map the
+    projection and frustum tests run on each rank's own points, the
+    keyframe votes are summed over the ranks, the candidates are the top
+    ``max_local_pts`` over all ranks and their rows are gathered before the
+    matcher (kernel 3) and the pose LM (kernel 4) run on every rank."""
     P, N = m.P, frame.xy.shape[0]
-    dev = m.device
+    mesh = m.mesh
     max_local_kf = min(max_local_kf, m.K)
     max_local_pts = min(max_local_pts, P)
 
-    ids = torch.clamp(obs, 0, P - 1).long()
-    cur_pts = torch.zeros(P, dtype=torch.int32, device=dev).scatter_reduce(
-        0, ids, (obs >= 0).to(torch.int32), "amax").bool()
-    all_ok = (m.kf_obs >= 0) & m.kf_feat_valid & m.kf_valid[:, None]
-    votes = (cur_pts[torch.clamp(m.kf_obs, 0, P - 1).long()] & all_ok).sum(1).float()
+    ids = torch.clamp(obs, 0, P - 1)
+    cur_pts = pts.scatter_owned(mesh, m.P_local, ids, obs >= 0)
+    all_ok, all_loc = pts.owned_rows(m.mesh, torch.clamp(m.kf_obs, max=P - 1),
+                                     m.kf_feat_valid & m.kf_valid[:, None])
+    votes = pts.sum_points(mesh, (cur_pts[all_loc] & all_ok).sum(1)).float()
     votes = torch.where(m.kf_valid, votes, torch.full_like(votes, -1.0))
     top_votes, local_kf = stable_topk(votes, max_local_kf)
     kf_sel = top_votes > 0
@@ -131,11 +136,12 @@ def track_local_map(cam: CameraModel, m: MapState, frame: Frame, R, t, obs,
         torch.ceil(torch.log(ratio) / torch.log(torch.tensor(SCALE))).to(torch.int32), 0), top_oct)
 
     cand_score = torch.where(cand_mask, m.mp_first_kf.float() + 2.0, torch.zeros_like(dist))
-    _, cand = stable_topk(cand_score, max_local_pts)
-    cvalid = cand_mask[cand]
-    r0 = torch.where(view_cos[cand] > 0.998, 2.5, 4.0)
-    radius = th * r0 * (SCALE ** pred_oct[cand].to(torch.float32))
-    res = matching.search_map_points(m.mp_desc[cand], cvalid, uv[cand], pred_oct[cand], radius,
+    _, cand = pts.topk_points(mesh, cand_score, max_local_pts)
+    cvalid, c_cos, c_oct, c_uv, c_desc = pts.gather_rows(mesh, cand, cand_mask, view_cos,
+                                                          pred_oct, uv, m.mp_desc)
+    r0 = torch.where(c_cos > 0.998, 2.5, 4.0)
+    radius = th * r0 * (SCALE ** c_oct.to(torch.float32))
+    res = matching.search_map_points(c_desc, cvalid, c_uv, c_oct, radius,
                                      frame, ratio=0.8, max_dist=matching.TH_HIGH)
     newmp = torch.where(res.matched, cand.to(torch.int32), -1)
     prop = _scatter_max_ids(N, torch.clamp_min(res.idx, 0), newmp)
@@ -145,9 +151,9 @@ def track_local_map(cam: CameraModel, m: MapState, frame: Frame, R, t, obs,
     R2, t2, inlier, n = pose_opt.optimize_pose(cam, R, t, pobs)
     obs = torch.where(inlier | ~pobs.valid, obs, -1)
 
-    mp_visible = m.mp_visible.index_add(0, cand, cvalid.to(torch.int32))
+    mp_visible = pts.index_add_rows(mesh, m.mp_visible, cand, cvalid.to(torch.int32))
     found = ((obs >= 0) & inlier).to(torch.int32)
-    mp_found = m.mp_found.index_add(0, torch.clamp(obs, 0, P - 1).long(), found)
+    mp_found = pts.index_add_rows(mesh, m.mp_found, torch.clamp(obs, 0, P - 1), found)
     return LocalMapTrack(R2, t2, obs, n, n_local_kf, mp_visible, mp_found)
 
 
@@ -179,8 +185,7 @@ def relocalize_candidates(cam: CameraModel, m: MapState, frame: Frame, vocab, db
                                                          m.kf_valid, ms.covisibility(m))
     with record_function("reloc/match"):
         kf_obs, kf_desc = m.kf_obs[slots], m.kf_desc[slots]              # [C,N], [C,N,16]
-        kf_has = (kf_obs >= 0) & m.kf_feat_valid[slots] & m.mp_valid[
-            torch.clamp(kf_obs, 0, m.P - 1).long()]
+        kf_has = (kf_obs >= 0) & m.kf_feat_valid[slots] & ms.point_rows(m, kf_obs, "mp_valid")[0]
         # all candidates in one matcher launch, the frame's descriptors shared
         res = matching.match_gated(kf_desc, frame.desc, kf_has, frame.valid,
                                    max_dist=matching.TH_LOW, ratio=0.75)   # [C,N]
@@ -191,7 +196,7 @@ def relocalize_candidates(cam: CameraModel, m: MapState, frame: Frame, vocab, db
         gate = ok & (pvalid.sum(1) >= 15)
     with record_function("reloc/sample"):
         samples = pnp.sample_pnp_sets(gen, pvalid, n_hyp)
-    r = pnp.pnp_from_samples(cam, samples, m.mp_pos[torch.clamp(obs, 0, m.P - 1).long()], frame.xy,
+    r = pnp.pnp_from_samples(cam, samples, ms.point_rows(m, obs, "mp_pos")[0], frame.xy,
                              pvalid, min_inliers=15,
                              polish=torch.nonzero(gate).flatten().tolist())
     scores = torch.where(gate & r.success, r.n_inliers, -1).to(torch.int32)

@@ -79,6 +79,9 @@ def draw_map(m, trajectory=None, path: str | None = None, elev=-75, azim=-90):
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
+    from ..parallel.points import full_map
+
+    m = full_map(m)                  # a map split over ranks: every point
     fig = plt.figure(figsize=(9, 7))
     ax = fig.add_subplot(111, projection="3d")
     mp = _np(m.mp_pos)[_np(m.mp_valid)]
@@ -172,6 +175,10 @@ class InteractiveViewer:
             return False
         if m is None and self.system is not None:
             m = self.system.map
+        if m is not None:
+            from ..parallel.points import full_map
+
+            m = full_map(m)
         if pose is None and self.system is not None:
             pose = (_np(self.system.R), _np(self.system.t))
         ax = self.ax_img

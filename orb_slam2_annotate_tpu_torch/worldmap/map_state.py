@@ -6,6 +6,14 @@ descriptors as int32 bit patterns.  Functions return new states (some
 fields may share storage with the input); the reference's silent index
 rules are written out: scatters that JAX drops go to an explicit dump
 column or row, and gathers are clipped to range.
+
+A map may hold only this rank's rows of the point axis (``mesh`` set by
+``parallel.mesh.shard_map_state``): global point id g at local row g // n
+of rank g % n.  ``P`` is then still the global count and ``P_local`` the
+rows held here; every function below takes such a map, computing on its
+own rows and exchanging what an op needs across points
+(parallel/points.py).  Point masks and per-point arrays they take and
+return are local ([P_local]); point ids are global.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ import torch
 from ..kernels.hamming import distinctive_descriptors
 from ..ops.orb import DESC_WORDS
 from ..ops.sorting import stable_topk
+from ..parallel import points as pts
 
 MAX_OBS = 32
 MAX_TOUCHED = 4096
@@ -48,13 +57,26 @@ class MapState:
     mp_first_kf: torch.Tensor   # [P] i32
     n_kf: torch.Tensor          # 0-d i32
 
+    # the mesh the point axis is split over (parallel/mesh.py); None: whole
+    mesh = None
+
     @property
     def K(self) -> int:
         return self.kf_valid.shape[0]
 
     @property
-    def P(self) -> int:
+    def n_shards(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size
+
+    @property
+    def P_local(self) -> int:
+        """Point rows held by this rank."""
         return self.mp_valid.shape[0]
+
+    @property
+    def P(self) -> int:
+        """Point slots over all ranks."""
+        return self.mp_valid.shape[0] * self.n_shards
 
     @property
     def N(self) -> int:
@@ -65,7 +87,12 @@ class MapState:
         return self.kf_valid.device
 
     def replace(self, **kw) -> "MapState":
-        return dataclasses.replace(self, **kw)
+        out = dataclasses.replace(self, **kw)
+        out.mesh = self.mesh
+        return out
+
+
+POINT_FIELDS = tuple(f.name for f in dataclasses.fields(MapState) if f.name.startswith("mp_"))
 
 
 # fill value of each field in a fresh slot (empty_map / grow_map)
@@ -77,8 +104,13 @@ _FILL = dict(kf_t=0.0, kf_valid=False, kf_frame_id=-1, kf_timestamp=0.0, kf_xy=0
 
 
 def empty_map(max_kf: int = 256, max_mp: int = 16384, n_feat: int = 1024,
-              device=None) -> MapState:
-    K, P, N = max_kf, max_mp, n_feat
+              device=None, mesh=None) -> MapState:
+    """A map with no keyframe and no point; with a `mesh` of n ranks, this
+    rank's max_mp / n point rows (max_mp must be a multiple of n)."""
+    n = pts.size(mesh)
+    if max_mp % n:
+        raise ValueError(f"max_mp={max_mp} is not a multiple of the {n} ranks of the mesh")
+    K, P, N = max_kf, max_mp // n, n_feat
     f32, i32, b = torch.float32, torch.int32, torch.bool
     shapes = dict(kf_t=((K, 3), f32), kf_valid=((K,), b), kf_frame_id=((K,), i32),
                   kf_timestamp=((K,), f32), kf_xy=((K, N, 2), f32), kf_ur=((K, N), f32),
@@ -89,26 +121,31 @@ def empty_map(max_kf: int = 256, max_mp: int = 16384, n_feat: int = 1024,
                   mp_min_dist=((P,), f32), mp_max_dist=((P,), f32), mp_visible=((P,), i32),
                   mp_found=((P,), i32), mp_first_kf=((P,), i32))
     fields = {k: torch.full(s, _FILL[k], dtype=d, device=device) for k, (s, d) in shapes.items()}
-    return MapState(kf_R=torch.eye(3, device=device).repeat(K, 1, 1),
-                    n_kf=torch.zeros((), dtype=i32, device=device), **fields)
+    out = MapState(kf_R=torch.eye(3, device=device).repeat(K, 1, 1),
+                   n_kf=torch.zeros((), dtype=i32, device=device), **fields)
+    out.mesh = mesh if n > 1 else None
+    return out
 
 
 def clear_map(m: MapState) -> MapState:
     """A map of the same shapes holding empty_map's fill values, on m's
     device (the free runner's auto-reset)."""
-    return empty_map(m.K, m.P, m.N, device=m.device)
+    return empty_map(m.K, m.P, m.N, device=m.device, mesh=m.mesh)
 
 
 def grow_map(m: MapState, new_K: int | None = None, new_P: int | None = None) -> MapState:
-    """Enlarged capacity; existing slots keep their indices."""
-    K, P = m.K, m.P
+    """Enlarged capacity; existing slots keep their indices (in the split
+    layout the new ids' rows follow each rank's own)."""
+    K, P, n = m.K, m.P, m.n_shards
     new_K = K if new_K is None else new_K
     new_P = P if new_P is None else new_P
     if new_K < K or new_P < P:
         raise ValueError("grow_map cannot shrink")
+    if new_P % n:
+        raise ValueError(f"new_P={new_P} is not a multiple of the {n} ranks of the mesh")
     if new_K == K and new_P == P:
         return m
-    fresh = empty_map(new_K - K if new_K > K else 1, new_P - P if new_P > P else 1, m.N,
+    fresh = empty_map(new_K - K if new_K > K else 1, (new_P - P) // n if new_P > P else 1, m.N,
                       device=m.device)
     out = {}
     for f in dataclasses.fields(MapState):
@@ -118,7 +155,7 @@ def grow_map(m: MapState, new_K: int | None = None, new_P: int | None = None) ->
             continue
         grows = (new_K > K) if f.name.startswith("kf_") else (new_P > P)
         out[f.name] = torch.cat([a, getattr(fresh, f.name)]) if grows else a
-    return MapState(**out)
+    return m.replace(**out)
 
 
 def insert_keyframe(m: MapState, slot: int, R, t, frame_id, timestamp, xy, ur, depth, octave,
@@ -139,9 +176,16 @@ def insert_keyframe(m: MapState, slot: int, R, t, frame_id, timestamp, xy, ur, d
 
 
 def free_mp_slots(m: MapState, count: int) -> torch.Tensor:
-    """Indices of `count` free map-point slots, lowest first (int64)."""
-    _, idx = stable_topk((~m.mp_valid).to(torch.int32), count)
+    """Global ids of `count` free map-point slots, lowest first (int64)."""
+    _, idx = pts.topk_points(m.mesh, (~m.mp_valid).to(torch.int32), count)
     return idx
+
+
+def point_rows(m: MapState, gid: torch.Tensor, *names: str) -> tuple:
+    """The fields `names` (mp_*) of global point ids `gid` (clipped to
+    [0, P - 1]), on every rank, in one exchange."""
+    return pts.gather_rows(m.mesh, gid, *(getattr(m, k) for k in names))
+
 
 
 def _scatter_max_bool(size: int, idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
@@ -150,21 +194,22 @@ def _scatter_max_bool(size: int, idx: torch.Tensor, val: torch.Tensor) -> torch.
 
 
 def observation_matrix(m: MapState) -> torch.Tensor:
-    """O[K,P] bool: keyframe k observes point p."""
-    K, P, N = m.K, m.P, m.N
-    valid = (m.kf_obs >= 0) & m.kf_feat_valid & m.kf_valid[:, None]
-    lin = torch.arange(K, device=m.device)[:, None] * P + torch.where(valid, m.kf_obs, 0).long()
+    """O[K,P_local] bool: keyframe k observes (local) point p."""
+    K, P = m.K, m.P_local
+    valid, rows = pts.owned_rows(m.mesh, m.kf_obs, m.kf_feat_valid & m.kf_valid[:, None])
+    lin = torch.arange(K, device=m.device)[:, None] * P + rows
     return _scatter_max_bool(K * P, lin, valid).reshape(K, P)
 
 
 def covisibility(m: MapState, O: torch.Tensor | None = None) -> torch.Tensor:
     """W[K,K] int32 shared-point counts, diagonal zeroed.  The reference's
     int8 product becomes a float32 product of the 0/1 matrix (torch has no
-    integer matmul on CUDA): exact, as counts stay below 2^24 and TF32 is off."""
+    integer matmul on CUDA): exact, as counts stay below 2^24 and TF32 is
+    off; on a split map each rank's product over its own columns, summed."""
     if O is None:
         O = observation_matrix(m)
     Of = O.to(torch.float32)
-    W = (Of @ Of.T).to(torch.int32)
+    W = pts.sum_points(m.mesh, Of @ Of.T).to(torch.int32)
     return W.fill_diagonal_(0)
 
 
@@ -180,25 +225,25 @@ def spanning_tree_parents(m: MapState, W: torch.Tensor | None = None) -> torch.T
 
 
 def point_mask_rows(m: MapState, rows: torch.Tensor, rows_ok: torch.Tensor) -> torch.Tensor:
-    """[P] bool: union of the points observed by keyframe slots `rows`."""
+    """[P_local] bool: union of the points observed by keyframe slots `rows`."""
     obs = m.kf_obs[rows]
-    ok = (obs >= 0) & m.kf_feat_valid[rows] & (rows_ok & m.kf_valid[rows])[:, None]
-    idx = torch.where(ok, torch.clamp(obs, 0, m.P - 1), 0).long()
-    return _scatter_max_bool(m.P, idx, ok)
+    ok, idx = pts.owned_rows(m.mesh, torch.clamp(obs, max=m.P - 1),
+                             m.kf_feat_valid[rows] & (rows_ok & m.kf_valid[rows])[:, None])
+    return _scatter_max_bool(m.P_local, idx, ok)
 
 
 def covis_rows(m: MapState, rows: torch.Tensor, rows_ok: torch.Tensor | None = None) -> torch.Tensor:
     """[S, K] int32 shared-point counts of keyframe slots `rows`, self-columns 0."""
-    S, P = rows.shape[0], m.P
-    obs = m.kf_obs[rows]
+    S, P = rows.shape[0], m.P_local
+    obs = torch.clamp(m.kf_obs[rows], max=m.P - 1)
     kv = m.kf_valid[rows] if rows_ok is None else rows_ok & m.kf_valid[rows]
-    ok = (obs >= 0) & m.kf_feat_valid[rows] & kv[:, None]
-    lin = torch.arange(S, device=m.device)[:, None] * P + torch.where(
-        ok, torch.clamp(obs, 0, P - 1), 0).long()
+    ok, loc = pts.owned_rows(m.mesh, obs, m.kf_feat_valid[rows] & kv[:, None])
+    lin = torch.arange(S, device=m.device)[:, None] * P + loc
     pm = _scatter_max_bool(S * P, lin, ok).reshape(S, P)
-    all_ok = (m.kf_obs >= 0) & m.kf_feat_valid & m.kf_valid[:, None]
-    hit = pm[:, torch.clamp(m.kf_obs, 0, P - 1).long()]               # [S,K,N]
-    W = (hit & all_ok[None]).sum(-1).to(torch.int32)
+    all_ok, all_loc = pts.owned_rows(m.mesh, torch.clamp(m.kf_obs, max=m.P - 1),
+                                     m.kf_feat_valid & m.kf_valid[:, None])
+    hit = pm[:, all_loc]                                              # [S,K,N]
+    W = pts.sum_points(m.mesh, (hit & all_ok[None]).sum(-1)).to(torch.int32)
     W[torch.arange(S, device=m.device), rows.long()] = 0
     return W
 
@@ -210,13 +255,14 @@ def covis_row(m: MapState, slot) -> torch.Tensor:
 
 
 def observation_table(m: MapState):
-    """(obs_kf [P,32], obs_ft [P,32], obs_cnt [P], obs_mask [P,32]): up to
-    MAX_OBS (keyframe, feature) pairs per point, lowest keyframe first;
-    duplicate same-keyframe features collapse to the lowest feature index."""
-    K, P, N = m.K, m.P, m.N
+    """(obs_kf [P_local,32], obs_ft [P_local,32], obs_cnt [P_local],
+    obs_mask [P_local,32]): up to MAX_OBS (keyframe, feature) pairs per
+    point, lowest keyframe first; duplicate same-keyframe features collapse
+    to the lowest feature index."""
+    K, P, N = m.K, m.P_local, m.N
     dev = m.device
-    valid = m.kf_feat_valid & m.kf_valid[:, None] & (m.kf_obs >= 0)
-    pt = torch.where(valid, m.kf_obs, P).long()                       # P = dump column
+    valid, loc = pts.owned_rows(m.mesh, m.kf_obs, m.kf_feat_valid & m.kf_valid[:, None])
+    pt = torch.where(valid, loc, P)                                   # P = dump column
     lin = torch.arange(K, device=dev)[:, None] * (P + 1) + pt
     feat = torch.where(valid, torch.arange(N, device=dev, dtype=torch.int32)[None, :], N)
     F = torch.full((K * (P + 1),), N, dtype=torch.int32, device=dev)
@@ -272,18 +318,20 @@ def _stats_from_table(m: MapState, pos, obs_kf, obs_ft, obs_cnt, obs_mask):
 def update_mappoint_stats_touched(m: MapState, touched: torch.Tensor,
                                   max_touched: int = MAX_TOUCHED) -> MapState:
     """Refresh descriptors / normals / depth bands of up to max_touched
-    touched points; validity is refreshed for every point."""
-    P = m.P
-    max_touched = min(max_touched, P)
+    touched points (the lowest ids first, over all ranks; a rank runs
+    kernel 3b on the selected rows it owns, the others count 0
+    observations); validity is refreshed for every point."""
+    P = m.P_local
+    max_touched = min(max_touched, m.P)
     obs_kf, obs_ft, obs_cnt, _ = observation_table(m)
     sel_score = (touched & m.mp_valid).to(torch.int32)
-    _, psel = stable_topk(sel_score, max_touched)
-    sel_ok = sel_score[psel] > 0
-    cnt = obs_cnt[psel]
+    top, psel = pts.topk_points(m.mesh, sel_score, max_touched)
+    own, psel = pts.owned_rows(m.mesh, psel, top > 0)
+    cnt = torch.where(own, obs_cnt[psel], 0)
     new_desc, normal, min_d, max_d = _stats_from_table(
         m, m.mp_pos[psel], obs_kf[psel], obs_ft[psel], cnt,
         torch.arange(MAX_OBS, device=m.device)[None, :] < cnt[:, None])
-    upd = sel_ok & (cnt > 0)
+    upd = cnt > 0
     tgt = torch.where(upd, psel, P)                                   # P = dump row
 
     def put(a, v):
@@ -309,7 +357,7 @@ def update_mappoint_stats(m: MapState) -> MapState:
 
 
 def mp_observation_counts(m: MapState) -> torch.Tensor:
-    """n_obs[P]: number of keyframes observing each point."""
+    """n_obs[P_local]: number of keyframes observing each point."""
     return observation_matrix(m).sum(0).to(torch.int32)
 
 
@@ -318,7 +366,8 @@ def observation_overflow(m: MapState):
     MAX_OBS table drops), both 0-d."""
     n_obs = mp_observation_counts(m)
     over = m.mp_valid & (n_obs > MAX_OBS)
-    return over.sum(), torch.where(over, n_obs - MAX_OBS, 0).sum()
+    return tuple(pts.sum_points(m.mesh, torch.stack([over.sum(),
+                                                     torch.where(over, n_obs - MAX_OBS, 0).sum()])))
 
 
 def update_mappoint_geometry(m: MapState) -> MapState:

@@ -22,6 +22,7 @@ from ..geometry import lie
 from ..geometry.camera import CameraModel
 from ..ops import matching
 from ..ops.sorting import stable_topk
+from ..parallel import points as pts
 from ..solvers import sim3 as sim3_solver
 from . import map_state as ms
 from . import vocabulary as voc
@@ -150,7 +151,21 @@ def merge_maps(m_a: ms.MapState, m_b: ms.MapState, cam: CameraModel,
     """Merge session B into session A (B Sim3-aligned into A's world).  The
     top 8 BoW pairs are verified in order; the first whose Sim3 holds wins.
     On failure A is returned as it was.  A must have free keyframe and
-    point slots for B's (ValueError otherwise)."""
+    point slots for B's (ValueError otherwise).  Maps whose point axis is
+    split over ranks are merged whole on every rank (a rare offline step,
+    so ``full_map`` is fine here), rank 0's result is kept and split again
+    as A was."""
+    if m_a.n_shards > 1 or m_b.n_shards > 1:
+        from ..parallel.mesh import shard_map_state
+
+        mesh = m_a.mesh or m_b.mesh
+        res = merge_maps(pts.full_map(m_a), pts.full_map(m_b), cam, vocab, fix_scale)
+        names = [f.name for f in dataclasses.fields(ms.MapState)]
+        merged = res.map.replace(**dict(zip(names, pts.broadcast(
+            mesh, *(getattr(res.map, k) for k in names)))))
+        if m_a.n_shards > 1:
+            merged = shard_map_state(merged, m_a.mesh)
+        return dataclasses.replace(res, map=merged)
     if vocab is None:
         vocab = voc.make_vocabulary(device=m_a.device)
     S, kf_a, kf_b = None, -1, -1

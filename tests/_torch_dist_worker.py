@@ -1,5 +1,5 @@
 """A rank of a CPU process group for the port's distributed tests
-(tests/test_torch_dist_ba.py).
+(tests/test_torch_dist_ba.py, tests/test_torch_shard_points.py).
 
     python tests/_torch_dist_worker.py MODE RANK WORLD PORT DIR
 
@@ -10,7 +10,13 @@ DIR/in.npz, runs MODE and writes DIR/out{RANK}.npz:
              variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK);
   ba         make_distributed_ba on the sharded problem in in.npz;
   loop       LoopCloser._dispatch_global_ba on the map in in.npz (anchor,
-             iterations), then maybe_fold_gba(force=True).
+             iterations), then maybe_fold_gba(force=True);
+  prims, modules, system, free, gba
+             the live map's point axis split over the ranks
+             (tests/_torch_shard_cases.py): the primitives against their
+             plain ops, the map functions against the whole map's, the
+             System and the FreeRunner with shard_points=True, and loop
+             closing's global BA on the live shards.
 """
 
 import dataclasses
@@ -37,7 +43,7 @@ def main(mode, rank, world, port, out_dir):
     else:
         mesh.init_multi_host(f"localhost:{port}", world, rank, device="cpu", timeout_s=60)
     d = dict(np.load(os.path.join(out_dir, "in.npz"), allow_pickle=True)) \
-        if mode in ("ba", "loop") else {}
+        if mode not in ("allreduce", "env") else {}
     out = {"world": mesh.world_size(), "rank": torch.distributed.get_rank()}
     if mode in ("allreduce", "env"):
         x = torch.ones(4) * (rank + 1)
@@ -61,6 +67,10 @@ def main(mode, rank, world, port, out_dir):
         out.update(R=g["R"].numpy(), t=g["t"].numpy(), X=g["X"].numpy(), cost=g["cost"].numpy())
         folded = lc.maybe_fold_gba(m, force=True)
         out.update({"fold_" + k: v for k, v in convert.map_state_to_numpy(folded).items()})
+    else:
+        import _torch_shard_cases
+
+        out.update(getattr(_torch_shard_cases, "rank_" + mode)(d, out_dir))
     np.savez(os.path.join(out_dir, f"out{rank}.npz"), **out)
     torch.distributed.destroy_process_group()
 

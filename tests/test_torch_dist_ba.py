@@ -221,8 +221,12 @@ def test_init_multi_host_without_a_coordinator_does_nothing(monkeypatch):
     assert tmesh.shard_map_state("map", m) == "map"
     with pytest.raises(ValueError):
         tmesh.map_mesh(2)
-    with pytest.raises(NotImplementedError, match="point axis"):
-        tmesh.shard_map_state("map", tmesh.Mesh(None, 2, 0))
+    # above a world of one a rank keeps the rows it owns (point g on rank g % n)
+    whole = tms.empty_map(2, 6, 4, device="cpu")
+    whole = whole.replace(mp_pos=torch.arange(18.0).reshape(6, 3))
+    half = tmesh.shard_map_state(whole, tmesh.Mesh(None, 2, 1))
+    assert (half.P, half.P_local) == (6, 3)
+    np.testing.assert_array_equal(half.mp_pos.numpy(), whole.mp_pos[1::2].numpy())
 
 
 def loop_map(seed=4, K=8, N=128, n_pts=96):

@@ -271,8 +271,8 @@ def test_localization_mode_makes_no_keyframe(data, port_mono):
 def test_unported_entry_points_raise(tmp_path, data):
     # map save / load are ported (tests/test_torch_checkpoint.py), and so is
     # point sharding at a world of one, where it does nothing: the run is bit
-    # for bit the unsharded one (above a world of one it raises:
-    # tests/test_torch_system.py::test_shard_points_raises_above_a_world_of_one)
+    # for bit the unsharded one (above a world of one:
+    # tests/test_torch_shard_points.py)
     r = dl.FreeRunner(TCAM, SlamConfig(**_kw()), max_frames=4, device="cpu")
     r.save_map(str(tmp_path / "map.npz"))
     r.load_map(str(tmp_path / "map.npz"))

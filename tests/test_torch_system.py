@@ -305,8 +305,7 @@ def _short_run(cfg, n_frames=14):
 def test_other_configurations_raise(change):
     # point sharding was the last setting that raised.  At a world of one it
     # does nothing, as the reference on one device: the run is bit for bit
-    # the unsharded one.  Above a world of one it still raises
-    # (test_shard_points_raises_above_a_world_of_one).
+    # the unsharded one (above a world of one: tests/test_torch_shard_points.py).
     traj, m = _short_run(mono_slice_config(**{**SIZES, **change}))
     traj0, m0 = _short_run(mono_slice_config(**SIZES))
     assert sum(T is not None for _, T in traj) >= 3
@@ -315,20 +314,6 @@ def test_other_configurations_raise(change):
         assert (T is None and T0 is None) or np.array_equal(T, T0)
     for k, v in m.items():
         np.testing.assert_array_equal(v, m0[k], err_msg=k)
-
-
-def test_shard_points_raises_above_a_world_of_one(monkeypatch):
-    from orb_slam2_annotate_tpu_torch.parallel import mesh as tmesh
-    from orb_slam2_annotate_tpu_torch.pipeline import device_loop as dl
-
-    cfg = mono_slice_config(**{**SIZES, "shard_points": True})
-    monkeypatch.setattr(tmesh, "world_size", lambda: 2)
-    for make in (lambda: TSystem(TCAM, cfg, device="cpu"),
-                 lambda: dl.FreeRunner(TCAM, cfg, max_frames=4, device="cpu")):
-        with pytest.raises(NotImplementedError, match="point axis"):
-            make()
-    # the unsharded configuration runs on a replicated map at any world size
-    assert TSystem(TCAM, mono_slice_config(**SIZES), device="cpu").map.P == SIZES["max_mp"]
 
 
 @pytest.mark.parametrize("change", [dict(stats_in_triangulate=True), dict(stats_in_triangulate=False),
