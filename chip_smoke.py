@@ -7,7 +7,7 @@ Phases (any failure exits non-zero):
   1. print the card's name and power limit; require CUDA;
   2. build every CUDA kernel from csrc/ with nvcc, one process per source,
      all started together;
-  3. compare kernels 1-5, 3b and 7-10 with their plain torch twins on the card, at the
+  3. compare kernels 1-5, 3b and 7-11 with their plain torch twins on the card, at the
      shapes of the main path (PlaneScene seed 1, VGA, 8 levels, 1024
      keypoints, the trained 16384-word vocabulary), and time both with
      CUDA events: kernel 1 (a frame's whole pyramid, blur, FAST, NMS and
@@ -46,7 +46,12 @@ Phases (any failure exits non-zero):
      wrappers' checks on the host (time.perf_counter_ns over 10,000 calls a
      part; tools/stereo_host_parts.py splits the whole call) and the 100-call
      times of stereo_match, remap_pair, StereoRectifier.__call__ and
-     grid_sample in turns;
+     grid_sample in turns; kernel 11 (a segment sum in one fixed order) bit
+     for bit its twin on the CPU, on the rows of phase 6's closure (the pose
+     graph's g and H) and phase 15's map (the global BA's Hcc, gc, Hpp, gp
+     and build_normal_eqs' B over 2,097,152 pairs), its plan equal to the
+     CPU's, beside one index_add and torch.segment_reduce, with its launches
+     in one solve of each solver (run after phase 6, whose inputs it takes);
   4. run the monocular System (``mono_slice_config``: relocalization and
      keyframe culling on) through ``System.track_mono`` on 48 frames at
      VGA / 1024 features / 8 levels, with every launch counter reset just
@@ -85,6 +90,15 @@ Phases (any failure exits non-zero):
      launch of each, and the closing attempt's last), count the device
      kernels of a whole ``sim3_from_samples`` on them (one), and print the
      per-frame wall times and each loop stage's, with totals and medians;
+     then the same cell in a second System of the process, its trajectory,
+     map and global BA bit for bit the first run's (the card drained after
+     each global BA's dispatch in both, so both fold at the closing
+     keyframe); then the circle with phase 12's rendered depth through the
+     RGB-D System (``th_depth`` 100): state OK, >= 80% tracked, the JAX
+     System's two closures and folded global BAs, every kernel 7 and 8
+     launch with the scale fixed, the SE3 ATE within max(1.5 x, +0.05 m) of
+     the JAX System's worst over seeds 0-9 (tools/jax_loop_reference.py
+     --qvga --depth --seed S);
   7. RGB-D on bench.py's cell (bench.py:151-196: the slice's 48 VGA frames
      with their rendered depth, bf = 500 x 0.3, th_depth 100, SlamConfig()'s
      other defaults) through ``System.track_rgbd``, counters reset just
@@ -153,6 +167,7 @@ Phases (any failure exits non-zero):
      closes twice), every Sim3 launch with the scale fixed, the ATE within
      max(1.5 x, +0.05 m) of the JAX runner's worst over its seeds 0-9 (the
      draws decide the second closure's correction: 0.035-0.220 m there);
+     the mono loop runs twice, rings and map bit for bit;
   13. the free runner on phases 7-8's depth cell, RGB-D and stereo (through
      phase 8's rectifier), with phases 7-8's bounds against the JAX
      FreeRunner's ATE; scan mode against per-frame mode on phase 11's first
@@ -174,7 +189,7 @@ Phases (any failure exits non-zero):
      two RGB-D sessions of phases 7-8's cell (frames 0-27 and 20-47) merged
      by ``worldmap/merge.merge_maps(fix_scale=True)``: success, the scale
      within 0.1 of 1 and the median merged-keyframe centre error below
-     0.15 m (tests/test_merge.py's bounds), kernels 3a, 3b, 5, 7 and 8
+     0.15 m (tests/test_merge.py's bounds), kernels 3a, 3b, 5, 7, 8 and 11
      launched, each stage timed; the drivers on VGA fixtures written here
      (tools/driver_fixtures.py: the port's renderer, PNGs of numpy and
      zlib): ``run_tum`` mono on a distorted capture (ATE < 0.12 m) and
@@ -206,7 +221,9 @@ Phases (any failure exits non-zero):
      mapping/keyframe a keyframe after initialization; (e)
      ``train_vocabulary`` (4,096 words, 8 iterations) on phase 4's frames'
      descriptors, kernel 5 once a chunk an iteration, words and IDF equal
-     to the CPU twin's bit for bit;
+     to the CPU twin's bit for bit; in (a) also ``bundle_adjust_cg``, the
+     dense BA and the world-one distributed BA each called twice on the same
+     problem, bit for bit;
   16. the live map's point axis split over two gloo ranks on the one card
      (``shard_points=True``; subprocesses ``python3 chip_smoke.py
      --shard-rank MODE RANK PORT DIR``, each with a time limit and every
@@ -214,13 +231,30 @@ Phases (any failure exits non-zero):
      its trajectory and gathered map bit for bit phase 4's and both ranks'
      keyframe state equal, each rank's launches, frames/s and peak memory
      beside phase 4's; then, at once, (b) phase 6's loop cell with the
-     global BA on the live shards: a closure and a folded global BA, >= 60%
-     tracked, ATE within phase 6's bound, the BA's returned cost within
-     DIST_FULL_TOL of a world-one distributed BA on the map it was
-     dispatched on; (c) the FreeRunner on phase 11's first 48 frames, its
+     global BA on the live shards: a closure and a folded global BA, both
+     ranks folding at the same frames, >= 60% tracked, ATE within phase 6's
+     bound, the BA's returned cost within DIST_FULL_TOL of a world-one
+     distributed BA on the map it was dispatched on; (c) the FreeRunner on phase 11's first 48 frames, its
      state (rings, poses, gathered map) bit for bit phase 11's after frame
-     47.  The viewer (viz/viewer.py) has no phase: it needs matplotlib,
-     which the GPU machine lacks.
+     47; with them (d) phase 6's loop cell on a replicated map
+     (``shard_points`` off, every rank running the whole cell): with the
+     matrix-free BA (d1, the loop closer's ``use_dist_gba`` off) both ranks'
+     trajectory and map bit for bit phase 6's, with its default
+     ``use_dist_gba`` (d2, the BA re-laid out over the ranks, whose
+     cross-rank sums differ from one rank's) the ranks
+     bit for bit each other and phase 6's ATE bound; then at once (d3) as
+     d1 but undrained, the ranks bit for bit each other and phase 6's ATE
+     bound, (e) phase 6's loop cell split with the matrix-free BA on the
+     gathered map (phase 6's own), trajectory and gathered map bit for bit
+     phase 6's, (f) phases 7 and 8's RGB-D and stereo cells split, bit for
+     bit their unsplit runs, and (g) phase 13's RGB-D FreeRunner split, its
+     state bit for bit phase 13's; in every run both ranks' keyframe state
+     equal.  (d1) and (e) drain the card after each global BA's dispatch, as
+     phase 6 does, so they fold where phase 6 folded; (b), (d2) and (d3) run
+     as a user's runs do, each global BA folded at the first keyframe where
+     it is done on both ranks, and print the frames of each dispatch and
+     fold beside phase 6's.  The viewer (viz/viewer.py)
+     has no phase: it needs matplotlib, which the GPU machine lacks.
 Kernel times are one CUDA-event pair around 100 back-to-back calls after a
 warm-up, divided by the count; kernels 3b and 6 also give ``graph_us``, the
 device time a call in a replay of 50 calls captured into one CUDA graph (as
@@ -300,9 +334,14 @@ SOURCES = {
                      "orb_slam2_annotate_tpu/pipeline/frame.py:147", "stereo_match"),
     "remap_pair": ("orb_slam2_annotate_tpu_torch/csrc/remap.cu",
                    "orb_slam2_annotate_tpu/geometry/rectify.py:64", "remap_pair"),
+    "segment_sum": ("orb_slam2_annotate_tpu_torch/csrc/segment_sum.cu",
+                    "orb_slam2_annotate_tpu/solvers/ba_cg.py:88", "segment_sum"),
 }
 LOOP_ONLY = ("sim3_ransac_solve", "sim3_lm_solve")   # launched only with loop closing on
 STEREO_ONLY = ("stereo_match", "remap_pair")         # launched only by the stereo sensor
+# launched only by a closure's pose graph and global BA (and the merge, the dense and the
+# distributed BA): kernel 11's segment sums
+SOLVE_ONLY = ("segment_sum",)
 # phases 7 and 8: bench.py's RGB-D / stereo cell (bench.py:151-196) on the
 # slice's frames: bf = 500 x 0.3, th_depth 100, SlamConfig()'s other defaults
 BASELINE = 0.3
@@ -342,6 +381,19 @@ FREE_LOOP_RGBD_JAX_SEEDS = (0.04468715610689028, 0.09881848608167484, 0.03453797
 FREE_RGBD_ATE_JAX = 0.0028807529139862663
 FREE_STEREO_ATE_JAX = 0.003443949556563205
 LOOP_DEPTH_BF = 250.0 * 0.08
+# phase 6 with that depth through the RGB-D System (th_depth 100): the JAX System over
+# seeds 0-9 (python3 tools/jax_loop_reference.py --qvga --depth --seed S, CPU runs; a
+# seed S > 0 is folded into the loop closer's Sim3 RANSAC keys, which the System keys by
+# the keyframe count alone, so the seeds sample the draws' spread).  Seed 0, the
+# reference's own keys: closures at frames 61 and 157, both global BAs folded, 180/180
+# tracked, 63 keyframes; over the seeds 1-2 closures (seed 7: one, at 155) and an SE3 ATE
+# over frame_trajectory() of 0.0405-0.1810 m.  The port, whose draws are its own, is held
+# to the worst, as phase 12 holds the runner
+LOOP_RGBD_JAX = dict(loops=2, tracked=180, keyframes=63, closure_frames=(61, 157))
+LOOP_RGBD_JAX_SEEDS = (0.04052827772598643, 0.04814573340381607, 0.056814387733908796,
+                       0.04878219077625667, 0.07407888051714501, 0.06055296393460234,
+                       0.05983351689497685, 0.062093365772005284, 0.06828622143878017,
+                       0.1810271444826317)
 # phase 14: map I/O relocalizes frames 4-7 of phase 5's sweep into the map a
 # System saved after the sweep, each camera centre within
 # tests/test_checkpoint.py:57's bound once the saved run's trajectory is
@@ -597,6 +649,15 @@ def pose_lm_work(xw, ur, valid, rounds: int = 4, iters: int = 5):
     return nbytes, ops
 
 
+def render_all(scene, cam, poses, h: int, w: int):
+    """Each pose's (image f32, depth f32) as ``scene.render`` gives it, the
+    poses rendered in a thread pool on the host's cores (the renderer is a
+    pure function of its inputs, and numpy's array work releases the
+    interpreter lock)."""
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        return list(pool.map(lambda p: scene.render(cam, p[0], p[1], h=h, w=w), poses))
+
+
 def slice_setup():
     """The smoke run's slice at ``bench.py``'s mono width: (camera, ground-truth
     poses, rendered uint8 frames, depth maps, slice config).  Frames are
@@ -611,8 +672,7 @@ def slice_setup():
     scene = synthetic.PlaneScene(seed=1)
     poses = synthetic.orbit_trajectory(N_FRAMES, step=0.05)
     frames, depths = [], []
-    for R, t in poses:
-        img, dep = scene.render(cam, R, t, h=480, w=640)
+    for img, dep in render_all(scene, cam, poses, 480, 640):
         frames.append(np.clip(img, 0, 255).astype(np.uint8))
         depths.append(dep)
     cfg = mono_slice_config(n_features=1024, n_levels=8, max_kf=128, max_mp=16384,
@@ -631,15 +691,15 @@ def kidnap_setup(cam):
     scene = synthetic.PlaneScene(seed=1)
     gt = synthetic.orbit_trajectory(KIDNAP_SWEEP, step=KIDNAP_STEP)
     seq = list(range(KIDNAP_SWEEP)) + [KIDNAP_JUMP + i for i in range(4)]
-    images = [np.clip(scene.render(cam, *gt[f], h=480, w=640)[0], 0, 255).astype(np.uint8)
-              for f in seq]
+    images = [np.clip(img, 0, 255).astype(np.uint8)
+              for img, _ in render_all(scene, cam, [gt[f] for f in seq], 480, 640)]
     return gt, seq, images
 
 
 def loop_setup():
     """Phase 6's cell: (camera, ground-truth poses, rendered uint8 frames,
-    config): SlamConfig()'s own defaults (loop closing on) at
-    tests/test_e2e_loop.py's sizes, keyframe culling off."""
+    their depth maps, config): SlamConfig()'s own defaults (loop closing on)
+    at tests/test_e2e_loop.py's sizes, keyframe culling off."""
     import numpy as np
 
     from orb_slam2_annotate_tpu_torch.geometry.camera import CameraModel
@@ -649,11 +709,11 @@ def loop_setup():
     cam = CameraModel.create(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=320, height=240)
     scene = synthetic.RoomScene(seed=2)
     poses = synthetic.circle_trajectory(LOOP_FRAMES, radius=1.8, turns=1.04)
-    frames = [np.clip(scene.render(cam, R, t, h=240, w=320)[0], 0, 255).astype(np.uint8)
-              for R, t in poses]
+    rendered = render_all(scene, cam, poses, 240, 320)
+    frames = [np.clip(img, 0, 255).astype(np.uint8) for img, _ in rendered]
     cfg = SlamConfig(n_features=512, n_levels=4, max_kf=64, max_mp=8192, max_frames_between_kf=4,
                      init_min_matches=60, enable_kf_culling=False)
-    return cam, poses, frames, cfg
+    return cam, poses, frames, [dep for _, dep in rendered], cfg
 
 
 def depth_setup(poses):
@@ -671,8 +731,8 @@ def depth_setup(poses):
                              bf=500.0 * BASELINE)
     scene = synthetic.PlaneScene(seed=1)
     shift = np.array([BASELINE, 0.0, 0.0], np.float32)
-    rights = [np.clip(scene.render(cam, R, np.asarray(t, np.float32) - shift, h=480, w=640)[0],
-                      0, 255).astype(np.uint8) for R, t in poses]
+    rights = [np.clip(img, 0, 255).astype(np.uint8) for img, _ in render_all(
+        scene, cam, [(R, np.asarray(t, np.float32) - shift) for R, t in poses], 480, 640)]
     config = lambda sensor: SlamConfig(sensor=sensor, n_features=1024, max_kf=128, max_mp=16384,
                                        max_frames_between_kf=6, init_min_matches=60,
                                        th_depth=100.0)
@@ -693,8 +753,8 @@ def bench_setup(frames):
     scene = synthetic.PlaneScene(seed=1)
     fwd = synthetic.orbit_trajectory(FREE_BENCH_ORBIT, step=0.05)
     images = list(frames[:N_FRAMES]) + [
-        np.clip(scene.render(cam, R, t, h=480, w=640)[0], 0, 255).astype(np.uint8)
-        for R, t in fwd[N_FRAMES:]]
+        np.clip(img, 0, 255).astype(np.uint8)
+        for img, _ in render_all(scene, cam, fwd[N_FRAMES:], 480, 640)]
     k, d, idx = FREE_BENCH_ORBIT - 1, -1, []
     for _ in range(FREE_BENCH_BOUNCE):
         k += d
@@ -813,6 +873,140 @@ def sim3_hyp_work(samples, valid, n_best):
 def sim3_lm_work(valid, iters):
     """(bytes, operations) of one kernel-8 call."""
     return valid.shape[0] * (SIM3_PAIR_BYTES + 1) + 64, iters * SIM3_LM_OPS_PER_PAIR * float(valid.sum())
+
+
+def segment_sum_checks(cam6, pg_prob, gba_map, anchor) -> dict:
+    """Phase 3's check of kernel 11, on the inputs of phase 6's closure and
+    phase 15's map (so it runs after phase 6): each call shape of the
+    solvers, its rows from the closure's essential graph (the pose graph's g
+    and its four H blocks as one sum) and from phase 6's closure map padded
+    to K 128 / P 16,384 / N 1,024 (the global BA's Hcc, Hpp, gc and gp, whose
+    shape the PCG product's two sums share, and build_normal_eqs' B over the
+    P x C pairs).  The kernel's output equals the plain twin's on the CPU
+    bit for bit (the twin's order, serial in ascending row, is the one fixed
+    order: the twin's index_add on the card adds by float atomics, whose bits
+    are printed beside, not held), its plan equals the CPU's, and two calls
+    agree; each shape timed (the kernel, the twin, and one index_add on the
+    card and torch.segment_reduce on the pre-sorted rows, both on the rows
+    the plan keeps, the faster the library's time) with its bound; one call is one device kernel; the launches of one solve of each
+    solver counted against their loops.  Returns the kernels line's entry
+    (headline: the global BA's point sum, the PCG product's most launched
+    shape)."""
+    import numpy as np
+    import torch
+
+    from orb_slam2_annotate_tpu_torch.kernels import segment_sum as k11
+    from orb_slam2_annotate_tpu_torch.pipeline import loop_closing as loop_mod
+    from orb_slam2_annotate_tpu_torch.solvers import ba_cg, ba_core
+    from orb_slam2_annotate_tpu_torch.solvers import pose_graph as pg_mod
+
+    ein = torch.einsum
+    p = pg_prob
+    K = p.s.shape[0]
+    ei, ej = p.e_i.long(), p.e_j.long()
+    w = p.e_weight * p.e_valid
+    r, Ji, Jj = pg_mod._residuals_and_jacs(p, p.s, p.R, p.t)
+    Jiw, Jjw = Ji * w[:, None, None], Jj * w[:, None, None]
+    # the solvers' indices: an edge of weight 0 (its terms ±0) has -1, which
+    # the plans drop
+    cases = {"pose graph g": (torch.where(p.e_valid, ei, -1), K, ein("eij,ei->ej", Jiw, r)),
+             "pose graph H (four blocks)": (
+                 torch.where(p.e_valid.repeat(4),
+                             torch.cat([ei * K + ei, ej * K + ej, ei * K + ej, ej * K + ei]), -1),
+                 K * K,
+                 torch.cat([ein("eij,eik->ejk", Ja, Jb)
+                            for Ja, Jb in ((Jiw, Ji), (Jjw, Jj), (Jiw, Jj), (Jjw, Ji))]))}
+    m = pad_map(gba_map, DIST_K, DIST_P, DIST_N)
+    prob = loop_mod.full_map_ba_problem(m, anchor)
+    C, P = prob.R.shape[0], prob.points.shape[0]
+    ci, pi = prob.cam_idx.long(), prob.pt_idx.long()
+    rb, Jc, Jp, st, dok = ba_core.edge_residual_jac(cam6, prob)
+    wb, _ = ba_cg._edge_weights(prob, rb, st, dok)
+    Jcw, Jpw = Jc * wb[:, None, None], Jp * wb[:, None, None]
+    ok = prob.edge_valid
+    ci, pi, pci = (torch.where(ok, x, -1) for x in (ci, pi, pi * C + ci))
+    cases.update({"global BA Hcc": (ci, C, ein("eij,eik->ejk", Jcw, Jc)),
+                  "global BA gc": (ci, C, ein("eij,ei->ej", Jcw, rb)),
+                  "global BA Hpp": (pi, P, ein("eij,eik->ejk", Jpw, Jp)),
+                  "global BA gp and the PCG point sum": (pi, P, ein("eij,ei->ej", Jpw, rb)),
+                  "normal equations B": (pci, P * C, ein("eij,eik->ejk", Jcw, Jp))})
+    shapes, worst = {}, 0.0
+    for name, (idx, S, vals) in cases.items():
+        vals = vals.contiguous()
+        E, D = vals.shape[0], vals[0].numel()
+        plan = k11.segment_plan(idx, S)
+        plan_c = k11.segment_plan(idx.cpu(), S)
+        got = k11.segment_sum(plan, vals)
+        again = k11.segment_sum(plan, vals)
+        want = k11.segment_sum_plain(plan_c, vals.cpu())
+        g32, w32 = got.cpu().numpy().view(np.int32), want.numpy().view(np.int32)
+        card_twin = [k11.segment_sum_plain(plan, vals) for _ in range(2)]
+        err = float((got.cpu() - want).abs().max()) if got.numel() else 0.0
+        worst = max(worst, err)
+        row = {"E": E, "S": S, "D": D, "rows_live": int((plan.offsets[-1]).item()),
+               "bit_for_bit_the_cpu_twin": bool(np.array_equal(g32, w32)),
+               "plan_equals_the_cpu_plan": bool(torch.equal(plan.perm.cpu(), plan_c.perm)
+                                                and torch.equal(plan.offsets.cpu(),
+                                                                plan_c.offsets)),
+               "two_calls_equal": bool(torch.equal(got.view(torch.int32),
+                                                   again.view(torch.int32))),
+               "card_twin_runs_equal": bool(torch.equal(card_twin[0].view(torch.int32),
+                                                        card_twin[1].view(torch.int32))),
+               "card_twin_max_abs_diff": float((card_twin[0] - got).abs().max()),
+               "ms": time_ms(lambda: k11.segment_sum(plan, vals)),
+               "graph_us": graph_us(lambda: k11.segment_sum(plan, vals)),
+               "plain_ms": time_ms(lambda: k11.segment_sum_plain(plan, vals)),
+               "plan_ms": time_ms(lambda: k11.segment_plan(idx, S), reps=20),
+               "longest_segment": int((plan.offsets[1:] - plan.offsets[:-1]).max())}
+        # the library calls on the rows the plan keeps, as the kernel gets them:
+        # one index_add (float atomics) and torch.segment_reduce on the sorted
+        # rows; library_ms is the faster
+        live = int(plan.offsets[-1])
+        kept = idx >= 0
+        idx_k, vals_k = idx[kept], vals[kept]
+        z = torch.zeros((S,) + tuple(vals.shape[1:]), device=vals.device)
+        row["index_add_ms"] = time_ms(lambda: z.index_add(0, idx_k, vals_k))
+        try:
+            srt = vals.reshape(E, D)[plan.perm[:live].long()]
+            offs = plan.offsets.long()
+            row["segment_reduce_ms"] = time_ms(
+                lambda: torch.segment_reduce(srt, "sum", offsets=offs, axis=0))
+        except RuntimeError as e:          # a yardstick only: the port never calls it
+            row["segment_reduce_ms"], row["segment_reduce_refused"] = None, str(e)[:200]
+        row["library_ms"] = min(t for t in (row["index_add_ms"], row["segment_reduce_ms"])
+                                if t is not None)
+        # the rows the plan keeps are read once (values and index), each output written once
+        row["bound_ms"], row["bound_by"] = bound(live * (4 * D + 4) + S * (4 * D + 4), live * D)
+        shapes[name] = row
+        print(f"kernel segment_sum, {name}: {json.dumps(row)}")
+        if not (row["bit_for_bit_the_cpu_twin"] and row["plan_equals_the_cpu_plan"]
+                and row["two_calls_equal"]):
+            fail(f"segment_sum ({name}) differs from its twin or from itself: {row}")
+    head = shapes["global BA gp and the PCG point sum"]
+    idx, S, vals = cases["global BA gp and the PCG point sum"]
+    plan_h, vals_h = k11.segment_plan(idx, S), vals.contiguous()
+    # wrapper calls of one solve of each solver on these inputs
+    per_solve = {}
+    for name, fn, expected in (
+            ("optimize_pose_graph (15 steps)", lambda: pg_mod.optimize_pose_graph(p, 15), 15 * 3),
+            ("optimize_pose_graph_cg (15 steps, 60 PCG)",
+             lambda: pg_mod.optimize_pose_graph_cg(p, 15, 60), 15 * (4 + 2 * 60)),
+            ("bundle_adjust_cg (10 steps, 25 PCG)",
+             lambda: ba_cg.bundle_adjust_cg(cam6, prob, 10, 25), 10 * (4 + 1 + 2 * 25 + 1)),
+            ("bundle_adjust (dense, 10 steps)", lambda: ba_core.bundle_adjust(cam6, prob, 10),
+             10 * 5)):
+        n0 = k11.segment_sum.launches
+        fn()
+        per_solve[name] = {"launches": k11.segment_sum.launches - n0, "expected": expected}
+    print(f"kernel segment_sum launches a solve: {json.dumps(per_solve)}")
+    if any(v["launches"] != v["expected"] for v in per_solve.values()):
+        fail(f"segment_sum launches a solve: {per_solve}")
+    return {"max_abs_err": worst, "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "graph_us": head["graph_us"],
+            "headline": "global BA gp and the PCG point sum", "shapes": shapes,
+            "launches_per_solve": per_solve,
+            **device_kernels(lambda: k11.segment_sum(plan_h, vals_h), 1)}
 
 
 def ate_of(slam, gt, seq):
@@ -1039,7 +1233,7 @@ def free_phases(ctx):
         dl.global_ba_cg = staged("loop/gba (live)", stage_saved[3])
         cfg12 = dataclasses.replace(loop_cfg, max_kf=128, max_mp=16384)
         runner12 = dl.FreeRunner(cam6, cfg12, max_frames=LOOP_FRAMES, device="cuda")
-        counted12 = counted11 + list(LOOP_ONLY)
+        counted12 = counted11 + list(LOOP_ONLY + SOLVE_ONLY)
         feeds = [(lambda k: lambda: runner12.track_mono(images6[k], k / 30.0))(k)
                  for k in range(LOOP_FRAMES)]
         try:
@@ -1077,23 +1271,44 @@ def free_phases(ctx):
         bad = [k for k, v in checks.items() if not v]
         if bad:
             fail(f"free loop checks failed: {bad}")
+        # the mono loop again in a second runner: its rings and map bit for bit
+        runner12r = dl.FreeRunner(cam6, cfg12, max_frames=LOOP_FRAMES, device="cuda")
+        feeds = [(lambda k: lambda: runner12r.track_mono(images6[k], k / 30.0))(k)
+                 for k in range(LOOP_FRAMES)]
+        secs12r, _, launches12r, _ = free_drive("free loop repeat", runner12r, feeds, counted12)
+        runner12r.finish()
+
+        def state_bits(st):
+            flat = {}
+            for k, v in convert.free_state_to_numpy(st).items():
+                for k2, v2 in (v.items() if isinstance(v, dict) else [(None, v)]):
+                    v2 = np.asarray(v2)
+                    flat[k if k2 is None else f"{k}.{k2}"] = (
+                        v2.view(np.int32) if v2.dtype == np.float32 else v2)
+            return flat
+
+        a12, b12 = state_bits(runner12.state), state_bits(runner12r.state)
+        o12r = {"state_fields_not_equal": [k for k in a12 if not np.array_equal(a12[k], b12[k])],
+                "loops_closed": int(runner12r.state.n_loops),
+                "frames_per_s": LOOP_FRAMES / sum(secs12r)}
+        o12["repeat"] = o12r
+        print(f"free loop repeat, a second runner: {json.dumps(o12r)}, card {card}")
+        if o12r["state_fields_not_equal"]:
+            fail(f"phase 12's mono loop is not bit for bit on a second run: {o12r}")
 
         from orb_slam2_annotate_tpu_torch.geometry.camera import CameraModel as TCam
-        from orb_slam2_annotate_tpu_torch.io import synthetic
 
         cam12d = TCam.create(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=320, height=240,
                              bf=LOOP_DEPTH_BF)
-        scene12 = synthetic.RoomScene(seed=2)
-        t0 = time.perf_counter()
-        depths12 = [scene12.render(cam12d, R, t, h=240, w=320)[1] for R, t in gt6]
-        print(f"render: {LOOP_FRAMES} depth maps in {time.perf_counter() - t0:.1f} s (host numpy)")
+        depths12 = ctx.depths6           # rendered with phase 6's frames (no bf is read)
         runner12d = dl.FreeRunner(cam12d, dataclasses.replace(cfg12, sensor="rgbd", th_depth=100.0),
                                   max_frames=LOOP_FRAMES, device="cuda")
         feeds = [(lambda k: lambda: runner12d.track_rgbd(images6[k], depths12[k], k / 30.0))(k)
                  for k in range(LOOP_FRAMES)]
         jd = FREE_LOOP_RGBD_JAX
         secs12d, syncs12d, launches12d, calls12d = free_drive(
-            "free loop rgbd", runner12d, feeds, counted11 + (list(LOOP_ONLY) if jd["loops"] else []))
+            "free loop rgbd", runner12d, feeds,
+            counted11 + (list(LOOP_ONLY + SOLVE_ONLY) if jd["loops"] else []))
         out12d = runner12d.finish()
         o12d = free_outcome(out12d, runner12d, gt6, with_scale=False)
         worst = max(FREE_LOOP_RGBD_JAX_SEEDS)
@@ -1149,10 +1364,10 @@ def free_phases(ctx):
                       "tracked >= 80%": out["tracked"] >= 0.8 * N_FRAMES,
                       "keyframes >= 3": out["keyframes"] >= 3, "map points > 200": out["map_points"] > 200,
                       f"SE3 ATE <= {bound_d:.5f}": out["ate_m"] <= bound_d, **per_call_checks(calls)}
-            return out, launches, checks
+            return out, launches, checks, runner
 
         counted13 = counted11
-        o13r, launches13r, checks = free_depth(
+        o13r, launches13r, checks, runner13r = free_depth(
             "free rgbd", "rgbd", lambda r, k: r.track_rgbd(frames[k], depths[k], k / 30.0),
             FREE_RGBD_ATE_JAX, counted13)
         checks.update({"displacement within 5%": abs(o13r["displacement_ratio"] - 1.0) < 0.05,
@@ -1162,7 +1377,7 @@ def free_phases(ctx):
         bad = [k for k, v in checks.items() if not v]
         if bad:
             fail(f"free rgbd checks failed: {bad}")
-        o13s, launches13s, checks = free_depth(
+        o13s, launches13s, checks, _ = free_depth(
             "free stereo", "stereo", lambda r, k: r.track_stereo(*rect(frames[k], rights[k]), k / 30.0),
             FREE_STEREO_ATE_JAX, counted13 + list(STEREO_ONLY))
         checks.update({"path length within 15%": abs(o13s["path_ratio"] - 1.0) < 0.15,
@@ -1236,12 +1451,15 @@ def free_phases(ctx):
          sim3_mod.sim3_ransac_solve, sim3_mod.sim3_lm_solve) = free_saved
 
     return {"launches": {"11 free bench": launches11, "12 free loop": launches12,
+                         "12 free loop repeat": launches12r,
                          "12 free loop rgbd": launches12d, "13 free rgbd": launches13r,
                          "13 free stereo": launches13s, "13 free scan": launches13c,
                          "13 free localization": launches13l},
             "outcomes": {"bench": o11, "loop": o12, "loop_rgbd": o12d, "rgbd": o13r,
                          "stereo": o13s, "scan": o13c, "localization": o13l},
-            "bench_runner": (runner11, cam11, gt11, images11, cfg11), "kept11": kept11["numpy"]}
+            "bench_runner": (runner11, cam11, gt11, images11, cfg11), "kept11": kept11["numpy"],
+            # phase 13's RGB-D runner as it ended, for phase 16
+            "kept13r": convert.free_state_to_numpy(runner13r.state)}
 
 
 def first_frames(mode: str, settings: str, seq: str, assoc: str):
@@ -1494,9 +1712,9 @@ def io_phases(ctx):
         print(f"merge: {json.dumps(o_merge)}, card {card}")
         check("merge", {"success": res.success, "scale within 0.1 of 1": abs(res.scale - 1.0) < 0.1,
                         "median merged-keyframe error < 0.15 m": o_merge["median_kf_err_m"] < 0.15,
-                        "kernels 3a, 3b, 5, 7 and 8 launched": all(launches_merge[w] > 0 for w in (
+                        "kernels 3a, 3b, 5, 7, 8 and 11 launched": all(launches_merge[w] > 0 for w in (
                             "hamming_match", "distinctive_descriptors", "assign_words",
-                            "sim3_ransac_solve", "sim3_lm_solve"))})
+                            "sim3_ransac_solve", "sim3_lm_solve", "segment_sum"))})
 
         # ---- (c) the drivers on fixtures written here (VGA, numpy + zlib PNGs)
         root = os.path.join(tmp, "fixtures")
@@ -1748,7 +1966,7 @@ def dist_phases(ctx):
     from orb_slam2_annotate_tpu_torch.parallel import dist_ba, mesh
     from orb_slam2_annotate_tpu_torch.pipeline import System
     from orb_slam2_annotate_tpu_torch.pipeline import loop_closing as loop_mod
-    from orb_slam2_annotate_tpu_torch.solvers import ba_core
+    from orb_slam2_annotate_tpu_torch.solvers import ba_cg, ba_core
     from orb_slam2_annotate_tpu_torch.worldmap import map_state, vocabulary
 
     card, cam6 = ctx.card, ctx.cam6
@@ -1818,6 +2036,14 @@ def dist_phases(ctx):
     step1 = dist_ba.make_distributed_ba(mesh1, iters=DIST_ITERS)
     _, t_dist_first = wall(lambda: step1(cam6, sp))      # with NCCL's first-call setup
     (R1, t1, X1, c1), t_dist = wall(lambda: step1(cam6, sp), 3)
+    # two calls on the same problem: bit for bit (kernel 11's fixed order)
+    same = lambda a, b: all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                                        y.view(torch.int32) if y.dtype == torch.float32 else y)
+                            for x, y in zip(a, b))
+    cg_a, t_cg = wall(lambda: ba_cg.bundle_adjust_cg(cam6, prob, DIST_ITERS, 25))
+    repeat15 = {"bundle_adjust_cg": same(cg_a, ba_cg.bundle_adjust_cg(cam6, prob, DIST_ITERS, 25)),
+                "bundle_adjust (dense)": same(dense, ba_core.bundle_adjust(cam6, prob, DIST_ITERS)),
+                "distributed BA (world of one)": same((R1, t1, X1, c1), step1(cam6, sp))}
     R5, t5, X5, c5 = dist_ba.make_distributed_ba(mesh1, iters=DIST_SHORT_ITERS)(cam6, sp)
     torch.distributed.destroy_process_group()
     world1 = as_np(R1, t1, X1[torch.from_numpy(perm).cuda()], c1)
@@ -1838,6 +2064,7 @@ def dist_phases(ctx):
                                 torch.from_numpy(perm).cuda()])},
                 "normal_eqs_ms": 1e3 * t_normal, "schur_solve_ms": 1e3 * t_schur,
                 "lm_step_ms": 1e3 * t_step, "dense_ba_ms": 1e3 * t_dense,
+                "bundle_adjust_cg_ms": 1e3 * t_cg, "two_calls_bit_for_bit": repeat15,
                 "distributed_ba_ms": 1e3 * t_dist, "distributed_first_call_ms": 1e3 * t_dist_first,
                 "shard_ba_problem_ms": 1e3 * t_shard, "dense_cpu_s": t_dense_cpu,
                 "distributed_cpu_s": t_dist_cpu, "dense_peak_mb": peak / 2**20,
@@ -1855,7 +2082,8 @@ def dist_phases(ctx):
                           f"world-one distributed BA after {DIST_SHORT_ITERS} steps within "
                           "tolerance of the CPU's": agrees(d_dist_short, DIST_SHORT_TOL),
                           "the dense BA lowered the reprojection error":
-                              out["a"]["rmse_px"]["dense"] < out["a"]["rmse_px"]["before"]})
+                              out["a"]["rmse_px"]["dense"] < out["a"]["rmse_px"]["before"],
+                          **{f"{k}: two calls bit for bit": v for k, v in repeat15.items()}})
 
     # ---- (b) two ranks on the one card (gloo), as subprocesses
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
@@ -1997,13 +2225,21 @@ def shard_rank(mode: str, rank: str, port: str, d: str):
     phase-16 run's two ranks, both on cuda:0 in a gloo group at
     localhost:PORT, the live map's point axis split over them
     (``shard_points=True``).  Reads DIR/in.npz (the frames, the camera, the
-    config as JSON); MODE ``slice`` or ``loop`` drives a System over the
-    frames, ``free`` a FreeRunner.  Writes DIR/out<RANK>.npz: the
-    trajectory (or the runner's state) and the gathered map, the rank's
-    keyframe fields and point rows, each kernel's launches, the frame times
-    and the peak memory (above what the card held before the System was
-    made, as phase 4's); ``loop`` also the first global BA's returned cost,
-    anchor and (rank 0) the gathered map it was dispatched on."""
+    config as JSON, whether the point axis is split: ``shard``, and
+    optionally the loop closer's ``use_dist_gba`` and ``drain``); MODE
+    ``slice`` or ``loop`` drives a mono System over the frames, ``rgbd`` /
+    ``stereo`` a depth System (the depth maps or right images in
+    ``frames2``), ``free`` / ``free_rgbd`` a FreeRunner.  With ``drain`` the
+    card is drained after each global BA's dispatch, so the BA folds at the
+    keyframe that closed the loop, as in phase 6; without it the BA folds
+    once it is done on both ranks, as a user's run does.  Writes
+    DIR/out<RANK>.npz: the trajectory (or the runner's state) and the
+    gathered map, the rank's keyframe fields and point rows, each kernel's
+    launches, the frame times and the peak memory (above what the card held
+    before the System was made, as phase 4's); a System with loop closing
+    also the frames of its closures and folds, the first global BA's
+    returned cost, anchor and (rank 0) the gathered map it was dispatched
+    on."""
     import numpy as np
     import torch
 
@@ -2022,32 +2258,51 @@ def shard_rank(mode: str, rank: str, port: str, d: str):
                          timeout_s=120)
     z = dict(np.load(os.path.join(d, "in.npz")))
     cam = CameraModel(**{f.name: float(z["cam_" + f.name]) for f in dataclasses.fields(CameraModel)})
-    cfg = SlamConfig(**json.loads(str(z["cfg"])), shard_points=True)
+    cfg = SlamConfig(**json.loads(str(z["cfg"])), shard_points=bool(z["shard"]))
     frames = z["frames"]
+    frames2 = z["frames2"] if "frames2" in z else None
     out = {}
     base = torch.cuda.memory_allocated()
-    if mode == "free":
-        runner = dl.FreeRunner(cam, cfg, max_frames=int(z["max_frames"]), auto_grow=False,
-                               device="cuda")
-        track = runner.track_mono
+    free = mode.startswith("free")
+    if free:
+        runner = dl.FreeRunner(cam, cfg, max_frames=int(z["max_frames"]),
+                               auto_grow=bool(z["auto_grow"]), device="cuda")
+        track = runner.track_rgbd if mode == "free_rgbd" else runner.track_mono
     else:
         slam = System(cam, cfg, device="cuda")
-        track = slam.track_mono
+        track = {"rgbd": slam.track_rgbd, "stereo": slam.track_stereo}.get(mode, slam.track_mono)
         lc = slam.loop_closer
-        real_gba = lc._dispatch_global_ba
+        if lc is not None and "use_dist_gba" in z:
+            lc.cfg = dataclasses.replace(lc.cfg, use_dist_gba=bool(z["use_dist_gba"]))
+        if lc is not None:
+            real_gba, real_fold = lc._dispatch_global_ba, lc.maybe_fold_gba
+            drain = bool(z["drain"]) if "drain" in z else False
+            gba_frames, fold_frames, gba_cost = [], [], []
 
-        def keep_gba(m, anchor):
-            # the first global BA: the map it runs on (gathered: every rank
-            # calls this) and its returned cost
-            first = "gba_cost" not in out
-            whole = convert.map_state_to_numpy(m) if first else None
-            real_gba(m, anchor)
-            if first:
-                out.update(gba_cost=lc._gba_pending["cost"].cpu().numpy(), gba_anchor=int(anchor))
-                if rank == 0:
-                    np.savez(os.path.join(d, "gba_map.npz"), **whole)
+            def keep_gba(m, anchor):
+                # the first global BA: the map it runs on (gathered: every rank
+                # calls this) and its returned cost, copied on the card and read
+                # after the run, so that reading it does not drain the card
+                first = not gba_frames
+                whole = convert.map_state_to_numpy(m) if first else None
+                real_gba(m, anchor)
+                gba_frames.append(slam.frame_id)
+                if drain:
+                    torch.cuda.synchronize()
+                if first:
+                    gba_cost.append(lc._gba_pending["cost"].clone())
+                    out.update(gba_anchor=int(anchor))
+                    if rank == 0:
+                        np.savez(os.path.join(d, "gba_map.npz"), **whole)
 
-        lc._dispatch_global_ba = keep_gba
+            def keep_fold(m, force=False):
+                n0 = lc.n_gba_folded
+                m = real_fold(m, force)
+                if lc.n_gba_folded > n0:
+                    fold_frames.append(slam.frame_id)
+                return m
+
+            lc._dispatch_global_ba, lc.maybe_fold_gba = keep_gba, keep_fold
     for w in kernels.WRAPPERS:
         w.launches = 0
     torch.cuda.synchronize()
@@ -2055,12 +2310,15 @@ def shard_rank(mode: str, rank: str, port: str, d: str):
     secs = []
     for k, img in enumerate(frames):
         t0 = time.perf_counter()
-        track(img, k / 30.0)
+        if frames2 is None:
+            track(img, k / 30.0)
+        else:
+            track(img, frames2[k], k / 30.0)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
     peak = torch.cuda.max_memory_allocated() - base
-    if mode == "free":
+    if free:
         m = runner.state.m
         for k, v in convert.free_state_to_numpy(runner.state).items():
             for k2, v2 in (v.items() if isinstance(v, dict) else [(None, v)]):
@@ -2070,9 +2328,13 @@ def shard_rank(mode: str, rank: str, port: str, d: str):
         m = slam.map
         out.update(traj=np.stack([np.full((4, 4), np.nan, np.float32) if T is None else T
                                   for _, T in traj]),
-                   loops=lc.n_loops_closed, gba_dispatched=lc.n_gba_dispatched,
-                   gba_folded=lc.n_gba_folded,
                    **{"m_" + k: v for k, v in convert.map_state_to_numpy(m).items()})
+        if lc is not None:
+            if gba_cost:
+                out["gba_cost"] = gba_cost[0].cpu().numpy()
+            out.update(loops=lc.n_loops_closed, gba_dispatched=lc.n_gba_dispatched,
+                       gba_folded=lc.n_gba_folded, gba_frames=np.array(gba_frames, np.int64),
+                       fold_frames=np.array(fold_frames, np.int64))
     out.update({"kf_" + f.name: getattr(m, f.name).cpu().numpy()
                 for f in dataclasses.fields(map_state.MapState) if not f.name.startswith("mp_")})
     out.update(world=mesh.world_size(), P=m.P, P_local=m.P_local, secs=np.array(secs),
@@ -2086,9 +2348,9 @@ def shard_rank(mode: str, rank: str, port: str, d: str):
 def shard_phases(ctx):
     """Phase 16: the live map's point axis split over two gloo ranks on the
     one card, each a subprocess (``shard_rank``): (a) phase 4's slice
-    alone, then (b) phase 6's loop cell and (c) phase 11's first 48 frames
-    through the FreeRunner at once (`ctx`: the card's line; phases 4, 6
-    and 11's cameras, frames, configs and results).  Returns {"launches":
+    alone, then (b)-(d2) and (d3)-(g) in two batches of runs at once, as the
+    module's docstring lists them (`ctx`: the card's line; phases 4, 6-8,
+    11 and 13's cameras, frames, configs and results).  Returns {"launches":
     rank 0's and rank 1's per run, "outcomes": each run's}."""
     import shutil
     import socket
@@ -2115,19 +2377,19 @@ def shard_phases(ctx):
             sk.bind(("localhost", 0))
             return sk.getsockname()[1]
 
-    def start(mode, cam, cfg, frames, **extra):
-        tmp = tempfile.mkdtemp(prefix=f"chip_smoke_shard_{mode}_")
+    def start(tag, mode, cam, cfg, frames, shard=True, **extra):
+        tmp = tempfile.mkdtemp(prefix=f"chip_smoke_shard_{tag}_")
         fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
                   if f.name != "shard_points"}
         np.savez(os.path.join(tmp, "in.npz"), frames=np.stack(frames), cfg=json.dumps(fields),
-                 **{"cam_" + f.name: np.float32(getattr(cam, f.name))
-                    for f in dataclasses.fields(type(cam))}, **extra)
+                 shard=np.bool_(shard), **{"cam_" + f.name: np.float32(getattr(cam, f.name))
+                                           for f in dataclasses.fields(type(cam))}, **extra)
         port = str(free_port())
         procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
                                    "--shard-rank", mode, str(r), port, tmp],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                                   env=dict(os.environ, PYTHONPATH=ROOT)) for r in range(2)]
-        return mode, tmp, procs, time.perf_counter()
+        return tag, tmp, procs, time.perf_counter()
 
     def wait(started):
         mode, tmp, procs, t0 = started
@@ -2179,7 +2441,7 @@ def shard_phases(ctx):
             for T, (_, T0) in zip(a, ref))
 
     # ---- (a) phase 4's slice at a world of two
-    ranks, _, wall_a = wait(start("slice", ctx.cam, ctx.slice_cfg, ctx.frames))
+    ranks, _, wall_a = wait(start("slice", "slice", ctx.cam, ctx.slice_cfg, ctx.frames))
     per, kf_differ = rank_common(ranks)
     map_differs = [differ(o, ctx.map4, "m_") for o in ranks]
     out["a"] = {"ranks": per, "trajectory_equal": [traj_same(o["traj"], ctx.traj4) for o in ranks],
@@ -2197,21 +2459,64 @@ def shard_phases(ctx):
         "every slice kernel launched on each rank": all(
             p["launches"][w] > 0 for p in per for w in ctx.slice_kernels)})
 
-    # ---- (b) phase 6's loop cell and (c) phase 11's first 48 frames, at once
-    b_started = start("loop", ctx.cam6, ctx.loop_cfg, ctx.images6)
-    c_started = start("free", ctx.cam11, ctx.cfg11, ctx.images11[:N_FRAMES],
-                      max_frames=np.int32(len(ctx.images11)))
+    # ---- at once: (b) phase 6's loop cell with the global BA on the live
+    # shards, (c) phase 11's first 48 frames, and (d) phase 6's loop cell on a
+    # replicated map (shard_points off: every rank runs the whole cell), with
+    # the matrix-free BA (d1: the loop closer's use_dist_gba off) and with its
+    # own default, use_dist_gba on (d2: the BA re-laid out over the ranks).
+    # (d1) drains the card after each global BA's dispatch, as phase 6's runs
+    # do, so that it folds where phase 6 folded; (b) and (d2) run as a user's
+    # do, each BA folded once it is done on both ranks
+    b_started = start("loop", "loop", ctx.cam6, ctx.loop_cfg, ctx.images6)
+    c_started = start("free", "free", ctx.cam11, ctx.cfg11, ctx.images11[:N_FRAMES],
+                      max_frames=np.int32(len(ctx.images11)), auto_grow=np.bool_(False))
+    d1_started = start("loop_replicated_cg", "loop", ctx.cam6, ctx.loop_cfg, ctx.images6,
+                       shard=False, use_dist_gba=np.bool_(False), drain=np.bool_(True))
+    d2_started = start("loop_replicated_dist", "loop", ctx.cam6, ctx.loop_cfg, ctx.images6,
+                       shard=False)
     ranks_b, whole, wall_b = wait(b_started)
     ranks_c, _, wall_c = wait(c_started)
+    ranks_d1, _, wall_d1 = wait(d1_started)
+    ranks_d2, _, wall_d2 = wait(d2_started)
+    # then at once: (d3) (d1) undrained, each rank's matrix-free BA folded
+    # once it is done on both; (e) phase 6's loop cell split with phase 6's
+    # own global BA (the matrix-free BA on the gathered map, drained as d1);
+    # (f) phases 7 and 8's RGB-D and stereo cells split, (g) phase 13's RGB-D
+    # cell through the FreeRunner split
+    d3_started = start("loop_replicated_cg_undrained", "loop", ctx.cam6, ctx.loop_cfg,
+                       ctx.images6, shard=False, use_dist_gba=np.bool_(False))
+    e_started = start("loop_split_cg", "loop", ctx.cam6, ctx.loop_cfg, ctx.images6,
+                      use_dist_gba=np.bool_(False), drain=np.bool_(True))
+    f1_started = start("rgbd", "rgbd", ctx.cam_d, ctx.depth_config("rgbd"), ctx.frames,
+                       frames2=np.stack(ctx.depths))
+    f2_started = start("stereo", "stereo", ctx.cam_d, ctx.depth_config("stereo"), ctx.frames,
+                       frames2=np.stack(ctx.rights))
+    g_started = start("free_rgbd", "free_rgbd", ctx.cam_d, ctx.depth_config("rgbd"), ctx.frames,
+                      frames2=np.stack(ctx.depths), max_frames=np.int32(N_FRAMES),
+                      auto_grow=np.bool_(True))
+    ranks_d3, _, wall_d3 = wait(d3_started)
+    ranks_e, _, wall_e = wait(e_started)
+    ranks_f1, _, wall_f1 = wait(f1_started)
+    ranks_f2, _, wall_f2 = wait(f2_started)
+    ranks_g, _, wall_g = wait(g_started)
+
+    def loop_ate(o):
+        """A rank's Sim3-aligned ATE on phase 6's loop cell, and its tracked frames."""
+        ok = np.isfinite(o["traj"][:, 0, 0])
+        ids = np.nonzero(ok)[0]
+        if len(ids) < 3:
+            return float("inf"), int(ok.sum())
+        est = np.stack([-T[:3, :3].T @ T[:3, 3] for T in o["traj"][ok]])
+        gt = np.stack([-ctx.gt6[k][0].T @ ctx.gt6[k][1] for k in ids])
+        return float(evaluation.ate_rmse(est.astype(np.float64), gt.astype(np.float64),
+                                         with_scale=True)[0]), int(ok.sum())
+
+    def frames_of(ranks, key):
+        return [[int(x) for x in r[key]] for r in ranks]
 
     per, kf_differ = rank_common(ranks_b)
     o = ranks_b[0]
-    ok = np.isfinite(o["traj"][:, 0, 0])
-    ids = np.nonzero(ok)[0]
-    est = np.stack([-T[:3, :3].T @ T[:3, 3] for T in o["traj"][ok]])
-    gt = np.stack([-ctx.gt6[k][0].T @ ctx.gt6[k][1] for k in ids])
-    ate_b = float(evaluation.ate_rmse(est.astype(np.float64), gt.astype(np.float64),
-                                      with_scale=True)[0]) if len(ids) >= 3 else float("inf")
+    ate_b, tracked_b = loop_ate(o)
     # the global BA at a world of one on the map the ranks dispatched it on
     gba_rel = float("inf")
     if whole is not None:
@@ -2221,16 +2526,20 @@ def shard_phases(ctx):
             ctx.cam6, sp)[3])
         gba_rel = abs(float(o["gba_cost"]) - cost1) / abs(cost1)
     out["b"] = {"ranks": per, "kf_fields_differ_between_ranks": kf_differ,
-                "tracked": int(ok.sum()), "frames": len(ok), "ate_m": ate_b,
+                "tracked": tracked_b, "frames": len(o["traj"]), "ate_m": ate_b,
                 "ate_bound_m": ctx.ate_bound6, "ate_phase6_m": ctx.ate6,
                 "loops": [int(r["loops"]) for r in ranks_b],
                 "gba_dispatched": [int(r["gba_dispatched"]) for r in ranks_b],
                 "gba_folded": [int(r["gba_folded"]) for r in ranks_b],
+                "gba_frames": frames_of(ranks_b, "gba_frames"),
+                "fold_frames": frames_of(ranks_b, "fold_frames"),
                 "gba_cost": float(o["gba_cost"]) if "gba_cost" in o else None,
                 "gba_cost_rel_vs_world_one": gba_rel, "wall_s": wall_b}
     print(f"phase 16(b) phase 6's loop cell on two ranks: {json.dumps(out['b'])}, card {card}")
     check("phase 16(b)", {
         "both ranks' keyframe state equal": not kf_differ,
+        "both ranks fold at the same frames": out["b"]["fold_frames"][0]
+        == out["b"]["fold_frames"][1],
         "a loop closed": min(out["b"]["loops"]) >= 1,
         "a global BA folded": min(out["b"]["gba_folded"]) >= 1,
         "tracked >= 60%": out["b"]["tracked"] >= 0.6 * LOOP_FRAMES,
@@ -2255,11 +2564,85 @@ def shard_phases(ctx):
         "state bit for bit phase 11's after frame 47 on both ranks": not state_differs,
         "both ranks' keyframe state equal": not kf_differ,
         "each rank holds P / 2 point rows": all(2 * p["P_local"] == p["P"] for p in per)})
+
+    def same_bits(a, b):
+        return np.array_equal(bits(a), bits(b))
+
+    def system_run(name, ranks, wall, traj_ref=None, map_ref=None):
+        """A System's run on two ranks: each rank's trajectory and gathered
+        map against `traj_ref` / `map_ref` (or against rank 0's)."""
+        per, kf_differ = rank_common(ranks)
+        traj_ref = ranks[0]["traj"] if traj_ref is None else traj_ref
+        map_ref = ({k[2:]: v for k, v in ranks[0].items() if k.startswith("m_")}
+                   if map_ref is None else map_ref)
+        o = {"ranks": per, "kf_fields_differ_between_ranks": kf_differ,
+             "trajectory_equal": [same_bits(r["traj"], traj_ref) for r in ranks],
+             "map_fields_not_equal": [differ(r, map_ref, "m_") for r in ranks],
+             "tracked": int(np.isfinite(ranks[0]["traj"][:, 0, 0]).sum()), "wall_s": wall}
+        if "loops" in ranks[0]:
+            o.update(loops=[int(r["loops"]) for r in ranks],
+                     gba_folded=[int(r["gba_folded"]) for r in ranks],
+                     gba_frames=frames_of(ranks, "gba_frames"),
+                     fold_frames=frames_of(ranks, "fold_frames"))
+        print(f"phase 16({name}) on two ranks: {json.dumps(o)}, card {card}")
+        return o
+
+    def equal_checks(o, against):
+        return {f"trajectory bit for bit {against} on both ranks": all(o["trajectory_equal"]),
+                f"map bit for bit {against} on both ranks": not any(o["map_fields_not_equal"]),
+                "both ranks' keyframe state equal": not o["kf_fields_differ_between_ranks"]}
+
+    def loop_checks(o):
+        return {"a loop closed on each rank": min(o["loops"]) >= 1,
+                "a global BA folded on each rank": min(o["gba_folded"]) >= 1,
+                "both ranks fold at the same frames": o["fold_frames"][0] == o["fold_frames"][1]}
+
+    def undrained_checks(name, o, ranks):
+        # rank against rank, and phase 6's ATE bound
+        o["ate_m"], _ = loop_ate(ranks[0])
+        print(f"phase 16({name}) ATE {o['ate_m']:.5f} m (phase 6's bound {ctx.ate_bound6:.5f}), "
+              f"phase 6's global BAs at frames {ctx.gba_frames6} folded at {ctx.fold_frames6}")
+        check(f"phase 16({name})", {**equal_checks(o, "rank 0's"), **loop_checks(o),
+                                    f"ATE <= {ctx.ate_bound6:.5f}": o["ate_m"] <= ctx.ate_bound6,
+                                    "tracked >= 60%": o["tracked"] >= 0.6 * LOOP_FRAMES})
+
+    out["d1"] = system_run("d1) phase 6's loop cell, replicated, the matrix-free BA", ranks_d1,
+                           wall_d1, ctx.traj6, ctx.map6)
+    check("phase 16(d1)", {**equal_checks(out["d1"], "phase 6's"), **loop_checks(out["d1"])})
+    out["d2"] = system_run("d2) phase 6's loop cell, replicated, the BA re-laid out over "
+                           "the ranks", ranks_d2, wall_d2)
+    undrained_checks("d2", out["d2"], ranks_d2)
+    out["d3"] = system_run("d3) phase 6's loop cell, replicated, the matrix-free BA, undrained",
+                           ranks_d3, wall_d3)
+    undrained_checks("d3", out["d3"], ranks_d3)
+    out["e"] = system_run("e) phase 6's loop cell split, the matrix-free BA on the gathered map",
+                          ranks_e, wall_e, ctx.traj6, ctx.map6)
+    check("phase 16(e)", {**equal_checks(out["e"], "phase 6's"), **loop_checks(out["e"])})
+    out["f_rgbd"] = system_run("f) phase 7's RGB-D cell split", ranks_f1, wall_f1, ctx.traj7,
+                               ctx.map7)
+    check("phase 16(f) rgbd", equal_checks(out["f_rgbd"], "phase 7's"))
+    out["f_stereo"] = system_run("f) phase 8's stereo cell split", ranks_f2, wall_f2, ctx.traj8,
+                                 ctx.map8)
+    check("phase 16(f) stereo", equal_checks(out["f_stereo"], "phase 8's"))
+    per, kf_differ = rank_common(ranks_g)
+    state_differs = []
+    for k, v in ctx.kept13r.items():
+        for k2, v2 in (v.items() if isinstance(v, dict) else [(None, v)]):
+            key = "st_" + k + ("" if k2 is None else "__" + k2)
+            if any(not same_bits(r[key], v2) for r in ranks_g):
+                state_differs.append(key[3:])
+    out["g"] = {"ranks": per, "kf_fields_differ_between_ranks": kf_differ,
+                "state_fields_not_equal": state_differs, "wall_s": wall_g}
+    print(f"phase 16(g) phase 13's RGB-D FreeRunner split on two ranks: {json.dumps(out['g'])}, "
+          f"card {card}")
+    check("phase 16(g)", {"state bit for bit phase 13's on both ranks": not state_differs,
+                          "both ranks' keyframe state equal": not kf_differ})
     torch.cuda.synchronize()
     return {"launches": launches, "outcomes": out}
 
 
 def main():
+    t_main = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()
     card = smi[0].strip()
@@ -2303,6 +2686,7 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     launches1 = read_launches()
 
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 2", flush=True)
     # ---- phase 2: build
     zero_launches()
     t0 = time.perf_counter()
@@ -2311,6 +2695,7 @@ def main():
     print(f"build: {time.perf_counter() - t0:.1f} s  per source {json.dumps(_build.BUILD_SECONDS)}")
     launches2 = read_launches()
 
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 3", flush=True)
     # ---- phase 3: kernels vs plain twins at main-path shapes; the counts
     # read at its end are the wrapper calls of its checks and timings (a
     # CUDA-graph replay calls no wrapper)
@@ -3041,6 +3426,7 @@ def main():
             fail(f"{name}: kernels never launched: {idle}")
         return out, frame_s, launches
 
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 4", flush=True)
     # ---- phase 4: the mono System through System.track_mono
     base4 = torch.cuda.memory_allocated()     # what earlier phases still hold
     slam = System(cam, slice_cfg, device="cuda")
@@ -3102,7 +3488,7 @@ def main():
     tracking.track_frame = count_track
     lm_calls[0] = 0
     slice_kernels = [w for n, (_, _, w) in SOURCES.items()
-                     if n not in ("pnp_hypotheses",) + LOOP_ONLY + STEREO_ONLY]
+                     if n not in ("pnp_hypotheses",) + LOOP_ONLY + STEREO_ONLY + SOLVE_ONLY]
     torch.cuda.reset_peak_memory_stats()
     try:
         _, frame_s, launches4 = drive("slice", slam, frames, slice_kernels)
@@ -3158,6 +3544,7 @@ def main():
            *pose_lm_work(args_lm[3], args_lm[5], args_lm[7]), **pose_b8,
            **device_kernels(lambda: k4.optimize_pose_batched(*args_lm), 1))
 
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 5", flush=True)
     # ---- phase 5: kidnapped run; the jump frame must relocalize
     t0 = time.perf_counter()
     gt5, seq, images5 = kidnap_setup(cam)
@@ -3185,7 +3572,7 @@ def main():
     try:
         out5, frame_s5, launches5 = drive("kidnap", slam5, images5,
                                           [w for n, (_, _, w) in SOURCES.items()
-                                           if n not in LOOP_ONLY + STEREO_ONLY])
+                                           if n not in LOOP_ONLY + STEREO_ONLY + SOLVE_ONLY])
     finally:
         pnp_mod.pnp_hypotheses, pnp_mod.optimize_pose_batched = real_hyp, real_polish
         pose_opt.optimize_pose = real_opt
@@ -3266,12 +3653,13 @@ def main():
     results["pose_lm_solve"]["max_abs_err"] = max(results["pose_lm_solve"]["max_abs_err"], err_polish)
     results["pose_lm_solve"]["reloc_batch"] = polish_sizes
 
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 6", flush=True)
     # ---- phase 6: a loop with SlamConfig()'s own defaults (loop closing on)
     from orb_slam2_annotate_tpu_torch.pipeline import loop_closing as loop_mod
     from orb_slam2_annotate_tpu_torch.solvers import sim3 as sim3_mod
 
     t0 = time.perf_counter()
-    cam6, gt6, images6, loop_cfg = loop_setup()
+    cam6, gt6, images6, depths6, loop_cfg = loop_setup()
     print(f"render: {LOOP_FRAMES} frames in {time.perf_counter() - t0:.1f} s (host numpy)")
     slam6 = System(cam6, loop_cfg, device="cuda")
     lc6 = slam6.loop_closer
@@ -3320,6 +3708,7 @@ def main():
         torch.cuda.synchronize()
         if lc6.n_gba_folded > n0:
             stage_ms["loop/fold"].append(1e3 * (time.perf_counter() - t))
+            fold_frames6.append(slam6.frame_id)
         return out
 
     def resolve(m, slot, det):
@@ -3333,14 +3722,29 @@ def main():
         return out
 
     real_gba6, gba6 = lc6._dispatch_global_ba, {}
+    GBA_OUT = ("R", "t", "X", "cost")
+    gba_frames6, fold_frames6 = [], []
 
     def keep_gba(m, anchor):
-        # the map and anchor of the run's first global BA, for phase 15
-        if not gba6:
+        # the map and anchor of the run's first global BA, for phase 15, and
+        # what it returned, for the repeat below
+        first = "map" not in gba6
+        if first:
             gba6["map"] = map_state.MapState(**{f.name: getattr(m, f.name).clone()
                                                 for f in dataclasses.fields(map_state.MapState)})
             gba6["anchor"] = int(anchor)
-        return real_gba6(m, anchor)
+        real_gba6(m, anchor)
+        gba_frames6.append(slam6.frame_id)
+        if first:
+            gba6["result"] = {k: lc6._gba_pending[k].clone() for k in GBA_OUT}
+
+    def keep_pose_graph(fn):
+        # the closure's essential graph, for kernel 11's check
+        def run(prob, *a, **kw):
+            gba6.setdefault("pose_graph", type(prob)(**{
+                f.name: getattr(prob, f.name).clone() for f in dataclasses.fields(prob)}))
+            return fn(prob, *a, **kw)
+        return run
 
     lc6._dispatch_global_ba = keep_gba
     lc6.dispatch_detection = timed("loop/detect", lc6.dispatch_detection)
@@ -3371,8 +3775,8 @@ def main():
     loop_mod.loop_projection_count = matcher_launches_in(saved[5], k3_in["loop_projection_count"])
     local_mapping.fuse_points_into = matcher_launches_in(saved[6], k3_in["fuse_points_into"])
     matching.match_gated = count_match
-    loop_mod.optimize_pose_graph = timed("loop/pose_graph", saved[8])
-    loop_mod.optimize_pose_graph_cg = timed("loop/pose_graph", saved[9])
+    loop_mod.optimize_pose_graph = timed("loop/pose_graph", keep_pose_graph(saved[8]))
+    loop_mod.optimize_pose_graph_cg = timed("loop/pose_graph", keep_pose_graph(saved[9]))
     match_calls[0] = 0
     try:
         _, frame_s6, launches6 = drive("loop", slam6, images6,
@@ -3395,8 +3799,8 @@ def main():
     print(f"loop: {LOOP_FRAMES} frames in {sum(frame_s6):.2f} s, frame wall time median "
           f"{1e3 * statistics.median(frame_s6):.2f} ms, max {1e3 * max(frame_s6):.2f} ms (frame "
           f"{frame_s6.index(max(frame_s6))}), closure frames {closures} at {closure_ms} ms; loops "
-          f"closed {lc6.n_loops_closed}, global BAs dispatched {lc6.n_gba_dispatched}, folded "
-          f"{lc6.n_gba_folded}; ATE {ate6:.5f} m (bound {ate_bound6:.5f}, JAX {LOOP_ATE_JAX}), tracked "
+          f"closed {lc6.n_loops_closed}, global BAs dispatched {lc6.n_gba_dispatched} (frames "
+          f"{gba_frames6}), folded {lc6.n_gba_folded} (frames {fold_frames6}); ATE {ate6:.5f} m (bound {ate_bound6:.5f}, JAX {LOOP_ATE_JAX}), tracked "
           f"{n6}/{LOOP_FRAMES}, keyframes {slam6.n_keyframes}, map points {slam6.n_mappoints}, state "
           f"{slam6.state}; sim3_ransac calls {calls6['sim3_ransac']}, optimize_sim3 calls "
           f"{calls6['optimize_sim3']}, matcher calls {match_calls6}, kernel-3 launches per call "
@@ -3450,6 +3854,132 @@ def main():
             "bound_ms": bound(*sim3_lm_work(a8[4], a8[16]))[0]}
     print(f"kernels 7 and 8 on the loop's inputs: "
           f"{json.dumps({n: {k: v for k, v in results[n].items() if k.startswith('captured')} for n in LOOP_ONLY})}")
+
+    # phase 6 again: the same cell in a second System of this process, bit for
+    # bit the first run's trajectory, map and global BA.  The fold of a global
+    # BA waits for the card (a BA still running folds at a later keyframe), so
+    # the card is drained after each dispatch, as the first run's stage timing
+    # drains it, and both fold at the closing keyframe.
+    from orb_slam2_annotate_tpu_torch import convert
+
+    def traj_bits(slam):
+        return np.stack([np.full((4, 4), np.nan, np.float32) if T is None else T
+                         for _, T in slam.frame_trajectory()])     # flushes: folds a pending BA
+
+    def bits_of(a):
+        a = np.asarray(a)
+        return a.view(np.int32) if a.dtype == np.float32 else a
+
+    def fields_differ(a: dict, b: dict):
+        return [k for k in b if not np.array_equal(bits_of(a[k]), bits_of(b[k]))]
+
+    traj6, map6 = traj_bits(slam6), convert.map_state_to_numpy(slam6.map)
+    slam6r = System(cam6, loop_cfg, device="cuda")
+    lc6r, gba6r = slam6r.loop_closer, {}
+    real_gba6r = lc6r._dispatch_global_ba
+
+    def drained_gba(m, anchor):
+        real_gba6r(m, anchor)
+        torch.cuda.synchronize()
+        gba6r.setdefault("result", {k: lc6r._gba_pending[k].clone() for k in GBA_OUT})
+
+    lc6r._dispatch_global_ba = drained_gba
+    _, frame_s6r, launches6r = drive("loop repeat", slam6r, images6,
+                                     [w for n, (_, _, w) in SOURCES.items()
+                                      if n not in ("pnp_hypotheses",) + STEREO_ONLY])
+    repeat6 = {"trajectory_equal": bool(np.array_equal(bits_of(traj_bits(slam6r)),
+                                                       bits_of(traj6))),
+               "map_fields_not_equal": fields_differ(convert.map_state_to_numpy(slam6r.map), map6),
+               "gba_fields_not_equal": fields_differ(
+                   {k: v.cpu().numpy() for k, v in gba6r.get("result", {}).items()},
+                   {k: v.cpu().numpy() for k, v in gba6["result"].items()})
+               if "result" in gba6r else list(GBA_OUT),
+               "loops_closed": lc6r.n_loops_closed, "gba_folded": lc6r.n_gba_folded,
+               "frames_per_s": LOOP_FRAMES / sum(frame_s6r)}
+    print(f"loop repeat, the same cell in a second System: {json.dumps(repeat6)}, card {card}")
+    if (not repeat6["trajectory_equal"] or repeat6["map_fields_not_equal"]
+            or repeat6["gba_fields_not_equal"]):
+        fail(f"phase 6 is not bit for bit on a second run: {repeat6}")
+
+    # phase 3's kernel 11 on the closure's essential graph and phase 15's map
+    results["segment_sum"] = segment_sum_checks(cam6, gba6["pose_graph"], gba6["map"],
+                                                gba6["anchor"])
+
+    # phase 6 with depth: the circle with phase 12's rendered depth through
+    # the RGB-D System (loop closing's Sim3 with the scale fixed), held to
+    # the JAX System's outcome and its worst SE3 ATE over seeds 0-9
+    from orb_slam2_annotate_tpu_torch.geometry.camera import CameraModel as TCam6
+    from orb_slam2_annotate_tpu_torch.io import evaluation as eval6
+
+    # the depth maps rendered with phase 6's frames (the renderer reads no bf)
+    cam6d = TCam6.create(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=320, height=240,
+                         bf=LOOP_DEPTH_BF)
+    slam6d = System(cam6d, dataclasses.replace(loop_cfg, sensor="rgbd", th_depth=100.0),
+                    device="cuda")
+    fix6d = {"sim3_ransac_solve": [], "sim3_lm_solve": []}
+
+    def fix_scale_kept(name, fn, pos):
+        def run(*a, **kw):
+            fix6d[name].append(bool(a[pos]))
+            return fn(*a, **kw)
+        return run
+
+    saved6d = (sim3_mod.sim3_ransac_solve, sim3_mod.sim3_lm_solve)
+    sim3_mod.sim3_ransac_solve = fix_scale_kept("sim3_ransac_solve", saved6d[0], 13)
+    sim3_mod.sim3_lm_solve = fix_scale_kept("sim3_lm_solve", saved6d[1], 14)
+    jd6, closures6d = LOOP_RGBD_JAX, []
+
+    def track6d(slam, fd, ts):
+        n0 = slam.loop_closer.n_loops_closed
+        out = slam.track_rgbd(fd[0], fd[1], ts)
+        if slam.loop_closer.n_loops_closed > n0:
+            closures6d.append(slam.frame_id)
+        return out
+
+    try:
+        _, frame_s6d, launches6d = drive(
+            "loop rgbd", slam6d, list(zip(images6, depths6)),
+            [w for n, (_, _, w) in SOURCES.items()
+             if n not in ("pnp_hypotheses",) + STEREO_ONLY
+             + (() if jd6["loops"] else LOOP_ONLY + SOLVE_ONLY)],
+            track=track6d)
+    finally:
+        sim3_mod.sim3_ransac_solve, sim3_mod.sim3_lm_solve = saved6d
+    lc6d = slam6d.loop_closer
+    traj6d = dict(slam6d.frame_trajectory())                   # flushes: folds a pending BA
+    ids6d = [k for k, T in traj6d.items() if T is not None]
+    est6d = np.stack([-traj6d[k][:3, :3].T @ traj6d[k][:3, 3] for k in ids6d])
+    gt6d = np.stack([-gt6[k][0].T @ gt6[k][1] for k in ids6d])
+    ate6d = float(eval6.ate_rmse(est6d.astype(np.float64), gt6d.astype(np.float64),
+                                 with_scale=False)[0])
+    worst6d = max(LOOP_RGBD_JAX_SEEDS)
+    bound6d = max(1.5 * worst6d, worst6d + 0.05)
+    out6d = {"ate_se3_m": ate6d, "ate_se3_bound_m": bound6d, "jax": jd6,
+             "jax_ate_se3_over_seeds_0_9": LOOP_RGBD_JAX_SEEDS, "tracked": len(ids6d),
+             "frames": LOOP_FRAMES, "state": slam6d.state, "keyframes": slam6d.n_keyframes,
+             "loops_closed": lc6d.n_loops_closed, "closure_frames": closures6d,
+             "gba_dispatched": lc6d.n_gba_dispatched,
+             "gba_folded": lc6d.n_gba_folded,
+             "fix_scale_launches": {k: [sum(v), len(v)] for k, v in fix6d.items()},
+             "frames_per_s": LOOP_FRAMES / sum(frame_s6d),
+             "frame_ms_median": 1e3 * statistics.median(frame_s6d), "launches": launches6d}
+    print(f"loop rgbd: {json.dumps(out6d)}, card {card}")
+    checks = {"state OK": slam6d.state == "OK", "tracked >= 80%": len(ids6d) >= 0.8 * LOOP_FRAMES,
+              f"SE3 ATE <= {bound6d:.5f} (the JAX System's worst seed {worst6d:.5f})":
+                  ate6d <= bound6d,
+              "every kernel 7 and 8 launch with the scale fixed":
+                  all(fix6d["sim3_ransac_solve"]) and all(fix6d["sim3_lm_solve"])
+                  and len(fix6d["sim3_ransac_solve"]) == launches6d["sim3_ransac_solve"]
+                  and len(fix6d["sim3_lm_solve"]) == launches6d["sim3_lm_solve"]}
+    if jd6["loops"]:
+        checks.update({"a closure, as the JAX System's": lc6d.n_loops_closed >= 1,
+                       "a global BA dispatched and folded":
+                           lc6d.n_gba_dispatched >= 1 and lc6d.n_gba_folded >= 1,
+                       "kernels 7 and 8 launched": len(fix6d["sim3_ransac_solve"]) > 0
+                                                   and len(fix6d["sim3_lm_solve"]) > 0})
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"loop rgbd checks failed: {bad}")
 
     # ---- phases 7 and 8: RGB-D and stereo through System.track_rgbd /
     # track_stereo on bench.py's cell (the slice's frames, bf = 500 x 0.3)
@@ -3520,11 +4050,11 @@ def main():
         return {f"SE3 ATE <= {bound_d:.5f} (JAX {ate_jax:.5f})": out["ate_se3_m"] <= bound_d}
 
     # phase 7: RGB-D, the rendered depth
-    _, out7, launches7, kept7, checks = depth_run(
+    slam7, out7, launches7, kept7, checks = depth_run(
         "rgbd", "rgbd", list(zip(frames, depths)),
         lambda slam, fd, ts: slam.track_rgbd(fd[0], fd[1], ts),
         [w for n, (_, _, w) in SOURCES.items() if n not in ("pnp_hypotheses",) + LOOP_ONLY
-         + STEREO_ONLY])
+         + STEREO_ONLY + SOLVE_ONLY])
     checks.update(outcome_bounds(out7, RGBD_ATE_JAX))
     checks.update({"displacement within 5%": abs(out7["displacement_ratio"] - 1.0) < 0.05,
                    "one fast_nms launch per frame": launches7["fast_nms"] == N_FRAMES,
@@ -3534,6 +4064,7 @@ def main():
     bad = [k for k, v in checks.items() if not v]
     if bad:
         fail(f"rgbd checks failed: {bad}")
+    traj7, map7 = traj_bits(slam7), convert.map_state_to_numpy(slam7.map)     # for phase 16
     # kernel 4 on a local-map call with stereo rows (ur >= 0), phase 4's tolerances
     args7 = kept7["args"]
     err_st = check_pose_lm("captured RGB-D local-map call (stereo rows)", args7)
@@ -3560,15 +4091,17 @@ def main():
         rectified.append((il, ir))
         return slam.track_stereo(il, ir, ts)
 
-    _, out8, launches8, kept8, checks = depth_run(
+    slam8, out8, launches8, kept8, checks = depth_run(
         "stereo", "stereo", list(zip(frames, rights)), track8,
-        [w for n, (_, _, w) in SOURCES.items() if n not in ("pnp_hypotheses",) + LOOP_ONLY])
+        [w for n, (_, _, w) in SOURCES.items()
+         if n not in ("pnp_hypotheses",) + LOOP_ONLY + SOLVE_ONLY])
     # compared after the run, so the frame times hold only the rectifier and track_stereo
     up = lambda im: torch.from_numpy(im).to(dev).float()
     moved8 = [k for k, ((il, ir), fl_, fr_) in enumerate(zip(rectified, frames, rights))
               if not (torch.equal(il, up(fl_)) and torch.equal(ir, up(fr_)))]
     if len(rectified) != N_FRAMES:
         fail(f"stereo: {len(rectified)} rectified pairs for {N_FRAMES} frames")
+    traj8, map8 = traj_bits(slam8), convert.map_state_to_numpy(slam8.map)     # for phase 16
     checks.update(outcome_bounds(out8, STEREO_ATE_JAX))
     checks.update({"path length within 15%": abs(out8["path_ratio"] - 1.0) < 0.15,
                    "rectified pairs equal the input": not moved8,
@@ -3582,6 +4115,7 @@ def main():
     err_st8 = check_pose_lm("captured stereo local-map call", kept8["args"])
     r4["max_abs_err"] = max(r4["max_abs_err"], err_st8)
 
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 9", flush=True)
     # ---- phase 9: fuse (SearchInNeighbors) in the keyframe chain, on the
     # slice and on the RGB-D cell; kernel 3 once a fuse_neighbors (all its
     # targets in one launch), kernel 3b twice a keyframe chain (the refresh
@@ -3609,7 +4143,7 @@ def main():
     local_mapping.keyframe_chain = count_chain_stats
     local_mapping._fuse_targets_core = keep_core
     counted9 = [w for n, (_, _, w) in SOURCES.items()
-                if n not in ("pnp_hypotheses",) + LOOP_ONLY + STEREO_ONLY]
+                if n not in ("pnp_hypotheses",) + LOOP_ONLY + STEREO_ONLY + SOLVE_ONLY]
     try:
         slam9 = System(cam, dataclasses.replace(slice_cfg, enable_fuse=True), device="cuda")
         with profile(activities=[ProfilerActivity.CPU]) as prof9:
@@ -3709,6 +4243,7 @@ def main():
     print(f"kernel 3 on the captured fuse launch: "
           f"{json.dumps(results['hamming_match']['captured_fuse'])}, card {card}")
 
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 10", flush=True)
     # ---- phase 10: pipelined tracking (async_depth 2): each frame's step
     # dispatched without a host read, resolved once its copy has landed
     real_step = tracking.track_frame_device
@@ -3855,7 +4390,7 @@ def main():
     lc10.dispatch_detection, lc10.resolve_detection = dispatch10, resolve10
     slam10l._apply_cull_info, slam10l._try_relocalize = cull10, reloc10
     counted10l = [w for n, (_, _, w) in SOURCES.items()
-                  if n not in ("sim3_lm_solve",) + STEREO_ONLY]
+                  if n not in ("sim3_lm_solve",) + STEREO_ONLY + SOLVE_ONLY]
     _, frame_s10l, launches10l, lag10l = pipelined("pipelined loop", slam10l, images6, counted10l)
     ate10l, n10l = ate_of(slam10l, gt6, range(LOOP_FRAMES))
     pipelined_dispatch = [s for f, s in deferred["dispatched"] if f == "_create_keyframe_async"]
@@ -3895,11 +4430,12 @@ def main():
     # ---- phases 11-13: the free runner
     free = free_phases(types.SimpleNamespace(
         card=card, frames=frames, depths=depths, poses=poses, frame_s4=frame_s, cam6=cam6,
-        gt6=gt6, images6=images6, loop_cfg=loop_cfg, cam_d=cam_d, rights=rights,
-        depth_config=depth_config, rect=rect, zero_launches=zero_launches,
+        gt6=gt6, images6=images6, depths6=depths6, loop_cfg=loop_cfg, cam_d=cam_d,
+        rights=rights, depth_config=depth_config, rect=rect, zero_launches=zero_launches,
         read_launches=read_launches))
     fl = free["launches"]
 
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 14", flush=True)
     # ---- phase 14: map I/O, the merge and the dataset drivers
     io14 = io_phases(types.SimpleNamespace(
         card=card, cam=cam, poses=poses, frames=frames, depths=depths, slice_cfg=slice_cfg,
@@ -3907,6 +4443,7 @@ def main():
         zero_launches=zero_launches, read_launches=read_launches))
     fl = {**fl, **io14["launches"]}
 
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 15", flush=True)
     # ---- phase 15: the dense and distributed global BA, shard_points,
     # telemetry and the vocabulary trainer
     if not gba6:
@@ -3918,6 +4455,7 @@ def main():
         zero_launches=zero_launches, read_launches=read_launches))
     fl = {**fl, **d15["launches"]}
 
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 16", flush=True)
     # ---- phase 16: the live map's point axis split over two ranks
     runner11, cam11, gt11, images11, cfg11 = free["bench_runner"]
     d16 = shard_phases(types.SimpleNamespace(
@@ -3926,18 +4464,23 @@ def main():
         point_mb4=sum(getattr(slam.map, k).numel() * getattr(slam.map, k).element_size()
                       for k in map_state.POINT_FIELDS) / 2**20,
         slice_kernels=slice_kernels, cam6=cam6, images6=images6,
-        loop_cfg=loop_cfg, gt6=gt6, ate6=ate6, ate_bound6=ate_bound6, cam11=cam11,
+        loop_cfg=loop_cfg, gt6=gt6, ate6=ate6, ate_bound6=ate_bound6, traj6=traj6, map6=map6,
+        gba_frames6=gba_frames6, fold_frames6=fold_frames6, cam_d=cam_d, depths=depths, rights=rights, depth_config=depth_config, traj7=traj7,
+        map7=map7, traj8=traj8, map8=map8, kept13r=free["kept13r"], cam11=cam11,
         images11=images11, cfg11=cfg11, kept11=free["kept11"],
         fps11_48=free["outcomes"]["bench"]["frames_per_s_per_frame_first_48"]))
     fl = {**fl, **d16["launches"]}
 
+    print(f"[{time.perf_counter() - t_main:.1f} s] phases 1-16 done", flush=True)
     kern = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
-             "launches": (launches4[w] + launches5[w] + launches6[w] + launches7[w] + launches8[w]
+             "launches": (launches4[w] + launches5[w] + launches6[w] + launches6r[w]
+                          + launches6d[w] + launches7[w] + launches8[w]
                           + launches9m[w] + launches9r[w] + launches10[w] + launches10l[w]
                           + sum(v[w] for v in fl.values())),
              "launches_by_phase": {"1 card": launches1[w], "2 build": launches2[w],
                                    "3 twins": launches3[w], "4 slice": launches4[w],
                                    "5 kidnap": launches5[w], "6 loop": launches6[w],
+                                   "6 loop repeat": launches6r[w], "6 loop rgbd": launches6d[w],
                                    "7 rgbd": launches7[w], "8 stereo": launches8[w],
                                    "9 fuse slice": launches9m[w], "9 fuse rgbd": launches9r[w],
                                    "10 pipelined": launches10[w],
@@ -3960,7 +4503,9 @@ def main():
                                "gba_dispatched": lc6.n_gba_dispatched,
                                "gba_folded": lc6.n_gba_folded, "keyframes": slam6.n_keyframes,
                                "stage_ms": stage_ms, "sim3_ransac_calls": calls6["sim3_ransac"],
-                               "optimize_sim3_calls": calls6["optimize_sim3"]},
+                               "optimize_sim3_calls": calls6["optimize_sim3"],
+                               "repeat": repeat6},
+                      "loop_rgbd": out6d,
                       "rgbd": out7, "stereo": out8,
                       "fuse": {"slice": out9m, "rgbd": out9r, "core_on_card": core_checks},
                       "pipelined": out10m, "pipelined_loop": out10l,

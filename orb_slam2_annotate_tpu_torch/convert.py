@@ -46,7 +46,7 @@ def camera_from_numpy(d: dict) -> CameraModel:
     return CameraModel(**{f.name: float(np.float32(d[f.name])) for f in dataclasses.fields(CameraModel)})
 
 
-def frame_from_numpy(d: dict, device="cpu") -> Frame:
+def frame_from_numpy(d: dict, device="cuda") -> Frame:
     return Frame(**{f.name: _to_torch(f.name, d[f.name], device) for f in dataclasses.fields(Frame)})
 
 
@@ -54,7 +54,7 @@ def frame_to_numpy(f: Frame) -> dict:
     return {k.name: _to_numpy(k.name, getattr(f, k.name)) for k in dataclasses.fields(Frame)}
 
 
-def map_state_from_numpy(d: dict, device="cpu") -> MapState:
+def map_state_from_numpy(d: dict, device="cuda") -> MapState:
     return MapState(**{f.name: _to_torch(f.name, d[f.name], device)
                        for f in dataclasses.fields(MapState)})
 
@@ -66,7 +66,7 @@ def map_state_to_numpy(m: MapState) -> dict:
     return {f.name: _to_numpy(f.name, getattr(m, f.name)) for f in dataclasses.fields(MapState)}
 
 
-def ba_problem_from_numpy(d: dict, device="cpu") -> BAProblem:
+def ba_problem_from_numpy(d: dict, device="cuda") -> BAProblem:
     """A BAProblem from the reference's (fields as numpy; index arrays
     keep their integer type as int32)."""
     return BAProblem(**{f.name: _to_torch(f.name, d[f.name], device)
@@ -77,7 +77,7 @@ def ba_problem_to_numpy(p: BAProblem) -> dict:
     return {f.name: _to_numpy(f.name, getattr(p, f.name)) for f in dataclasses.fields(BAProblem)}
 
 
-def vocabulary_from_numpy(d: dict, device="cpu") -> Vocabulary:
+def vocabulary_from_numpy(d: dict, device="cuda") -> Vocabulary:
     return Vocabulary(_to_torch("words", d["words"], device), _to_torch("idf", d["idf"], device))
 
 
@@ -85,7 +85,7 @@ def vocabulary_to_numpy(v: Vocabulary) -> dict:
     return {"words": _to_numpy("words", v.words), "idf": _to_numpy("idf", v.idf)}
 
 
-def database_from_numpy(d: dict, device="cpu") -> KeyFrameDatabase:
+def database_from_numpy(d: dict, device="cuda") -> KeyFrameDatabase:
     return KeyFrameDatabase(_to_torch("bows", d["bows"], device))
 
 
@@ -113,7 +113,7 @@ def loop_closer_state_from_numpy(lc, d: dict):
     return lc
 
 
-def cull_info_from_numpy(d: dict, device="cpu") -> CullInfo:
+def cull_info_from_numpy(d: dict, device="cuda") -> CullInfo:
     return CullInfo(**{f.name: _to_torch(f.name, d[f.name], device)
                        for f in dataclasses.fields(CullInfo)})
 
@@ -136,7 +136,7 @@ _FREE_NESTED = {"m": (map_state_from_numpy, map_state_to_numpy),
                 "init_f": (frame_from_numpy, frame_to_numpy)}
 
 
-def free_state_from_numpy(d: dict, device="cpu") -> FreeState:
+def free_state_from_numpy(d: dict, device="cuda") -> FreeState:
     """A free runner's state from the reference's FreeState as numpy: its
     fields, with ``m``, ``last`` and ``init_f`` as dicts of their fields."""
     return FreeState(**{f.name: _FREE_NESTED[f.name][0](d[f.name], device) if f.name in _FREE_NESTED

@@ -133,6 +133,16 @@ def se3_apply(R, t, x):
     return torch.einsum("...ij,...j->...i", R, x) + t
 
 
+def rotate_points(R, x, transpose: bool = False):
+    """R x (R^T x with `transpose`) for each point, R [P,3,3], x [P,3], as
+    three products and two sums in one order.  A batched einsum over the
+    points lets the card pick its product kernel by P, so a split map's
+    P / n rows would round otherwise than the whole map's; on the CPU this
+    is the einsum's arithmetic bit for bit."""
+    col = (lambda k: R[:, k, :]) if transpose else (lambda k: R[:, :, k])
+    return col(0) * x[:, 0:1] + col(1) * x[:, 1:2] + col(2) * x[:, 2:3]
+
+
 # ---------------------------------------------------------------------------
 # Sim(3), used by loop closing.  xi = [rho(3), phi(3), sigma]; (s, R, t) maps
 # x to s R x + t.

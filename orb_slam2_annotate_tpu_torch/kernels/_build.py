@@ -30,7 +30,8 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = {"fast_nms": ("--fmad=false",), "orb_describe": ("--fmad=false",),
            "hamming": ("--fmad=false",), "pose_lm": ("--fmad=false",), "assign_words": (),
            "pnp_score": ("--fmad=false",), "sim3": ("--fmad=false",),
-           "stereo": ("--fmad=false",), "remap": ("--fmad=false",)}
+           "stereo": ("--fmad=false",), "remap": ("--fmad=false",),
+           "segment_sum": ("--fmad=false",)}
 
 # host C++ sources outside the package: name -> (path, g++ flags, link flags);
 # the loader's flags are native/build.sh's, so that both packages' builds

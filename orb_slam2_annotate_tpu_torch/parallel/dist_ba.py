@@ -134,9 +134,10 @@ def make_distributed_ba(mesh: Mesh, iters: int = 10, robust: bool = True, lam0: 
         R, t, X = prob.R, prob.t, blk.points
         lam = torch.tensor(lam0, device=dev)
         last_cost = torch.tensor(float("inf"), device=dev)
+        plans = ba_core.normal_eq_plans(blk)
         for _ in range(iters):
             Hcc, Hpp, B, gc, gp, cost = ba_core.build_normal_eqs(
-                cam, blk.replace(R=R, t=t, points=X), robust)
+                cam, blk.replace(R=R, t=t, points=X), robust, plans)
             Hpp_inv, S_local, rhs_local = ba_core.schur_terms(Hpp, B, gp, lam)
             Hcc, gc, cost, S, rhs = _all_reduce(mesh, Hcc, gc, cost, S_local, rhs_local)
             S[ar, ar] += ba_core._damp_blocks(Hcc, lam)

@@ -55,6 +55,32 @@ def init_multi_host(coordinator: str | None = None, num_processes: int | None = 
                             world_size=num_processes, rank=process_id, **kw)
 
 
+_HOST_GROUP = {}
+
+
+def host_group():
+    """A group of the default group's ranks that reduces CPU tensors: the
+    default group itself under gloo, else a gloo group made at the first
+    call (a collective: every rank must make it)."""
+    if dist.get_backend() == "gloo":
+        return dist.group.WORLD
+    if "gloo" not in _HOST_GROUP:
+        _HOST_GROUP["gloo"] = dist.new_group(backend="gloo")
+    return _HOST_GROUP["gloo"]
+
+
+def all_ranks(flag: bool) -> bool:
+    """Whether `flag` holds on every rank of the default group: a host
+    all_reduce(MIN), so each rank takes the same branch on a flag read from
+    its own clock (a CUDA event's ``query()``).  The flag itself at a world
+    of one."""
+    if world_size() == 1:
+        return bool(flag)
+    f = torch.tensor([int(bool(flag))], dtype=torch.int32)
+    dist.all_reduce(f, op=dist.ReduceOp.MIN, group=host_group())
+    return bool(f.item())
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A 1-D mesh: `size` ranks of `group` (None: a world of one with no

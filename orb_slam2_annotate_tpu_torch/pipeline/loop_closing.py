@@ -243,8 +243,8 @@ def apply_loop_correction(m: ms.MapState, s_o, R_o, t_o) -> ms.MapState:
     obs_kf, _, obs_cnt, _ = ms.observation_table(m)
     first = obs_kf[:, 0].long()
     has = m.mp_valid & (obs_cnt > 0)
-    xc = torch.einsum("pij,pj->pi", m.kf_R[first], m.mp_pos) + m.kf_t[first]
-    xw = torch.einsum("pji,pj->pi", R_o[first], (xc - t_o[first]) / s_o[first][:, None])
+    xc = lie.rotate_points(m.kf_R[first], m.mp_pos) + m.kf_t[first]
+    xw = lie.rotate_points(R_o[first], (xc - t_o[first]) / s_o[first][:, None], transpose=True)
     return m.replace(kf_R=torch.where(m.kf_valid[:, None, None], R_o, m.kf_R),
                      kf_t=torch.where(m.kf_valid[:, None], t_o / s_o[:, None], m.kf_t),
                      mp_pos=torch.where(has[:, None], xw, m.mp_pos))
@@ -585,8 +585,8 @@ def fold_gba_device(m: ms.MapState, gba_R, gba_t, gba_X, snap_kf, snap_mp, old_R
     # which the reference reads as a slot here (it is one while no slot has
     # been reused); copied as it is
     ref = torch.clamp(m.mp_first_kf, 0, K - 1).long()
-    xc = torch.einsum("pij,pj->pi", m.kf_R[ref], m.mp_pos) + m.kf_t[ref]
-    x_new = torch.einsum("pji,pj->pi", kf_R[ref], xc - kf_t[ref])
+    xc = lie.rotate_points(m.kf_R[ref], m.mp_pos) + m.kf_t[ref]
+    x_new = lie.rotate_points(kf_R[ref], xc - kf_t[ref], transpose=True)
     live_mp = snap_mp & m.mp_valid
     new_mp = m.mp_valid & ~snap_mp
     mp_pos = torch.where(live_mp[:, None], gba_X, torch.where(new_mp[:, None], x_new, m.mp_pos))
@@ -843,11 +843,13 @@ class LoopCloser:
 
     def maybe_fold_gba(self, m: ms.MapState, force: bool = False) -> ms.MapState:
         """Fold a finished global BA into the current map; unless `force`,
-        a BA the card is still running is left for a later keyframe."""
+        a BA the card is still running is left for a later keyframe.  Above
+        a world of one the BA is folded once it is done on every rank, so
+        all ranks fold at the same keyframe."""
         g = self._gba_pending
         if g is None:
             return m
-        if not force and g["done"] is not None and not g["done"].query():
+        if not force and g["done"] is not None and not mesh_mod.all_ranks(g["done"].query()):
             return m
         self._gba_pending = None
         with record_function("loop/fold"):

@@ -435,8 +435,9 @@ class System:
 
     def _ready(self, e: dict) -> bool:
         """Whether an in-flight frame's copy has landed on the host (a CPU
-        tensor is ready once computed)."""
-        return e["event"] is None or e["event"].query()
+        tensor is ready once computed); above a world of one, on every rank,
+        so all ranks resolve a frame at the same step."""
+        return e["event"] is None or mesh_mod.all_ranks(e["event"].query())
 
     @staticmethod
     def _landed(host: list, event) -> list:

@@ -4,7 +4,9 @@ Robust LM whose inner solve is conjugate gradients on the Schur complement
 S x = Hcc x - B Hpp^-1 B^T x, evaluated edge by edge (two segment sums
 through the point blocks), with a block-Jacobi camera preconditioner.
 Nothing larger than per-edge arrays and [C,6,6] / [P,3,3] blocks is built.
-Plain torch; loop closing runs it once a closure.
+Plain torch but for its segment sums, which are kernel 11's
+(``kernels/segment_sum``: one fixed order on the card); loop closing runs it
+once a closure.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 
 from ..geometry import lie
 from ..geometry.smallsolve import inv3
+from ..kernels.segment_sum import segment_plan, segment_sum
 from .ba_core import CHI2_MONO, CHI2_STEREO, BAProblem, _damp_blocks, edge_chi2, edge_residual_jac
 
 
@@ -29,11 +32,6 @@ def _edge_weights(prob: BAProblem, r, is_stereo, depth_ok):
     return w, torch.sum(hub * prob.edge_valid)
 
 
-def _segment_sum(n, idx, vals):
-    out = torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype, device=vals.device)
-    return out.index_add(0, idx, vals)
-
-
 def bundle_adjust_cg(cam, prob: BAProblem, iters: int = 10, cg_iters: int = 30, lam0: float = 1e-5):
     """LM with Schur-PCG inner solves.  Returns (R [C,3,3], t [C,3],
     points [P,3], edge_inlier [E], cost)."""
@@ -42,6 +40,9 @@ def bundle_adjust_cg(cam, prob: BAProblem, iters: int = 10, cg_iters: int = 30, 
     cam_free = prob.cam_valid & ~prob.cam_fixed
     cf = cam_free[:, None].to(torch.float32)
     ci, pi = prob.cam_idx.long(), prob.pt_idx.long()
+    # an invalid edge weighs 0 (its terms are ±0): left out of the sums
+    plan_c, plan_p = (segment_plan(torch.where(prob.edge_valid, e, -1), n)
+                      for e, n in ((ci, C), (pi, P)))
     eye3, eye6 = torch.eye(3, device=dev), torch.eye(6, device=dev)
     R, t, X = prob.R, prob.t, prob.points
     lam = torch.tensor(lam0, device=dev)
@@ -51,21 +52,21 @@ def bundle_adjust_cg(cam, prob: BAProblem, iters: int = 10, cg_iters: int = 30, 
         w, cost = _edge_weights(prob, r, is_stereo, depth_ok)
         Jc = torch.where((prob.cam_fixed | ~cam_free)[ci][:, None, None], 0.0, Jc)
         Jcw, Jpw = Jc * w[:, None, None], Jp * w[:, None, None]
-        Hcc = _segment_sum(C, ci, torch.einsum("eij,eik->ejk", Jcw, Jc))
-        Hpp = _segment_sum(P, pi, torch.einsum("eij,eik->ejk", Jpw, Jp))
-        gc = _segment_sum(C, ci, torch.einsum("eij,ei->ej", Jcw, r))
-        gp = _segment_sum(P, pi, torch.einsum("eij,ei->ej", Jpw, r))
+        Hcc = segment_sum(plan_c, torch.einsum("eij,eik->ejk", Jcw, Jc))
+        Hpp = segment_sum(plan_p, torch.einsum("eij,eik->ejk", Jpw, Jp))
+        gc = segment_sum(plan_c, torch.einsum("eij,ei->ej", Jcw, r))
+        gp = segment_sum(plan_p, torch.einsum("eij,ei->ej", Jpw, r))
         Hcc_d = _damp_blocks(Hcc, lam)
         Hpp_inv = inv3(_damp_blocks(Hpp, lam) + 1e-8 * eye3)
         Mc_inv = torch.linalg.inv(Hcc_d + 1e-6 * eye6)
 
         def Bt_x(x):
             u = torch.einsum("eij,ei->ej", Jpw, torch.einsum("eij,ej->ei", Jc, x[ci]))
-            return _segment_sum(P, pi, u)
+            return segment_sum(plan_p, u)
 
         def B_v(v):
             z = torch.einsum("eij,ei->ej", Jcw, torch.einsum("eij,ej->ei", Jp, v[pi]))
-            return _segment_sum(C, ci, z)
+            return segment_sum(plan_c, z)
 
         def S_mv(x):
             v = torch.einsum("pij,pj->pi", Hpp_inv, Bt_x(x))

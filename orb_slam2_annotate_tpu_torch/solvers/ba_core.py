@@ -9,8 +9,8 @@ Same plane layout as the reference (Jacobian axes first, big axes last).
 The 6C x 6C reduced camera system is solved by Cholesky; where it is not
 positive definite the step is NaN, as the reference's
 ``jax.scipy.linalg.solve(assume_a="pos")`` gives, and is rejected.  The
-edge-list sums are ``index_put_(..., accumulate=True)`` scatters: on the
-card their order of addition varies from run to run.
+edge-list sums are kernel 11's segment sums (``kernels/segment_sum``), in
+ascending edge order on the card as on the CPU.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import torch
 from ..geometry import lie
 from ..geometry.camera import CameraModel
 from ..geometry.smallsolve import inv3
+from ..kernels.segment_sum import segment_plan, segment_sum
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -115,17 +116,24 @@ def edge_cost(cam: CameraModel, prob: BAProblem) -> torch.Tensor:
     return torch.sum(_huber(chi2, _delta2(prob.ur), depth_ok) * prob.edge_valid.to(chi2.dtype))
 
 
-def _scatter_add(shape, index, vals):
-    out = torch.zeros(shape, dtype=vals.dtype, device=vals.device)
-    return out.index_put_(index, vals, accumulate=True)
+def normal_eq_plans(prob: BAProblem):
+    """The segment plans of ``build_normal_eqs``'s sums, over the cameras,
+    the points and the (point, camera) pairs: built once a solve.  An
+    invalid edge weighs 0 (its terms are ±0), so it is left out."""
+    C, P = prob.R.shape[0], prob.points.shape[0]
+    ci, pi, ok = prob.cam_idx.long(), prob.pt_idx.long(), prob.edge_valid
+    return (segment_plan(torch.where(ok, ci, -1), C), segment_plan(torch.where(ok, pi, -1), P),
+            segment_plan(torch.where(ok, pi * C + ci, -1), P * C))
 
 
-def build_normal_eqs(cam: CameraModel, prob: BAProblem, robust: bool):
+def build_normal_eqs(cam: CameraModel, prob: BAProblem, robust: bool, plans=None):
     """One linearization: Hcc [C,6,6] (diagonal blocks), Hpp [P,3,3],
     B [P,C,6,3] (camera-point coupling, summed per (point, camera)),
-    gc [C,6], gp [P,3] and the cost."""
+    gc [C,6], gp [P,3] and the cost.  `plans`: ``normal_eq_plans(prob)``,
+    made here when not given."""
     C, P = prob.R.shape[0], prob.points.shape[0]
-    ci, pi = prob.cam_idx.long(), prob.pt_idx.long()
+    ci = prob.cam_idx.long()
+    plan_c, plan_p, plan_pc = normal_eq_plans(prob) if plans is None else plans
     r, Jc, Jp, is_stereo, depth_ok = edge_residual_jac(cam, prob)
     chi2 = edge_chi2(r, prob.inv_sigma2)
     delta2 = _delta2(prob.ur)
@@ -135,11 +143,11 @@ def build_normal_eqs(cam: CameraModel, prob: BAProblem, robust: bool):
     w = prob.inv_sigma2 * w_h * (prob.edge_valid & depth_ok).to(chi2.dtype)
     Jc = torch.where(prob.cam_fixed[ci][:, None, None], 0.0, Jc)
     Jcw, Jpw = Jc * w[:, None, None], Jp * w[:, None, None]
-    Hcc = _scatter_add((C, 6, 6), (ci,), torch.einsum("eij,eik->ejk", Jcw, Jc))
-    Hpp = _scatter_add((P, 3, 3), (pi,), torch.einsum("eij,eik->ejk", Jpw, Jp))
-    gc = _scatter_add((C, 6), (ci,), torch.einsum("eij,ei->ej", Jcw, r))
-    gp = _scatter_add((P, 3), (pi,), torch.einsum("eij,ei->ej", Jpw, r))
-    B = _scatter_add((P, C, 6, 3), (pi, ci), torch.einsum("eij,eik->ejk", Jcw, Jp))
+    Hcc = segment_sum(plan_c, torch.einsum("eij,eik->ejk", Jcw, Jc))
+    Hpp = segment_sum(plan_p, torch.einsum("eij,eik->ejk", Jpw, Jp))
+    gc = segment_sum(plan_c, torch.einsum("eij,ei->ej", Jcw, r))
+    gp = segment_sum(plan_p, torch.einsum("eij,ei->ej", Jpw, r))
+    B = segment_sum(plan_pc, torch.einsum("eij,eik->ejk", Jcw, Jp)).reshape(P, C, 6, 3)
     cost = torch.sum(_huber(chi2, delta2, depth_ok) * prob.edge_valid.to(chi2.dtype))
     return Hcc, Hpp, B, gc, gp, cost
 
@@ -201,8 +209,10 @@ def bundle_adjust(cam: CameraModel, prob: BAProblem, iters: int = 10, robust: bo
     R, t, X = prob.R, prob.t, prob.points
     lam = torch.tensor(lam0, device=dev)
     cost_new = None
+    plans = normal_eq_plans(prob)
     for _ in range(iters):
-        Hcc, Hpp, B, gc, gp, cost = build_normal_eqs(cam, prob.replace(R=R, t=t, points=X), robust)
+        Hcc, Hpp, B, gc, gp, cost = build_normal_eqs(cam, prob.replace(R=R, t=t, points=X), robust,
+                                                     plans)
         dc, dp = schur_solve_dense(Hcc, Hpp, B, gc, gp, lam, cam_free)
         del B
         R_new, t_new = lie.se3_retract(R, t, dc)

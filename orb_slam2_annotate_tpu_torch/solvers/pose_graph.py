@@ -7,7 +7,9 @@ are forward mode through the 7-dim tangent retraction, as the reference
 takes them (``torch.func.jacfwd``; every edge at once, since edge e's
 residual depends only on its own endpoints' tangents).  ``optimize_pose_graph``
 solves the dense [7K, 7K] system; ``optimize_pose_graph_cg`` is the
-matrix-free block-Jacobi PCG for large K.
+matrix-free block-Jacobi PCG for large K.  Every per-keyframe and per-block
+sum over the edges is kernel 11's segment sum (``kernels/segment_sum``), so
+the card adds them in one fixed order: the CPU's serial index order.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import dataclasses
 import torch
 
 from ..geometry import lie
+from ..kernels.segment_sum import segment_plan, segment_sum
 
 
 @dataclasses.dataclass
@@ -81,11 +84,6 @@ def _lm_accept(prob, s, R, t, dx, cost, w, lam):
             torch.where(better, lam * 0.3, lam * 10.0))
 
 
-def _scatter_blocks(K, idx, blocks):
-    out = torch.zeros((K,) + blocks.shape[1:], dtype=blocks.dtype, device=blocks.device)
-    return out.index_add(0, idx, blocks)
-
-
 def optimize_pose_graph(prob: PoseGraphProblem, iters: int = 20, lam0: float = 1e-6):
     """LM over the Sim3 graph with a dense [7K, 7K] solve.  Returns (s, R, t, cost)."""
     K = prob.s.shape[0]
@@ -94,18 +92,22 @@ def optimize_pose_graph(prob: PoseGraphProblem, iters: int = 20, lam0: float = 1
     w = prob.e_weight * prob.e_valid
     free = prob.valid & ~prob.fixed
     mask7 = free.repeat_interleave(7)
+    # an invalid edge weighs 0, so its terms are ±0: left out of the sums
+    plan_i, plan_j = (segment_plan(torch.where(prob.e_valid, e, -1), K) for e in (ei, ej))
+    # the (i, i), (j, j), (i, j), (j, i) blocks in one sum over their
+    # concatenation: the adds, and their order, of four sums in sequence
+    plan_H = segment_plan(torch.where(prob.e_valid.repeat(4), torch.cat(
+        [ei * K + ei, ej * K + ej, ei * K + ej, ej * K + ei]), -1), K * K)
     s, R, t, lam = prob.s, prob.R, prob.t, torch.tensor(lam0, device=dev)
     cost = torch.zeros((), device=dev)
     for _ in range(iters):
         r, Ji, Jj = _residuals_and_jacs(prob, s, R, t)
         cost = ((r * r).sum(1) * w).sum()
         Jiw, Jjw = Ji * w[:, None, None], Jj * w[:, None, None]
-        H = torch.zeros((K * K, 7, 7), device=dev)
-        for a, b, Ja, Jb in ((ei, ei, Jiw, Ji), (ej, ej, Jjw, Jj), (ei, ej, Jiw, Jj),
-                             (ej, ei, Jjw, Ji)):
-            H = H.index_add(0, a * K + b, torch.einsum("eij,eik->ejk", Ja, Jb))
-        g = _scatter_blocks(K, ei, torch.einsum("eij,ei->ej", Jiw, r)) \
-            + _scatter_blocks(K, ej, torch.einsum("eij,ei->ej", Jjw, r))
+        H = segment_sum(plan_H, torch.cat([torch.einsum("eij,eik->ejk", Ja, Jb) for Ja, Jb in (
+            (Jiw, Ji), (Jjw, Jj), (Jiw, Jj), (Jjw, Ji))]))
+        g = segment_sum(plan_i, torch.einsum("eij,ei->ej", Jiw, r)) \
+            + segment_sum(plan_j, torch.einsum("eij,ei->ej", Jjw, r))
         Hf = H.reshape(K, K, 7, 7).permute(0, 2, 1, 3).reshape(7 * K, 7 * K)
         Hf = torch.where(mask7[:, None] & mask7[None, :], Hf, 0.0)
         Hf = Hf + torch.diag(lam * torch.diagonal(Hf) + torch.where(mask7, 1e-8, 1.0))
@@ -127,24 +129,25 @@ def optimize_pose_graph_cg(prob: PoseGraphProblem, iters: int = 20, cg_iters: in
     w = prob.e_weight * prob.e_valid
     free = prob.valid & ~prob.fixed
     eye7 = torch.eye(7, device=dev)
+    plan_i, plan_j = (segment_plan(torch.where(prob.e_valid, e, -1), K) for e in (ei, ej))
     s, R, t, lam = prob.s, prob.R, prob.t, torch.tensor(lam0, device=dev)
     cost = torch.zeros((), device=dev)
     for _ in range(iters):
         r, Ji, Jj = _residuals_and_jacs(prob, s, R, t)
         cost = ((r * r).sum(1) * w).sum()
         Jiw, Jjw = Ji * w[:, None, None], Jj * w[:, None, None]
-        g = _scatter_blocks(K, ei, torch.einsum("eij,ei->ej", Jiw, r)) \
-            + _scatter_blocks(K, ej, torch.einsum("eij,ei->ej", Jjw, r))
-        D = _scatter_blocks(K, ei, torch.einsum("eij,eik->ejk", Jiw, Ji)) \
-            + _scatter_blocks(K, ej, torch.einsum("eij,eik->ejk", Jjw, Jj))
+        g = segment_sum(plan_i, torch.einsum("eij,ei->ej", Jiw, r)) \
+            + segment_sum(plan_j, torch.einsum("eij,ei->ej", Jjw, r))
+        D = segment_sum(plan_i, torch.einsum("eij,eik->ejk", Jiw, Ji)) \
+            + segment_sum(plan_j, torch.einsum("eij,eik->ejk", Jjw, Jj))
         damp = lam * torch.diagonal(D, dim1=-2, dim2=-1) + 1e-8          # [K,7]
         Dinv = torch.linalg.inv(D + damp[:, :, None] * eye7 + eye7 * (~free)[:, None, None])
 
         def hvp(x):
             u = (torch.einsum("eij,ej->ei", Ji, x[ei]) + torch.einsum("eij,ej->ei", Jj, x[ej])) \
                 * w[:, None]
-            y = _scatter_blocks(K, ei, torch.einsum("eij,ei->ej", Ji, u)) \
-                + _scatter_blocks(K, ej, torch.einsum("eij,ei->ej", Jj, u)) + damp * x
+            y = segment_sum(plan_i, torch.einsum("eij,ei->ej", Ji, u)) \
+                + segment_sum(plan_j, torch.einsum("eij,ei->ej", Jj, u)) + damp * x
             return torch.where(free[:, None], y, x)
 
         def m_inv(x):

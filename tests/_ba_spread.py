@@ -90,7 +90,7 @@ def as_dtype(prob, dtype):
 def port_distributed(cam, prob, iters):
     """The port's distributed BA at a world of one: {R, t, X, cost} as
     numpy, X in the problem's point order."""
-    tp = convert.ba_problem_from_numpy(prob)
+    tp = convert.ba_problem_from_numpy(prob, device="cpu")
     if prob["points"].dtype == np.float64:
         tp = tp.replace(**{f.name: getattr(tp, f.name).double() for f in dataclasses.fields(tp)
                            if getattr(tp, f.name).is_floating_point()})
@@ -115,7 +115,8 @@ def jax_distributed(jcam, prob, n_dev, iters):
 
 
 def port_dense(cam, prob, iters):
-    R, t, X, _, cost = tba.bundle_adjust(cam, convert.ba_problem_from_numpy(prob), iters)
+    prob = convert.ba_problem_from_numpy(prob, device="cpu")
+    R, t, X, _, cost = tba.bundle_adjust(cam, prob, iters)
     return {"R": R.numpy(), "t": t.numpy(), "X": X.numpy(), "cost": float(cost)}
 
 
@@ -131,7 +132,7 @@ def dense_steps(cam, jcam, prob, iters, package):
     kept)] and the returned state's cost."""
     rows = []
     if package == "port":
-        p = convert.ba_problem_from_numpy(prob)
+        p = convert.ba_problem_from_numpy(prob, device="cpu")
         free, ptv = p.cam_valid & ~p.cam_fixed, p.pt_valid[:, None].float()
         R, t, X, lam = p.R, p.t, p.points, torch.tensor(1e-5)
         for _ in range(iters):
@@ -187,7 +188,8 @@ def main():
     cam, jcam = TCam(**camd), JCam(**camd)
     if a.dense_steps:
         return main_dense(cam, jcam, prob, a)
-    ref = convert.ba_problem_from_numpy(prob)     # the measures are taken on the CPU, float32
+    # the measures are taken on the CPU, float32
+    ref = convert.ba_problem_from_numpy(prob, device="cpu")
     shuf = shuffled(prob)
     print(json.dumps({"problem": a.problem, "cameras": int(prob["cam_valid"].sum()),
                       "fixed": int((prob["cam_fixed"] & prob["cam_valid"]).sum()),

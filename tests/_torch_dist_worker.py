@@ -11,6 +11,10 @@ DIR/in.npz, runs MODE and writes DIR/out{RANK}.npz:
   ba         make_distributed_ba on the sharded problem in in.npz;
   loop       LoopCloser._dispatch_global_ba on the map in in.npz (anchor,
              iterations), then maybe_fold_gba(force=True);
+  fold_agree mesh.all_ranks on flags that hold on every rank, one, none;
+             then the loop mode's global BA with its done event standing in
+             for a clock that differs by rank: maybe_fold_gba while rank 1's
+             BA is still running, then once it is done on both;
   prims, modules, system, free, gba
              the live map's point axis split over the ranks
              (tests/_torch_shard_cases.py): the primitives against their
@@ -51,19 +55,44 @@ def main(mode, rank, world, port, out_dir):
         out["sum"] = x.numpy()
     elif mode == "ba":
         cam = CameraModel(**{f.name: float(d["cam_" + f.name]) for f in dataclasses.fields(CameraModel)})
-        prob = convert.ba_problem_from_numpy({k[5:]: v for k, v in d.items() if k.startswith("prob_")})
+        prob = convert.ba_problem_from_numpy(
+            {k[5:]: v for k, v in d.items() if k.startswith("prob_")}, device="cpu")
         step = dist_ba.make_distributed_ba(mesh.map_mesh(), iters=int(d["iters"]))
         R, t, X, cost = step(cam, prob)
         out.update(R=R.numpy(), t=t.numpy(), X=X.numpy(), cost=cost.numpy())
-    elif mode == "loop":
+    elif mode in ("loop", "fold_agree"):
         from orb_slam2_annotate_tpu_torch.pipeline.loop_closing import LoopCloser, LoopCloserConfig
 
         cam = CameraModel(**{f.name: float(d["cam_" + f.name]) for f in dataclasses.fields(CameraModel)})
-        m = convert.map_state_from_numpy({k[2:]: v for k, v in d.items() if k.startswith("m_")})
+        m = convert.map_state_from_numpy({k[2:]: v for k, v in d.items() if k.startswith("m_")},
+                                         device="cpu")
         lc = LoopCloser(cam, m.K, LoopCloserConfig(n_words=64, global_ba_iters=int(d["iters"])),
                         device="cpu")
         lc._dispatch_global_ba(m, anchor=int(d["anchor"]))
         g = lc._gba_pending
+        if mode == "fold_agree":
+            out.update(all_true=mesh.all_ranks(True), rank0_only=mesh.all_ranks(rank == 0),
+                       none=mesh.all_ranks(False))
+
+            class Clock:
+                """A done event that answers `done`."""
+
+                def __init__(self, done):
+                    self.done = done
+
+                def query(self):
+                    return self.done
+
+            g["done"] = Clock(rank == 0)
+            lc.maybe_fold_gba(m)
+            out["folded_while_rank1_runs"] = lc.n_gba_folded
+            g["done"] = Clock(True)
+            folded = lc.maybe_fold_gba(m)
+            out["folded_once_done"] = lc.n_gba_folded
+            out.update({"fold_" + k: v for k, v in convert.map_state_to_numpy(folded).items()})
+            np.savez(os.path.join(out_dir, f"out{rank}.npz"), **out)
+            torch.distributed.destroy_process_group()
+            return
         out.update(R=g["R"].numpy(), t=g["t"].numpy(), X=g["X"].numpy(), cost=g["cost"].numpy())
         folded = lc.maybe_fold_gba(m, force=True)
         out.update({"fold_" + k: v for k, v in convert.map_state_to_numpy(folded).items()})

@@ -87,13 +87,57 @@ def run_free(cfg, n_frames: int = 14):
     return traj_array(out["trajectory"]), convert.map_state_to_numpy(out["map"])
 
 
+# tests/test_torch_rgbd.py's cell: PlaneScene seed 2, bf = 250 x 0.08, th_depth 100; the
+# stereo pairs' right camera one baseline (bf / fx) to the right
+DEPTH_ARGS = dict(ARGS, bf=250.0 * 0.08)
+DEPTH_CAM = CameraModel.create(**DEPTH_ARGS)
+DEPTH_KW = dict(n_features=512, n_levels=4, max_kf=32, max_mp=8192, max_frames_between_kf=4,
+                th_depth=100.0)
+
+
+def depth_frames(n: int, sensor: str):
+    """(left uint8, depth f32 or right uint8) of the depth cell's first n frames."""
+    scene = tsyn.PlaneScene(seed=2)
+    b = DEPTH_CAM.bf / DEPTH_CAM.fx
+    u8 = lambda im: np.clip(im, 0, 255).astype(np.uint8)
+    out = []
+    for R, t in tsyn.orbit_trajectory(n, step=0.06):
+        img, dep = scene.render(DEPTH_CAM, R, t, h=240, w=320)
+        if sensor == "stereo":
+            t_r = np.asarray(t, np.float32) - np.array([b, 0, 0], np.float32)
+            dep = u8(scene.render(DEPTH_CAM, R, t_r, h=240, w=320)[0])
+        out.append((u8(img), dep))
+    return out
+
+
+def run_depth(kind: str, shard: bool, n_frames: int = 12):
+    """The depth cell through the System (kind "rgbd" / "stereo") or the
+    FreeRunner ("free_rgbd"): (trajectory, whole map as numpy, the map)."""
+    from orb_slam2_annotate_tpu_torch.pipeline import System, device_loop, mono_slice_config
+
+    sensor = kind.replace("free_", "")
+    cfg = mono_slice_config(**DEPTH_KW, sensor=sensor, shard_points=shard)
+    if kind.startswith("free_"):
+        r = device_loop.FreeRunner(DEPTH_CAM, cfg, max_frames=n_frames, auto_grow=False,
+                                   device="cpu")
+        for k, (img, dep) in enumerate(depth_frames(n_frames, sensor)):
+            r.track_rgbd(img, dep, k / 30.0)
+        out = r.finish()
+        return traj_array(out["trajectory"]), convert.map_state_to_numpy(out["map"]), out["map"]
+    slam = System(DEPTH_CAM, cfg, device="cpu")
+    track = slam.track_rgbd if sensor == "rgbd" else slam.track_stereo
+    for k, (img, other) in enumerate(depth_frames(n_frames, sensor)):
+        track(img, other, k / 30.0)
+    return traj_array(slam.frame_trajectory()), convert.map_state_to_numpy(slam.map), slam.map
+
+
 def _spec(d) -> dict:
     return json.loads(str(d["spec"])) if "spec" in d else {}
 
 
 def _whole_map(d, prefix="m_"):
     return convert.map_state_from_numpy({k[len(prefix):]: v for k, v in d.items()
-                                         if k.startswith(prefix)})
+                                         if k.startswith(prefix)}, device="cpu")
 
 
 # ---- the primitives ------------------------------------------------------
@@ -196,7 +240,8 @@ def rank_modules(d, out_dir) -> dict:
 
     mesh = tmesh.map_mesh()
     full = _whole_map(d)
-    frame = convert.frame_from_numpy({k[2:]: v for k, v in d.items() if k.startswith("f_")})
+    frame = convert.frame_from_numpy({k[2:]: v for k, v in d.items() if k.startswith("f_")},
+                                     device="cpu")
     R, t, obs = (torch.from_numpy(d[k]) for k in ("R", "t", "obs"))
     slot, cand = int(d["slot"]), int(d["cand"])
     free = int(torch.argmin(full.kf_valid.to(torch.int32)))
@@ -339,6 +384,17 @@ def _kf_fields(m) -> dict:
     """The replicated fields of a map (its keyframes and counter)."""
     return {f.name: getattr(m, f.name).numpy() for f in dataclasses.fields(m)
             if not f.name.startswith("mp_")}
+
+
+def rank_depth(d, out_dir) -> dict:
+    """The depth cells (in.npz's spec "kinds") with shard_points=True."""
+    out = {}
+    for kind in _spec(d)["kinds"]:
+        traj, m, live = run_depth(kind, shard=True)
+        assert live.mesh == tmesh.map_mesh() and live.P_local == live.P // live.mesh.size
+        out.update({f"{kind}_traj": traj, **{f"{kind}_m_" + k: v for k, v in m.items()},
+                    **{f"{kind}_kf_" + k: v for k, v in _kf_fields(live).items()}})
+    return out
 
 
 def rank_free(d, out_dir) -> dict:

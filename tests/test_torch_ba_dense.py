@@ -52,7 +52,8 @@ def problem(seed=3, stereo=0.4, outliers=0.05):
 
 
 def to_port(jp):
-    return convert.ba_problem_from_numpy({k: np.asarray(v) for k, v in jp._asdict().items()})
+    return convert.ba_problem_from_numpy({k: np.asarray(v) for k, v in jp._asdict().items()},
+                                         device="cpu")
 
 
 def close_rel(a, b, rel):
@@ -107,7 +108,7 @@ def test_bundle_adjust_matches_reference(seed, iters):
 def test_ba_problem_converters_round_trip():
     jp, _ = problem()
     d = {k: np.asarray(v) for k, v in jp._asdict().items()}
-    back = convert.ba_problem_to_numpy(convert.ba_problem_from_numpy(d))
+    back = convert.ba_problem_to_numpy(convert.ba_problem_from_numpy(d, device="cpu"))
     for k, v in d.items():
         np.testing.assert_array_equal(back[k], v.astype(back[k].dtype), err_msg=k)
         assert back[k].dtype != np.float64

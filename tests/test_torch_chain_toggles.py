@@ -91,9 +91,9 @@ def run_chains(state, toggles):
     ref, slot, _ = jlm.keyframe_chain(slam.map, CAM, frame, step.R, step.t, step.obs, 14, 14 / 30.0,
                                       0.0, has_depth=False, do_kf_cull=False, **toggles)
     slot = int(slot)
-    got, info = tlm.keyframe_chain(convert.map_state_from_numpy(nd(slam.map)), TCAM,
-                                   convert.frame_from_numpy(nd(frame)), slot, T(step.R), T(step.t),
-                                   T(step.obs), 14, 14 / 30.0, do_kf_cull=False, **toggles)
+    got, info = tlm.keyframe_chain(convert.map_state_from_numpy(nd(slam.map), device="cpu"), TCAM,
+                                   convert.frame_from_numpy(nd(frame), device="cpu"), slot, T(step.R),
+                                   T(step.t), T(step.obs), 14, 14 / 30.0, do_kf_cull=False, **toggles)
     assert not info.ok.any()
     return ref, got, slot
 
@@ -115,9 +115,9 @@ def test_keyframe_chain_fuse_with_stats(state):
     assert_chain(got.replace(kf_obs=T(ref.kf_obs)), ref, slot, True)
     # stage by stage: the reference's fuse on the port's own triangulated map
     slam, frame, step = state
-    m = tlm.insert_keyframe_from_frame(convert.map_state_from_numpy(nd(slam.map)),
-                                       convert.frame_from_numpy(nd(frame)), slot, T(step.R),
-                                       T(step.t), T(step.obs), 14, 14 / 30.0)
+    m = tlm.insert_keyframe_from_frame(convert.map_state_from_numpy(nd(slam.map), device="cpu"),
+                                       convert.frame_from_numpy(nd(frame), device="cpu"), slot,
+                                       T(step.R), T(step.t), T(step.obs), 14, 14 / 30.0)
     m = tlm.create_new_mappoints(tlm.cull_recent_mappoints(m), TCAM, slot, update_stats=True)
     fused = tlm.fuse_neighbors(m, TCAM, slot)
     m_j = jms.MapState(**{k: jnp.asarray(v) for k, v in convert.map_state_to_numpy(m).items()})

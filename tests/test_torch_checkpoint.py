@@ -77,7 +77,7 @@ def test_map_file_loads_in_the_other_package(tmp_path, writer):
         got = convert.map_state_to_numpy(m)
         assert m.kf_desc.dtype == torch.int32 and m.n_kf.shape == ()
     else:
-        tck.save_map(path, convert.map_state_from_numpy(ref), extra={"note": writer})
+        tck.save_map(path, convert.map_state_from_numpy(ref, device="cpu"), extra={"note": writer})
         m, extra = jck.load_map(path)
         got = {k: np.asarray(v) for k, v in m._asdict().items()}
     assert extra == {"note": writer}
@@ -180,7 +180,7 @@ def test_free_runner_load_map_fits_the_tiers(tmp_path, K, P):
 def test_free_runner_save_load_round_trip(tmp_path):
     ref = random_map(K=8, P=128, N=32, seed=2)
     runner = _runner(8, 128)
-    runner.state = runner.state.replace(m=convert.map_state_from_numpy(ref))
+    runner.state = runner.state.replace(m=convert.map_state_from_numpy(ref, device="cpu"))
     path = str(tmp_path / "map.npz")
     runner.save_map(path)
     runner2 = _runner(8, 128)

@@ -70,7 +70,8 @@ def problem(seed=11, n_cams=5, n_pts=64, noise=0.3, stereo=0.3, outliers=0.05):
 
 
 def to_port(jp):
-    return convert.ba_problem_from_numpy({k: np.asarray(v) for k, v in jp._asdict().items()})
+    return convert.ba_problem_from_numpy({k: np.asarray(v) for k, v in jp._asdict().items()},
+                                         device="cpu")
 
 
 def jax_distributed(sp, n_dev, iters):
@@ -281,3 +282,20 @@ def test_loop_closer_distributed_branch_on_two_ranks(tmp_path):
         np.testing.assert_array_equal(o["fold_" + k], v, err_msg=k)
     # the BA moved the map toward the truth
     assert float(o["cost"]) > 0 and not np.array_equal(o["fold_mp_pos"], np.asarray(m.mp_pos))
+
+
+def test_loop_closer_folds_on_every_rank_at_once(tmp_path):
+    """Each rank reads its own clock on whether its global BA is done; the
+    fold waits until it is done on every rank, so the ranks fold at the
+    same keyframe and go on from the same map."""
+    m = loop_map()
+    ins = {**cam_inputs(TCAM), "iters": np.int32(3), "anchor": np.int32(0),
+           **{"m_" + k: v for k, v in convert.map_state_to_numpy(m).items()}}
+    outs = run_ranks("fold_agree", tmp_path, ins)
+    for o in outs:
+        assert (bool(o["all_true"]), bool(o["rank0_only"]), bool(o["none"])) == (True, False, False)
+        assert int(o["folded_while_rank1_runs"]) == 0 and int(o["folded_once_done"]) == 1
+    for k in outs[0]:
+        if k.startswith("fold_"):
+            np.testing.assert_array_equal(outs[1][k], outs[0][k], err_msg=k)
+    assert not np.array_equal(outs[0]["fold_mp_pos"], np.asarray(m.mp_pos))

@@ -163,7 +163,7 @@ def test_jax_free_state_carried_into_the_port(data, jax_runs):
              and run["states"][k + 1]["m"]["n_kf"] == run["states"][k]["m"]["n_kf"])
     ref = run["states"][c + 1]
     runner = dl.FreeRunner(TCAM, SlamConfig(**_kw()), max_frames=N_FRAMES, device="cpu")
-    st = convert.free_state_from_numpy(run["states"][c])
+    st = convert.free_state_from_numpy(run["states"][c], device="cpu")
     step = dl.make_step(runner.cfg)
     got = convert.free_state_to_numpy(step(TCAM, runner.tab, runner.vocab, st,
                                            torch.from_numpy(frames[c][0]), c, c / 30.0, False))
@@ -183,8 +183,9 @@ def test_batch_detect_loops_on_a_jax_run_map(jax_runs, gap_kf):
     ref = [np.asarray(a) for a in jlc.batch_detect_loops(run["vocab"], m, jax.numpy.asarray(bows),
                                                          gap_kf)]
     tv = convert.vocabulary_from_numpy({"words": np.asarray(run["vocab"].words),
-                                        "idf": np.asarray(run["vocab"].idf)})
-    tm = convert.map_state_from_numpy({k: np.asarray(v) for k, v in m._asdict().items()})
+                                        "idf": np.asarray(run["vocab"].idf)}, device="cpu")
+    tm = convert.map_state_from_numpy({k: np.asarray(v) for k, v in m._asdict().items()},
+                                      device="cpu")
     got = [a.numpy() for a in tlc.batch_detect_loops(tv, tm, torch.from_numpy(bows), gap_kf)]
     valid = np.asarray(m.kf_valid)
     assert valid.sum() >= 3

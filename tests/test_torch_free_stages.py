@@ -61,7 +61,8 @@ def T(a):
 
 
 def port_map(m) -> tms.MapState:
-    return convert.map_state_from_numpy({k: np.asarray(v) for k, v in m._asdict().items()})
+    return convert.map_state_from_numpy({k: np.asarray(v) for k, v in m._asdict().items()},
+                                        device="cpu")
 
 
 def drift_map(drift):
@@ -108,7 +109,7 @@ def maps():
 def vocab():
     lc = jlc.LoopCloser(CAM, K, jlc.LoopCloserConfig())
     return lc.vocab, convert.vocabulary_from_numpy(
-        {"words": np.asarray(lc.vocab.words), "idf": np.asarray(lc.vocab.idf)})
+        {"words": np.asarray(lc.vocab.words), "idf": np.asarray(lc.vocab.idf)}, device="cpu")
 
 
 def test_clear_map_agrees(maps):

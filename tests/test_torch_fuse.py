@@ -87,7 +87,7 @@ def triangulated():
                                               14 / 30.0, update_stats=False)
     slot = int(slot)
     jc = jlm.cull_recent_mappoints(jm)
-    tc = convert.map_state_from_numpy(nd(jc))
+    tc = convert.map_state_from_numpy(nd(jc), device="cpu")
     ref = jlm.create_new_mappoints(jc, CAM, jnp.asarray(slot), update_stats=True)
     got = tlm.create_new_mappoints(tc, TCAM, slot, update_stats=True)
     return ref, got, slot
@@ -102,7 +102,7 @@ def test_create_new_mappoints_with_stats_refresh(triangulated):
 def fuse_input(triangulated):
     """The reference's triangulated map in both packages, and the slot."""
     ref, _, slot = triangulated
-    return ref, convert.map_state_from_numpy(nd(ref)), slot
+    return ref, convert.map_state_from_numpy(nd(ref), device="cpu"), slot
 
 
 def test_double_loser_keeps_the_reference_winner():

@@ -137,3 +137,16 @@ def test_decompose_essential_and_check_rt():
         np.testing.assert_array_equal(g_t[0].numpy(), np.asarray(g_j))
         close(p_t[0], p_j, atol=1e-5)
         close(X_t[0], X_j, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("P", [1, 7, 100, 4096, 16384])
+def test_rotate_points_is_the_einsum_on_the_cpu(P):
+    """lie.rotate_points (loop correction and the global BA's fold) gives
+    the CPU einsum's bits, and the JAX package's einsum to 1e-5."""
+    R = (RNG.randn(P, 3, 3)).astype(np.float32)
+    x = (RNG.randn(P, 3) * 10).astype(np.float32)
+    for spec, transpose in (("pij,pj->pi", False), ("pji,pj->pi", True)):
+        got = tlie.rotate_points(T(R), T(x), transpose=transpose)
+        want = torch.einsum(spec, T(R), T(x))
+        np.testing.assert_array_equal(got.numpy().view(np.int32), want.numpy().view(np.int32))
+        close(got, jnp.einsum(spec, jnp.asarray(R), jnp.asarray(x)), atol=1e-4)

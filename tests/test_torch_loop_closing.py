@@ -11,8 +11,10 @@ mp_valid) and update_mappoint_geometry's validity exactly equal, its
 normals and depth bands within 1e-5; fold_gba_device within 1e-5.  The
 whole LoopCloser.on_keyframe, then maybe_fold_gba(force=True), closes the
 loop in both packages (its Sim3 RANSAC draws from a torch.Generator, so it
-is compared by outcome): corrected keyframe 11 within 0.08 m of the truth
-and within 1e-3 of the reference's.  _drift_plausible gives the
+is compared by outcome), with the scale free and, on the same map with
+depth on every feature (an RGB-D sensor's), with the scale fixed: equal
+loop edges, corrected keyframe 11 within 0.08 m of the truth and within
+1e-3 of the reference's.  _drift_plausible gives the
 reference's verdicts on the plausible, teleport and scale cases.
 """
 
@@ -53,14 +55,19 @@ def close(a, b, tol):
 
 
 def port_map(m) -> tms.MapState:
-    return convert.map_state_from_numpy({k: np.asarray(v) for k, v in m._asdict().items()})
+    return convert.map_state_from_numpy({k: np.asarray(v) for k, v in m._asdict().items()},
+                                        device="cpu")
 
 
-def drift_map():
+BF = 400.0 * 0.08   # the depth map's baseline x fx (an RGB-D sensor's virtual right camera)
+
+
+def drift_map(depth: bool = False):
     """Keyframes 0-10 sweep away and back over their own random scenes;
     keyframe 11 truly sits at keyframe 0's pose and sees its scene, but is
     estimated with a drift of (0.25, 0.1, -0.15) and holds its own copies of
-    the points (no covisibility link to keyframe 0)."""
+    the points (no covisibility link to keyframe 0).  With `depth`, every
+    feature has its camera depth and virtual right coordinate u - BF / z."""
     rng = np.random.RandomState(7)
     m = jms.empty_map(K, P, N)
     X0 = rng.uniform([-2, -2, 4], [2, 2, 8], (N, 3)).astype(np.float32)
@@ -71,9 +78,12 @@ def drift_map():
         uv = np.stack([400 * Xc[:, 0] / Xc[:, 2] + 160, 400 * Xc[:, 1] / Xc[:, 2] + 120],
                       1).astype(np.float32)
         base = slot * N
+        z = Xc[:, 2].astype(np.float32)
+        ur = (uv[:, 0] - BF / z).astype(np.float32) if depth else np.full((N,), -1.0, np.float32)
+        dz = z if depth else np.zeros((N,), np.float32)
         m = jms.insert_keyframe(
             m, jnp.asarray(slot), jnp.eye(3), jnp.asarray(t), slot, float(slot), jnp.asarray(uv),
-            jnp.full((N,), -1.0), jnp.zeros((N,)), jnp.zeros((N,), jnp.int32), jnp.zeros((N,)),
+            jnp.asarray(ur), jnp.asarray(dz), jnp.zeros((N,), jnp.int32), jnp.zeros((N,)),
             jnp.asarray(desc), jnp.ones((N,), bool), jnp.arange(base, base + N, dtype=jnp.int32))
         return m._replace(mp_pos=m.mp_pos.at[base:base + N].set(jnp.asarray(Xw)),
                           mp_valid=m.mp_valid.at[base:base + N].set(True),
@@ -94,19 +104,23 @@ def drift():
     return drift_map()
 
 
-def loop_closers(m):
+def loop_closers(m, fix_scale: bool = False):
     """Both packages' LoopClosers with keyframes 0-10 in the database, the
     port's given the reference's state through convert.py."""
-    lc = jlc.LoopCloser(CAM, K, jlc.LoopCloserConfig(consistency_th=1, gap_kf=3))
+    cfg = dict(consistency_th=1, gap_kf=3, fix_scale=fix_scale)
+    lc = jlc.LoopCloser(CAM, K, jlc.LoopCloserConfig(**cfg))
     for k in range(SLOT):
         lc.db = lc.db.add(k, jvoc.bow_vector(lc.vocab, m.kf_desc[k], m.kf_feat_valid[k]))
-    tl = tlc.LoopCloser(TCAM, K, tlc.LoopCloserConfig(consistency_th=1, gap_kf=3), device="cpu")
+    tl = tlc.LoopCloser(TCAM, K, tlc.LoopCloserConfig(**cfg), device="cpu")
     convert.loop_closer_state_from_numpy(tl, convert.loop_closer_state_to_numpy(lc))
     return lc, tl
 
 
-def test_loop_closer_closes_the_constructed_drift_in_both(drift):
-    lc, tl = loop_closers(drift)
+@pytest.mark.parametrize("fix_scale", [False, True])
+def test_loop_closer_closes_the_constructed_drift_in_both(drift, fix_scale):
+    if fix_scale:
+        drift = drift_map(depth=True)
+    lc, tl = loop_closers(drift, fix_scale)
     state = convert.loop_closer_state_to_numpy(tl)
     np.testing.assert_array_equal(state["bows"], np.asarray(lc.db.bows))
     m2, closed = lc.on_keyframe(drift, SLOT)

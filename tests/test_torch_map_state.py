@@ -58,7 +58,7 @@ def jmap():
 
 @pytest.fixture
 def tmap(jmap):
-    return convert.map_state_from_numpy(jax_map_dict(jmap))
+    return convert.map_state_from_numpy(jax_map_dict(jmap), device="cpu")
 
 
 def test_convert_round_trip_and_empty(jmap, tmap):

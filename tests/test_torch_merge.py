@@ -84,8 +84,9 @@ def sessions():
 def pairs(sessions):
     a, b, vocab, jvocab, _ = sessions
     return (jmerge.find_cross_map_pair(jax_map(a), jax_map(b), jvocab, top_k=8),
-            tmerge.find_cross_map_pair(convert.map_state_from_numpy(a),
-                                       convert.map_state_from_numpy(b), vocab, top_k=8))
+            tmerge.find_cross_map_pair(convert.map_state_from_numpy(a, device="cpu"),
+                                       convert.map_state_from_numpy(b, device="cpu"), vocab,
+                                       top_k=8))
 
 
 def test_find_cross_map_pair_matches_reference(pairs):
@@ -117,7 +118,8 @@ def reference_draws(monkeypatch):
 
 def test_solve_inter_map_sim3_fed_reference_draws(sessions, pairs, reference_draws):
     a, b, *_ = sessions
-    ta, tb = convert.map_state_from_numpy(a), convert.map_state_from_numpy(b)
+    ta = convert.map_state_from_numpy(a, device="cpu")
+    tb = convert.map_state_from_numpy(b, device="cpu")
     solved = 0
     for _, ka, kb in pairs[0][:3]:
         J = jmerge.solve_inter_map_sim3(jax_map(a), jax_map(b), JCAM, ka, kb, fix_scale=True)
@@ -169,8 +171,8 @@ def _assert_maps_close(got: dict, ref: dict, atol: float):
 def test_place_session_matches_reference(sessions, placed):
     a, b, *_ = sessions
     S, ref, seen, (ka, kb) = placed
-    m, kf_map = tmerge.place_session(convert.map_state_from_numpy(a),
-                                     convert.map_state_from_numpy(b),
+    m, kf_map = tmerge.place_session(convert.map_state_from_numpy(a, device="cpu"),
+                                     convert.map_state_from_numpy(b, device="cpu"),
                                      *(torch.from_numpy(x) for x in S))
     assert int(kf_map[kb]) == seen["kf_b_new"] and seen["kf_a"] == ka
     _assert_maps_close(convert.map_state_to_numpy(tms.update_mappoint_stats(m)), ref, 1e-5)
@@ -178,11 +180,11 @@ def test_place_session_matches_reference(sessions, placed):
 
 def test_place_session_needs_capacity(sessions):
     a, b, *_ = sessions
-    ta = convert.map_state_from_numpy(a)
+    ta = convert.map_state_from_numpy(a, device="cpu")
     full = ta.replace(kf_valid=torch.ones_like(ta.kf_valid))
     one = torch.ones(())
     with pytest.raises(ValueError, match="lacks capacity"):
-        tmerge.place_session(full, convert.map_state_from_numpy(b), one, torch.eye(3),
+        tmerge.place_session(full, convert.map_state_from_numpy(b, device="cpu"), one, torch.eye(3),
                              torch.zeros(3))
 
 
@@ -190,8 +192,8 @@ def test_refine_seam_matches_reference(placed):
     _, ref_in, seen, _ = placed
     ref = jax_to_numpy(jmerge._refine_seam(jax_map(ref_in), JCAM, seen["kf_a"],
                                            seen["kf_b_new"]))
-    got = convert.map_state_to_numpy(tmerge.refine_seam(convert.map_state_from_numpy(ref_in), CAM,
-                                                        seen["kf_a"], seen["kf_b_new"]))
+    got = convert.map_state_to_numpy(tmerge.refine_seam(
+        convert.map_state_from_numpy(ref_in, device="cpu"), CAM, seen["kf_a"], seen["kf_b_new"]))
     assert (got["kf_obs"] != ref_in["kf_obs"]).any(), "no observation fused across the seam"
     for k in ("kf_obs", "kf_valid", "mp_valid", "mp_desc", "n_kf"):
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
@@ -219,8 +221,9 @@ def test_observation_tables_are_row_major(K):
 
 def test_merge_maps_end_to_end(sessions):
     a, b, vocab, _, poses = sessions
-    res = tmerge.merge_maps(convert.map_state_from_numpy(a), convert.map_state_from_numpy(b), CAM,
-                            vocab=vocab, fix_scale=True)
+    res = tmerge.merge_maps(convert.map_state_from_numpy(a, device="cpu"),
+                            convert.map_state_from_numpy(b, device="cpu"), CAM, vocab=vocab,
+                            fix_scale=True)
     assert res.success and abs(res.scale - 1.0) < 0.1, res.scale
     m = res.map
     errs = []

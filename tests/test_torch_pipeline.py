@@ -92,15 +92,16 @@ def state():
 
 
 def torch_state(slam, frame):
-    m = convert.map_state_from_numpy(nd(slam.map))
-    return (m, convert.frame_from_numpy(nd(frame)), convert.frame_from_numpy(nd(slam.last_frame)),
+    m = convert.map_state_from_numpy(nd(slam.map), device="cpu")
+    return (m, convert.frame_from_numpy(nd(frame), device="cpu"),
+            convert.frame_from_numpy(nd(slam.last_frame), device="cpu"),
             T(slam.last_obs), T(slam.R), T(slam.t), T(slam.vel[0]), T(slam.vel[1]))
 
 
 def test_convert_frame_and_camera(state):
     _, frame = state
     ref = nd(frame)
-    f = convert.frame_from_numpy(ref)
+    f = convert.frame_from_numpy(ref, device="cpu")
     assert f.desc.dtype == torch.int32 and f.xy.dtype == torch.float32
     back = convert.frame_to_numpy(f)
     for k, v in ref.items():
@@ -195,7 +196,8 @@ def test_keyframe_chain(state):
                                       0.0, has_depth=False, do_cull_recent=True,
                                       stats_in_triangulate=False, do_fuse=False, do_local_ba=True,
                                       do_kf_cull=False)
-    m, f = convert.map_state_from_numpy(nd(slam.map)), convert.frame_from_numpy(nd(frame))
+    m = convert.map_state_from_numpy(nd(slam.map), device="cpu")
+    f = convert.frame_from_numpy(nd(frame), device="cpu")
     got, info = tlm.keyframe_chain(m, TCAM, f, int(slot), T(step.R), T(step.t), T(step.obs), 14,
                                    14 / 30.0, do_kf_cull=False)
     assert not info.ok.any() and not info.R_rel.any()
@@ -230,9 +232,9 @@ def test_build_mono_init_map(state):
     tinit = tpol.InitResult(**{k: T(getattr(init, k)) for k in
                                ("success", "used_homography", "R", "t", "points", "good", "n_good")})
     got, tobs1 = tpol.build_mono_init_map(tms.empty_map(16, 2048, 512), TCAM,
-                                          convert.frame_from_numpy(nd(f0)),
-                                          convert.frame_from_numpy(nd(f1)), tinit, T(res.idx), 0, 0.0,
-                                          8, 8 / 30.0)
+                                          convert.frame_from_numpy(nd(f0), device="cpu"),
+                                          convert.frame_from_numpy(nd(f1), device="cpu"), tinit,
+                                          T(res.idx), 0, 0.0, 8, 8 / 30.0)
     np.testing.assert_array_equal(tobs1.numpy(), np.asarray(obs1))
     assert_ba_map(got, ref, 1, skip=STATS)
     ref_stats = jms.update_mappoint_stats_touched(convert_back(got),

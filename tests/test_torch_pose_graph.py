@@ -135,7 +135,8 @@ def essential_graphs():
     ref = jlc.build_essential_graph(m, jnp.asarray(slot), jnp.asarray(cand), s_c, R_c, t_c,
                                     jnp.asarray(s12), jnp.asarray(R12), jnp.asarray(t12),
                                     jnp.asarray(la), jnp.asarray(lb), jnp.asarray(lok))
-    tm = convert.map_state_from_numpy({k: np.asarray(v) for k, v in m._asdict().items()})
+    tm = convert.map_state_from_numpy({k: np.asarray(v) for k, v in m._asdict().items()},
+                                      device="cpu")
     got = tlc.build_essential_graph(tm, slot, cand, T(np.asarray(s_c)), T(np.asarray(R_c)),
                                     T(np.asarray(t_c)), T(s12), T(R12), T(t12), T(la), T(lb),
                                     T(lok))

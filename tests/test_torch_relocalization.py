@@ -126,7 +126,7 @@ def test_reference_relocalizes(kidnap):
 
 def test_covisibility_and_spanning_tree(kidnap):
     d = kidnap["before"]["map"]
-    m_j, m_t = jmap(d), convert.map_state_from_numpy(d)
+    m_j, m_t = jmap(d), convert.map_state_from_numpy(d, device="cpu")
     W = np.asarray(jms.covisibility(m_j))
     np.testing.assert_array_equal(tms.covisibility(m_t).numpy(), W)
     assert W.max() > 100
@@ -143,8 +143,9 @@ def test_detect_loop_device(kidnap):
     slot = int(np.argmax(np.where(d["kf_valid"], d["kf_frame_id"], -1)))
     bows = kidnap["before"]["bows"]
     ref = jlc.detect_loop_device(kidnap["vocab"], jnp.asarray(bows), jmap(d), slot, 3)
-    got = tlc.detect_loop_device(convert.vocabulary_from_numpy(nd(kidnap["vocab"])), T(bows),
-                                 convert.map_state_from_numpy(d), slot, 3)
+    vocab = convert.vocabulary_from_numpy(nd(kidnap["vocab"]), device="cpu")
+    got = tlc.detect_loop_device(vocab, T(bows),
+                                 convert.map_state_from_numpy(d, device="cpu"), slot, 3)
     np.testing.assert_allclose(got.db_bows.numpy(), np.asarray(ref.db_bows), atol=1e-6, rtol=0)
     np.testing.assert_array_equal(got.cands.numpy(), np.asarray(ref.cands))
     np.testing.assert_array_equal(got.ok.numpy(), np.asarray(ref.ok))
@@ -155,9 +156,9 @@ def test_relocalize_candidates(kidnap):
     b = kidnap["before"]
     ref = jtk.relocalize_candidates(CAM, jmap(b["map"]), jfr.Frame(**b["frame"]), kidnap["vocab"],
                                     jnp.asarray(b["bows"]), jax.random.PRNGKey(b["frame_id"]))
-    got = ttk.relocalize_candidates(TCAM, convert.map_state_from_numpy(b["map"]),
-                                    convert.frame_from_numpy(b["frame"]),
-                                    convert.vocabulary_from_numpy(nd(kidnap["vocab"])),
+    got = ttk.relocalize_candidates(TCAM, convert.map_state_from_numpy(b["map"], device="cpu"),
+                                    convert.frame_from_numpy(b["frame"], device="cpu"),
+                                    convert.vocabulary_from_numpy(nd(kidnap["vocab"]), "cpu"),
                                     T(b["bows"]), torch.Generator().manual_seed(b["frame_id"]))
     assert int(ref.best_slot) >= 0
     assert int(got.best_slot) == int(ref.best_slot)
@@ -187,7 +188,7 @@ def redundant_map(kidnap):
 def test_cull_keyframes(redundant_map, update_stats):
     d, protect, original, free = redundant_map
     ref_m, ref_i = jlm.cull_keyframes(jmap(d), jnp.asarray(protect), update_stats=update_stats)
-    got_m, got_i = tlm.cull_keyframes(convert.map_state_from_numpy(d), protect,
+    got_m, got_i = tlm.cull_keyframes(convert.map_state_from_numpy(d, device="cpu"), protect,
                                       update_stats=update_stats)
     ref_i = nd(ref_i)
     assert ref_i["ok"].sum() >= 2 and original in ref_i["slots"][ref_i["ok"]]
@@ -219,7 +220,7 @@ def test_cull_info_reparents_records(redundant_map):
     holder_t = types.SimpleNamespace(records=[tsys.FrameRecord(*a) for a in rec_args])
     args = (info["slots"][ok], info["new_ref"][ok], info["R_rel"][ok], info["t_rel"][ok])
     System._reparent_records(holder_j, *args)
-    t_info = convert.cull_info_from_numpy(info)
+    t_info = convert.cull_info_from_numpy(info, device="cpu")
     tok = t_info.ok.numpy()
     TSystem._reparent_records(holder_t, t_info.slots.numpy()[tok], t_info.new_ref.numpy()[tok],
                               t_info.R_rel.numpy()[tok], t_info.t_rel.numpy()[tok])

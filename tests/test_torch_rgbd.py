@@ -110,11 +110,11 @@ def depth_maps(scene_frames):
     """The bootstrap map and a second keyframe's depth points, both packages."""
     _, frames = scene_frames
     f_j = [jfr.make_frame_rgbd(jnp.asarray(im), jnp.asarray(d), CAM, CFG_J) for im, d in frames[:2]]
-    f_t = [convert.frame_from_numpy(nd(f)) for f in f_j]
+    f_t = [convert.frame_from_numpy(nd(f), device="cpu") for f in f_j]
     m0 = jms.empty_map(8, 2048, 512)
     m_j, slot = jpol.build_depth_init_map(m0, CAM, f_j[0], 0, 0.0, MAX_DEPTH)
-    m_t = tpol.build_depth_init_map(convert.map_state_from_numpy(nd(m0)), TCAM, f_t[0], 0, 0, 0.0,
-                                    MAX_DEPTH)
+    m_t = tpol.build_depth_init_map(convert.map_state_from_numpy(nd(m0), device="cpu"), TCAM,
+                                    f_t[0], 0, 0, 0.0, MAX_DEPTH)
     # a second keyframe whose first 200 features observe the bootstrap's points
     obs = np.where(np.arange(512) < 200, np.asarray(m_j.kf_obs[0]), -1).astype(np.int32)
     R, t = np.eye(3, dtype=np.float32), np.array([0.01, 0.0, 0.02], np.float32)

@@ -304,7 +304,7 @@ def test_keyframe_chain_against_jax_sharded(jax_refs, modules):
     got = modules[0]
     assert int(got["chain_slot"]) == slot
     m = convert.map_state_from_numpy({k[6:]: v for k, v in got.items() if k.startswith("chain_")
-                                      and k != "chain_slot"})
+                                      and k != "chain_slot"}, device="cpu")
     assert_ba_map(m, ref, slot, skip=STATS)
 
 

@@ -53,7 +53,7 @@ def test_trained_vocabulary_loads_by_path(vocabs):
     np.testing.assert_array_equal(got.words.numpy().view(np.uint32), np.asarray(ref.words))
     np.testing.assert_array_equal(got.idf.numpy(), np.asarray(ref.idf))
     back = convert.vocabulary_to_numpy(convert.vocabulary_from_numpy(
-        {"words": np.asarray(ref.words), "idf": np.asarray(ref.idf)}))
+        {"words": np.asarray(ref.words), "idf": np.asarray(ref.idf)}, device="cpu"))
     np.testing.assert_array_equal(back["words"], np.asarray(ref.words))
     assert back["words"].dtype == np.uint32
 
@@ -130,7 +130,7 @@ def test_detect_relocalization_candidates(database, with_covis):
     s_ref, ok_ref = jvoc.detect_relocalization_candidates(
         jvoc.KeyFrameDatabase(jnp.asarray(bows)), jnp.asarray(q), jnp.asarray(kf_valid),
         None if c is None else jnp.asarray(c))
-    db = convert.database_from_numpy({"bows": bows})
+    db = convert.database_from_numpy({"bows": bows}, device="cpu")
     s_got, ok_got = tvoc.detect_relocalization_candidates(db, T(q), T(kf_valid),
                                                           None if c is None else T(c))
     ok_ref = np.asarray(ok_ref)

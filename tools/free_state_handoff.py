@@ -81,7 +81,8 @@ def main():
                 ("jax", jdl.FreeRunner(jcam, jcfg, max_frames=len(frames), auto_grow=False)),
                 ("port", tdl.FreeRunner(cam, dataclasses.replace(cfg, seed=seed),
                                         max_frames=len(frames), auto_grow=False, device="cpu"))):
-            runner.state = jax_state(state) if name == "jax" else convert.free_state_from_numpy(state)
+            runner.state = (jax_state(state) if name == "jax"
+                            else convert.free_state_from_numpy(state, device="cpu"))
             runner.frame_id, runner._timestamps = args.at - 1, [k / 30.0 for k in range(args.at)]
             for k in range(args.at, len(frames)):
                 feed(runner, k)

@@ -111,7 +111,7 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     if loop:
-        cam, _, frames, cfg = loop_setup()
+        cam, _, frames, _, cfg = loop_setup()
     else:
         cam, poses, frames, depths, cfg = slice_setup()
     track = lambda slam, k: slam.track_mono(frames[k], k / 30.0)
