@@ -49,9 +49,14 @@ Phases (any failure exits non-zero):
      grid_sample in turns; kernel 11 (a segment sum in one fixed order) bit
      for bit its twin on the CPU, on the rows of phase 6's closure (the pose
      graph's g and H) and phase 15's map (the global BA's Hcc, gc, Hpp, gp
-     and build_normal_eqs' B over 2,097,152 pairs), its plan equal to the
-     CPU's, beside one index_add and torch.segment_reduce, with its launches
-     in one solve of each solver (run after phase 6, whose inputs it takes);
+     and build_normal_eqs' B over 2,097,152 pairs) and on edge cases (a
+     5,000-row segment, every row in one segment, S = 1, D = 1 and 64, E = 0,
+     every row dropped, B's S with no live row, rows 4 bytes off 16), its
+     plan equal to the CPU's, two calls equal, beside one index_add and
+     torch.segment_reduce (100 calls, a CUDA-graph replay, host ns a call),
+     with its bound and chain floor (the longest segment's dependent adds,
+     at a probed add's time) and its launches in one solve of each solver
+     (run after phase 6, whose inputs it takes);
   4. run the monocular System (``mono_slice_config``: relocalization and
      keyframe culling on) through ``System.track_mono`` on 48 frames at
      VGA / 1024 features / 8 levels, with every launch counter reset just
@@ -875,6 +880,151 @@ def sim3_lm_work(valid, iters):
     return valid.shape[0] * (SIM3_PAIR_BYTES + 1) + 64, iters * SIM3_LM_OPS_PER_PAIR * float(valid.sum())
 
 
+def k11_case(seed, E, S, D, live, longest):
+    """(index [E], rows [E, D]) on the card from tests/_segment_cases.py: an
+    index over S segments with `live` kept rows, one segment of `longest`
+    rows, and rows whose sums depend on the order of addition."""
+    import numpy as np
+    import torch
+
+    cases = runpy.run_path(os.path.join(ROOT, "tests", "_segment_cases.py"))
+    idx = cases["shape_case"](seed, E, S, live, longest)
+    vals = cases["order_sensitive"](np.random.default_rng(seed), E, D)
+    return torch.from_numpy(idx).cuda(), torch.from_numpy(vals).cuda()
+
+
+def fadd_chain_ns() -> dict:
+    """The card's time for one dependent float add: kernel 11's probe
+    (csrc/segment_sum.cu fadd_chain_probe, one thread, 2^20 dependent
+    __fadd_rn, %globaltimer and clock64), the better of three runs after a
+    warm-up.  The chain floor of a segment sum is its longest segment's
+    rows times this."""
+    import ctypes
+
+    import torch
+
+    from orb_slam2_annotate_tpu_torch.kernels import _build
+
+    probe = _build.load("segment_sum").fadd_chain_probe
+    probe.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    probe.restype = ctypes.c_int
+    out = torch.zeros(3, dtype=torch.int64, device="cuda")
+    n, best = 1 << 20, None
+    for _ in range(4):
+        _build.check_launch(probe(out.data_ptr(), 1.0, n, _build.stream_ptr(out.device)),
+                            "fadd_chain_probe")
+        ns, cycles, _ = out.tolist()
+        if best is None or ns < best[0]:
+            best = (ns, cycles)
+    return {"ns_per_add": best[0] / n, "cycles_per_add": best[1] / n,
+            "clock_ghz": best[1] / best[0]}
+
+
+def k11_shape(k11, name, idx, S, vals, add_ns) -> dict:
+    """Kernel 11 at one call shape: bit for bit its CPU twin, its plan equal
+    to the CPU's (key, perm, offsets), two calls equal (fails otherwise);
+    timed on the 100-call clock (ms) and in a CUDA-graph replay (graph_us),
+    beside the same function's library calls on the rows the plan keeps, as
+    the kernel gets them: one index_add (float atomics) and
+    torch.segment_reduce on the sorted rows (library_ms the faster on the
+    100-call clock; each also replayed, a refused capture recorded), the
+    wrapper's and index_add's host time a call (host_ns), the bytes bound
+    and the chain floor (the longest segment's dependent adds)."""
+    import numpy as np
+    import torch
+
+    vals = vals.contiguous()
+    E, D = vals.shape[0], vals[0].numel() if vals.shape[0] else math.prod(vals.shape[1:])
+    plan = k11.segment_plan(idx, S)
+    plan_c = k11.segment_plan(idx.cpu(), S)
+    got = k11.segment_sum(plan, vals)
+    again = k11.segment_sum(plan, vals)
+    want = k11.segment_sum_plain(plan_c, vals.cpu())
+    g32, w32 = got.cpu().numpy().view(np.int32), want.numpy().view(np.int32)
+    err = float((got.cpu() - want).abs().max()) if got.numel() else 0.0
+    live = int(plan.offsets[-1])
+    longest = int((plan.offsets[1:] - plan.offsets[:-1]).max()) if S else 0
+    row = {"E": E, "S": S, "D": D, "rows_live": live, "longest_segment": longest}
+    if hasattr(plan, "G"):                 # (a tree before the tiles: tools/k11_shapes.py --root)
+        row.update({"path": "walk" if D <= plan.walk_d else "tiles", "G": plan.G,
+                    "tiles": -(-S // plan.G) if S else 0,
+                    "stage_rows": k11.stage_rows(max(D, 1), plan.hint)})
+    row.update({"bit_for_bit_the_cpu_twin": bool(np.array_equal(g32, w32)), "max_abs_err": err,
+                "plan_equals_the_cpu_plan": all(
+                    torch.equal(getattr(plan, f).cpu(), getattr(plan_c, f))
+                    for f in ("key", "perm", "offsets")),
+                "two_calls_equal": bool(torch.equal(got.view(torch.int32),
+                                                    again.view(torch.int32)))})
+    if not (row["bit_for_bit_the_cpu_twin"] and row["plan_equals_the_cpu_plan"]
+            and row["two_calls_equal"]):
+        fail(f"segment_sum ({name}) differs from its twin or from itself: {row}")
+    if add_ns is None:                     # an edge case: checked, not timed
+        return row
+    card_twin = [k11.segment_sum_plain(plan, vals) for _ in range(2)]
+    row.update({"card_twin_runs_equal": bool(torch.equal(card_twin[0].view(torch.int32),
+                                                         card_twin[1].view(torch.int32))),
+                "card_twin_max_abs_diff": float((card_twin[0] - got).abs().max()),
+                "ms": time_ms(lambda: k11.segment_sum(plan, vals)),
+                "graph_us": graph_us(lambda: k11.segment_sum(plan, vals)),
+                "plain_ms": time_ms(lambda: k11.segment_sum_plain(plan, vals)),
+                "plan_ms": time_ms(lambda: k11.segment_plan(idx, S), reps=20)})
+    kept = idx >= 0
+    idx_k, vals_k = idx[kept], vals[kept]
+    z = torch.zeros((S,) + tuple(vals.shape[1:]), device=vals.device)
+
+    def index_add():
+        return z.index_add(0, idx_k, vals_k)
+
+    row["index_add_ms"] = time_ms(index_add)
+    row["index_add_graph_us"] = graph_us(index_add)
+    srt = vals.reshape(E, D)[plan.perm[:live].long()]
+    offs = plan.offsets.long()
+
+    def segment_reduce():
+        return torch.segment_reduce(srt, "sum", offsets=offs, axis=0)
+
+    try:
+        row["segment_reduce_ms"] = time_ms(segment_reduce)
+    except RuntimeError as e:              # a yardstick only: the port never calls it
+        row["segment_reduce_ms"], row["segment_reduce_refused"] = None, str(e)[:200]
+    if row["segment_reduce_ms"] is not None:
+        try:
+            row["segment_reduce_graph_us"] = graph_us(segment_reduce)
+        except RuntimeError as e:          # a capture that the call refuses
+            torch.cuda.synchronize()
+            row["segment_reduce_graph_us"] = None
+            row["segment_reduce_graph_refused"] = str(e)[:200]
+    row["library_ms"] = min(t for t in (row["index_add_ms"], row["segment_reduce_ms"])
+                            if t is not None)
+    row["library_graph_us"] = min(t for t in (row["index_add_graph_us"],
+                                              row.get("segment_reduce_graph_us"))
+                                  if t is not None)
+    row["host_ns"] = round(host_ns(lambda: k11.segment_sum(plan, vals)), 1)
+    row["index_add_host_ns"] = round(host_ns(index_add), 1)
+    # the rows the plan keeps are read once (values and index), each output
+    # written once with its offset; the chain floor is the longest segment's
+    # dependent adds
+    row["bound_ms"], row["bound_by"] = bound(live * (4 * D + 4) + S * (4 * D + 4), live * D)
+    row["chain_floor_ms"] = 1e-6 * longest * add_ns
+    row["target_ms"] = max(row["bound_ms"], row["chain_floor_ms"])
+    row["graph_over_target"] = 1e-3 * row["graph_us"] / row["target_ms"]
+    row["graph_over_library_graph"] = row["graph_us"] / row["library_graph_us"]
+    return row
+
+
+# kernel 11's edge cases on the card: (E, S, D, live rows, longest segment)
+K11_EDGES = {
+    "one segment of 5,000 rows": (131072, 16384, 36, 27117, 5000),
+    "every row in one segment": (131072, 128, 36, 131072, 131072),
+    "S = 1": (27117, 1, 9, 27117, 27117),
+    "D = 1": (131072, 16384, 1, 27117, 10),
+    "D = 64": (27117, 128, 64, 27117, 461),
+    "E = 0": (0, 128, 36, 0, 0),
+    "every row dropped": (131072, 16384, 9, 0, 0),
+    "B's S with no live row": (131072, 16384 * 128, 18, 0, 0),
+}
+
+
 def segment_sum_checks(cam6, pg_prob, gba_map, anchor) -> dict:
     """Phase 3's check of kernel 11, on the inputs of phase 6's closure and
     phase 15's map (so it runs after phase 6): each call shape of the
@@ -882,17 +1032,17 @@ def segment_sum_checks(cam6, pg_prob, gba_map, anchor) -> dict:
     and its four H blocks as one sum) and from phase 6's closure map padded
     to K 128 / P 16,384 / N 1,024 (the global BA's Hcc, Hpp, gc and gp, whose
     shape the PCG product's two sums share, and build_normal_eqs' B over the
-    P x C pairs).  The kernel's output equals the plain twin's on the CPU
-    bit for bit (the twin's order, serial in ascending row, is the one fixed
-    order: the twin's index_add on the card adds by float atomics, whose bits
-    are printed beside, not held), its plan equals the CPU's, and two calls
-    agree; each shape timed (the kernel, the twin, and one index_add on the
-    card and torch.segment_reduce on the pre-sorted rows, both on the rows
-    the plan keeps, the faster the library's time) with its bound; one call is one device kernel; the launches of one solve of each
-    solver counted against their loops.  Returns the kernels line's entry
-    (headline: the global BA's point sum, the PCG product's most launched
-    shape)."""
-    import numpy as np
+    P x C pairs), through ``k11_shape`` (bit for bit the CPU twin, whose
+    order, serial in ascending row, is the one fixed order: the twin's
+    index_add on the card adds by float atomics, whose bits are printed
+    beside, not held; the plan equal to the CPU's; two calls equal; times
+    beside the library's, the bound and the chain floor); then the edge
+    cases of K11_EDGES on order-sensitive rows (and Hcc's rows from a view 4
+    bytes off 16, which takes the 4-byte copies), each bit for bit its CPU
+    twin and a second call; one call is one device kernel (the headline
+    shape and B); the launches of one solve of each solver counted against
+    their loops.  Returns the kernels line's entry (headline: the global
+    BA's point sum, the PCG product's most launched shape)."""
     import torch
 
     from orb_slam2_annotate_tpu_torch.kernels import segment_sum as k11
@@ -930,61 +1080,30 @@ def segment_sum_checks(cam6, pg_prob, gba_map, anchor) -> dict:
                   "global BA Hpp": (pi, P, ein("eij,eik->ejk", Jpw, Jp)),
                   "global BA gp and the PCG point sum": (pi, P, ein("eij,ei->ej", Jpw, rb)),
                   "normal equations B": (pci, P * C, ein("eij,eik->ejk", Jcw, Jp))})
-    shapes, worst = {}, 0.0
+    add = fadd_chain_ns()
+    print(f"kernel segment_sum, one dependent float add: {json.dumps(add)}")
+    shapes = {}
     for name, (idx, S, vals) in cases.items():
-        vals = vals.contiguous()
-        E, D = vals.shape[0], vals[0].numel()
-        plan = k11.segment_plan(idx, S)
-        plan_c = k11.segment_plan(idx.cpu(), S)
-        got = k11.segment_sum(plan, vals)
-        again = k11.segment_sum(plan, vals)
-        want = k11.segment_sum_plain(plan_c, vals.cpu())
-        g32, w32 = got.cpu().numpy().view(np.int32), want.numpy().view(np.int32)
-        card_twin = [k11.segment_sum_plain(plan, vals) for _ in range(2)]
-        err = float((got.cpu() - want).abs().max()) if got.numel() else 0.0
-        worst = max(worst, err)
-        row = {"E": E, "S": S, "D": D, "rows_live": int((plan.offsets[-1]).item()),
-               "bit_for_bit_the_cpu_twin": bool(np.array_equal(g32, w32)),
-               "plan_equals_the_cpu_plan": bool(torch.equal(plan.perm.cpu(), plan_c.perm)
-                                                and torch.equal(plan.offsets.cpu(),
-                                                                plan_c.offsets)),
-               "two_calls_equal": bool(torch.equal(got.view(torch.int32),
-                                                   again.view(torch.int32))),
-               "card_twin_runs_equal": bool(torch.equal(card_twin[0].view(torch.int32),
-                                                        card_twin[1].view(torch.int32))),
-               "card_twin_max_abs_diff": float((card_twin[0] - got).abs().max()),
-               "ms": time_ms(lambda: k11.segment_sum(plan, vals)),
-               "graph_us": graph_us(lambda: k11.segment_sum(plan, vals)),
-               "plain_ms": time_ms(lambda: k11.segment_sum_plain(plan, vals)),
-               "plan_ms": time_ms(lambda: k11.segment_plan(idx, S), reps=20),
-               "longest_segment": int((plan.offsets[1:] - plan.offsets[:-1]).max())}
-        # the library calls on the rows the plan keeps, as the kernel gets them:
-        # one index_add (float atomics) and torch.segment_reduce on the sorted
-        # rows; library_ms is the faster
-        live = int(plan.offsets[-1])
-        kept = idx >= 0
-        idx_k, vals_k = idx[kept], vals[kept]
-        z = torch.zeros((S,) + tuple(vals.shape[1:]), device=vals.device)
-        row["index_add_ms"] = time_ms(lambda: z.index_add(0, idx_k, vals_k))
-        try:
-            srt = vals.reshape(E, D)[plan.perm[:live].long()]
-            offs = plan.offsets.long()
-            row["segment_reduce_ms"] = time_ms(
-                lambda: torch.segment_reduce(srt, "sum", offsets=offs, axis=0))
-        except RuntimeError as e:          # a yardstick only: the port never calls it
-            row["segment_reduce_ms"], row["segment_reduce_refused"] = None, str(e)[:200]
-        row["library_ms"] = min(t for t in (row["index_add_ms"], row["segment_reduce_ms"])
-                                if t is not None)
-        # the rows the plan keeps are read once (values and index), each output written once
-        row["bound_ms"], row["bound_by"] = bound(live * (4 * D + 4) + S * (4 * D + 4), live * D)
-        shapes[name] = row
-        print(f"kernel segment_sum, {name}: {json.dumps(row)}")
-        if not (row["bit_for_bit_the_cpu_twin"] and row["plan_equals_the_cpu_plan"]
-                and row["two_calls_equal"]):
-            fail(f"segment_sum ({name}) differs from its twin or from itself: {row}")
+        shapes[name] = k11_shape(k11, name, idx, S, vals, add["ns_per_add"])
+        print(f"kernel segment_sum, {name}: {json.dumps(shapes[name])}")
+    worst = max(v["max_abs_err"] for v in shapes.values())
+    edges = {}
+    for i, (name, (E, S, D, live, longest)) in enumerate(K11_EDGES.items()):
+        idx, vals = k11_case(i, E, S, D, live, longest)
+        edges[name] = k11_shape(k11, name, idx, S, vals, None)
+    idx, S, vals = cases["global BA Hcc"]
+    off = torch.empty(vals.numel() + 1, device=vals.device)[1:].view(vals.shape)
+    off.copy_(vals)
+    edges["Hcc from a view 4 bytes off 16"] = k11_shape(k11, "Hcc, a view 4 bytes off", idx, S,
+                                                        off, None)
+    print(f"kernel segment_sum, edge cases (bit for bit the CPU twin, two calls equal): "
+          f"{json.dumps(edges)}")
     head = shapes["global BA gp and the PCG point sum"]
     idx, S, vals = cases["global BA gp and the PCG point sum"]
     plan_h, vals_h = k11.segment_plan(idx, S), vals.contiguous()
+    idx, S, vals = cases["normal equations B"]
+    plan_b, vals_b = k11.segment_plan(idx, S), vals.contiguous()
+    kernels_b = device_kernels(lambda: k11.segment_sum(plan_b, vals_b), 1)
     # wrapper calls of one solve of each solver on these inputs
     per_solve = {}
     for name, fn, expected in (
@@ -1003,9 +1122,11 @@ def segment_sum_checks(cam6, pg_prob, gba_map, anchor) -> dict:
         fail(f"segment_sum launches a solve: {per_solve}")
     return {"max_abs_err": worst, "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "chain_floor_ms": head["chain_floor_ms"],
             "library_ms": head["library_ms"], "graph_us": head["graph_us"],
             "headline": "global BA gp and the PCG point sum", "shapes": shapes,
-            "launches_per_solve": per_solve,
+            "fadd": add, "edge_cases": list(edges), "launches_per_solve": per_solve,
+            "device_launches_per_call_B": kernels_b["device_launches_per_call"],
             **device_kernels(lambda: k11.segment_sum(plan_h, vals_h), 1)}
 
 

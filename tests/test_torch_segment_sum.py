@@ -14,13 +14,28 @@ twin; the wrapper's CPU dispatch (no launch); and that leaving rows of ±0
 out of a plan (the solvers' zero-weight edges) changes no bit, on random
 rows and on every solver's whole output (both pose graphs, the matrix-free,
 dense and distributed BA on a map's full problem with padded edges).
+
+The kernel's schedule (the walk, a chain a thread; or tiles of G
+consecutive segments zero-filled first, stages of R rows, a carry row for a
+segment that goes on into the next stage) is walked in numpy as
+csrc/segment_sum.cu runs it (``walk_schedule``) and held to np.add.at bit
+for bit at the solvers' seven call shapes (E, S, D and the longest segment
+of the runs on the card) and at the edge cases: one segment of 5,000 rows,
+every row in one segment, S = 1, D = 1 and 64, E = 0, every row dropped,
+B's S with no live row; each call shape's path, the tiles' and stages'
+sizes and the plan's checks (once, at build) are held to their rules.
+The index and rows come from ``_segment_cases.py``, which chip_smoke.py
+shares.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
 from orb_slam2_annotate_tpu_torch import convert
+from orb_slam2_annotate_tpu_torch.kernels import _build
 from orb_slam2_annotate_tpu_torch.kernels import segment_sum as k11
 from orb_slam2_annotate_tpu_torch.parallel import dist_ba as tdist
 from orb_slam2_annotate_tpu_torch.parallel import mesh as tmesh
@@ -30,16 +45,11 @@ from orb_slam2_annotate_tpu_torch.solvers import ba_core as tba
 from orb_slam2_annotate_tpu_torch.solvers import pose_graph as tpg
 
 import test_torch_pose_graph as pg_cases
+from _segment_cases import order_sensitive, shape_case
 
 torch.set_num_threads(1)
 
 WIDTHS = (3, 6, 7, 9, 18, 36, 49)     # gp; gc; g; Hpp; B; Hcc; the pose graph's H and D
-
-
-def order_sensitive(rng, E, D):
-    """Values whose float32 sum depends on the order of addition."""
-    pat = np.array([1e8, 1.0, -1e8, 3e-3, -7e7, 1e-8, -0.0], np.float32)
-    return (rng.choice(pat, (E, D)) * rng.uniform(0.5, 2.0, (E, D))).astype(np.float32)
 
 
 def add_at(S, idx, vals):
@@ -56,15 +66,15 @@ def bits_equal(a, b):
 
 def walk_plan(plan, vals):
     """The kernel's order in numpy: each segment from +0.0, one float32 add
-    a row, in the plan's order."""
+    a row, in the plan's order (all segments at once, a row a step)."""
     perm, off = plan.perm.numpy(), plan.offsets.numpy()
-    v = vals.reshape(vals.shape[0], -1)
-    out = np.zeros((plan.S, v.shape[1]), np.float32)
-    for s in range(plan.S):
-        acc = np.zeros(v.shape[1], np.float32)
-        for e in perm[off[s]:off[s + 1]]:
-            acc = (acc + v[e]).astype(np.float32)
-        out[s] = acc
+    D = int(np.prod(vals.shape[1:]))
+    v = np.ascontiguousarray(vals.reshape(vals.shape[0], D), np.float32)
+    out = np.zeros((plan.S, D), np.float32)
+    n = np.diff(off)
+    for step in range(int(n.max(initial=0))):
+        m = step < n
+        out[m] = (out[m] + v[perm[off[:-1][m] + step]]).astype(np.float32)
     return out.reshape((plan.S,) + vals.shape[1:])
 
 
@@ -237,3 +247,175 @@ def test_solvers_give_the_same_bits_with_every_row_summed(solver, monkeypatch):
     for a, b in zip(got, ref):
         a, b = a.numpy(), b.numpy()
         assert bits_equal(a, b) if a.dtype == np.float32 else np.array_equal(a, b)
+
+
+# --- the kernel's schedule -------------------------------------------------
+
+def walk_schedule(plan, vals):
+    """csrc/segment_sum.cu's order in numpy.  Where the kernel walks
+    (``walk_width``) it adds each segment's rows serially from +0.0
+    (``walk_plan``); else tile
+    by tile (G consecutive
+    segments), +0.0 over the tile's output, then stage by stage (R rows of
+    the tile, ``k11.stage_rows``), each (segment, column) chain of the
+    segments a stage touches that have rows in it adding those rows in
+    ascending order from +0.0, or from the carry row that the stage before
+    left for a segment going on; one float32 add a row; an empty segment
+    keeps its zeros.  Also holds that every segment with rows is written
+    once and that a stage hands at most one segment on."""
+    perm, off = plan.perm.numpy(), plan.offsets.numpy()
+    D = int(np.prod(vals.shape[1:]))
+    v = np.ascontiguousarray(vals.reshape(vals.shape[0], D), np.float32)
+    if D <= plan.walk_d:
+        return walk_plan(plan, vals)
+    R, G = k11.stage_rows(D, plan.hint), plan.G
+    out = np.full((plan.S, D), np.nan, np.float32)
+    written = np.zeros(plan.S, np.int64)
+    for s0 in range(0, plan.S, G):
+        n = min(G, plan.S - s0)
+        out[s0:s0 + n] = np.float32(0.0)
+        soff = off[s0:s0 + n + 1]
+        r0, r1 = soff[0], soff[-1]
+        nst = max(1, -(-(r1 - r0) // R))
+        carry = np.zeros(D, np.float32)
+        for k in range(nst):
+            a, b = r0 + k * R, min(r0 + (k + 1) * R, r1)
+            is_open = (soff[1:] > a) | (soff[:-1] >= a)
+            lo = int(np.argmax(is_open)) if is_open.any() else n
+            hi = n if k == nst - 1 else int(np.searchsorted(soff[:-1], b, side="left"))
+            segs = np.arange(lo, hi)
+            beg, end = soff[segs], soff[segs + 1]
+            live = beg < end
+            segs, beg, end = segs[live], beg[live], end[live]
+            j0, j1 = np.maximum(beg, a), np.minimum(end, b)
+            acc = np.where((beg < a)[:, None], carry[None, :], np.float32(0.0)).astype(np.float32)
+            rows = v[perm[a:b]]
+            for step in range(int((j1 - j0).max(initial=0))):
+                m = step < j1 - j0
+                acc[m] = (acc[m] + rows[j0[m] + step - a]).astype(np.float32)
+            done = end <= b
+            out[s0 + segs[done]] = acc[done]
+            written[s0 + segs[done]] += 1
+            assert (~done).sum() <= 1
+            if (~done).any():
+                carry = acc[~done][0]
+    assert (written == (np.diff(off) > 0)).all() and not np.isnan(out).any()
+    return out.reshape((plan.S,) + vals.shape[1:])
+
+
+# (E slots, S, D, live rows, longest segment) of each call shape on the card:
+# the closure's pose graph (g over the K keyframes, H over the K x K blocks)
+# and the global BA on phase 15's map (131,072 edge slots, 27,117 kept)
+CALL_SHAPES = {
+    "pose graph g": (1100, 128, 7, 300, 6),
+    "pose graph H (four blocks)": (4400, 128 * 128, 49, 1200, 10),
+    "global BA Hcc": (131072, 128, 36, 27117, 461),
+    "global BA gc": (131072, 128, 6, 27117, 461),
+    "global BA Hpp": (131072, 16384, 9, 27117, 10),
+    "global BA gp and the PCG point sum": (131072, 16384, 3, 27117, 10),
+    "normal equations B": (131072, 16384 * 128, 18, 27117, 1),
+}
+EDGE_SHAPES = {
+    "one segment of 5,000 rows": (12000, 300, 6, 9000, 5000),
+    "every row in one segment": (6000, 40, 36, 6000, 6000),
+    "S = 1": (3000, 1, 9, 2500, 2500),
+    "D = 1": (5000, 700, 1, 4000, 30),
+    "D = 64": (3000, 90, 64, 2800, 200),
+    "E = 0": (0, 50, 7, 0, 0),
+    "every row dropped": (4000, 64, 6, 0, 0),
+    "B's S with no live row": (131072, 16384 * 128, 18, 0, 0),
+}
+
+
+@pytest.mark.parametrize("name", list(CALL_SHAPES) + list(EDGE_SHAPES))
+def test_schedule_is_np_add_at_bit_for_bit(name):
+    E, S, D, live, longest = {**CALL_SHAPES, **EDGE_SHAPES}[name]
+    idx = shape_case(len(name), E, S, live, longest)
+    counts = np.bincount(idx[idx >= 0], minlength=S)
+    assert counts.sum() == live and (counts.max() if live else 0) == longest
+    vals = order_sensitive(np.random.default_rng(E + D), E, D)
+    plan = k11.segment_plan(torch.from_numpy(idx), S)
+    ref = add_at(S, idx, vals)
+    assert bits_equal(walk_schedule(plan, vals), ref)
+    assert bits_equal(k11.segment_sum(plan, torch.from_numpy(vals)).numpy(), ref)
+
+
+@pytest.mark.parametrize("E,S,live,longest", [(3000, 7, 2900, 1500), (20000, 5000, 9000, 40),
+                                              (6000, 1, 6000, 6000), (0, 9, 0, 0),
+                                              (4000, 64, 0, 0), (900, 30000, 800, 1)])
+def test_tiles_and_stages(E, S, live, longest):
+    """The kernel's split: tiles of G consecutive segments, about
+    TARGET_TILES of them (at most MAX_G segments a tile); stages of at most
+    the row hint, which is at least half a tile's rows were every row
+    kept, or the mean segment (up to MAX_STAGE_ROWS); all from E and
+    S, with no read of the plan's tensors."""
+    idx = shape_case(S, E, S, live, longest)
+    plan = k11.segment_plan(torch.from_numpy(idx), S)
+    G, hint = plan.G, plan.hint
+    assert G == k11.tile_width(S) == min(k11.MAX_G, max(1, -(-S // k11.TARGET_TILES)))
+    tiles = -(-S // G)
+    assert tiles <= k11.TARGET_TILES or G == k11.MAX_G
+    assert G == 1 or -(-S // (G - 1)) > k11.TARGET_TILES
+    assert hint == k11.row_hint(E, S) >= k11.MIN_ROW_HINT
+    assert hint >= E * G / (2 * S) and hint >= min(E / S, k11.MAX_STAGE_ROWS)
+    # every segment lies in one tile, and the tiles' rows are the plan's rows in order
+    off = plan.offsets.numpy()
+    starts = np.arange(0, S, G)
+    assert np.array_equal(np.r_[off[starts], off[S]], off[np.r_[starts, S]])
+    assert (np.diff(off[np.r_[starts, S]]) >= 0).all() and off[S] == live
+
+
+def test_plan_checks_run_once_at_build(monkeypatch):
+    """The plan checks its tensors when it is built (the dataclass is
+    frozen); a launch checks only vals (``check_vals``)."""
+    calls = []
+    real = _build.check_tensor
+    monkeypatch.setattr(_build, "check_tensor", lambda *a: calls.append(a[1]) or real(*a))
+    rng = np.random.default_rng(4)
+    plan = k11.segment_plan(torch.from_numpy(rng.integers(-1, 20, 500)), 20)
+    assert calls == ["key", "perm", "offsets"]
+    vals = torch.from_numpy(order_sensitive(rng, 500, 6).reshape(500, 2, 3))
+    assert k11.check_vals(plan, vals) == 6
+    for _ in range(3):
+        k11.segment_sum(plan, vals)
+    assert calls == ["key", "perm", "offsets"]
+    with pytest.raises(TypeError):
+        k11.check_vals(plan, vals.double())
+    with pytest.raises(ValueError):
+        k11.check_vals(plan, vals[:499])
+    with pytest.raises(ValueError):
+        k11.check_vals(plan, vals.new_zeros((500, k11.MAX_D + 1)))
+    with pytest.raises(TypeError):
+        dataclasses.replace(plan, perm=plan.perm.long())
+    with pytest.raises(ValueError):
+        dataclasses.replace(plan, offsets=plan.offsets[:-1])
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        plan.S = 3
+
+
+@pytest.mark.parametrize("name", list(CALL_SHAPES))
+def test_path_of_each_call_shape(name):
+    """The walk takes the points', the keyframes' and the pose graph's H
+    sums (short segments, outputs of at most WALK_ITEMS floats); the staged
+    tiles the cameras' (long segments) and B (37.7 M floats, mostly
+    zeros)."""
+    E, S, D, live, longest = CALL_SHAPES[name]
+    walk = name not in ("global BA Hcc", "global BA gc", "normal equations B")
+    plan = k11.segment_plan(torch.from_numpy(shape_case(1, E, S, live, longest)), S)
+    assert plan.walk_d == k11.walk_width(E, S)
+    assert (D <= plan.walk_d) is walk
+
+
+@pytest.mark.parametrize("D", [1, 3, 6, 7, 9, 18, 36, 49, 64, 300])
+def test_stage_rows(D):
+    """A stage holds at least one row and at most STAGE_BYTES of rows,
+    MAX_STAGE_ROWS rows and the plan's row hint (one row when a row is
+    wider), so that the ring fits in shared memory."""
+    for name, (E, S, _, _, _) in CALL_SHAPES.items():
+        hint = k11.row_hint(E, S)
+        R = k11.stage_rows(D, hint)
+        assert 1 <= R <= min(k11.MAX_STAGE_ROWS, hint)
+        assert R == 1 or R * 4 * D <= k11.STAGE_BYTES
+        G = k11.tile_width(S)
+        smem = k11.NS * R * D * 4 + 8 * D + 2 * k11.NS * R * 4 + 32 + (2 * G + 1) * 4
+        assert smem <= 227 * 1024
