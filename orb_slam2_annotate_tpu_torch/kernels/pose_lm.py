@@ -1,9 +1,10 @@
 """Kernel 4: the whole pose-only LM (``optimize_pose``), batched over problems.
 
 ``optimize_pose_batched`` launches ``csrc/pose_lm.cu`` (one CTA per
-problem, the whole 4 x 5 LM schedule in one launch) for CUDA tensors and
-runs its plain twin, ``optimize_pose_plain`` once per problem, for CPU
-tensors; ``optimize_pose_batched.launches`` counts its kernel launches.
+problem over its compacted valid edges, the whole 4 x 5 LM schedule in one
+launch) for CUDA tensors and runs its plain
+twin, ``optimize_pose_plain`` once per problem, for CPU tensors;
+``optimize_pose_batched.launches`` counts its kernel launches.
 The twin is built from the steps below: ``pose_linearize_plain``,
 ``pose_costs_plain``, ``solve6_spd`` and ``se3_retract``.
 """
@@ -21,7 +22,10 @@ from . import _build
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
-MAX_N = 4096   # edges a problem may have: 30 B each in shared memory (csrc/pose_lm.cu)
+MAX_N = 4096        # edges a problem may have (csrc/pose_lm.cu)
+SLOT_BYTES = 32     # shared memory a slot: 7 float planes, the compacted index, valid, mask
+STATIC_SMEM = 8192  # at least the kernel's static shared memory (pose_lm_static_smem)
+SMEM_PER_CTA = 232_448   # what an H100 CTA may use
 
 
 def residual_jac(cam, R, t, xw, uv, ur):
@@ -140,6 +144,9 @@ def _per_problem(a, b, shared_dim):
 
 def optimize_pose_batched_plain(cam, R0, t0, xw, uv, ur, inv_sigma2, valid, rounds: int = 4,
                                 iters_per_round: int = 5, lm_lambda0: float = 1e-3):
+    if xw.shape[0] == 0:
+        return (R0.new_empty((0, 3, 3)), t0.new_empty((0, 3)), valid.new_empty(valid.shape),
+                torch.empty((0,), dtype=torch.int32, device=xw.device))
     outs = [optimize_pose_plain(cam, R0[b], t0[b], xw[b], _per_problem(uv, b, 2),
                                 _per_problem(ur, b, 1), _per_problem(inv_sigma2, b, 1), valid[b],
                                 rounds, iters_per_round, lm_lambda0)

@@ -4,8 +4,11 @@ The map-point axis is sharded over the ranks of a ``mesh.Mesh``, each point's
 observations with it; every rank builds the normal equations of its point
 block with the dense ``ba_core.build_normal_eqs``, the camera system (Hcc,
 gc, the cost, the block's Schur complement and reduced gradient) is summed
-over the group in one packed ``all_reduce`` a step, every rank solves the
-same small camera system, and each updates its own landmark block.
+over the blocks in block order after one ``all_reduce`` a step, every rank
+solves the same small camera system, and each updates its own landmark
+block.  The number of blocks is the layout's, not the world's: a world of
+one given the blocks of n ranks sums the same blocks in the same order and
+returns their bits.
 
 Layout contract (``shard_ba_problem``): edges are grouped so that the edges
 of point p live on p's shard; cameras are replicated.  A map whose point
@@ -110,46 +113,78 @@ def _all_reduce(mesh: Mesh, *tensors):
                                                      tensors))
 
 
-def make_distributed_ba(mesh: Mesh, iters: int = 10, robust: bool = True, lam0: float = 1e-4,
-                        live: bool = False):
-    """The distributed LM over `mesh` (one rank a shard).  Returns
-    fn(cam, prob) -> (R, t, points, cost), where every rank passes the same
-    whole problem in the ``shard_ba_problem`` layout (point and edge axes
-    divisible by the mesh size) and gets back the whole solved problem.
-    With `live`, every rank passes its own block (its points, the edges of
-    its points with block-local point ids, every camera) and gets back its
-    block's points."""
-    n, me = mesh.size, mesh.rank
+def _sum_blocks(mesh: Mesh, parts, first: int, n_blocks: int):
+    """Each tensor of a block's tuple summed over all n_blocks blocks, the
+    blocks added in block order.  `parts`: this rank's blocks first,
+    first + 1, ...  Each block's tensors fill one row of a [n_blocks, F]
+    buffer of zeros, which one all_reduce completes (a row plus +0.0 is the
+    row), so the rows, and their sum, do not depend on the world size."""
+    rows = torch.stack([torch.cat([t.reshape(-1) for t in p]) for p in parts])
+    buf = torch.zeros((n_blocks, rows.shape[1]), dtype=rows.dtype, device=rows.device)
+    buf[first:first + len(parts)] += rows
+    if mesh.group is not None:
+        dist.all_reduce(buf, group=mesh.group)
+    acc = buf[0]
+    for s in range(1, n_blocks):
+        acc = acc + buf[s]
+    return tuple(p.reshape(t.shape) for p, t in zip(acc.split([t.numel() for t in parts[0]]),
+                                                    parts[0]))
 
-    def step(cam, prob: BAProblem):
-        C = prob.R.shape[0]
-        dev = prob.points.device
+
+def make_distributed_ba(mesh: Mesh, iters: int = 10, robust: bool = True, lam0: float = 1e-4,
+                        live: bool = False, shards: int | None = None):
+    """The distributed LM over `mesh`.  Returns fn(cam, prob) -> (R, t,
+    points, cost), where every rank passes the same whole problem in the
+    ``shard_ba_problem(prob, shards)`` layout and gets back the whole solved
+    problem; `shards` (the mesh size by default) is a multiple of the mesh
+    size, and each rank takes shards / size consecutive blocks.  The result
+    depends on `shards`, not on the mesh size.  With `live`, every rank
+    passes its own block (its points, the edges of its points with
+    block-local point ids, every camera) and gets back its block's points;
+    or, with `shards` above the mesh size, the list of its shards / size
+    blocks, and gets back a list."""
+    n, me = mesh.size, mesh.rank
+    n_blocks = n if shards is None else int(shards)
+    if n_blocks % n:
+        raise ValueError(f"make_distributed_ba: {n_blocks} blocks over {n} ranks")
+    per = n_blocks // n
+
+    def step(cam, prob):
         if live:
-            blk = prob.replace(cam_valid=torch.ones_like(prob.cam_valid))
+            blks = list(prob) if isinstance(prob, (list, tuple)) else [prob]
+            if len(blks) != per:
+                raise ValueError(f"make_distributed_ba: {len(blks)} live blocks, a rank takes {per}")
+            blks = [blk.replace(cam_valid=torch.ones_like(blk.cam_valid)) for blk in blks]
         else:
-            blk = shard_block(prob, n, me)
-        free = ~prob.cam_fixed
-        ptv = blk.pt_valid[:, None].to(blk.points.dtype)
+            blks = [shard_block(prob, n_blocks, me * per + j) for j in range(per)]
+        C = blks[0].R.shape[0]
+        dev = blks[0].points.device
+        free = ~blks[0].cam_fixed
+        ptvs = [blk.pt_valid[:, None].to(blk.points.dtype) for blk in blks]
         ar = torch.arange(C, device=dev)
-        R, t, X = prob.R, prob.t, blk.points
+        R, t, Xs = blks[0].R, blks[0].t, [blk.points for blk in blks]
         lam = torch.tensor(lam0, device=dev)
         last_cost = torch.tensor(float("inf"), device=dev)
-        plans = ba_core.normal_eq_plans(blk)
+        plans = [ba_core.normal_eq_plans(blk) for blk in blks]
         for _ in range(iters):
-            Hcc, Hpp, B, gc, gp, cost = ba_core.build_normal_eqs(
-                cam, blk.replace(R=R, t=t, points=X), robust, plans)
-            Hpp_inv, S_local, rhs_local = ba_core.schur_terms(Hpp, B, gp, lam)
-            Hcc, gc, cost, S, rhs = _all_reduce(mesh, Hcc, gc, cost, S_local, rhs_local)
+            parts, backs = [], []
+            for blk, X, plan in zip(blks, Xs, plans):
+                Hcc, Hpp, B, gc, gp, cost = ba_core.build_normal_eqs(
+                    cam, blk.replace(R=R, t=t, points=X), robust, plan)
+                Hpp_inv, S_local, rhs_local = ba_core.schur_terms(Hpp, B, gp, lam)
+                parts.append((Hcc, gc, cost, S_local, rhs_local))
+                backs.append((Hpp_inv, B, gp))
+            Hcc, gc, cost, S, rhs = _sum_blocks(mesh, parts, me * per, n_blocks)
             S[ar, ar] += ba_core._damp_blocks(Hcc, lam)
             Sf, rf = ba_core.reduced_system(S, rhs - gc, free)
             # an LU, as the reference's jnp.linalg.solve (not the dense path's Cholesky)
             dc = torch.linalg.solve_ex(Sf, rf)[0].reshape(C, 6)
             dc = torch.where(free[:, None], dc, torch.zeros_like(dc))
-            # landmark back-substitution, local to the rank
-            Btdc = torch.einsum("pcij,ci->pj", B, dc)
-            dp = torch.einsum("pij,pj->pi", Hpp_inv, -gp - Btdc)
             R_new, t_new = lie.se3_retract(R, t, dc)
-            X_new = X + dp * ptv
+            # landmark back-substitution, local to the block
+            X_new = [X + torch.einsum("pij,pj->pi", Hpp_inv,
+                                      -gp - torch.einsum("pcij,ci->pj", B, dc)) * ptv
+                     for X, ptv, (Hpp_inv, B, gp) in zip(Xs, ptvs, backs)]
             # the reference's accept rule, copied for parity (ROADMAP.md §3):
             # `cost` is the cost of the state BEFORE this step, so a step is
             # kept when the point it was taken from beat every earlier one, a
@@ -158,16 +193,16 @@ def make_distributed_ba(mesh: Mesh, iters: int = 10, robust: bool = True, lam0: 
             better = cost < last_cost
             R = torch.where(better, R_new, R)
             t = torch.where(better, t_new, t)
-            X = torch.where(better, X_new, X)
+            Xs = [torch.where(better, Xn, X) for Xn, X in zip(X_new, Xs)]
             lam = torch.where(better, lam * 0.5, lam * 5.0)
             last_cost = torch.minimum(cost, last_cost)
         if live:
-            return R, t, X, last_cost
-        # every rank's block into zeros, summed: the whole point array on
+            return R, t, (Xs if isinstance(prob, (list, tuple)) else Xs[0]), last_cost
+        # every rank's blocks into zeros, summed: the whole point array on
         # each rank (adding zeros is exact)
-        Pl = prob.points.shape[0] // n
+        Pl = prob.points.shape[0] // n_blocks
         X_all = torch.zeros_like(prob.points)
-        X_all[me * Pl:(me + 1) * Pl] = X
+        X_all[me * per * Pl:(me + 1) * per * Pl] = torch.cat(Xs)
         (X_all,) = _all_reduce(mesh, X_all)
         return R, t, X_all, last_cost
 

@@ -8,7 +8,8 @@ DIR/in.npz, runs MODE and writes DIR/out{RANK}.npz:
   allreduce  init_multi_host from the arguments, an all_reduce of ones;
   env        the same with the group's address in torch's environment
              variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK);
-  ba         make_distributed_ba on the sharded problem in in.npz;
+  ba         make_distributed_ba on the sharded problem in in.npz (its
+             blocks: `shards` if given, else one a rank);
   loop       LoopCloser._dispatch_global_ba on the map in in.npz (anchor,
              iterations), then maybe_fold_gba(force=True);
   fold_agree mesh.all_ranks on flags that hold on every rank, one, none;
@@ -57,7 +58,8 @@ def main(mode, rank, world, port, out_dir):
         cam = CameraModel(**{f.name: float(d["cam_" + f.name]) for f in dataclasses.fields(CameraModel)})
         prob = convert.ba_problem_from_numpy(
             {k[5:]: v for k, v in d.items() if k.startswith("prob_")}, device="cpu")
-        step = dist_ba.make_distributed_ba(mesh.map_mesh(), iters=int(d["iters"]))
+        step = dist_ba.make_distributed_ba(mesh.map_mesh(), iters=int(d["iters"]),
+                                           shards=int(d["shards"]) if "shards" in d else None)
         R, t, X, cost = step(cam, prob)
         out.update(R=R.numpy(), t=t.numpy(), X=X.numpy(), cost=cost.numpy())
     elif mode in ("loop", "fold_agree"):

@@ -10,7 +10,9 @@ a world of one) against JAX's on 2 devices (and 1): rotations within 1e-4,
 translations and points within 1e-3 m (one float32 LU of a badly
 conditioned system in the case where the cost rises; the converging case
 agrees to ~2e-5), cost within 1e-5 relative, and the two ranks' results
-bit for bit equal; the LoopCloser's distributed branch on 2 ranks equal bit
+bit for bit equal; one process given the ranks' blocks (worlds 2 and 3,
+and 2 ranks of two blocks each) equal bit for bit to the ranks; the
+LoopCloser's distributed branch on 2 ranks equal bit
 for bit to a direct 2-rank call on the sharded full-map problem
 un-permuted, and its fold to fold_gba_device of that.  Every process group
 has 60 s timeouts and every rank a 120 s limit.
@@ -91,7 +93,7 @@ def free_port():
         return s.getsockname()[1]
 
 
-def run_ranks(mode, tmp_path, inputs=None, world=2):
+def run_ranks(mode, tmp_path, inputs=None, world=2, retry=True):
     """Run `mode` of the worker on `world` gloo ranks; their outputs."""
     if inputs is not None:
         np.savez(tmp_path / "in.npz", **inputs)
@@ -110,6 +112,10 @@ def run_ranks(mode, tmp_path, inputs=None, world=2):
             p.kill()
             p.communicate()
         pytest.fail(f"a rank of {mode!r} did not finish in 120 s")
+    if retry and any(p.returncode != 0 and "EADDRINUSE" in log for p, log in zip(procs, logs)):
+        # the port was taken (by another group's sockets) between its pick
+        # and rank 0's bind: the same group again on another port
+        return run_ranks(mode, tmp_path, world=world, retry=False)
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r} of {mode!r} failed:\n{log[-3000:]}"
     return [dict(np.load(tmp_path / f"out{r}.npz")) for r in range(world)]
@@ -200,6 +206,33 @@ def test_distributed_ba_at_a_world_of_one_matches_reference():
     out = step(TCAM, to_port(sp))
     check_against_reference([{k: v.numpy() for k, v in zip(("R", "t", "X", "cost"), out)}], ref)
     assert tmesh.map_mesh().size == 1 and tmesh.world_size() == 1
+
+
+@pytest.mark.parametrize("world,shards", [(2, 2), (3, 3), (2, 4)])
+def test_a_world_of_one_with_the_ranks_blocks_gives_their_bits(world, shards, tmp_path):
+    """The camera system is summed block by block in block order, so one
+    process given the ranks' blocks returns the ranks' R, t, X and cost bit
+    for bit."""
+    jp = problem(seed=11)
+    sp, inputs = ba_inputs(jp, shards, 8)
+    outs = run_ranks("ba", tmp_path, {**inputs, "shards": np.int32(shards)}, world=world)
+    one = tdist.make_distributed_ba(tmesh.Mesh(None, 1, 0), iters=8, shards=shards)(
+        TCAM, to_port(sp))
+    for k, v in zip(("R", "t", "X", "cost"), one):
+        for o in outs:
+            np.testing.assert_array_equal(o[k], v.numpy(), err_msg=k)
+
+
+@pytest.mark.parametrize("world,shards,live", [(2, 3, False), (2, 3, True)])
+def test_distributed_ba_refuses_blocks_the_ranks_cannot_split(world, shards, live):
+    with pytest.raises(ValueError):
+        tdist.make_distributed_ba(tmesh.Mesh(None, world, 0), shards=shards, live=live)
+
+
+def test_distributed_ba_refuses_a_live_block_list_of_another_length():
+    blk = to_port(jdist.shard_ba_problem(problem(seed=7), 1))
+    with pytest.raises(ValueError):
+        tdist.make_distributed_ba(tmesh.Mesh(None, 1, 0), shards=2, live=True)(TCAM, [blk])
 
 
 @pytest.mark.parametrize("mode", ["allreduce", "env"])
