@@ -61,7 +61,14 @@ Phases (any failure exits non-zero):
      torch.segment_reduce (100 calls, a CUDA-graph replay, host ns a call),
      with its bound and chain floor (the longest segment's dependent adds,
      at a probed add's time) and its launches in one solve of each solver
-     (run after phase 6, whose inputs it takes);
+     (run after phase 6, whose inputs it takes); kernels 12b and 12c (the
+     dense BA's Cholesky and the distributed BA's LU, each in one fixed
+     order) bit for bit their twins on the CPU on phase 15's reduced system
+     and its leading 130 and 6 rows, 12b all NaN on a system that is not
+     positive definite, 12c on an indefinite system and on pivot ties, two
+     calls equal, their device kernels a call by graph capture, beside their
+     twins on the card and torch.linalg.cholesky_ex with
+     torch.cholesky_solve / torch.linalg.solve_ex;
   4. run the monocular System (``mono_slice_config``: relocalization and
      keyframe culling on) through ``System.track_mono`` on 48 frames at
      VGA / 1024 features / 8 levels, with every launch counter reset just
@@ -214,7 +221,8 @@ Phases (any failure exits non-zero):
      (a) the dense ``ba_core.bundle_adjust`` and the distributed BA at a
      world of one (an NCCL group of one) over (b)'s two blocks, summed in
      block order, against the same functions on the
-     CPU (the dense BA on its returned state, the distributed BA's 10
+     CPU (the dense BA, kernel 12b once a step, on its returned state; the
+     distributed BA kernel 12c once a step; the distributed BA's 10
      steps on its returned cost, its state after 4 steps on the state's
      cost and each edge's residual: the comments of DIST_TOL and
      DIST_FULL_TOL say why), with the reprojection RMSE before and after, the
@@ -349,12 +357,20 @@ SOURCES = {
                    "orb_slam2_annotate_tpu/geometry/rectify.py:64", "remap_pair"),
     "segment_sum": ("orb_slam2_annotate_tpu_torch/csrc/segment_sum.cu",
                     "orb_slam2_annotate_tpu/solvers/ba_cg.py:88", "segment_sum"),
+    "grid_ba": ("orb_slam2_annotate_tpu_torch/csrc/grid_ba.cu",
+                "orb_slam2_annotate_tpu/solvers/ba_core.py:473", "grid_ba_solve"),
+    "chol_solve": ("orb_slam2_annotate_tpu_torch/csrc/chol_solve.cu",
+                   "orb_slam2_annotate_tpu/solvers/ba_core.py:205", "chol_solve"),
+    "lu_solve": ("orb_slam2_annotate_tpu_torch/csrc/lu_solve.cu",
+                 "orb_slam2_annotate_tpu/parallel/dist_ba.py:190", "lu_solve"),
 }
 LOOP_ONLY = ("sim3_ransac_solve", "sim3_lm_solve")   # launched only with loop closing on
 STEREO_ONLY = ("stereo_match", "remap_pair")         # launched only by the stereo sensor
 # launched only by a closure's pose graph and global BA (and the merge, the dense and the
 # distributed BA): kernel 11's segment sums
 SOLVE_ONLY = ("segment_sum",)
+# launched only by the dense BA and the distributed BA (phases 15-16, phase 3's solves)
+DENSE_ONLY = ("chol_solve", "lu_solve")
 # phases 7 and 8: bench.py's RGB-D / stereo cell (bench.py:151-196) on the
 # slice's frames: bf = 500 x 0.3, th_depth 100, SlamConfig()'s other defaults
 BASELINE = 0.3
@@ -435,8 +451,11 @@ DIST_RANK_TIMEOUT_S = 300          # a rank of phase 15(b); every rendezvous and
 # runs whose sums add in another order end apart along the map's flat
 # directions (its scale, a weakly triangulated point's depth), where the
 # objective hardly moves.  The dense BA (a Cholesky, each step's new cost
-# tested) stays close: held on the returned state's cost (relative) and the
-# reprojection RMSE (px).  Its returned cost is the last step's, kept or
+# tested) is held on the returned state's cost (relative) and the
+# reprojection RMSE (px); its arithmetic is the same on the card and the CPU
+# (ba_core.bundle_adjust), so the two agree bit for bit: on phase 6's closure
+# map one float32 ulp of its input moves its 10-step state's cost by 1e-5 to
+# 3e-5.  Its returned cost is the last step's, kept or
 # not (the reference's ``costs[-1]``), and a step whose Cholesky refuses the
 # damped system (lambda <= ~1e-6 on this map, up to 3 of 10 steps in both
 # packages) costs the barrier of a NaN state (16,245,795 here).  On which
@@ -1253,8 +1272,10 @@ def segment_sum_checks(cam6, pg_prob, gba_map, anchor) -> dict:
              lambda: pg_mod.optimize_pose_graph_cg(p, 15, 60), 15 * (4 + 2 * 60)),
             ("bundle_adjust_cg (10 steps, 25 PCG)",
              lambda: ba_cg.bundle_adjust_cg(cam6, prob, 10, 25), 10 * (4 + 1 + 2 * 25 + 1)),
+            # the dense LM: the five blocks, the cost, the Schur complement over the
+            # co-observing pairs, its right-hand side, B^T dc and the step's cost
             ("bundle_adjust (dense, 10 steps)", lambda: ba_core.bundle_adjust(cam6, prob, 10),
-             10 * 5)):
+             10 * (5 + 1 + 3 + 1))):
         n0 = k11.segment_sum.launches
         fn()
         per_solve[name] = {"launches": k11.segment_sum.launches - n0, "expected": expected}
@@ -1269,6 +1290,378 @@ def segment_sum_checks(cam6, pg_prob, gba_map, anchor) -> dict:
             "fadd": add, "edge_cases": list(edges), "launches_per_solve": per_solve,
             "device_launches_per_call_B": kernels_b["device_launches_per_call"],
             **device_kernels(lambda: k11.segment_sum(plan_h, vals_h), 1)}
+
+
+# kernels 12b and 12c (the dense BA's Cholesky, the distributed BA's LU): the
+# factor's n^3 / 6 (Cholesky) or n^3 / 3 (LU) multiply-subtracts and the two
+# solves' n^2, two operations each; the matrix (the Cholesky: its lower
+# triangle) and rf read once, x written once
+def dense_solve_work(n: int, lu: bool):
+    return (4.0 * ((n * n if lu else n * (n + 1) / 2) + 2 * n),
+            (2 * n ** 3 / 3 if lu else n ** 3 / 3) + 2.0 * n * n)
+
+
+def dense_solve_checks(cam6, gba_map, anchor) -> dict:
+    """Kernels 12b (``chol_solve``) and 12c (``lu_solve``) against their CPU
+    twins, bit for bit (NaN where the twin's is): phase 15's dense BA's
+    reduced system at lambda 1e-5 (n = 6 x DIST_K), its leading 130 and 6
+    rows (n not a multiple of the 32-column panel); for 12b also the system
+    with a negative entry on its diagonal (the step refused, all NaN); for
+    12c also the system less 0.8 x its mean diagonal (indefinite: LU still
+    gives a step) and a 70 x 70 system of small integers (ties for the
+    pivot).  Two calls equal; the device kernels a call, by graph capture;
+    times.  Returns {"chol_solve": ..., "lu_solve": ...}."""
+    import numpy as np
+    import torch
+
+    from orb_slam2_annotate_tpu_torch.kernels import chol_solve as k12b
+    from orb_slam2_annotate_tpu_torch.kernels import lu_solve as k12c
+    from orb_slam2_annotate_tpu_torch.pipeline import loop_closing as loop_mod
+    from orb_slam2_annotate_tpu_torch.solvers import ba_core
+
+    prob = loop_mod.full_map_ba_problem(pad_map(gba_map, DIST_K, DIST_P, DIST_N), anchor)
+    plans, pairs = ba_core.dense_setup(prob)
+    blocks = ba_core.build_normal_eqs(cam6, prob, True, plans)
+    free = prob.cam_valid & ~prob.cam_fixed
+    Sf, rf, _, _ = ba_core.dense_reduced_system(*blocks[:5], torch.tensor(1e-5, device="cuda"),
+                                                free, pairs)
+    n = Sf.shape[0]
+    lead = lambda k: (Sf[:k, :k].contiguous(), rf[:k].contiguous())
+    neg = Sf.clone()
+    neg[40, 40] = -1.0
+    rng = np.random.default_rng(12)
+    ints = torch.from_numpy(rng.integers(-3, 4, (70, 70)).astype(np.float32)
+                            + 4 * np.eye(70, dtype=np.float32)).cuda()
+    base = {f"phase 15's reduced system (n {n})": (Sf, rf), "its leading 130 rows": lead(130),
+            "its leading 6 rows": lead(6)}
+    indefinite = Sf - 0.8 * Sf.diagonal().mean() * torch.eye(n, device="cuda")
+    kinds = {"chol_solve": (k12b, {**base, "a negative diagonal entry (refused)": (neg, rf)}),
+             "lu_solve": (k12c, {**base, "less 0.8 x its mean diagonal (indefinite)": (indefinite, rf),
+                                 "70 x 70 small integers (pivot ties)":
+                                     (ints, rf[:70].contiguous())})}
+    out = {}
+    for name, (mod, cases) in kinds.items():
+        solve, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+        rows, worst = {}, 0.0
+        for case, (S, r) in cases.items():
+            got, again = solve(S, r).cpu(), solve(S, r).cpu()
+            want = plain(S.cpu(), r.cpu())
+            nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+            fin = ~nan_w
+            row = {"n": S.shape[0], "nan": int(nan_g.sum()),
+                   "bit_for_bit": bool(torch.equal(nan_g, nan_w) and torch.equal(
+                       got[fin].view(torch.int32), want[fin].view(torch.int32))),
+                   "two_calls_equal": bool(torch.equal(got.view(torch.int32),
+                                                       again.view(torch.int32))),
+                   "max_abs_err": float((got[fin] - want[fin]).abs().max()) if bool(fin.any())
+                   else 0.0}
+            rows[case] = row
+            worst = max(worst, row["max_abs_err"])
+        print(f"kernel {name} against its CPU twin: {json.dumps(rows)}")
+        if not all(v["bit_for_bit"] and v["two_calls_equal"] for v in rows.values()):
+            fail(f"{name} differs from its CPU twin or from itself: {rows}")
+        b_ms, b_by = bound(*dense_solve_work(n, name == "lu_solve"))
+        library = ((lambda: torch.cholesky_solve(rf[:, None], torch.linalg.cholesky_ex(Sf)[0]),
+                    "torch.linalg.cholesky_ex, then torch.cholesky_solve (two calls)")
+                   if name == "chol_solve" else
+                   (lambda: torch.linalg.solve_ex(Sf, rf), "torch.linalg.solve_ex"))
+        out[name] = {"max_abs_err": worst, "ms": time_ms(lambda: solve(Sf, rf)),
+                     "plain_ms": time_ms(lambda: plain(Sf, rf), 2), "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": time_ms(library[0]), "library": library[1],
+                     "graph_us": graph_us(lambda: solve(Sf, rf)), "n": n, "cases": rows,
+                     **device_kernels(lambda: solve(Sf, rf), mod.launches_per_solve(n))}
+        print(f"kernel {name} at n {n}: "
+              f"{json.dumps({k: v for k, v in out[name].items() if k != 'cases'})}")
+    if not all(v["nan"] == 0 for k, v in out["lu_solve"]["cases"].items()):
+        fail(f"lu_solve gave NaN: {out['lu_solve']['cases']}")
+    if out["chol_solve"]["cases"]["a negative diagonal entry (refused)"]["nan"] != n:
+        fail(f"chol_solve took a step on a system that is not positive definite: "
+             f"{out['chol_solve']}")
+    return out
+
+
+# kernel 12 (local BA's grid LM): operations per unit of work, counted from
+# the function (ba_core.bundle_adjust_grid_plain), not from the kernel's
+# schedule.  A slot's linearization: projection (15), residual rows and the
+# Jacobian rows (~60), the weight (~10), its 3 rows' 21 + 6 Hcc / gc
+# products and sums (162); an inverse-index observation's Hpp / gp (54) and
+# B (108) products and sums; a point's three damped 3x3 inverses (3 x 40);
+# per ladder value: B H^-1 of a (point, free camera) pair (90), an S block of
+# a pair of free cameras both seeing the point (6 x 6 x 6 = 216), the
+# right-hand side (36); the Cholesky of the system of the free cameras
+# (n = 6 x free: n^3 / 3; the fixed cameras' identity rows need none) and its
+# two solves (2 n^2); a point's step (a free observer's 36, then 15); a
+# slot's try cost (~40, over edge_valid as the twin's grid_cost); the final
+# mask (~40 a slot).  The slot terms count the valid slots (base_valid) only
+GBA_OPS_SLOT, GBA_OPS_OBS, GBA_OPS_POINT = 250, 162, 120
+GBA_OPS_BH, GBA_OPS_PAIR, GBA_OPS_RHS, GBA_OPS_DP = 90, 216, 36, 36
+GBA_OPS_COST = 40
+GBA_BYTES_SLOT = 21       # pt_loc, uv, ur, inv_sigma2 (f32 / int32), edge_valid in; 1 B of mask out
+# kernel 12 against its twin on the card (phase 3): one linearization within
+# GBA_TOL_LIN of each output's largest sum of absolute terms (the scale of a
+# float32 sum's rounding: a gradient near a minimum cancels to near 0, where
+# the twin's own CPU and card runs part by ~3e-3 of its largest entry); S and dc
+# at one lambda against the twin's from the kernel's linearization (so each
+# stage is held alone: from its own, a near-singular damped point block, as a
+# negative damping leaves, turns the linearization's rounding into S's), S
+# within GBA_TOL_SOLVE and dc within the larger of GBA_TOL_SOLVE and 10 x the
+# system's condition number x 2^-24, its backward error within GBA_TOL_LIN;
+# whole solves: poses within GBA_TOL_POSE, points within
+# GBA_TOL_POINT of their distance to camera 0's centre (the tolerances
+# tests/test_torch_pipeline.py holds the twin to against JAX), inlier masks
+# apart on at most 1% of the valid slots, each within 1% of its chi2 gate
+GBA_TOL_LIN, GBA_TOL_SOLVE, GBA_TOL_POSE, GBA_TOL_POINT = 1e-5, 1e-4, 1e-3, 1e-2
+GBA_CASE_SIZE = (32, 1024, 2048)     # C, N, P_BA of local_mapping.local_bundle_adjustment
+
+
+def grid_ba_cases():
+    """tests/_grid_ba_cases.py as a module namespace."""
+    return runpy.run_path(os.path.join(ROOT, "tests", "_grid_ba_cases.py"))
+
+
+def grid_on(p: dict, dev):
+    """A numpy grid problem (tests/_grid_ba_cases.py) as a GridBA on `dev`."""
+    import torch
+
+    from orb_slam2_annotate_tpu_torch.solvers import ba_core
+
+    return ba_core.GridBA(**{k: torch.from_numpy(v).to(dev) for k, v in p.items()})
+
+
+def grid_clone(g, dev=None):
+    from orb_slam2_annotate_tpu_torch.solvers import ba_core
+
+    return ba_core.GridBA(**{k: getattr(g, k).clone().to(dev or getattr(g, k).device)
+                             for k in ("R", "t", "points", "cam_fixed", "cam_valid", "pt_valid",
+                                       "pt_loc", "uv", "ur", "inv_sigma2", "edge_valid")})
+
+
+def grid_ba_work(g, iters: int):
+    """(bytes, operations) of one solve of this problem: inputs read once,
+    outputs written once; the operations this data needs (GBA_OPS_*)."""
+    import torch
+
+    from orb_slam2_annotate_tpu_torch.solvers import ba_core
+
+    C, N = g.pt_loc.shape
+    P = g.points.shape[0]
+    base_valid, selT = ba_core.grid_inverse_index(g)
+    slots, tried = float(base_valid.sum()), float(g.edge_valid.sum())
+    seen = (selT % (N + 1)) != N                                   # [C, P]
+    free = g.cam_valid & ~g.cam_fixed
+    obs, k_free = float(seen.sum()), (seen & free[:, None]).sum(0).double()
+    pairs = float((k_free * (k_free + 1) / 2).sum())
+    n = 6 * float(free.sum())
+    per_try = (GBA_OPS_BH * float(k_free.sum()) + GBA_OPS_PAIR * pairs
+               + GBA_OPS_RHS * float(k_free.sum()) + n ** 3 / 3 + 2 * n * n + GBA_OPS_DP * float(k_free.sum()) + 15 * P
+               + GBA_OPS_COST * tried)
+    per_iter = GBA_OPS_SLOT * slots + GBA_OPS_OBS * obs + GBA_OPS_POINT * P + 3 * per_try
+    nbytes = GBA_BYTES_SLOT * C * N + 2 * (48 * C + 12 * P) + 2 * C + P + 4
+    return nbytes, iters * per_iter + GBA_OPS_COST * slots
+
+
+def grid_abs_sums(cam, g, robust: bool):
+    """The first linearization's sums of absolute terms: Hcc, Hpp, B, gc, gp
+    as ``ba_core.grid_linearize`` forms them from |sqrt(w) J| and |sqrt(w) r|:
+    the scale of each sum's float32 rounding (a gradient near a minimum is a
+    sum of large terms that cancel)."""
+    import torch
+
+    from orb_slam2_annotate_tpu_torch.solvers import ba_core
+
+    C, N = g.pt_loc.shape
+    bv, selT = ba_core.grid_inverse_index(g)
+    r, Jc, Jp, _, depth_ok = ba_core.grid_residual_jac(cam, g.R, g.t, g.points, g)
+    chi2 = torch.sum(r * r, dim=0) * g.inv_sigma2
+    delta2 = ba_core._delta2(g.ur)
+    w_h = torch.sqrt(delta2 / torch.clamp_min(chi2, 1e-12)) if robust else torch.ones_like(chi2)
+    w_h = torch.where(chi2 > delta2, w_h, torch.ones_like(chi2))
+    sw = torch.sqrt(g.inv_sigma2 * w_h * (bv & depth_ok).to(chi2.dtype))[None, None]
+    Jc = torch.where(g.cam_fixed[None, None, :, None], torch.zeros_like(Jc), Jc)
+    Jcw, Jpw, rw = (Jc * sw).abs(), (Jp * sw).abs(), (r * sw[0]).abs()
+
+    def take(a):
+        ap = torch.nn.functional.pad(a, (0, 1))
+        return ap.reshape(a.shape[:-2] + (-1,))[..., selT]
+
+    Jp_pc, Jc_pc, r_pc = take(Jpw), take(Jcw), take(rw)
+    return (torch.einsum("ricn,rjcn->cij", Jcw, Jcw), torch.einsum("rjcp,rkcp->jkp", Jp_pc, Jp_pc),
+            torch.einsum("ricp,rkcp->ikcp", Jc_pc, Jp_pc), torch.einsum("ricn,rcn->ci", Jcw, rw),
+            torch.einsum("rjcp,rcp->jp", Jp_pc, r_pc))
+
+
+def grid_ba_check(what: str, cam, g, iters: int, robust: bool = True, lam0: float = 1e-5,
+                  ladder: tuple = (1.0, 8.0, 64.0)) -> dict:
+    """Kernel 12 against its twin on the card on one problem: the first
+    linearization (Hcc, gc, Hpp, gp, B, the cost, the cameras a point has),
+    S and dc at the first ladder value (from a 1-iteration call's workspace),
+    then the whole `iters`-iteration solve, two calls bit for bit, and the
+    twin's own spread (the same solve on the CPU) beside it.  Returns the
+    errors, and under "breaches" what exceeds the GBA_TOL_* tolerances
+    (grid_ba_require fails on them)."""
+    import torch
+
+    from orb_slam2_annotate_tpu_torch.kernels import grid_ba as k12
+    from orb_slam2_annotate_tpu_torch.solvers import ba_core
+
+    dev = g.points.device
+    C, N = g.pt_loc.shape
+    P = g.points.shape[0]
+    free = g.cam_valid & ~g.cam_fixed
+    work = torch.empty(k12.work_bytes(C, P), dtype=torch.uint8, device=dev)
+    k12.grid_ba_solve(cam, g, 1, robust, lam0, ladder, work=work)
+    torch.cuda.synchronize()
+    v = k12.work_views(work, C, P)
+    bv, selT = ba_core.grid_inverse_index(g)
+    Hcc, Hpp, B, gc, gp, cost = ba_core.grid_linearize(cam, g, g.R, g.t, g.points, robust, bv, selT)
+    seen = (selT % (N + 1)) != N
+    bits = ((v["mask"][None, :] >> torch.arange(C, device=dev, dtype=torch.int32)[:, None]) & 1) == 1
+    if not torch.equal(bits, seen):
+        fail(f"grid_ba ({what}): the points' camera masks differ from the twin's inverse index "
+             f"({int((bits != seen).sum())} (camera, point) pairs)")
+    iu = torch.triu_indices(6, 6, device=dev)
+    Hk = torch.zeros(C, 6, 6, device=dev)
+    Hk[:, iu[0], iu[1]] = v["Hcc"]
+    Hk[:, iu[1], iu[0]] = v["Hcc"]
+    i3 = torch.triu_indices(3, 3, device=dev)
+    Hppk = torch.zeros(3, 3, P, device=dev)
+    Hppk[i3[0], i3[1]] = v["Hpp"]
+    Hppk[i3[1], i3[0]] = v["Hpp"]
+    Bk = torch.where(seen[None, None], v["B"].reshape(C, 6, 3, P).permute(1, 2, 0, 3), 0.0)
+    rel = lambda a, b, scale=None: float((a - b).abs().max() / (b if scale is None else scale)
+                                         .abs().max().clamp_min(1e-30))
+    Ha, Hpa, Ba, gca, gpa = grid_abs_sums(cam, g, robust)
+    lin = {"Hcc": rel(Hk, Hcc, Ha), "gc": rel(v["gc"], gc, gca), "Hpp": rel(Hppk, Hpp, Hpa),
+           "gp": rel(v["gp"], gp, gpa), "B": rel(Bk, B, Ba), "cost": rel(v["cost_lin"].sum(), cost)}
+    lin_of_own_max = {"gc": rel(v["gc"], gc), "gp": rel(v["gp"], gp)}
+    # the twin's own spread: the same linearization on the CPU
+    gh = grid_clone(g, "cpu")
+    lin_cpu = ba_core.grid_linearize(cam, gh, gh.R, gh.t, gh.points, robust,
+                                     *ba_core.grid_inverse_index(gh))
+    lin_spread = {k: rel(a.to(dev), b) for k, a, b in zip(("Hcc", "Hpp", "B", "gc", "gp", "cost"),
+                                                         lin_cpu, (Hcc, Hpp, B, gc, gp, cost))}
+    # the reduced system and step of the first ladder value: the twin's from the kernel's
+    # linearization (held: the Schur blocks and the solve alone), and from its own (printed)
+    lams = torch.tensor(lam0, device=dev) * torch.tensor(ladder, device=dev)
+    pair = free[:, None] & free[None, :] & torch.ones(C, C, dtype=torch.bool, device=dev).tril()
+    blocks = torch.where(pair[:, :, None], v["S"][0].reshape(C, C, 36), 0.0)
+    Sk = blocks.reshape(C, C, 6, 6).permute(0, 2, 1, 3).reshape(6 * C, 6 * C)
+    low = (pair[:, :, None, None].expand(C, C, 6, 6).permute(0, 2, 1, 3).reshape(6 * C, 6 * C)
+           & torch.ones(6 * C, 6 * C, dtype=torch.bool, device=dev).tril())
+    dc_k = v["dc"][0].reshape(C, 6)
+
+    def step(lin5):
+        Sf, rf, _ = ba_core.schur_system_planes(*lin5, lams[0], free)
+        return Sf, torch.where(free[:, None], ba_core._cholesky_solve(Sf, rf, C), 0.0)
+
+    def against(Sf, dc):
+        nan_k, nan_t = torch.isnan(dc_k), torch.isnan(dc)
+        fin = ~nan_t
+        return {"S": rel(Sk[low], Sf[low]), "dc": rel(dc_k[fin], dc[fin]) if bool(fin.any()) else 0.0,
+                "dc_nan_equal": bool(torch.equal(nan_k, nan_t))}
+
+    Sf_k, dc_tk = step((Hk, Hppk, Bk, v["gc"], v["gp"]))
+    sol = {**against(Sf_k, dc_tk), "refused_tries": [int(x) for x in v["fail"].tolist()]}
+    # the kernel's step on the system the twin forms from its linearization: its
+    # backward error (relative residual, float64) and the system's condition number
+    rf_k = ba_core.schur_system_planes(Hk, Hppk, Bk, v["gc"], v["gp"], lams[0], free)[1].double()
+    if not bool(torch.isnan(dc_k).any()):
+        S64, x64 = Sf_k.double(), dc_k.reshape(-1).double()
+        sol["backward_error"] = float((S64 @ x64 - rf_k).abs().max()
+                                      / (S64.abs().sum(1).max() * x64.abs().max() + rf_k.abs().max()))
+        f6 = free.repeat_interleave(6)        # the free cameras' block (the rest: identity rows)
+        ev = torch.linalg.eigvalsh(S64[f6][:, f6]) if bool(f6.any()) else torch.ones(1)
+        sol["condition"] = float(ev.abs().max() / ev.abs().min().clamp_min(1e-300))
+    sol_own = against(*step((Hcc, Hpp, B, gc, gp)))
+    # the whole solve, twice, beside the twin on the card and on the CPU
+    got = k12.grid_ba_solve(cam, g, iters, robust, lam0, ladder)
+    again = k12.grid_ba_solve(cam, g, iters, robust, lam0, ladder)
+    ref = ba_core.bundle_adjust_grid_plain(cam, g, iters, robust, lam0, ladder)
+    cpu = ba_core.bundle_adjust_grid_plain(cam, grid_clone(g, "cpu"), iters, robust, lam0, ladder)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"grid_ba ({what}): two calls differ")
+
+    def solve_err(a, b):
+        centre = -b[0][0].T @ b[1][0]
+        dist = (b[2] - centre).norm(dim=1)
+        ok = torch.isfinite(b[2]).all(1)
+        return {"R": float((a[0] - b[0]).abs().max()), "t": float((a[1] - b[1]).abs().max()),
+                "X_over_dist": float(((a[2] - b[2]).norm(dim=1)[ok] / dist[ok]).max()),
+                "cost_rel": abs(float(a[4]) - float(b[4])) / max(abs(float(b[4])), 1e-30),
+                "masks_differ": int((a[3] != b[3]).sum())}
+
+    whole = solve_err(got, ref)
+    spread = solve_err([x.to(dev) for x in cpu], ref)
+    base = g.edge_valid & (g.pt_loc >= 0)
+    diff = got[3] != ref[3]
+    _, chi2, delta2, _ = ba_core.grid_cost(cam, got[0], got[1], got[2], g, chi2_out=True)
+    near = ((chi2 / delta2) - 1.0).abs() < 0.01
+    out = {"C": C, "N": N, "P": P, "iters": iters, "valid_slots": int(base.sum()),
+           "linearization": lin, "linearization_of_own_max": lin_of_own_max, "solve": sol,
+           "whole": whole,
+           "solve_from_the_twins_linearization": sol_own,
+           "twin_cpu_vs_card": {"linearization": lin_spread, "whole": spread}}
+    print(f"grid_ba vs twin, {what}: {json.dumps(out)}")
+    bad = [k for k, e in lin.items() if e > GBA_TOL_LIN]
+    # dc: within GBA_TOL_SOLVE, or within what float32 allows the system (its condition
+    # number x 2^-24, x 10) with a backward error below GBA_TOL_LIN
+    dc_tol = max(GBA_TOL_SOLVE, 10 * sol.get("condition", 0.0) * 2.0 ** -24)
+    bad += ["S"] if sol["S"] > GBA_TOL_SOLVE else []
+    bad += ["dc"] if sol["dc"] > dc_tol or sol.get("backward_error", 0.0) > GBA_TOL_LIN else []
+    if not sol["dc_nan_equal"]:
+        bad.append("the step's NaN pattern")
+    bad += [k for k, tol in (("R", GBA_TOL_POSE), ("t", GBA_TOL_POSE), ("X_over_dist", GBA_TOL_POINT))
+            if whole[k] > tol]
+    if int(diff.sum()) > 0.01 * int(base.sum()) or bool((diff & ~near).any()):
+        bad.append(f"inlier masks ({int(diff.sum())} apart, {int((diff & ~near).sum())} away "
+                   f"from the gate)")
+    out["breaches"] = bad
+    return out
+
+
+def grid_ba_require(outs: dict):
+    """Fail unless every grid_ba_check in `outs` held its tolerances."""
+    bad = {k: o["breaches"] for k, o in outs.items() if o["breaches"]}
+    if bad:
+        fail(f"grid_ba differs from its twin beyond the tolerances: {bad}")
+
+
+def grid_ba_synthetic(dev, seed: int = 12) -> dict:
+    """Phase 3's synthetic kernel-12 cases (tests/_grid_ba_cases.py) at full
+    width, each through grid_ba_check; returns {case: its errors}."""
+    import torch
+
+    from orb_slam2_annotate_tpu_torch.geometry.camera import CameraModel
+    from orb_slam2_annotate_tpu_torch.kernels import grid_ba as k12
+
+    cases = grid_ba_cases()
+    cam = CameraModel.create(**cases["CAM"])
+    out = {}
+    for name, (p, iters, robust, lam0, ladder) in cases["problem_cases"](*GBA_CASE_SIZE, seed).items():
+        g = grid_on(p, dev)
+        out[name] = grid_ba_check(name, cam, g, iters, robust, lam0, ladder)
+        if name.startswith("not positive definite (every"):
+            R, t, X, _, _ = k12.grid_ba_solve(cam, g, iters, robust, lam0, ladder)
+            if not (torch.equal(R, g.R) and torch.equal(t, g.t) and torch.equal(X, g.points)):
+                fail("grid_ba: a solve whose every try is refused moved the state")
+    grid_ba_require(out)
+    return out
+
+
+def grid_ba_times(cam, g, iters: int) -> dict:
+    """A whole solve on the 100-call clock and in a CUDA-graph replay, the
+    twin's beside it (10 calls), its device kernels in a capture, its bound."""
+    from orb_slam2_annotate_tpu_torch.kernels import grid_ba as k12
+    from orb_slam2_annotate_tpu_torch.solvers import ba_core
+
+    fn = lambda: k12.grid_ba_solve(cam, g, iters)
+    nb, ops = grid_ba_work(g, iters)
+    b_ms, b_by = bound(nb, ops)
+    return {"ms": time_ms(fn), "graph_us": graph_us(fn),
+            "plain_ms": time_ms(lambda: ba_core.bundle_adjust_grid_plain(cam, g, iters), 10),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nb, "ops": ops,
+            **device_kernels(fn, k12.launches_per_solve(iters))}
 
 
 def ate_of(slam, gt, seq):
@@ -1432,7 +1825,7 @@ def free_phases(ctx):
             lambda: runner11.track_mono_sequence(bounce, [k / 30.0 for k in range(n_pf, len(images11))],
                                                  chunk=FREE_BENCH_BOUNCE)]
         counted11 = ["fast_nms", "orb_describe", "hamming_match", "distinctive_descriptors",
-                     "optimize_pose_batched", "assign_words"]
+                     "optimize_pose_batched", "assign_words", "grid_ba_solve"]
         secs11, syncs11, launches11, calls11 = free_drive("free bench", runner11, feeds, counted11)
         out11 = runner11.finish()
         # phase 11's state after frame 47 as it stood (phase 13 tracks on from it)
@@ -2285,7 +2678,9 @@ def dist_phases(ctx):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    ctx.zero_launches()
     dense, t_dense = wall(lambda: ba_core.bundle_adjust(cam6, prob, DIST_ITERS))
+    launches["15 dense BA"] = ctx.read_launches()
     peak = torch.cuda.max_memory_allocated() - base
     t0 = time.perf_counter()
     dense_c = ba_core.bundle_adjust(cam6, prob_c, DIST_ITERS)
@@ -2297,7 +2692,9 @@ def dist_phases(ctx):
     (sp, perm), t_shard = wall(lambda: dist_ba.shard_ba_problem(prob, DIST_BLOCKS,
                                                                  return_perm=True))
     step1 = dist_ba.make_distributed_ba(mesh1, iters=DIST_ITERS, shards=DIST_BLOCKS)
+    ctx.zero_launches()
     _, t_dist_first = wall(lambda: step1(cam6, sp))      # with NCCL's first-call setup
+    launches["15 distributed BA"] = ctx.read_launches()
     (R1, t1, X1, c1), t_dist = wall(lambda: step1(cam6, sp), 3)
     # two calls on the same problem: bit for bit (kernel 11's fixed order)
     same = lambda a, b: all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
@@ -2348,6 +2745,10 @@ def dist_phases(ctx):
                           "tolerance of the CPU's": agrees(d_dist_short, DIST_SHORT_TOL),
                           "the dense BA lowered the reprojection error":
                               out["a"]["rmse_px"]["dense"] < out["a"]["rmse_px"]["before"],
+                          "the dense BA launched kernel 12b once a step":
+                              launches["15 dense BA"]["chol_solve"] == DIST_ITERS,
+                          "the distributed BA launched kernel 12c once a step":
+                              launches["15 distributed BA"]["lu_solve"] == DIST_ITERS,
                           **{f"{k}: two calls bit for bit": v for k, v in repeat15.items()}})
 
     # ---- (b) two ranks on the one card (gloo), as subprocesses
@@ -2913,6 +3314,34 @@ def shard_phases(ctx):
                           "both ranks' keyframe state equal": not kf_differ})
     torch.cuda.synchronize()
     return {"launches": launches, "outcomes": out}
+
+
+def k12_alone():
+    """``python3 chip_smoke.py --k12``: phase 3's kernel-12 checks on the
+    synthetic cases and a whole solve's times at full width, alone (kernel
+    12 is built, nothing else): the quick run for work on the kernel."""
+    import torch
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    print(smi[0].strip())
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, ROOT)
+    import orb_slam2_annotate_tpu_torch  # noqa: F401  (sets TF32 off)
+    from orb_slam2_annotate_tpu_torch.geometry.camera import CameraModel
+    from orb_slam2_annotate_tpu_torch.kernels import _build
+
+    _build.load("grid_ba")
+    print(f"build: {json.dumps(_build.BUILD_SECONDS)}")
+    dev = torch.device("cuda:0")
+    grid_ba_synthetic(dev)
+    cases = grid_ba_cases()
+    g = grid_on(cases["grid_problem"](12, *GBA_CASE_SIZE), dev)
+    cam = CameraModel.create(**cases["CAM"])
+    for iters in (4, 6):
+        print(f"grid_ba synthetic, {iters} iterations: {json.dumps(grid_ba_times(cam, g, iters))}, "
+              f"card {smi[0].strip()}")
 
 
 def main():
@@ -3680,6 +4109,18 @@ def main():
           f"{json.dumps({k: round(v, 5) for k, v in r10['ms_in_turns'].items()})}; all rounds "
           f"{json.dumps({k: [round(x, 5) for x in v] for k, v in rounds.items()})}")
 
+    # kernel 12 (local BA's grid LM) on the synthetic cases of tests/_grid_ba_cases.py at
+    # full width, and a whole solve's times on the first; the local-BA problems captured
+    # in phases 4 and 7 follow their runs
+    gba_cases = grid_ba_synthetic(dev)
+    from orb_slam2_annotate_tpu_torch.geometry.camera import CameraModel as _Cam
+    gba_syn = grid_ba_cases()
+    g_syn, cam_syn = grid_on(gba_syn["grid_problem"](12, *GBA_CASE_SIZE), dev), _Cam.create(
+        **gba_syn["CAM"])
+    gba_syn_times = {f"{iters} iterations": grid_ba_times(cam_syn, g_syn, iters) for iters in (4, 6)}
+    print(f"grid_ba on the synthetic grid (C, N, P = {GBA_CASE_SIZE}): {json.dumps(gba_syn_times)}, "
+          f"card {card}")
+
     launches3 = read_launches()
     print(f"launches in phase 3's checks and timings: {json.dumps(launches3)}")
 
@@ -3759,6 +4200,23 @@ def main():
             captured_lm["table"] = (m.kf_desc.clone(), obs_kf.clone(), obs_ft.clone(), obs_cnt.clone())
         return real_stats(m, pos, obs_kf, obs_ft, obs_cnt, obs_mask)
 
+    # local BA's solves (one kernel-12 launch each); the two of one keyframe from the
+    # second half of the slice are kept for the checks below
+    from orb_slam2_annotate_tpu_torch.kernels import grid_ba as k12
+    from orb_slam2_annotate_tpu_torch.solvers import ba_core
+    real_gba, gba_calls, kept_gba = ba_core.bundle_adjust_grid, [0], {}
+
+    def keep_grid_ba(frame_min, into, stereo=False):
+        def run(c_, g, iters=10, *a, **kw):
+            gba_calls[0] += 1
+            frame = into.get("slam").frame_id if into.get("slam") else 0
+            want = (iters not in into and frame >= frame_min and (iters == 4 or 4 in into)
+                    and (not stereo or bool(((g.ur >= 0) & g.edge_valid).any())))
+            if want:
+                into[iters] = (c_, grid_clone(g))
+            return real_gba(c_, g, iters, *a, **kw)
+        return run
+
     # tracking steps, for phase 15(d)'s telemetry counts
     real_track, track_calls = tracking.track_frame, [0]
 
@@ -3769,17 +4227,21 @@ def main():
     pose_opt.optimize_pose = count_opt
     matching.match_gated = count_match
     map_state._stats_from_table = count_stats
+    kept_gba["slam"] = slam
+    ba_core.bundle_adjust_grid = keep_grid_ba(N_FRAMES // 2, kept_gba)
     local_mapping.create_new_mappoints = matcher_launches_in(real_tri, tri_launches)
     tracking.relocalize_candidates = matcher_launches_in(real_reloc, reloc_launches)
     tracking.track_frame = count_track
     lm_calls[0] = 0
     slice_kernels = [w for n, (_, _, w) in SOURCES.items()
-                     if n not in ("pnp_hypotheses",) + LOOP_ONLY + STEREO_ONLY + SOLVE_ONLY]
+                     if n not in ("pnp_hypotheses",) + LOOP_ONLY + STEREO_ONLY + SOLVE_ONLY + DENSE_ONLY]
     torch.cuda.reset_peak_memory_stats()
     try:
         _, frame_s, launches4 = drive("slice", slam, frames, slice_kernels)
     finally:
         tracking.track_frame = real_track
+        ba_core.bundle_adjust_grid = real_gba
+    gba4 = gba_calls[0]
     peak4 = torch.cuda.max_memory_allocated() - base4
     from orb_slam2_annotate_tpu_torch import convert
     traj4, map4 = slam.frame_trajectory(), convert.map_state_to_numpy(slam.map)
@@ -3804,6 +4266,9 @@ def main():
               "one matcher launch per triangulation": len(tri4) > 0 and set(tri4) == {1},
               "one distinctive_descriptors launch per stats refresh":
                   stats4 > 0 and launches4["distinctive_descriptors"] == stats4,
+              "one grid_ba_solve launch per bundle_adjust_grid call":
+                  gba4 > 0 and launches4["grid_ba_solve"] == gba4,
+              "a keyframe's two local-BA solves captured": 4 in kept_gba and 6 in kept_gba,
               "a local-map call captured": "args" in captured_lm,
               "a stats table captured": "table" in captured_lm}
     bad = [k for k, v in checks.items() if not v]
@@ -3813,7 +4278,7 @@ def main():
                  "tracked": n_tracked,
                  "keyframes": slam.n_keyframes, "map_points": slam.n_mappoints,
                  "optimize_pose_calls": calls4, "matcher_calls": match_calls4,
-                 "triangulations": len(tri4), "stats_refreshes": stats4}
+                 "triangulations": len(tri4), "stats_refreshes": stats4, "local_ba_solves": gba4}
     kf_desc_c, *table_c = captured_lm["table"]
     err3b = max(err3b, check_distinctive("table of a keyframe-chain refresh", kf_desc_c, table_c))
     results["distinctive_descriptors"]["max_abs_err"] = float(err3b)
@@ -3830,6 +4295,26 @@ def main():
            *pose_lm_work(args_lm[3], args_lm[5], args_lm[7]), **pose_b8,
            graph_us=graph_us(lambda: k4.optimize_pose_batched(*args_lm)),
            **device_kernels(lambda: k4.optimize_pose_batched(*args_lm), 1))
+    # kernel 12 on the keyframe's two captured local-BA solves, then timed on them
+    cam_g, g4 = kept_gba[4]
+    cam_g6, g6 = kept_gba[6]
+    gba_cases["phase 4 slice, 4 iterations"] = grid_ba_check("phase 4 slice, 4 iterations", cam_g,
+                                                             g4, 4)
+    gba_cases["phase 4 slice, 6 iterations"] = grid_ba_check("phase 4 slice, 6 iterations", cam_g6,
+                                                             g6, 6)
+    grid_ba_require(gba_cases)
+    t4, t6 = grid_ba_times(cam_g, g4, 4), grid_ba_times(cam_g6, g6, 6)
+    err12 = max(max(o["whole"]["R"], o["whole"]["t"]) for o in gba_cases.values())
+    record("grid_ba", err12, t4["ms"], t4["plain_ms"], t4["bytes"], t4["ops"],
+           graph_us=t4["graph_us"], device_launches_per_call=t4["device_launches_per_call"],
+           device_ops=t4["device_ops"], six_iterations=t6, synthetic=gba_syn_times,
+           captured={"C": int(g4.pt_loc.shape[0]), "N": int(g4.pt_loc.shape[1]),
+                     "P": int(g4.points.shape[0]), "valid_slots": gba_cases[
+                         "phase 4 slice, 4 iterations"]["valid_slots"]},
+           cases={k: {"whole": o["whole"], "linearization": o["linearization"],
+                      "solve": o["solve"]} for k, o in gba_cases.items()})
+    print(f"grid_ba on the slice's local BA: 4 iterations {json.dumps(t4)}; 6 iterations "
+          f"{json.dumps(t6)}, card {card}")
 
     print(f"[{time.perf_counter() - t_main:.1f} s] phase 5", flush=True)
     # ---- phase 5: kidnapped run; the jump frame must relocalize
@@ -3859,7 +4344,7 @@ def main():
     try:
         out5, frame_s5, launches5 = drive("kidnap", slam5, images5,
                                           [w for n, (_, _, w) in SOURCES.items()
-                                           if n not in LOOP_ONLY + STEREO_ONLY + SOLVE_ONLY])
+                                           if n not in LOOP_ONLY + STEREO_ONLY + SOLVE_ONLY + DENSE_ONLY])
     finally:
         pnp_mod.pnp_hypotheses, pnp_mod.optimize_pose_batched = real_hyp, real_polish
         pose_opt.optimize_pose = real_opt
@@ -4075,7 +4560,7 @@ def main():
     try:
         _, frame_s6, launches6 = drive("loop", slam6, images6,
                                        [w for n, (_, _, w) in SOURCES.items()
-                                        if n not in ("pnp_hypotheses",) + STEREO_ONLY])
+                                        if n not in ("pnp_hypotheses",) + STEREO_ONLY + DENSE_ONLY])
     finally:
         (sim3_mod.sim3_ransac, sim3_mod.optimize_sim3, sim3_mod.sim3_ransac_solve,
          sim3_mod.sim3_lm_solve, loop_mod.sim3_guided_match, loop_mod.loop_projection_count,
@@ -4180,7 +4665,7 @@ def main():
     lc6r._dispatch_global_ba = drained_gba
     _, frame_s6r, launches6r = drive("loop repeat", slam6r, images6,
                                      [w for n, (_, _, w) in SOURCES.items()
-                                      if n not in ("pnp_hypotheses",) + STEREO_ONLY])
+                                      if n not in ("pnp_hypotheses",) + STEREO_ONLY + DENSE_ONLY])
     repeat6 = {"trajectory_equal": bool(np.array_equal(bits_of(traj_bits(slam6r)),
                                                        bits_of(traj6))),
                "map_fields_not_equal": fields_differ(convert.map_state_to_numpy(slam6r.map), map6),
@@ -4198,6 +4683,7 @@ def main():
     # phase 3's kernel 11 on the closure's essential graph and phase 15's map
     results["segment_sum"] = segment_sum_checks(cam6, gba6["pose_graph"], gba6["map"],
                                                 gba6["anchor"])
+    results.update(dense_solve_checks(cam6, gba6["map"], gba6["anchor"]))
 
     # phase 6 with depth: the circle with phase 12's rendered depth through
     # the RGB-D System (loop closing's Sim3 with the scale fixed), held to
@@ -4234,7 +4720,7 @@ def main():
         _, frame_s6d, launches6d = drive(
             "loop rgbd", slam6d, list(zip(images6, depths6)),
             [w for n, (_, _, w) in SOURCES.items()
-             if n not in ("pnp_hypotheses",) + STEREO_ONLY
+             if n not in ("pnp_hypotheses",) + STEREO_ONLY + DENSE_ONLY
              + (() if jd6["loops"] else LOOP_ONLY + SOLVE_ONLY)],
             track=track6d)
     finally:
@@ -4301,6 +4787,8 @@ def main():
         optimize_pose with stereo rows from the second half kept."""
         slam_d = System(cam_d, config or depth_config(sensor), device="cuda")
         kept, polishes = {}, [0]
+        kept_g = {"slam": slam_d}
+        gba_calls[0] = 0
 
         def keep_stereo_rows(c_, R0, t0, obs, *a, **kw):
             lm_calls[0] += 1
@@ -4317,12 +4805,15 @@ def main():
 
         pose_opt.optimize_pose, matching.match_gated = keep_stereo_rows, count_match
         pnp_mod.optimize_pose_batched = count_polish
+        ba_core.bundle_adjust_grid = keep_grid_ba(N_FRAMES // 2, kept_g, stereo=True)
         lm_calls[0], match_calls[0] = 0, 0
         try:
             _, frame_s_d, launches_d = drive(name, slam_d, images, counted, track)
         finally:
             pose_opt.optimize_pose, matching.match_gated = real_opt, real_match
             pnp_mod.optimize_pose_batched = real_polish
+            ba_core.bundle_adjust_grid = real_gba
+        kept["gba"] = kept_g.get(4)
         out = depth_outcome(slam_d)
         out.update(frames_per_s=N_FRAMES / sum(frame_s_d),
                    frame_ms_median=1e3 * statistics.median(frame_s_d),
@@ -4335,6 +4826,8 @@ def main():
                       launches_d["optimize_pose_batched"] == lm_calls[0] + polishes[0],
                   "one hamming_match launch per matcher call":
                       launches_d["hamming_match"] == match_calls[0],
+                  "one grid_ba_solve launch per bundle_adjust_grid call":
+                      gba_calls[0] > 0 and launches_d["grid_ba_solve"] == gba_calls[0],
                   "a local-map call with stereo rows captured": "args" in kept}
         return slam_d, out, launches_d, kept, checks
 
@@ -4348,7 +4841,7 @@ def main():
         "rgbd", "rgbd", list(zip(frames, depths)),
         lambda slam, fd, ts: slam.track_rgbd(fd[0], fd[1], ts),
         [w for n, (_, _, w) in SOURCES.items() if n not in ("pnp_hypotheses",) + LOOP_ONLY
-         + STEREO_ONLY + SOLVE_ONLY])
+         + STEREO_ONLY + SOLVE_ONLY + DENSE_ONLY])
     checks.update(outcome_bounds(out7, RGBD_ATE_JAX))
     checks.update({"displacement within 5%": abs(out7["displacement_ratio"] - 1.0) < 0.05,
                    "one fast_nms launch per frame": launches7["fast_nms"] == N_FRAMES,
@@ -4370,6 +4863,19 @@ def main():
                            "graph_us": graph_us(lambda: k4.optimize_pose_batched(*args7)),
                            "bound_ms": bound(*pose_lm_work(args7[3], args7[5], args7[7]))[0]}
     print(f"pose_lm_solve on the RGB-D call: {json.dumps(r4['captured_rgbd'])}")
+    # kernel 12 on a local-BA solve of the RGB-D cell (stereo rows)
+    if kept7["gba"] is None:
+        fail("rgbd: no local-BA solve with stereo rows captured")
+    cam7g, g7 = kept7["gba"]
+    o7 = grid_ba_check("phase 7 RGB-D, 4 iterations (stereo rows)", cam7g, g7, 4)
+    grid_ba_require({"phase 7": o7})
+    r12 = results["grid_ba"]
+    r12["max_abs_err"] = max(r12["max_abs_err"], o7["whole"]["R"], o7["whole"]["t"])
+    r12["cases"]["phase 7 RGB-D, 4 iterations (stereo rows)"] = {
+        k: o7[k] for k in ("whole", "linearization", "solve")}
+    r12["captured_rgbd"] = {"stereo_rows": int(((g7.ur >= 0) & g7.edge_valid).sum()),
+                            "valid_slots": o7["valid_slots"], **grid_ba_times(cam7g, g7, 4)}
+    print(f"grid_ba on the RGB-D local BA: {json.dumps(r12['captured_rgbd'])}")
 
     # phase 8: stereo, every pair through a StereoRectifier of the rectified,
     # undistorted rig (zero distortion, identity rotation; unit intrinsics, so
@@ -4388,7 +4894,7 @@ def main():
     slam8, out8, launches8, kept8, checks = depth_run(
         "stereo", "stereo", list(zip(frames, rights)), track8,
         [w for n, (_, _, w) in SOURCES.items()
-         if n not in ("pnp_hypotheses",) + LOOP_ONLY + SOLVE_ONLY])
+         if n not in ("pnp_hypotheses",) + LOOP_ONLY + SOLVE_ONLY + DENSE_ONLY])
     # compared after the run, so the frame times hold only the rectifier and track_stereo
     up = lambda im: torch.from_numpy(im).to(dev).float()
     moved8 = [k for k, ((il, ir), fl_, fr_) in enumerate(zip(rectified, frames, rights))
@@ -4444,7 +4950,7 @@ def main():
     local_mapping.keyframe_chain = count_chain_stats
     local_mapping._fuse_targets_core = keep_core
     counted9 = [w for n, (_, _, w) in SOURCES.items()
-                if n not in ("pnp_hypotheses",) + LOOP_ONLY + STEREO_ONLY + SOLVE_ONLY]
+                if n not in ("pnp_hypotheses",) + LOOP_ONLY + STEREO_ONLY + SOLVE_ONLY + DENSE_ONLY]
     try:
         slam9 = System(cam, dataclasses.replace(slice_cfg, enable_fuse=True), device="cuda")
         with profile(activities=[ProfilerActivity.CPU]) as prof9:
@@ -4691,7 +5197,7 @@ def main():
     lc10.dispatch_detection, lc10.resolve_detection = dispatch10, resolve10
     slam10l._apply_cull_info, slam10l._try_relocalize = cull10, reloc10
     counted10l = [w for n, (_, _, w) in SOURCES.items()
-                  if n not in ("sim3_lm_solve",) + STEREO_ONLY + SOLVE_ONLY]
+                  if n not in ("sim3_lm_solve",) + STEREO_ONLY + SOLVE_ONLY + DENSE_ONLY]
     _, frame_s10l, launches10l, lag10l = pipelined("pipelined loop", slam10l, images6, counted10l)
     ate10l, n10l = ate_of(slam10l, gt6, range(LOOP_FRAMES))
     pipelined_dispatch = [s for f, s in deferred["dispatched"] if f == "_create_keyframe_async"]
@@ -4823,6 +5329,8 @@ if __name__ == "__main__":
         dist_rank(*sys.argv[2:5])
     elif sys.argv[1:2] == ["--shard-rank"]:
         shard_rank(*sys.argv[2:6])
+    elif sys.argv[1:2] == ["--k12"]:
+        k12_alone()
     else:
         if sys.argv[1:2] == ["--keep-ba"]:
             KEEP_BA = sys.argv[2]

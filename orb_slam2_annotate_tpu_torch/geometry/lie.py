@@ -123,10 +123,51 @@ def se3_compose(Ra, ta, Rb, tb):
     return Ra @ Rb, torch.einsum("...ij,...j->...i", Ra, tb) + ta
 
 
+def dot3(a0, b0, a1, b1, a2, b2):
+    """a0 b0 + a1 b1 + a2 b2, each product rounded, the sums in order: the
+    same bits on every device (a batched matmul or einsum rounds by the
+    device's kernel)."""
+    return a0 * b0 + a1 * b1 + a2 * b2
+
+
+def via_f64(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn (a square root, sine or cosine) through float64, back in x's
+    dtype: correctly rounded in float32 on every device, which torch's
+    float32 ones on the CPU are not."""
+    return fn(x.double()).to(x.dtype)
+
+
 def se3_retract(R, t, xi):
-    """Left retraction used by all solvers: T <- exp(xi) o T."""
-    dR, dt = se3_exp(xi)
-    return se3_compose(dR, dt, R, t)
+    """Left retraction used by all solvers: T <- exp(xi) o T, R [..., 3, 3],
+    t [..., 3], xi [..., 6].  exp(xi) and the composition written out in
+    ``dot3``s, the square root, sine and cosine ``via_f64``, divisions by
+    tensors: the same bits on the card and the CPU."""
+    rho, p = xi[..., :3], xi[..., 3:6]
+    sq = dot3(p[..., 0], p[..., 0], p[..., 1], p[..., 1], p[..., 2], p[..., 2])
+    small = sq < _EPS
+    one = torch.ones_like(sq)
+    sq_safe = torch.where(small, one, sq)
+    th = via_f64(torch.sqrt, sq_safe)
+    sn, cs = via_f64(torch.sin, th), via_f64(torch.cos, th)
+    num = lambda v: torch.full_like(sq, v)
+    a = torch.where(small, 1.0 - sq / num(6.0), sn / th)
+    b = torch.where(small, 0.5 - sq / num(24.0), (1.0 - cs) / sq_safe)
+    c = torch.where(small, num(1.0) / num(6.0) - sq / num(120.0), (th - sn) / (th * sq_safe))
+    zero = torch.zeros_like(sq)
+    K = [[zero, -p[..., 2], p[..., 1]], [p[..., 2], zero, -p[..., 0]],
+         [-p[..., 1], p[..., 0], zero]]
+    K2 = [[dot3(K[r][0], K[0][m], K[r][1], K[1][m], K[r][2], K[2][m]) for m in range(3)]
+          for r in range(3)]
+    eye = lambda r, m: one if r == m else zero
+    dR = [[eye(r, m) + a * K[r][m] + b * K2[r][m] for m in range(3)] for r in range(3)]
+    J = [[eye(r, m) + b * K[r][m] + c * K2[r][m] for m in range(3)] for r in range(3)]
+    R_new = torch.stack([torch.stack([dot3(dR[r][0], R[..., 0, m], dR[r][1], R[..., 1, m],
+                                           dR[r][2], R[..., 2, m]) for m in range(3)], dim=-1)
+                         for r in range(3)], dim=-2)
+    t_new = torch.stack([dot3(dR[r][0], t[..., 0], dR[r][1], t[..., 1], dR[r][2], t[..., 2])
+                         + dot3(J[r][0], rho[..., 0], J[r][1], rho[..., 1], J[r][2], rho[..., 2])
+                         for r in range(3)], dim=-1)
+    return R_new, t_new
 
 
 def se3_apply(R, t, x):
@@ -141,6 +182,40 @@ def rotate_points(R, x, transpose: bool = False):
     is the einsum's arithmetic bit for bit."""
     col = (lambda k: R[:, k, :]) if transpose else (lambda k: R[:, :, k])
     return col(0) * x[:, 0:1] + col(1) * x[:, 1:2] + col(2) * x[:, 2:3]
+
+
+def norm3(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the last axis (3 entries) with the CPU's bits on
+    every device.  torch.linalg.norm on the CPU (and XLA's jnp.linalg.norm)
+    takes s = x0^2, s = fma(x1, x1, s), s = fma(x2, x2, s) in float32, then
+    sqrt(s) correctly rounded; the card's reduction rounds otherwise, which
+    moves gates that a point's own distances decide (its predicted octave).
+    Each fused multiply-add is formed exactly through float64 (``_fma32``)
+    and the square root taken in float64 (torch's float32 sqrt on the CPU is
+    not correctly rounded; float64's, rounded to float32, is)."""
+    d = v.double()
+    s = (d[..., 0] * d[..., 0]).float()
+    for k in (1, 2):
+        s = _fma32(d[..., k] * d[..., k], s)
+    return torch.sqrt(s.double()).float()
+
+
+def _fma32(p: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """p + a rounded once to float32: p float64 (a product of two float32
+    numbers, exact), a float32.  The float64 sum t and its TwoSum error give
+    the exact value; rounding t to float32 is that value's rounding unless t
+    lies on a float32 tie, where the error's sign decides."""
+    ad = a.double()
+    t = p + ad
+    bp = t - ad
+    err = (p - bp) + (ad - (t - bp))
+    r = t.float()
+    rd = r.double()
+    up = torch.nextafter(r, torch.full_like(r, float("inf")))
+    dn = torch.nextafter(r, torch.full_like(r, -float("inf")))
+    at_up = t == 0.5 * (rd + up.double())
+    at_dn = t == 0.5 * (rd + dn.double())
+    return torch.where(at_up & (err > 0), up, torch.where(at_dn & (err < 0), dn, r))
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,8 @@ SOURCES = {"fast_nms": ("--fmad=false",), "orb_describe": ("--fmad=false",),
            "hamming": ("--fmad=false",), "pose_lm": ("--fmad=false",), "assign_words": (),
            "pnp_score": ("--fmad=false",), "sim3": ("--fmad=false",),
            "stereo": ("--fmad=false",), "remap": ("--fmad=false",),
-           "segment_sum": ("--fmad=false",)}
+           "segment_sum": ("--fmad=false",), "grid_ba": ("--fmad=false",),
+           "chol_solve": ("--fmad=false",), "lu_solve": ("--fmad=false",)}
 
 # host C++ sources outside the package: name -> (path, g++ flags, link flags);
 # the loader's flags are native/build.sh's, so that both packages' builds

@@ -2,13 +2,14 @@
 
 The map-point axis is sharded over the ranks of a ``mesh.Mesh``, each point's
 observations with it; every rank builds the normal equations of its point
-block with the dense ``ba_core.build_normal_eqs``, the camera system (Hcc,
-gc, the cost, the block's Schur complement and reduced gradient) is summed
-over the blocks in block order after one ``all_reduce`` a step, every rank
-solves the same small camera system, and each updates its own landmark
-block.  The number of blocks is the layout's, not the world's: a world of
-one given the blocks of n ranks sums the same blocks in the same order and
-returns their bits.
+block with the dense ``ba_core.build_normal_eqs`` and ``schur_blocks``, the
+camera system (Hcc, gc, the cost, the block's Schur complement and reduced
+gradient) is summed over the blocks in block order after one ``all_reduce``
+a step, every rank solves the same small camera system (an LU, kernel 12c:
+``kernels/lu_solve``), and each updates its own landmark block.  Every step
+computes in one order, so the card gives the CPU's bits.  The number of
+blocks is the layout's, not the world's: a world of one given the blocks of
+n ranks sums the same blocks in the same order and returns their bits.
 
 Layout contract (``shard_ba_problem``): edges are grouped so that the edges
 of point p live on p's shard; cameras are replicated.  A map whose point
@@ -24,6 +25,7 @@ import torch
 import torch.distributed as dist
 
 from ..geometry import lie
+from ..kernels.lu_solve import lu_solve
 from ..solvers import ba_core
 from ..solvers.ba_core import BAProblem
 from .mesh import Mesh
@@ -165,26 +167,25 @@ def make_distributed_ba(mesh: Mesh, iters: int = 10, robust: bool = True, lam0: 
         R, t, Xs = blks[0].R, blks[0].t, [blk.points for blk in blks]
         lam = torch.tensor(lam0, device=dev)
         last_cost = torch.tensor(float("inf"), device=dev)
-        plans = [ba_core.normal_eq_plans(blk) for blk in blks]
+        setups = [ba_core.dense_setup(blk) for blk in blks]
         for _ in range(iters):
             parts, backs = [], []
-            for blk, X, plan in zip(blks, Xs, plans):
+            for blk, X, (plans, pairs) in zip(blks, Xs, setups):
                 Hcc, Hpp, B, gc, gp, cost = ba_core.build_normal_eqs(
-                    cam, blk.replace(R=R, t=t, points=X), robust, plan)
-                Hpp_inv, S_local, rhs_local = ba_core.schur_terms(Hpp, B, gp, lam)
+                    cam, blk.replace(R=R, t=t, points=X), robust, plans)
+                Hpp_inv, Bo, S_local, rhs_local = ba_core.schur_blocks(Hpp, B, gp, lam, pairs)
                 parts.append((Hcc, gc, cost, S_local, rhs_local))
-                backs.append((Hpp_inv, B, gp))
+                backs.append((Hpp_inv, Bo, gp, pairs))
             Hcc, gc, cost, S, rhs = _sum_blocks(mesh, parts, me * per, n_blocks)
             S[ar, ar] += ba_core._damp_blocks(Hcc, lam)
             Sf, rf = ba_core.reduced_system(S, rhs - gc, free)
             # an LU, as the reference's jnp.linalg.solve (not the dense path's Cholesky)
-            dc = torch.linalg.solve_ex(Sf, rf)[0].reshape(C, 6)
+            dc = lu_solve(Sf.contiguous(), rf.contiguous()).reshape(C, 6)
             dc = torch.where(free[:, None], dc, torch.zeros_like(dc))
             R_new, t_new = lie.se3_retract(R, t, dc)
             # landmark back-substitution, local to the block
-            X_new = [X + torch.einsum("pij,pj->pi", Hpp_inv,
-                                      -gp - torch.einsum("pcij,ci->pj", B, dc)) * ptv
-                     for X, ptv, (Hpp_inv, B, gp) in zip(Xs, ptvs, backs)]
+            X_new = [X + ba_core.back_substitute(*back, dc) * ptv
+                     for X, ptv, back in zip(Xs, ptvs, backs)]
             # the reference's accept rule, copied for parity (ROADMAP.md §3):
             # `cost` is the cost of the state BEFORE this step, so a step is
             # kept when the point it was taken from beat every earlier one, a

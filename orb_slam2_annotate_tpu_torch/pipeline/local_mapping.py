@@ -316,25 +316,25 @@ def _fuse_targets_core(m: ms.MapState, cam: CameraModel, targets: torch.Tensor,
     uv = project(cam, xc)
     centre = -torch.einsum("tji,tj->ti", R, t)                          # -R^T t
     dvec = m.mp_pos[None] - centre[:, None]
-    dist = torch.linalg.norm(dvec, dim=-1)
-    vcos = (dvec * m.mp_normal[None]).sum(-1) / torch.clamp_min(dist, 1e-9)
+    # the gates below in the CPU's bits on every device (lie.norm3, the dot's
+    # sums in order, ms.predict_octave, ms.scale_power)
+    dist = lie.norm3(dvec)
+    dn = dvec * m.mp_normal[None]
+    vcos = (dn[..., 0] + dn[..., 1] + dn[..., 2]) / torch.clamp_min(dist, 1e-9)
     okp = (src_masks & (xc[..., 2] > 0.05) & in_image(cam, uv) & (dist >= m.mp_min_dist)
            & (dist <= m.mp_max_dist) & (vcos > 0.5))
-    dist_ratio = torch.clamp_min(m.mp_max_dist / torch.clamp_min(dist, 1e-9), 1.0)
     top_oct = torch.where(m.kf_feat_valid, m.kf_octave, 0).max()
-    pred_oct = torch.minimum(torch.clamp_min(
-        torch.ceil(torch.log(dist_ratio) / torch.log(torch.tensor(SCALE))).to(torch.int32), 0),
-        top_oct)
+    pred_oct = ms.predict_octave(m.mp_max_dist, dist, top_oct, SCALE)
     cand = pts.topk_points(mesh, okp.to(torch.int32), MAXC)[1].contiguous()   # [T,MAXC]
     cvalid, c_oct, c_uv, z_pt = pts.gather_rows(mesh, cand, okp, pred_oct, uv, xc[..., 2],
                                                 batch=True)
-    radius = 3.0 * (SCALE ** c_oct.to(torch.float32))
+    radius = 3.0 * ms.scale_power(c_oct, SCALE)
     res = matching.search_map_points(ms.point_rows(m, cand, "mp_desc")[0], cvalid, c_uv, c_oct,
                                      radius,
                                      _kf_frame(m, tl), ratio=ratio, max_dist=matching.TH_LOW)
     tgt = torch.clamp_min(res.idx, 0).long()                            # [T,MAXC]
     f_oct = torch.gather(m.kf_octave[tl], 1, tgt)
-    sig2 = SCALE ** (2.0 * f_oct.to(torch.float32))
+    sig2 = ms.scale_power(f_oct, SCALE, twice=True)
     f_xy = torch.gather(m.kf_xy[tl], 1, tgt[..., None].expand(-1, -1, 2))
     e2 = ((c_uv - f_xy) ** 2).sum(-1)
     f_depth = torch.gather(m.kf_depth[tl], 1, tgt)
@@ -353,8 +353,8 @@ def _fuse_targets_core(m: ms.MapState, cam: CameraModel, targets: torch.Tensor,
     pr = torch.clamp_min(prop, 0).long()
     g_obs, g_pos = pts.gather_rows(mesh, torch.stack([ex, pr]), n_obs, m.mp_pos)
     p_ex = g_pos[0]
-    d3 = torch.linalg.norm(p_ex - g_pos[1], dim=-1)
-    depth_scale = torch.clamp_min(torch.linalg.norm(p_ex - centre[:, None], dim=-1), 1e-3)
+    d3 = lie.norm3(p_ex - g_pos[1])
+    depth_scale = torch.clamp_min(lie.norm3(p_ex - centre[:, None]), 1e-3)
     merge_mask &= d3 < 0.015 * depth_scale
     ex_wins = g_obs[0] >= g_obs[1]
     loser = torch.where(ex_wins, pr, ex)

@@ -164,14 +164,6 @@ class LoopCloserConfig:
 
 
 
-def _pred_octave(max_dist: torch.Tensor, dist: torch.Tensor, top_oct: torch.Tensor) -> torch.Tensor:
-    """The scale level a point at `dist` should appear at (PredictScale),
-    clipped to the pyramid's top level."""
-    ratio = torch.clamp_min(max_dist / torch.clamp_min(dist, 1e-9), 1.0)
-    lvl = torch.ceil(torch.log(ratio) / torch.log(torch.tensor(1.2, device=ratio.device)))
-    return torch.minimum(torch.clamp_min(lvl.to(torch.int32), 0), top_oct)
-
-
 def _top_octave(m: ms.MapState) -> torch.Tensor:
     return torch.where(m.kf_feat_valid, m.kf_octave, 0).max()
 
@@ -276,7 +268,7 @@ def sim3_guided_match(cam: CameraModel, m: ms.MapState, slot: int, cand: int, s1
     # problem 0: cand points into the slot image; problem 1: slot points into the cand image
     y = torch.stack([s12 * (x2 @ R12.T) + t12, si * (x1 @ Ri.T) + ti])      # [2,N,3]
     src_maxd = torch.stack([s12 * g_maxd[1], si * g_maxd[0]])
-    pred = _pred_octave(src_maxd, torch.linalg.norm(y, dim=-1), top_oct)
+    pred = ms.predict_octave(src_maxd, lie.norm3(y), top_oct)
     radius = radius_scale * 7.5 * (1.2 ** pred.to(torch.float32))
     ok = torch.stack([has2, has1]) & (y[..., 2] > 0.05)
     dst = torch.tensor([slot, cand], device=dev)
@@ -309,7 +301,7 @@ def loop_projection_count(cam: CameraModel, m: ms.MapState, slot: int, cand: int
     xc = s_c * (m.mp_pos @ R_c.T) + t_c
     uv = _project_px(cam, xc)
     okp = loop_pts & (xc[:, 2] > 0.05) & in_image(cam, uv)
-    pred = _pred_octave(m.mp_max_dist, torch.linalg.norm(xc, dim=1), _top_octave(m))
+    pred = ms.predict_octave(m.mp_max_dist, lie.norm3(xc), _top_octave(m))
     MAXC = min(2048, P)
     _, cnd = pts.topk_points(m.mesh, okp.to(torch.int32), MAXC)
     c_pred, c_uv, c_ok, c_desc = pts.gather_rows(m.mesh, cnd, pred, uv, okp, m.mp_desc)

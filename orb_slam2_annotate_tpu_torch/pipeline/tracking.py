@@ -124,16 +124,17 @@ def track_local_map(cam: CameraModel, m: MapState, frame: Frame, R, t, obs,
     uv = project(cam, xc)
     cam_center = -R.T @ t
     dvec = m.mp_pos - cam_center
-    dist = torch.linalg.norm(dvec, dim=-1)
-    view_cos = (dvec * m.mp_normal).sum(-1) / torch.clamp_min(dist, 1e-9)
+    # the gates in the CPU's bits on every device (lie.norm3, the dot's sums in
+    # order, ms.predict_octave), as local mapping's fuse takes them
+    dist = lie.norm3(dvec)
+    dn = dvec * m.mp_normal
+    view_cos = (dn[:, 0] + dn[:, 1] + dn[:, 2]) / torch.clamp_min(dist, 1e-9)
     in_frustum = ((xc[:, 2] > 0.05) & in_image(cam, uv) & (dist >= m.mp_min_dist)
                   & (dist <= m.mp_max_dist) & (view_cos > 0.5))
     cand_mask = local_mask & in_frustum
 
     top_oct = torch.max(torch.where(frame.valid, frame.octave, 0))
-    ratio = torch.clamp_min(m.mp_max_dist / torch.clamp_min(dist, 1e-9), 1.0)
-    pred_oct = torch.minimum(torch.clamp_min(
-        torch.ceil(torch.log(ratio) / torch.log(torch.tensor(SCALE))).to(torch.int32), 0), top_oct)
+    pred_oct = ms.predict_octave(m.mp_max_dist, dist, top_oct, SCALE)
 
     cand_score = torch.where(cand_mask, m.mp_first_kf.float() + 2.0, torch.zeros_like(dist))
     _, cand = pts.topk_points(mesh, cand_score, max_local_pts)

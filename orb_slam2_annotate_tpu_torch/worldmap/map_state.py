@@ -24,7 +24,7 @@ import torch
 
 from ..kernels.hamming import distinctive_descriptors
 from ..ops.orb import DESC_WORDS
-from ..ops.sorting import stable_topk
+from ..ops.sorting import int32_saturated, stable_topk
 from ..parallel import points as pts
 
 MAX_OBS = 32
@@ -354,6 +354,35 @@ def update_mappoint_stats(m: MapState) -> MapState:
         mp_min_dist=torch.where(upd, min_d, m.mp_min_dist),
         mp_max_dist=torch.where(upd, max_d, m.mp_max_dist),
         mp_valid=m.mp_valid & (obs_cnt > 0))
+
+
+def predict_octave(max_dist: torch.Tensor, dist: torch.Tensor, top_oct, scale: float = 1.2):
+    """PredictScale: the pyramid level a point at `dist` should appear at,
+    ceil(log(max_dist / dist) / log(scale)) clipped to [0, top_oct].  A point
+    seen from where its stats were taken sits on a level's boundary, so the
+    level follows the last bit of each step; every step here gives the same
+    bits on the card and the CPU: the log correctly rounded (through
+    float64), the division by a tensor on the data's device (the card
+    multiplies by the reciprocal of a CPU scalar), the level converted as XLA
+    converts (``int32_saturated``: a new point's max_dist is +inf)."""
+    ratio = torch.clamp_min(max_dist / torch.clamp_min(dist, 1e-9), 1.0)
+    # log(scale) as the CPU's float32 log gives it, made on the data's device (a copy
+    # from the host would synchronize)
+    log_scale = torch.full((), float(torch.log(torch.tensor(scale))), device=ratio.device)
+    lvl = torch.ceil(torch.log(ratio.double()).float() / log_scale)
+    return torch.minimum(torch.clamp_min(int32_saturated(lvl), 0), top_oct)
+
+
+def scale_power(octave: torch.Tensor, scale: float = 1.2, twice: bool = False) -> torch.Tensor:
+    """scale ** octave (or ** (2 octave)) as the CPU's torch.pow gives it
+    for the float32 scale (correctly rounded), from a table made in float64
+    on the octaves' device: the same bits on the card, whose float32 pow
+    rounds otherwise."""
+    dev = octave.device
+    k = torch.arange(0, 64, dtype=torch.float64, device=dev) * (2.0 if twice else 1.0)
+    base = torch.full((), float(torch.tensor(scale, dtype=torch.float32)), dtype=torch.float64,
+                      device=dev)
+    return (base ** k).float()[octave.long()]
 
 
 def mp_observation_counts(m: MapState) -> torch.Tensor:

@@ -135,17 +135,19 @@ def dense_steps(cam, jcam, prob, iters, package):
         p = convert.ba_problem_from_numpy(prob, device="cpu")
         free, ptv = p.cam_valid & ~p.cam_fixed, p.pt_valid[:, None].float()
         R, t, X, lam = p.R, p.t, p.points, torch.tensor(1e-5)
+        plans, pairs = tba.dense_setup(p)
         for _ in range(iters):
-            Hcc, Hpp, B, gc, gp, cost = tba.build_normal_eqs(cam, p.replace(R=R, t=t, points=X), True)
-            dc, dp = tba.schur_solve_dense(Hcc, Hpp, B, gc, gp, lam, free)
+            Hcc, Hpp, B, gc, gp, cost = tba.build_normal_eqs(cam, p.replace(R=R, t=t, points=X),
+                                                             True, plans)
+            dc, dp = tba.schur_solve_dense(Hcc, Hpp, B, gc, gp, lam, free, pairs)
             Rn, tn = tlie.se3_retract(R, t, dc)
             Xn = X + dp * ptv
-            cn = tba.edge_cost(cam, p.replace(R=Rn, t=tn, points=Xn))
+            cn = tba.edge_cost(cam, p.replace(R=Rn, t=tn, points=Xn), plans[3])
             kept = bool(cn < cost)
             rows.append((float(lam), bool(torch.isnan(dc).any()), float(cost), float(cn), kept))
             R, t, X = (Rn, tn, Xn) if kept else (R, t, X)
             lam = lam * (0.3 if kept else 8.0)
-        return rows, float(tba.edge_cost(cam, p.replace(R=R, t=t, points=X)))
+        return rows, float(tba.edge_cost(cam, p.replace(R=R, t=t, points=X), plans[3]))
     jnp = jax.numpy
     p = jba.BAProblem(**{k: jnp.asarray(v) for k, v in prob.items()})
     free = p.cam_valid & ~p.cam_fixed
