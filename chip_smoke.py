@@ -33,8 +33,9 @@ Phases (any failure exits non-zero):
      a near-collinear triple, 2 valid pairs, no valid pair and a zero-inlier
      best, scale free and fixed, a refined fit that counts fewer (the best
      kept), N = 4096 and H = 4096; kernel 8 (the whole Sim3 LM) at 1024
-     pairs scale free and fixed, 4096 pairs all valid and 3 valid pairs;
-     kernel 9 (a stereo frame's match, SAD refinement, depth and
+     pairs scale free and fixed, 4096 pairs all valid and 3 valid pairs
+     (and, reported but not held, on tests/data/k8_closure_routed.pt, an
+     open fault: ROADMAP §3); kernel 9 (a stereo frame's match, SAD refinement, depth and
      acceptance) with every output bit for bit, on the VGA pair of frame 0
      (the right camera 0.3 m along +x) at 1024 x 1024 keypoints and on
      random uint8 pairs shifted by 6 px: distances 0-255, ties (every right
@@ -68,7 +69,8 @@ Phases (any failure exits non-zero):
      positive definite, 12c on an indefinite system and on pivot ties, two
      calls equal, their device kernels a call by graph capture, beside their
      twins on the card and torch.linalg.cholesky_ex with
-     torch.cholesky_solve / torch.linalg.solve_ex;
+     torch.cholesky_solve / torch.linalg.solve_ex; then random systems at
+     n 384 and 3,840, 12c also at 12,288 (a cluster of 12 CTAs);
   4. run the monocular System (``mono_slice_config``: relocalization and
      keyframe culling on) through ``System.track_mono`` on 48 frames at
      VGA / 1024 features / 8 levels, with every launch counter reset just
@@ -1023,6 +1025,58 @@ def check_sim3_lm(what, args):
     return err
 
 
+# kernel 8 on the closure's optimize_sim3 input of phase 6 run with the six
+# scale-power sites (tracking's inv_sigma2 and radii, loop closing's radii and
+# its full-map BA's inv_sigma2) read through map_state.scale_power, which this
+# tree does not do (ROADMAP §3): sim3_lm_solve's arguments, saved with torch.save
+K8_CLOSURE_CASE = os.path.join(ROOT, "tests", "data", "k8_closure_routed.pt")
+
+
+def k8_closure_case(dev: str = "cuda") -> dict:
+    """Kernel 8 on K8_CLOSURE_CASE, an open fault kept in view and not held
+    (it fails nothing): its largest |ds|, |dR|, |dt| against the twin on the
+    card and on the CPU beside check_sim3_lm's 1e-4, the twin's own CPU
+    against card spread, the inliers, and the 2-norm condition number of
+    the LM's normal matrix J^T W J (float64, 6 x 6 with the scale fixed) at
+    the CPU twin's solution over its final inliers."""
+    import torch
+
+    from orb_slam2_annotate_tpu_torch.geometry import lie
+    from orb_slam2_annotate_tpu_torch.kernels import sim3 as k8
+
+    args = torch.load(K8_CLOSURE_CASE, weights_only=True)
+    on = lambda d: tuple(v.to(d) if torch.is_tensor(v) else v for v in args)
+    a_dev, a_cpu = on(dev), on("cpu")
+    got, twin_dev, twin_cpu = (k8.sim3_lm_solve(*a_dev), k8.sim3_lm_solve_plain(*a_dev),
+                               k8.sim3_lm_solve_plain(*a_cpu))
+    gap = lambda p, q: max(float((x.cpu() - y.cpu()).abs().max()) for x, y in zip(p[:3], q[:3]))
+    x1, x2, uv1, uv2, valid = a_cpu[:5]
+    fx, fy, cx, cy, fix_scale, th = a_cpu[10:16]
+    pairs = [v.double() for v in (x1, x2, uv1, uv2, *k8.inv_sigma2_or_ones(x1, *a_cpu[5:7]))]
+    s, R, t = (v.double() for v in twin_cpu[:3])
+    _, c_f, c_i, dok = k8.project_residuals(fx, fy, cx, cy, s, R, t, *pairs)
+    chi2 = c_f + c_i
+    w = (torch.sqrt(torch.where(chi2 > th, torch.sqrt(th / chi2.clamp_min(1e-12)), 1.0))
+         * (valid & twin_cpu[3] & dok))
+
+    def resid(xi):
+        s1, R1, t1 = lie.sim3_retract(s[None], R[None], t[None], xi[None])
+        r, *_ = k8.project_residuals(fx, fy, cx, cy, s1, R1[0], t1[0], *pairs)
+        return (r * w[:, None]).reshape(-1)
+
+    J = torch.func.jacfwd(resid)(torch.zeros(7, dtype=torch.float64))
+    J = J[:, :6] if fix_scale else J
+    cond = float(torch.linalg.cond(J.T @ J))
+    out = {"N": int(x1.shape[0]), "valid": int(valid.sum()), "fix_scale": bool(fix_scale),
+           "inliers": [int(got[4]), int(twin_dev[4]), int(twin_cpu[4])],
+           "s": [float(got[0]), float(twin_dev[0]), float(twin_cpu[0])],
+           "kernel_vs_twin_on_card": gap(got, twin_dev), "kernel_vs_twin_on_cpu": gap(got, twin_cpu),
+           "twin_card_vs_cpu": gap(twin_dev, twin_cpu), "limit": 1e-4,
+           "cond_normal_matrix": cond, "cond_x_2^-24": cond * 2.0 ** -24}
+    print(f"sim3_lm_solve on the routed closure's input (open fault, not held): {json.dumps(out)}")
+    return out
+
+
 def sim3_hyp_work(samples, valid, n_best):
     """(bytes, operations) of one kernel-7 call: every triple's Horn and its
     count over the valid pairs; the best's rescore over them; the weighted
@@ -1301,21 +1355,11 @@ def dense_solve_work(n: int, lu: bool):
             (2 * n ** 3 / 3 if lu else n ** 3 / 3) + 2.0 * n * n)
 
 
-def dense_solve_checks(cam6, gba_map, anchor) -> dict:
-    """Kernels 12b (``chol_solve``) and 12c (``lu_solve``) against their CPU
-    twins, bit for bit (NaN where the twin's is): phase 15's dense BA's
-    reduced system at lambda 1e-5 (n = 6 x DIST_K), its leading 130 and 6
-    rows (n not a multiple of the 32-column panel); for 12b also the system
-    with a negative entry on its diagonal (the step refused, all NaN); for
-    12c also the system less 0.8 x its mean diagonal (indefinite: LU still
-    gives a step) and a 70 x 70 system of small integers (ties for the
-    pivot).  Two calls equal; the device kernels a call, by graph capture;
-    times.  Returns {"chol_solve": ..., "lu_solve": ...}."""
-    import numpy as np
+def phase15_reduced_system(cam6, gba_map, anchor):
+    """Phase 15's dense BA's reduced camera system at lambda 1e-5 (n = 6 x
+    DIST_K) on phase 6's closure map, on the card."""
     import torch
 
-    from orb_slam2_annotate_tpu_torch.kernels import chol_solve as k12b
-    from orb_slam2_annotate_tpu_torch.kernels import lu_solve as k12c
     from orb_slam2_annotate_tpu_torch.pipeline import loop_closing as loop_mod
     from orb_slam2_annotate_tpu_torch.solvers import ba_core
 
@@ -1325,6 +1369,63 @@ def dense_solve_checks(cam6, gba_map, anchor) -> dict:
     free = prob.cam_valid & ~prob.cam_fixed
     Sf, rf, _, _ = ba_core.dense_reduced_system(*blocks[:5], torch.tensor(1e-5, device="cuda"),
                                                 free, pairs)
+    return Sf, rf
+
+
+# kernels 12b and 12c at other system sizes: phase 3's n / 2 and the
+# distributed BA's system at the long run's max_kf 640 (n = 6 x 640)
+DENSE_SIZES = (384, 3840)
+DENSE_LU_SIZES = (12288,)     # 12c alone: its MAX_N, the panel a cluster of 12 CTAs
+DENSE_BIG_REPS = 3            # timed calls at DENSE_LU_SIZES (a solve takes ~0.1 s or more)
+DENSE_CPU_TWIN_MAX_N = 1000   # above, the twin runs on the card (a torch loop; same bits)
+
+
+def dense_random_system(n: int, seed: int, spd: bool):
+    """A float32 system made from a seed with numpy: SPD (A A^T / n + 0.5 I)
+    or general (a Gaussian matrix + 3 I), with a Gaussian right-hand side."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if spd:
+        a = rng.standard_normal((n, n + 8)).astype(np.float32)
+        S = (a @ a.T / n + 0.5 * np.eye(n)).astype(np.float32)
+    else:
+        S = (rng.standard_normal((n, n)) + 3 * np.eye(n)).astype(np.float32)
+    return S, rng.standard_normal(n).astype(np.float32)
+
+
+def dense_library(name: str, S, r):
+    """The one PyTorch solve that computes kernel `name`'s function."""
+    import torch
+
+    if name == "chol_solve":
+        return (lambda: torch.cholesky_solve(r[:, None], torch.linalg.cholesky_ex(S)[0]),
+                "torch.linalg.cholesky_ex, then torch.cholesky_solve (two calls)")
+    return lambda: torch.linalg.solve_ex(S, r), "torch.linalg.solve_ex"
+
+
+def dense_solve_checks(Sf, rf, label: str) -> dict:
+    """Kernels 12b (``chol_solve``) and 12c (``lu_solve``) against their CPU
+    twins, bit for bit (NaN where the twin's is): the system (Sf, rf) (phase
+    15's dense BA's reduced system at lambda 1e-5, n = 6 x DIST_K, in the
+    full run), its leading 130 and 6 rows (n not a multiple of the 32-column
+    panel); for 12b also the system with a negative entry on its diagonal
+    (the step refused, all NaN); for 12c also the system less 0.8 x its mean
+    diagonal (indefinite: LU still gives a step) and a 70 x 70 system of
+    small integers (ties for the pivot).  Two calls equal; the device kernels
+    a call, by graph capture; the kernel's and the library's times (100
+    calls, CUDA-graph replay).  Then a random SPD (12b) and general (12c)
+    system at each of DENSE_SIZES, and for 12c also at DENSE_LU_SIZES (with
+    the clusters of its panel's width the card holds at once), bit for bit
+    the twin (on the CPU up to DENSE_CPU_TWIN_MAX_N, on the card above),
+    both timed beside the library.  Speed fails nothing; bits do.  Returns
+    {"chol_solve": ..., "lu_solve": ...}."""
+    import numpy as np
+    import torch
+
+    from orb_slam2_annotate_tpu_torch.kernels import chol_solve as k12b
+    from orb_slam2_annotate_tpu_torch.kernels import lu_solve as k12c
+
     n = Sf.shape[0]
     lead = lambda k: (Sf[:k, :k].contiguous(), rf[:k].contiguous())
     neg = Sf.clone()
@@ -1332,52 +1433,122 @@ def dense_solve_checks(cam6, gba_map, anchor) -> dict:
     rng = np.random.default_rng(12)
     ints = torch.from_numpy(rng.integers(-3, 4, (70, 70)).astype(np.float32)
                             + 4 * np.eye(70, dtype=np.float32)).cuda()
-    base = {f"phase 15's reduced system (n {n})": (Sf, rf), "its leading 130 rows": lead(130),
+    base = {f"{label} (n {n})": (Sf, rf), "its leading 130 rows": lead(130),
             "its leading 6 rows": lead(6)}
     indefinite = Sf - 0.8 * Sf.diagonal().mean() * torch.eye(n, device="cuda")
     kinds = {"chol_solve": (k12b, {**base, "a negative diagonal entry (refused)": (neg, rf)}),
              "lu_solve": (k12c, {**base, "less 0.8 x its mean diagonal (indefinite)": (indefinite, rf),
                                  "70 x 70 small integers (pivot ties)":
                                      (ints, rf[:70].contiguous())})}
+
+    def compare(solve, plain, S, r, on_card: bool):
+        got, again = solve(S, r).cpu(), solve(S, r).cpu()
+        want = (plain(S, r) if on_card else plain(S.cpu(), r.cpu())).cpu()
+        nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+        fin = ~nan_w
+        return {"n": S.shape[0], "nan": int(nan_g.sum()), "twin_on": "card" if on_card else "cpu",
+                "bit_for_bit": bool(torch.equal(nan_g, nan_w) and torch.equal(
+                    got[fin].view(torch.int32), want[fin].view(torch.int32))),
+                "two_calls_equal": bool(torch.equal(got.view(torch.int32), again.view(torch.int32))),
+                "max_abs_err": float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0}
+
+    def times(name, solve, S, r, reps=(100, 50)):
+        lib_fn, lib_name = dense_library(name, S, r)
+        return {"ms": time_ms(lambda: solve(S, r), reps[0]),
+                "graph_us": graph_us(lambda: solve(S, r), reps[1]),
+                "library_ms": time_ms(lib_fn, reps[0]), "library_graph_us": graph_us(lib_fn, reps[1]),
+                "library": lib_name}
+
     out = {}
     for name, (mod, cases) in kinds.items():
         solve, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
-        rows, worst = {}, 0.0
-        for case, (S, r) in cases.items():
-            got, again = solve(S, r).cpu(), solve(S, r).cpu()
-            want = plain(S.cpu(), r.cpu())
-            nan_g, nan_w = torch.isnan(got), torch.isnan(want)
-            fin = ~nan_w
-            row = {"n": S.shape[0], "nan": int(nan_g.sum()),
-                   "bit_for_bit": bool(torch.equal(nan_g, nan_w) and torch.equal(
-                       got[fin].view(torch.int32), want[fin].view(torch.int32))),
-                   "two_calls_equal": bool(torch.equal(got.view(torch.int32),
-                                                       again.view(torch.int32))),
-                   "max_abs_err": float((got[fin] - want[fin]).abs().max()) if bool(fin.any())
-                   else 0.0}
-            rows[case] = row
-            worst = max(worst, row["max_abs_err"])
+        rows = {case: compare(solve, plain, S, r, False) for case, (S, r) in cases.items()}
+        worst = max(v["max_abs_err"] for v in rows.values())
         print(f"kernel {name} against its CPU twin: {json.dumps(rows)}")
         if not all(v["bit_for_bit"] and v["two_calls_equal"] for v in rows.values()):
             fail(f"{name} differs from its CPU twin or from itself: {rows}")
         b_ms, b_by = bound(*dense_solve_work(n, name == "lu_solve"))
-        library = ((lambda: torch.cholesky_solve(rf[:, None], torch.linalg.cholesky_ex(Sf)[0]),
-                    "torch.linalg.cholesky_ex, then torch.cholesky_solve (two calls)")
-                   if name == "chol_solve" else
-                   (lambda: torch.linalg.solve_ex(Sf, rf), "torch.linalg.solve_ex"))
-        out[name] = {"max_abs_err": worst, "ms": time_ms(lambda: solve(Sf, rf)),
+        t = times(name, solve, Sf, rf)
+        out[name] = {"max_abs_err": worst, "ms": t["ms"],
                      "plain_ms": time_ms(lambda: plain(Sf, rf), 2), "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": time_ms(library[0]), "library": library[1],
-                     "graph_us": graph_us(lambda: solve(Sf, rf)), "n": n, "cases": rows,
-                     **device_kernels(lambda: solve(Sf, rf), mod.launches_per_solve(n))}
+                     "bound_by": b_by, "library_ms": t["library_ms"], "library": t["library"],
+                     "graph_us": t["graph_us"], "library_graph_us": t["library_graph_us"], "n": n,
+                     "cases": rows, **device_kernels(lambda: solve(Sf, rf), mod.launches_per_solve(n))}
         print(f"kernel {name} at n {n}: "
               f"{json.dumps({k: v for k, v in out[name].items() if k != 'cases'})}")
+        sizes = {}
+        for n2 in DENSE_SIZES + (DENSE_LU_SIZES if name == "lu_solve" else ()):
+            S2, r2 = (torch.from_numpy(a).cuda()
+                      for a in dense_random_system(n2, 20 + n2, name == "chol_solve"))
+            row = compare(solve, plain, S2, r2, n2 > DENSE_CPU_TWIN_MAX_N)
+            big = n2 in DENSE_LU_SIZES
+            row.update(times(name, solve, S2, r2, (DENSE_BIG_REPS,) * 2 if big else (100, 50)))
+            row["bound_ms"] = bound(*dense_solve_work(n2, name == "lu_solve"))[0]
+            if name == "lu_solve":
+                row["max_active_clusters"] = k12c.max_clusters(n2)
+            sizes[n2] = row
+            print(f"kernel {name} on a random {'SPD' if name == 'chol_solve' else 'general'} "
+                  f"system at n {n2}: {json.dumps(row)}")
+            if not (row["bit_for_bit"] and row["two_calls_equal"] and row["nan"] == 0):
+                fail(f"{name} at n {n2} differs from its twin or from itself, or gave NaN: {row}")
+            del S2, r2
+        out[name]["sizes"] = sizes
     if not all(v["nan"] == 0 for k, v in out["lu_solve"]["cases"].items()):
         fail(f"lu_solve gave NaN: {out['lu_solve']['cases']}")
     if out["chol_solve"]["cases"]["a negative diagonal entry (refused)"]["nan"] != n:
         fail(f"chol_solve took a step on a system that is not positive definite: "
              f"{out['chol_solve']}")
     return out
+
+
+def scale_power_check() -> dict:
+    """The card's float32 ``1.2 ** k`` and ``1.2 ** (2 k)`` (torch.pow of the
+    float base and a float32 exponent tensor, as tracking's and loop closing's
+    search radii and weights compute them) against ``map_state.scale_power``
+    (the CPU's correctly rounded bits) for k in 0..63: the k whose bits differ."""
+    import torch
+
+    from orb_slam2_annotate_tpu_torch.worldmap import map_state
+
+    k = torch.arange(64, device="cuda")
+    kf = k.to(torch.float32)
+    out = {}
+    for name, got, twice in (("1.2 ** k", 1.2 ** kf, False), ("1.2 ** (2 k)", 1.2 ** (2.0 * kf), True)):
+        want = map_state.scale_power(k, 1.2, twice)
+        out[name] = [int(i) for i in torch.nonzero(got.view(torch.int32) != want.view(torch.int32))
+                     .flatten()]
+    print(f"scale powers on the card against map_state.scale_power, k in 0..63 whose bits "
+          f"differ: {json.dumps(out)}")
+    return out
+
+
+def k12bc_alone():
+    """``python3 chip_smoke.py --k12bc``: phase 3's checks of kernels 12b and
+    12c alone (only they and kernel 8 are built), on a random SPD system at
+    phase 15's n (768) in place of its reduced system: the quick run for
+    work on them.  First the two diagnostics of the scale-power sites left
+    device-rounded: the card's powers against scale_power, and kernel 8 on
+    the routed closure's input."""
+    import torch
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    print(smi[0].strip())
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, ROOT)
+    import orb_slam2_annotate_tpu_torch  # noqa: F401  (sets TF32 off)
+    from orb_slam2_annotate_tpu_torch.kernels import _build
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        list(pool.map(_build.load, ("chol_solve", "lu_solve", "sim3")))
+    print(f"build: {json.dumps(_build.BUILD_SECONDS)}")
+    scale_power_check()   # a diagnostic for the six sites left device-rounded (ROADMAP §3)
+    k8_closure_case()
+    Sf, rf = (torch.from_numpy(a).cuda() for a in dense_random_system(6 * DIST_K, 15, True))
+    out = dense_solve_checks(Sf, rf, "a random SPD system")
+    print(json.dumps({k: {kk: vv for kk, vv in v.items() if kk not in ("cases", "sizes")}
+                      for k, v in out.items()}) + f", card {smi[0].strip()}")
 
 
 # kernel 12 (local BA's grid LM): operations per unit of work, counted from
@@ -3840,6 +4011,7 @@ def main():
            time_ms(lambda: k7.sim3_lm_solve_plain(*args8), 3), *sim3_lm_work(valid7, k7.LM_ITERS),
            graph_us=graph_us(lambda: k7.sim3_lm_solve(*args8)),
            **device_kernels(lambda: k7.sim3_lm_solve(*args8), 1))
+    results["sim3_lm_solve"]["closure_case_routed"] = k8_closure_case()
 
     # kernel 9: a stereo frame's match, SAD refinement, depth and acceptance,
     # every output (ur, depth, best, bestd, ok) bit for bit against its twin:
@@ -4683,7 +4855,8 @@ def main():
     # phase 3's kernel 11 on the closure's essential graph and phase 15's map
     results["segment_sum"] = segment_sum_checks(cam6, gba6["pose_graph"], gba6["map"],
                                                 gba6["anchor"])
-    results.update(dense_solve_checks(cam6, gba6["map"], gba6["anchor"]))
+    results.update(dense_solve_checks(*phase15_reduced_system(cam6, gba6["map"], gba6["anchor"]),
+                                      "phase 15's reduced system"))
 
     # phase 6 with depth: the circle with phase 12's rendered depth through
     # the RGB-D System (loop closing's Sim3 with the scale fixed), held to
@@ -5331,6 +5504,8 @@ if __name__ == "__main__":
         shard_rank(*sys.argv[2:6])
     elif sys.argv[1:2] == ["--k12"]:
         k12_alone()
+    elif sys.argv[1:2] == ["--k12bc"]:
+        k12bc_alone()
     else:
         if sys.argv[1:2] == ["--keep-ba"]:
             KEEP_BA = sys.argv[2]

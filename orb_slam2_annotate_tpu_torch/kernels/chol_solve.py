@@ -39,7 +39,8 @@ MAX_N = 12288    # csrc/chol_solve.cu's MAX_N
 
 def launches_per_solve(n: int) -> int:
     """Device kernels one solve of an n x n system launches: a panel of PB
-    columns each, then both triangles."""
+    columns each (the forward solve inside, as the factor's row n), then the
+    back solve."""
     return -(-n // PB) + 1
 
 
@@ -85,10 +86,11 @@ def chol_solve(Sf: torch.Tensor, rf: torch.Tensor) -> torch.Tensor:
     dev = Sf.device
     n = check_inputs(Sf, rf, dev)
     lib = _lib()
-    work = torch.empty(n * n + 1, dtype=torch.float32, device=dev)
+    work = torch.empty((n + 1) * n + 1, dtype=torch.float32, device=dev)
     x = torch.empty(n, dtype=torch.float32, device=dev)
     err = lib.chol_solve_launch(Sf.data_ptr(), rf.data_ptr(), n, work.data_ptr(),
-                                work[n * n:].data_ptr(), x.data_ptr(), _build.stream_ptr(dev))
+                                work[(n + 1) * n:].data_ptr(), x.data_ptr(),
+                                _build.stream_ptr(dev))
     _build.check_launch(err, "chol_solve")
     chol_solve.launches += 1
     return x

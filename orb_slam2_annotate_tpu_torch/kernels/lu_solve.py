@@ -24,25 +24,36 @@ import torch
 from . import _build
 
 PB = 32          # csrc/lu_solve.cu's panel width
-MAX_N = 1728     # csrc/lu_solve.cu's MAX_N: a panel's rows in one CTA's shared memory
+MAX_N = 12288    # csrc/lu_solve.cu's MAX_N: a panel's rows, one a thread, in a cluster of 12 CTAs
 
 
 @functools.cache
 def _lib():
     lib = _build.load("lu_solve")
     lib.lu_solve_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                    ctypes.c_void_p]
+                                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.lu_solve_launch.restype = ctypes.c_int
+    lib.lu_solve_work_floats.argtypes = [ctypes.c_int]
+    lib.lu_solve_work_floats.restype = ctypes.c_longlong
+    lib.lu_solve_max_clusters.argtypes = [ctypes.c_int]
+    lib.lu_solve_max_clusters.restype = ctypes.c_int
     return lib
+
+
+def max_clusters(n: int) -> int:
+    """How many clusters of the panel's CTAs at size n (ceil(n / 1024) each)
+    the card holds at once (cudaOccupancyMaxActiveClusters); needs a card."""
+    got = _lib().lu_solve_max_clusters(n)
+    if got < 0:
+        _build.check_launch(-got, "lu_solve_max_clusters")
+    return got
 
 
 def launches_per_solve(n: int) -> int:
     """Device kernels one solve of an n x n system launches: a panel of PB
-    columns each, each but a lone panel followed by its update, then both
-    triangles."""
-    nb = -(-n // PB)
-    return nb + (nb if nb > 1 else 0) + 1
+    columns each (with the previous panel's update of the other columns and
+    of b in the same launch), then the back solve."""
+    return -(-n // PB) + 1
 
 
 def lu_solve_plain(Sf: torch.Tensor, rf: torch.Tensor) -> torch.Tensor:
@@ -85,10 +96,10 @@ def lu_solve(Sf: torch.Tensor, rf: torch.Tensor) -> torch.Tensor:
     dev = Sf.device
     n = check_inputs(Sf, rf, dev)
     lib = _lib()
-    work = torch.empty(n * n + n, dtype=torch.float32, device=dev)
+    work = torch.empty(lib.lu_solve_work_floats(n), dtype=torch.float32, device=dev)
     x = torch.empty(n, dtype=torch.float32, device=dev)
-    err = lib.lu_solve_launch(Sf.data_ptr(), rf.data_ptr(), n, work.data_ptr(),
-                              work[n * n:].data_ptr(), x.data_ptr(), _build.stream_ptr(dev))
+    err = lib.lu_solve_launch(Sf.data_ptr(), rf.data_ptr(), n, work.data_ptr(), x.data_ptr(),
+                              _build.stream_ptr(dev))
     _build.check_launch(err, "lu_solve")
     lu_solve.launches += 1
     return x

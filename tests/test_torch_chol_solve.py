@@ -5,9 +5,11 @@ systems made from a seed with numpy.
 
 Tolerances: against JAX, x within 1e-4 x its largest entry (float32 systems
 of condition number ~1e2-1e3); against a numpy walk of csrc/chol_solve.cu's
-schedule (32-column panels: a panel's entries first take the terms of the
-columns left of it, then its own columns one at a time; both triangles by
-32-row blocks, the back solve's terms in descending k), bit for bit; a
+schedule (r appended to S as row n of the factor, so the forward solve is
+that row; 32-column panels, one launch each: every later entry takes the
+previous panel's 32 terms, the diagonal block is factored a column at a
+time, the rows below solved against it a column at a time; the back solve
+by 32-row blocks from the last, its terms in descending k), bit for bit; a
 system that is not positive definite gives all NaN in the twin, the walk
 and JAX; the wrapper's checks refuse a bad system before any launch.
 """
@@ -47,40 +49,35 @@ def kernel_walk(S: np.ndarray, r: np.ndarray) -> np.ndarray:
     """csrc/chol_solve.cu's schedule in numpy float32 (see the docstring)."""
     f32 = np.float32
     n = S.shape[0]
-    L = np.zeros((n, n), f32)
+    A = np.zeros((n + 1, n), f32)       # the augmented factor: r as row n
+    A[:n] = np.tril(S)
+    A[n] = r
     fail = False
     for j0 in range(0, n, PB):
         w = min(PB, n - j0)
-        A = S[j0:, j0:j0 + w].copy()
-        for k in range(j0):
-            A -= L[j0:, k, None] * L[j0:j0 + w, k][None, :]
+        for m in range(j0 - PB, j0) if j0 else ():   # panel k - 1's terms on every later entry
+            A[j0:, j0:] -= A[j0:, m, None] * A[j0:n, m][None, :]
+        D = A[j0:j0 + w, j0:j0 + w]      # the diagonal block, one warp a column at a time
         for jj in range(w):
-            fail |= not A[jj, jj] > 0
-            ljj = f32(np.sqrt(np.float64(A[jj, jj])))
-            A[jj + 1:, jj] /= ljj
-            A[jj + 1:, jj + 1:] -= A[jj + 1:, jj, None] * A[jj + 1:w, jj][None, :]
-        for q in range(w):
-            A[q, q] = f32(np.sqrt(np.float64(A[q, q])))
-        rows, cols = np.arange(j0, n)[:, None], np.arange(j0, j0 + w)[None, :]
-        L[j0:, j0:j0 + w] = np.where(rows >= cols, A, f32(0))
-    y = r.copy()
-    for k0 in range(0, n, PB):
-        w = min(PB, n - k0)
+            fail |= not D[jj, jj] > 0
+            D[jj, jj] = f32(np.sqrt(np.float64(D[jj, jj])))
+            D[jj + 1:, jj] /= D[jj, jj]
+            D[jj + 1:, jj + 1:] -= D[jj + 1:, jj, None] * D[jj + 1:, jj][None, :]
+        T = A[j0 + w:, j0:j0 + w]        # the rows below (row n among them), a thread a row
         for jj in range(w):
-            k = k0 + jj
-            y[k] = y[k] / L[k, k]
-            y[k + 1:k0 + w] -= L[k + 1:k0 + w, k] * y[k]
-        for m in range(w):
-            y[k0 + w:] -= L[k0 + w:, k0 + m] * y[k0 + m]
+            T[:, jj] /= D[jj, jj]
+            T[:, jj + 1:] -= T[:, jj, None] * D[jj + 1:, jj][None, :]
+    L = np.tril(A[:n])
+    v = A[n].copy()                     # y; the back solve by 32-row blocks, the last first
     for k0 in reversed(range(0, n, PB)):
         w = min(PB, n - k0)
         for jj in reversed(range(w)):
             k = k0 + jj
-            y[k] = y[k] / L[k, k]
-            y[k0:k] -= L[k, k0:k] * y[k]
+            v[k] = v[k] / L[k, k]
+            v[k0:k] -= L[k, k0:k] * v[k]
         for m in reversed(range(w)):
-            y[:k0] -= L[k0 + m, :k0] * y[k0 + m]
-    return np.full(n, np.nan, f32) if fail else y
+            v[:k0] -= L[k0 + m, :k0] * v[k0 + m]
+    return np.full(n, np.nan, f32) if fail else v
 
 
 CASES = {"n 6": (6, ()), "n 40": (40, ()), "n 96, camera 3 fixed": (96, (3,)),
@@ -132,3 +129,18 @@ def test_wrapper_checks_raise(what):
     with pytest.raises((TypeError, ValueError)):
         k12b.check_inputs(*args, cpu)
     assert k12b.check_inputs(S, r, cpu) == 12
+
+
+def test_launches_per_solve():
+    """A launch a 32-column panel (the forward solve inside it), then the back solve."""
+    assert [k12b.launches_per_solve(n) for n in (6, 32, 33, 768, 3840)] == [2, 2, 3, 25, 121]
+
+
+def test_wrapper_takes_the_long_run_size():
+    """n = 6 x 640 (the distributed BA's system at max_kf 640) passes both wrappers' checks."""
+    from orb_slam2_annotate_tpu_torch.kernels import lu_solve as k12c
+
+    n, cpu = 3840, torch.device("cpu")
+    S, r = torch.empty(n, n), torch.empty(n)
+    assert k12b.check_inputs(S, r, cpu) == n and k12c.check_inputs(S, r, cpu) == n
+    assert k12b.MAX_N >= n and k12c.MAX_N >= n

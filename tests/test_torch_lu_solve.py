@@ -5,12 +5,14 @@ made from a seed with numpy.
 
 Tolerances: against JAX, x within 1e-4 x its largest entry (float32 systems
 of condition number ~1e2-1e3, symmetric or not, positive definite or not);
-against a numpy walk of csrc/lu_solve.cu's schedule (32-column panels
-factored alone, their row swaps then applied to the other columns as one
-gather, U's panel rows and the rows below as chains over the panel's
-columns; the swaps on b, both triangles by 32-row blocks, the back solve's
-terms in descending k), bit for bit, also where |entries| tie for the
-pivot; the wrapper's checks refuse a bad system before any launch.
+against a numpy walk of csrc/lu_solve.cu's schedule (b carried as column n,
+so the forward solve is that column; 32-column panels factored alone, a
+column at a time, their row swaps then applied to the later columns as one
+gather, U's 32 rows and the rows below taking the panel's terms in the next
+launch; the last panel's swaps and terms on b, then the back solve by
+32-row blocks from the last, its terms in descending k), bit for bit, also
+where |entries| tie for the pivot; the wrapper's checks refuse a bad system
+before any launch.
 """
 
 import jax.numpy as jnp
@@ -36,49 +38,44 @@ def first_largest(v: np.ndarray) -> int:
 @np.errstate(invalid="ignore", divide="ignore")
 def kernel_walk(S: np.ndarray, r: np.ndarray) -> np.ndarray:
     """csrc/lu_solve.cu's schedule in numpy float32 (see the docstring)."""
-    A = S.copy()
-    n = A.shape[0]
-    piv = np.arange(n)
+    n = S.shape[0]
+    A = np.concatenate([S, r[:, None]], axis=1)       # b as column n
+    pairs = None                                      # the last panel's (row, source) pairs
     for j0 in range(0, n, PB):
         w = min(PB, n - j0)
-        P = A[j0:, j0:j0 + w].copy()
+        if pairs is not None:         # the items: panel k - 1 on columns j0 .. n
+            jp = j0 - PB
+            dst, src = pairs
+            A[dst, j0:] = A[src, j0:]
+            for mm in range(PB):      # U's rows, then the rows below
+                A[jp + mm + 1:j0, j0:] -= A[jp + mm + 1:j0, jp + mm, None] * A[jp + mm, None, j0:]
+            for mm in range(PB):
+                A[j0:, j0:] -= A[j0:, jp + mm, None] * A[jp + mm, None, j0:]
+        P = A[j0:, j0:j0 + w]         # the panel: a row a thread, a column at a time
+        org = np.arange(n - j0)
         for jj in range(w):
             pr = jj + first_largest(np.abs(P[jj:, jj]))
-            piv[j0 + jj] = j0 + pr
             P[[jj, pr]] = P[[pr, jj]]
+            org[[jj, pr]] = org[[pr, jj]]
             P[jj + 1:, jj] = P[jj + 1:, jj] / P[jj, jj]
-            P[jj + 1:, jj + 1:w] -= P[jj + 1:, jj, None] * P[jj, None, jj + 1:w]
-        A[j0:, j0:j0 + w] = P
-        perm = np.arange(n)
-        for jj in range(w):
-            a, b = j0 + jj, piv[j0 + jj]
-            perm[[a, b]] = perm[[b, a]]
-        other = np.r_[0:j0, j0 + w:n]
-        A[:, other] = A[perm][:, other]
-        for k in range(w):
-            for mm in range(k):
-                A[j0 + k, j0 + w:] -= A[j0 + k, j0 + mm] * A[j0 + mm, j0 + w:]
-        for mm in range(w):
-            A[j0 + w:, j0 + w:] -= A[j0 + w:, j0 + mm, None] * A[j0 + mm, None, j0 + w:]
-    y = r.copy()
-    for k in range(n):
-        y[[k, piv[k]]] = y[[piv[k], k]]
-    for k0 in range(0, n, PB):
-        w = min(PB, n - k0)
-        for jj in range(w):
-            k = k0 + jj
-            y[k + 1:k0 + w] -= A[k + 1:k0 + w, k] * y[k]
-        for mm in range(w):
-            y[k0 + w:] -= A[k0 + w:, k0 + mm] * y[k0 + mm]
-    for k0 in reversed(range(0, n, PB)):
+            P[jj + 1:, jj + 1:] -= P[jj + 1:, jj, None] * P[jj, None, jj + 1:]
+        moved = np.flatnonzero(org != np.arange(n - j0))
+        pairs = (j0 + moved, j0 + org[moved])
+    j0 = (n - 1) // PB * PB           # the back solve: the last panel on y first
+    dst, src = pairs
+    v = A[:, n].copy()
+    v[dst] = v[src]
+    for mm in range(n - j0):
+        v[j0 + mm + 1:] -= A[j0 + mm + 1:, j0 + mm] * v[j0 + mm]
+    for k0 in reversed(range(0, n, PB)):   # then by 32-row blocks, the last first
         w = min(PB, n - k0)
         for jj in reversed(range(w)):
             k = k0 + jj
-            y[k] = y[k] / A[k, k]
-            y[k0:k] -= A[k0:k, k] * y[k]
+            v[k] = v[k] / A[k, k]
+            v[k0:k] -= A[k0:k, k] * v[k]
         for mm in reversed(range(w)):
-            y[:k0] -= A[:k0, k0 + mm] * y[k0 + mm]
-    return y
+            v[:k0] -= A[:k0, k0 + mm] * v[k0 + mm]
+    return v
 
 
 def general_system(n: int, seed: int, ties: bool = False):
@@ -119,7 +116,8 @@ def test_twin_has_the_kernel_schedules_bits(name):
 
 
 def test_launches_per_solve():
-    assert [k12c.launches_per_solve(n) for n in (6, 32, 33, 768)] == [2, 2, 5, 49]
+    """A launch a 32-column panel (the previous panel's update in it), then the back solve."""
+    assert [k12c.launches_per_solve(n) for n in (6, 32, 33, 768, 3840)] == [2, 2, 3, 25, 121]
 
 
 @pytest.mark.parametrize("what", ["not square", "empty", "float64", "rf's shape", "too large"])

@@ -18,9 +18,11 @@ solve's host ms (the card drained around each call; the median of
 ``--reps``), the whole solve's CUDA-event ms, the launches a solve of each
 kernel, the cost before and after, whether the card's returned state and
 cost equal the CPU's bit for bit and the CPU's seconds (not with
-``--no-cpu``); the same for the distributed BA (``dist_``); then the card's
-name and power limit (``nvidia-smi``).  Needs a card (and nvcc for the
-kernels).
+``--no-cpu``), and from a ``torch.profiler`` trace of one more solve the
+device time of all its kernels and of the dense / LU solve kernels (K12b /
+K12c, ``SOLVER_KERNELS``), beside the solve's host span; the same for the
+distributed BA (``dist_``); then the card's name and power limit
+(``nvidia-smi``).  Needs a card (and nvcc for the kernels).
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ import time
 import numpy as np
 
 K, P, OBS = 128, 8192, 3
+SOLVER_KERNELS = ("chol_panel", "chol_back", "chol_tri", "lu_step", "lu_back", "lu_panel",
+                  "lu_update", "lu_tri")
 
 
 def problem(seed: int = 0) -> dict:
@@ -113,6 +117,23 @@ def main() -> int:
             ts.append(1e3 * (time.perf_counter() - t0))
         return r, statistics.median(ts)
 
+    def device_ms(solve):
+        """One solve under torch.profiler: the host span, the device time of all its
+        kernels and of the dense / LU solve kernels (either tree's names)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            solve()
+            torch.cuda.synchronize()
+            span = 1e3 * (time.perf_counter() - t0)
+        evs = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        dev = lambda es: 1e-3 * sum(e.device_time for e in es)
+        return {"profiled_host_ms": span, "device_kernels_ms": dev(evs),
+                "device_solver_kernels_ms": dev([e for e in evs if any(
+                    k in e.name for k in SOLVER_KERNELS)])}
+
     def measure(solve, solve_c, one_step=None):
         """Times, launches and bits of `solve` (card) against `solve_c` (CPU)."""
         solve()                                              # builds the kernels
@@ -130,6 +151,7 @@ def main() -> int:
         ev[1].record()
         ev[1].synchronize()
         row["solve_event_ms"] = ev[0].elapsed_time(ev[1])
+        row.update(device_ms(solve))
         row["card_equals_cpu_bit_for_bit"] = row["cpu_s"] = None
         if not a.no_cpu:
             t0 = time.perf_counter()
