@@ -996,68 +996,39 @@ def check_sim3_ransac(what, args):
     return err, refined, got
 
 
-def check_sim3_lm(what, args):
-    """Kernel 8 against its twin at kernel 4's tolerances: s, R, t within
-    1e-4; inlier masks differ on <= 1% of pairs, only within 1% of the chi2
-    gate; n within 1%.  args as sim3_lm_solve's.  Returns max |ds|,|dR|,|dt|."""
-    import torch
-
-    from orb_slam2_annotate_tpu_torch.kernels import sim3 as k8
-
-    got = k8.sim3_lm_solve(*args)
-    ref = k8.sim3_lm_solve_plain(*args)
-    torch.cuda.synchronize()
-    x1, x2, uv1, uv2, valid = args[:5]
-    is1, is2 = k8.inv_sigma2_or_ones(x1, *args[5:7])
-    fx, fy, cx, cy, fix_scale, th = args[10:16]
-    err = max(float((a - b).abs().max()) for a, b in zip(got[:3], ref[:3]))
-    _, c_f, c_i, _ = k8.project_residuals(fx, fy, cx, cy, got[0], got[1], got[2], x1, x2, uv1, uv2,
-                                          is1, is2)
-    near = ((c_f / th - 1.0).abs() < 0.01) | ((c_i / th - 1.0).abs() < 0.01)
-    diff = got[3] != ref[3]
-    frac = float(diff.float().mean())
-    n_k, n_p = int(got[4]), int(ref[4])
-    if err > 1e-4 or frac > 0.01 or bool((diff & ~near).any()) or abs(n_k - n_p) > math.ceil(0.01 * n_p):
-        fail(f"sim3_lm_solve ({what}): max |ds|,|dR|,|dt| {err:.3g}, masks differ on {frac:.4f} "
-             f"({int((diff & ~near).sum())} away from the gate), n {n_k} vs {n_p}")
-    print(f"sim3_lm_solve vs twin, {what}: N {x1.shape[0]}, fix_scale {fix_scale}, s {float(got[0]):.6f}, "
-          f"max |ds|,|dR|,|dt| {err:.3g}, masks differ on {frac:.4f}, n {n_k} vs {n_p}")
-    return err
+# kernel 8's rule by the conditioning of its problem: where cond(J^T W J) x
+# 2^-24 (the LM normal matrix at the CPU twin's solution, float64) is at most
+# K8_COND_LIMIT, float32 resolves the step and s, R, t are held within 1e-4 of
+# the twin's; above it they are printed, not held, and the kernel's float64
+# robust cost at its own solution must be at most the CPU twin's at the CPU
+# twin's solution x (1 + m), plus the cost of residuals at float32's resolution
+# of the pixels (4 n_valid (2^-24 max |uv|)^2 max inv_sigma2: what a problem
+# whose residuals vanish costs), the twin run on the card too, with m the larger
+# of K8_COST_MARGIN and twice the twin's own card-against-CPU cost spread on the
+# same input (1.5e-8 on the routed closure's input, a float32 sum of its 46
+# terms resolving ~46 x 2^-24 = 2.7e-6): the cost is what the LM minimizes, and
+# a flat valley leaves its parameters to rounding
+K8_COND_LIMIT = 1e-3
+K8_COST_MARGIN = 1e-7
 
 
-# kernel 8 on the closure's optimize_sim3 input of phase 6 run with the six
-# scale-power sites (tracking's inv_sigma2 and radii, loop closing's radii and
-# its full-map BA's inv_sigma2) read through map_state.scale_power, which this
-# tree does not do (ROADMAP §3): sim3_lm_solve's arguments, saved with torch.save
-K8_CLOSURE_CASE = os.path.join(ROOT, "tests", "data", "k8_closure_routed.pt")
-
-
-def k8_closure_case(dev: str = "cuda") -> dict:
-    """Kernel 8 on K8_CLOSURE_CASE, an open fault kept in view and not held
-    (it fails nothing): its largest |ds|, |dR|, |dt| against the twin on the
-    card and on the CPU beside check_sim3_lm's 1e-4, the twin's own CPU
-    against card spread, the inliers, and the 2-norm condition number of
-    the LM's normal matrix J^T W J (float64, 6 x 6 with the scale fixed) at
-    the CPU twin's solution over its final inliers."""
+def k8_conditioning(args_cpu, sol) -> float:
+    """The 2-norm condition number of the LM normal matrix J^T W J (float64,
+    6 x 6 with the scale fixed) at the solution `sol` (s, R, t, inlier) over
+    its inliers, the robust weights of the twin."""
     import torch
 
     from orb_slam2_annotate_tpu_torch.geometry import lie
     from orb_slam2_annotate_tpu_torch.kernels import sim3 as k8
 
-    args = torch.load(K8_CLOSURE_CASE, weights_only=True)
-    on = lambda d: tuple(v.to(d) if torch.is_tensor(v) else v for v in args)
-    a_dev, a_cpu = on(dev), on("cpu")
-    got, twin_dev, twin_cpu = (k8.sim3_lm_solve(*a_dev), k8.sim3_lm_solve_plain(*a_dev),
-                               k8.sim3_lm_solve_plain(*a_cpu))
-    gap = lambda p, q: max(float((x.cpu() - y.cpu()).abs().max()) for x, y in zip(p[:3], q[:3]))
-    x1, x2, uv1, uv2, valid = a_cpu[:5]
-    fx, fy, cx, cy, fix_scale, th = a_cpu[10:16]
-    pairs = [v.double() for v in (x1, x2, uv1, uv2, *k8.inv_sigma2_or_ones(x1, *a_cpu[5:7]))]
-    s, R, t = (v.double() for v in twin_cpu[:3])
+    x1, x2, uv1, uv2, valid = args_cpu[:5]
+    fx, fy, cx, cy, fix_scale, th = args_cpu[10:16]
+    pairs = [v.double() for v in (x1, x2, uv1, uv2, *k8.inv_sigma2_or_ones(x1, *args_cpu[5:7]))]
+    s, R, t = (v.double() for v in sol[:3])
     _, c_f, c_i, dok = k8.project_residuals(fx, fy, cx, cy, s, R, t, *pairs)
     chi2 = c_f + c_i
     w = (torch.sqrt(torch.where(chi2 > th, torch.sqrt(th / chi2.clamp_min(1e-12)), 1.0))
-         * (valid & twin_cpu[3] & dok))
+         * (valid & sol[3] & dok))
 
     def resid(xi):
         s1, R1, t1 = lie.sim3_retract(s[None], R[None], t[None], xi[None])
@@ -1066,14 +1037,117 @@ def k8_closure_case(dev: str = "cuda") -> dict:
 
     J = torch.func.jacfwd(resid)(torch.zeros(7, dtype=torch.float64))
     J = J[:, :6] if fix_scale else J
-    cond = float(torch.linalg.cond(J.T @ J))
+    return float(torch.linalg.cond(J.T @ J))
+
+
+def k8_cost(args_cpu, sol) -> float:
+    """The float64 robust (Huber) cost the LM minimizes, over the valid pairs, at
+    the solution `sol` (s, R, t)."""
+    import torch
+
+    from orb_slam2_annotate_tpu_torch.kernels import sim3 as k8
+
+    x1, x2, uv1, uv2, valid = args_cpu[:5]
+    fx, fy, cx, cy, _, th = args_cpu[10:16]
+    pairs = [v.double() for v in (x1, x2, uv1, uv2, *k8.inv_sigma2_or_ones(x1, *args_cpu[5:7]))]
+    s, R, t = (v.cpu().double() for v in sol[:3])
+    _, c_f, c_i, dok = k8.project_residuals(fx, fy, cx, cy, s, R, t, *pairs)
+    chi2 = c_f + c_i
+    hub = torch.where(chi2 > th, 2.0 * torch.sqrt(th * chi2.clamp_min(0.0)) - th, chi2)
+    return float((torch.where(dok, hub, 100.0 * th) * valid).sum())
+
+
+def check_sim3_lm(what, args):
+    """Kernel 8 against its twin: inlier masks differ on <= 1% of pairs, only
+    within 1% of the chi2 gate, n within 1% (kernel 4's tolerances); then by
+    the problem's conditioning (K8_COND_LIMIT, computed for every case): s, R,
+    t within 1e-4, or the float64 robust cost rule (K8_COST_MARGIN) for the
+    kernel and for the twin run on the card, the latter also held to the
+    mask and count rules against the CPU twin.  args as sim3_lm_solve's.
+    Returns (max |ds|,|dR|,|dt| against the twin on the card, the case's
+    numbers)."""
+    import torch
+
+    from orb_slam2_annotate_tpu_torch.kernels import sim3 as k8
+
+    got = k8.sim3_lm_solve(*args)
+    ref = k8.sim3_lm_solve_plain(*args)
+    a_cpu = tuple(v.cpu() if torch.is_tensor(v) else v for v in args)
+    cpu = k8.sim3_lm_solve_plain(*a_cpu)
+    torch.cuda.synchronize()
+    x1, x2, uv1, uv2, valid = args[:5]
+    is1, is2 = k8.inv_sigma2_or_ones(x1, *args[5:7])
+    fx, fy, cx, cy, fix_scale, th = args[10:16]
+    gap = lambda p, q: max(float((a.cpu() - b.cpu()).abs().max()) for a, b in zip(p[:3], q[:3]))
+
+    def masks(a, b):
+        """Where the inlier masks of a and b break the rules (empty: none)."""
+        _, c_f, c_i, _ = k8.project_residuals(fx, fy, cx, cy, a[0], a[1], a[2], x1, x2, uv1, uv2,
+                                              is1, is2)
+        near = ((c_f / th - 1.0).abs() < 0.01) | ((c_i / th - 1.0).abs() < 0.01)
+        diff = a[3].to(x1.device) != b[3].to(x1.device)
+        n_a, n_b = int(a[4]), int(b[4])
+        bad = []
+        if float(diff.float().mean()) > 0.01 or bool((diff & ~near).any()):
+            bad.append(f"masks differ on {float(diff.float().mean()):.4f} "
+                       f"({int((diff & ~near).sum())} away from the gate)")
+        if abs(n_a - n_b) > math.ceil(0.01 * n_b):
+            bad.append(f"n {n_a} vs {n_b}")
+        return bad
+
+    err = gap(got, ref)
+    cond = k8_conditioning(a_cpu, cpu)
+    well = cond * 2.0 ** -24 <= K8_COND_LIMIT
     out = {"N": int(x1.shape[0]), "valid": int(valid.sum()), "fix_scale": bool(fix_scale),
-           "inliers": [int(got[4]), int(twin_dev[4]), int(twin_cpu[4])],
-           "s": [float(got[0]), float(twin_dev[0]), float(twin_cpu[0])],
-           "kernel_vs_twin_on_card": gap(got, twin_dev), "kernel_vs_twin_on_cpu": gap(got, twin_cpu),
-           "twin_card_vs_cpu": gap(twin_dev, twin_cpu), "limit": 1e-4,
-           "cond_normal_matrix": cond, "cond_x_2^-24": cond * 2.0 ** -24}
-    print(f"sim3_lm_solve on the routed closure's input (open fault, not held): {json.dumps(out)}")
+           "s": float(got[0]), "n": [int(got[4]), int(ref[4]), int(cpu[4])],
+           "cond_normal_matrix": cond, "cond_x_2^-24": cond * 2.0 ** -24,
+           "rule": "s, R, t within 1e-4" if well else "robust cost",
+           "kernel_vs_twin_on_card": err, "kernel_vs_twin_on_cpu": gap(got, cpu),
+           "twin_card_vs_cpu": gap(ref, cpu), "limit": 1e-4}
+    bad = masks(got, ref)
+    if well:
+        bad += [f"max |ds|,|dR|,|dt| {err:.3g}"] if err > 1e-4 else []
+    else:
+        c_k, c_t, c_c = k8_cost(a_cpu, got), k8_cost(a_cpu, ref), k8_cost(a_cpu, cpu)
+        spread = c_t / c_c - 1.0
+        m = max(K8_COST_MARGIN, 2.0 * abs(spread))
+        # the cost of residuals at float32's resolution of the pixels (four a pair): the
+        # floor under which no float32 LM tells two solutions apart (a problem whose
+        # residuals vanish, as exact pixels give, has a cost of that size)
+        v = valid.cpu()
+        px = max(float(a_cpu[2][v].abs().max()), float(a_cpu[3][v].abs().max())) if bool(v.any()) else 0.0
+        w_max = max(float(k8.inv_sigma2_or_ones(a_cpu[0], *a_cpu[5:7])[j][v].max()) for j in (0, 1)) \
+            if bool(v.any()) else 0.0
+        floor = 4.0 * int(v.sum()) * (2.0 ** -24 * px) ** 2 * w_max
+        out.update({"cost_kernel": c_k, "cost_twin_on_card": c_t, "cost_twin_on_cpu": c_c,
+                    "cost_kernel_over_cpu_twin": c_k / c_c - 1.0, "twin_spread": spread,
+                    "margin": m, "cost_floor": floor})
+        for who, c in (("kernel", c_k), ("twin on the card", c_t)):
+            if c > c_c * (1.0 + m) + floor:
+                bad.append(f"the {who}'s robust cost {c!r} > the CPU twin's {c_c!r} x (1 + {m:.3g}) + "
+                           f"{floor:.3g}")
+        bad += [f"twin on the card against the CPU twin: {b}" for b in masks(ref, cpu)]
+    print(f"sim3_lm_solve vs twin, {what}: {json.dumps(out)}")
+    if bad:
+        fail(f"sim3_lm_solve ({what}): {bad}")
+    return err, out
+
+
+# kernel 8 on the closure's optimize_sim3 input of phase 6 (the closing attempt's
+# second optimize_sim3, captured with the scale-power sites read through
+# map_state.scale_power, as the tree now reads them): sim3_lm_solve's arguments,
+# saved with torch.save.  Its LM normal matrix is ill-conditioned (cond x 2^-24 ~
+# 0.5), so check_sim3_lm holds it by the robust cost
+K8_CLOSURE_CASE = os.path.join(ROOT, "tests", "data", "k8_closure_routed.pt")
+
+
+def k8_closure_case(dev: str = "cuda") -> dict:
+    """Kernel 8 on K8_CLOSURE_CASE through check_sim3_lm (held)."""
+    import torch
+
+    args = torch.load(K8_CLOSURE_CASE, weights_only=True)
+    _, out = check_sim3_lm("the routed closure's input (tests/data/k8_closure_routed.pt)",
+                           tuple(v.to(dev) if torch.is_tensor(v) else v for v in args))
     return out
 
 
@@ -1501,24 +1575,62 @@ def dense_solve_checks(Sf, rf, label: str) -> dict:
     return out
 
 
+def scale_power_sites(k):
+    """Each site that reads map_state.scale_power, through the helper it calls,
+    at the bases it uses, for the octaves `k` (int32, any device): {site:
+    value}."""
+    import torch
+
+    from orb_slam2_annotate_tpu_torch.pipeline import tracking
+    from orb_slam2_annotate_tpu_torch.worldmap import map_state as ms
+
+    sp, rad = ms.scale_power, ms.scaled_radius
+    r0 = torch.where(k % 2 == 0, 2.5, 4.0)
+    max_dist = torch.linspace(0.5, 40.0, k.shape[0], device=k.device)
+    return {
+        "tracking.inv_sigma2 (pose LM; local BA's and the keyframe chain's inv_sigma2)":
+            tracking.inv_sigma2(k),
+        "tracking.track_with_motion_model radius (th 15, 30)":
+            torch.stack([rad(th, k, tracking.SCALE) for th in (15.0, 30.0)]),
+        "tracking.track_local_map radius (th 1, 3; r0 2.5 / 4)":
+            torch.stack([rad(th * r0, k, tracking.SCALE) for th in (1.0, 3.0)]),
+        "loop_closing.sim3_guided_match radius (radius_scale 1, 1.5, 3)":
+            torch.stack([rad(rs * 7.5, k) for rs in (1.0, 1.5, 3.0)]),
+        "loop_closing.loop_projection_count radius": rad(20.0, k),
+        "loop_closing.full_map_ba_problem inv_sigma2": ms.inv_level_sigma2(k),
+        "local_mapping.create_new_mappoints gate sigma^2": sp(k, 1.2, twice=True),
+        "local_mapping.create_new_mappoints scale ratio (every octave pair)":
+            sp(k[:, None], 1.2) / sp(k[None, :], 1.2),
+        "map_state depth band scale": sp(k),
+        "map_state depth band min_dist (n_levels - 1 = k)": max_dist / sp(k),
+    }
+
+
 def scale_power_check() -> dict:
-    """The card's float32 ``1.2 ** k`` and ``1.2 ** (2 k)`` (torch.pow of the
-    float base and a float32 exponent tensor, as tracking's and loop closing's
-    search radii and weights compute them) against ``map_state.scale_power``
-    (the CPU's correctly rounded bits) for k in 0..63: the k whose bits differ."""
+    """Phase 3's held check of the scale powers: every site reading
+    map_state.scale_power (scale_power_sites) for octaves 0..63 on the card
+    and on the CPU, bit for bit; fails on any differing bit.  Also lists the
+    octaves at which the card's own float32 ``1.2 ** k`` and ``1.2 ** (2 k)``
+    (torch.pow, the sites' expressions before they read the table) part from
+    the CPU's bits, which the table keeps off the card's path."""
     import torch
 
     from orb_slam2_annotate_tpu_torch.worldmap import map_state
 
-    k = torch.arange(64, device="cuda")
-    kf = k.to(torch.float32)
-    out = {}
+    k = torch.arange(64, dtype=torch.int32)
+    card, cpu = scale_power_sites(k.cuda()), scale_power_sites(k)
+    bad = [name for name in cpu if not torch.equal(card[name].cpu().view(torch.int32),
+                                                   cpu[name].view(torch.int32))]
+    kf = k.cuda().to(torch.float32)
+    pow_diff = {}
     for name, got, twice in (("1.2 ** k", 1.2 ** kf, False), ("1.2 ** (2 k)", 1.2 ** (2.0 * kf), True)):
-        want = map_state.scale_power(k, 1.2, twice)
-        out[name] = [int(i) for i in torch.nonzero(got.view(torch.int32) != want.view(torch.int32))
-                     .flatten()]
-    print(f"scale powers on the card against map_state.scale_power, k in 0..63 whose bits "
-          f"differ: {json.dumps(out)}")
+        want = map_state.scale_power(k, 1.2, twice).cuda()
+        pow_diff[name] = [int(i) for i in torch.nonzero(got.view(torch.int32) != want.view(torch.int32))
+                          .flatten()]
+    out = {"sites": list(cpu), "sites_differing": bad, "card_pow_differs_at": pow_diff}
+    print(f"scale powers, octaves 0..63, card against CPU at every site: {json.dumps(out)}")
+    if bad:
+        fail(f"scale powers: the card's bits differ from the CPU's at {bad}")
     return out
 
 
@@ -1526,9 +1638,8 @@ def k12bc_alone():
     """``python3 chip_smoke.py --k12bc``: phase 3's checks of kernels 12b and
     12c alone (only they and kernel 8 are built), on a random SPD system at
     phase 15's n (768) in place of its reduced system: the quick run for
-    work on them.  First the two diagnostics of the scale-power sites left
-    device-rounded: the card's powers against scale_power, and kernel 8 on
-    the routed closure's input."""
+    work on them.  First phase 3's held checks of the scale-power sites and
+    of kernel 8 on the routed closure's input."""
     import torch
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1543,7 +1654,7 @@ def k12bc_alone():
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         list(pool.map(_build.load, ("chol_solve", "lu_solve", "sim3")))
     print(f"build: {json.dumps(_build.BUILD_SECONDS)}")
-    scale_power_check()   # a diagnostic for the six sites left device-rounded (ROADMAP §3)
+    scale_power_check()
     k8_closure_case()
     Sf, rf = (torch.from_numpy(a).cuda() for a in dense_random_system(6 * DIST_K, 15, True))
     out = dense_solve_checks(Sf, rf, "a random SPD system")
@@ -3490,7 +3601,9 @@ def shard_phases(ctx):
 def k12_alone():
     """``python3 chip_smoke.py --k12``: phase 3's kernel-12 checks on the
     synthetic cases and a whole solve's times at full width, alone (kernel
-    12 is built, nothing else): the quick run for work on the kernel."""
+    12 is built, nothing else), then its launch split by
+    ``tools/k12_stages.py --no-slice``: the quick run for work on the
+    kernel."""
     import torch
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3513,6 +3626,9 @@ def k12_alone():
     for iters in (4, 6):
         print(f"grid_ba synthetic, {iters} iterations: {json.dumps(grid_ba_times(cam, g, iters))}, "
               f"card {smi[0].strip()}")
+    # the launch split and the Cholesky's phases (tools/k12_stages.py, an instrumented copy)
+    subprocess.run([sys.executable, os.path.join(ROOT, "tools", "k12_stages.py"), "--no-slice"],
+                   check=True)
 
 
 def main():
@@ -3999,12 +4115,12 @@ def main():
     for fix in (False, True):
         args8 = (*pairs7[fix][:4], valid7, pairs7[fix][4], ones7, *start8(fix), *consts7[:4], fix,
                  100.0)
-        err8 = max(err8, check_sim3_lm(f"synthetic, fix_scale {fix}", args8))
+        err8 = max(err8, check_sim3_lm(f"synthetic, fix_scale {fix}", args8)[0])
     for what, (x1b, x2b, uv1b, uv2b, is1b), vb in (
             ("4096 pairs all valid", pair_set(N4k, False), valid4k),
             ("3 valid pairs", pair_set(N7, False, exact=True), torch.arange(N7, device=dev) < 3)):
         err8 = max(err8, check_sim3_lm(what, (x1b, x2b, uv1b, uv2b, vb, is1b, None, *start8(False),
-                                              *consts7[:4], False, 100.0)))
+                                              *consts7[:4], False, 100.0))[0])
     args8 = (*pairs7[False][:4], valid7, pairs7[False][4], ones7, *start8(False), *consts7[:4],
              False, 100.0)
     record("sim3_lm_solve", err8, time_ms(lambda: k7.sim3_lm_solve(*args8)),
@@ -4012,6 +4128,8 @@ def main():
            graph_us=graph_us(lambda: k7.sim3_lm_solve(*args8)),
            **device_kernels(lambda: k7.sim3_lm_solve(*args8), 1))
     results["sim3_lm_solve"]["closure_case_routed"] = k8_closure_case()
+    # the scale powers: every site reading map_state.scale_power, card == CPU
+    scale_power_check()
 
     # kernel 9: a stereo frame's match, SAD refinement, depth and acceptance,
     # every output (ur, depth, best, bestd, ok) bit for bit against its twin:
@@ -4786,7 +4904,7 @@ def main():
         a7 = captured6[(when, "sim3_ransac_solve")]
         e7, refined7, out7 = check_sim3_ransac(f"the loop's {when} Sim3 RANSAC input", a7)
         a8 = captured6[(when, "sim3_lm_solve")]
-        e8 = check_sim3_lm(f"the loop's {when} optimize_sim3 input", a8)
+        e8, _ = check_sim3_lm(f"the loop's {when} optimize_sim3 input", a8)
         r7, r8 = results["sim3_ransac_solve"], results["sim3_lm_solve"]
         r7["max_abs_err"], r8["max_abs_err"] = max(r7["max_abs_err"], e7), max(r8["max_abs_err"], e8)
         # the whole sim3_ransac after its draw is this one device kernel

@@ -1,5 +1,5 @@
 // Kernel 12: local BA's grid LM (ba_core.bundle_adjust_grid), linearization
-// to Cholesky, in 2 + 4 x iters launches of three kernels on one stream.
+// to Cholesky, in 2 + 5 x iters launches of four kernels on one stream.
 //
 // Replaces (JAX reference): solvers/ba_core.py bundle_adjust_grid (:473-586)
 // with its _grid_planes_residual_jac (:390), _grid_cost (:334),
@@ -15,9 +15,11 @@
 //
 // Bound: the dependency chain.  A 4-iteration solve at C = 32, N = 1024,
 // P = 2048 is ~20 MFLOP on ~1.5 MB of inputs (a few us of the card), but
-// each iteration is four dependent launches, three of them short of work
-// (tools/k12_stages.py splits an iteration).  No tensor cores: the blocks
-// are 6x6, 6x3 and 3x3, and the 192 x 192 factorization is 1.2 MFLOP.
+// each iteration is five dependent launches, most of them short of work
+// (tools/k12_stages.py splits an iteration), and the Cholesky is a chain of
+// 192 square roots and 384 divisions, each behind the terms before it.  No
+// tensor cores: the blocks are 6x6, 6x3 and 3x3, and the 192 x 192
+// factorization is 1.2 MFLOP.
 //
 // The launches of one solve (grid_ba_launch):
 //   gba_grid SETUP (C + 1 CTAs): CTA c lists, for each point, camera c's
@@ -33,19 +35,35 @@
 //       (point, camera) slot of fuse counts once, as the twin's amin
 //       index) into Hpp, gp, the B_pc blocks and a camera bit mask, then
 //       inverts its three damped Hpp blocks (closed form, det guard).
-//   gba_schur ((C, 3) CTAs): CTA (c, k) of a free camera c compacts the
-//       points camera c sees (ascending), stages BH = B_pc Hpp_k^-1 in shared
-//       memory, and a warp per free d <= c sums S_cd = -sum_p BH B_pd^T over
-//       those that d sees too (a lane every 32nd point, then an xor
-//       butterfly); the diagonal warp adds the damped Hcc and forms the
-//       right-hand side -gc + sum_p BH gp.
-//   gba_chol (3 CTAs): CTA k assembles the reduced system's lower triangle
-//       (cameras not free held by identity rows, padded to a multiple of 16)
-//       in shared memory (147,456 B at C = 32), factors it by 16-column
-//       blocks (a warp the diagonal block, a thread a panel row, the
-//       trailing update a thread an entry: three barriers a block), solves
-//       both triangles blockwise, retracts the cameras and back-substitutes
-//       every point's step.
+//   gba_schur ((C, 3, ceil(C / 8)) CTAs): CTA (c, k, g) of a free camera c
+//       compacts the points camera c sees (ascending) and stages BH = B_pc
+//       Hpp_k^-1 in shared memory; warp w takes d = 8 g + w (free, <= c):
+//       S_cd = -sum_p BH B_pd^T over the points d sees too (a lane every 32nd
+//       point, each lane stepping to its own next point that d sees, whose
+//       B_pd is loaded two points ahead, then an xor butterfly); the diagonal
+//       warp adds the damped Hcc and forms the right-hand side -gc + sum_p BH
+//       gp.  So no CTA takes more than 8 of the (c, d) pairs, where the first
+//       design's CTA (c, k) took all c + 1 over 8 warps.
+//   gba_chol (3 CTAs of 512 threads): CTA k assembles the reduced system of
+//       the free cameras' rows (the right-hand side as its last row) in
+//       shared memory and factors it right-looking by 32-column panels, the
+//       forward solve inside: warp 0 factors each diagonal block, a lane a
+//       row, no barrier a column (the next pivot shuffled first); of the
+//       worker warps (those off warp 0's scheduler) half solve the rows below
+//       four columns behind while the other half apply the previous panel's
+//       terms to the columns past the block being factored; then all apply
+//       the panel's terms to the next diagonal block (2 x 2 register tiles),
+//       so warp 0 can factor it, and to the strip below it (4 x 4 tiles).
+//       Where that forward solve is not finite, the full system (cameras not
+//       free held by identity rows, padded to a multiple of 16) instead.  Then
+//       L^T x = y over all 6C rows (rounded up to 16) by 16-row blocks: warp
+//       0 the chain, helper threads a row each taking the terms of the blocks
+//       solved two and more above; the step (NaN where a pivot is not > 0, 0
+//       on the cameras not free) to the workspace.  204,816 B of shared
+//       memory at any C.
+//   gba_step ((ceil(P / 256) + 1, 3) CTAs): each ladder value's try: a
+//       thread a point's step dp = Hpp_k^-1 (-gp - sum_c B_pc^T dc_c) and X +
+//       dp, the last CTA the cameras' retraction.
 //   gba_grid TRIES ((C, 3) CTAs): each try's cost over a camera's slots
 //       (edge_valid, as the twin's grid_cost); the last CTA (a ticket) adds
 //       the 3 x C partials in camera order, picks the first improving try,
@@ -57,8 +75,12 @@
 // takes them (dot3: a product, then two fused multiply-adds).  Sums run in orders fixed by the shapes (a thread's
 // slots in order, xor butterflies, warps in order, cameras in order), so two
 // calls give the same bits, but not the twin's (cuBLAS / reduction) orders:
-// the tolerances are in chip_smoke.py.  No float atomics, no allocation, no
-// host read: the wrapper allocates one workspace a call.
+// the tolerances are in chip_smoke.py.  The Cholesky's and the Schur
+// blocks' chains are the first design's (16-column blocks), regrouped:
+// every output and the workspace's S, rhs and dc keep that design's bits
+// (tools/k12_stages.py --against; tests/test_torch_grid_ba_order.py walks
+// both schedules).  No float atomics, no allocation, no host read: the
+// wrapper allocates one workspace a call.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,10 +90,16 @@
 #define CHI2_STEREO 7.815f
 #define FULL 0xffffffffu
 #define MAX_C 32
-#define NB 16                // the Cholesky's block
+#define NB 16                // the system's padding and the back solve's blocks (rows)
+#define PW 32                // the factorization's panels (columns)
 #define GRID_THREADS 256     // a camera CTA of gba_grid
 #define SCHUR_THREADS 256
+#define SCHUR_DG (SCHUR_THREADS / 32)   // gba_schur: cameras d a CTA, a warp each
 #define CHOL_THREADS 512
+#define CHOL_WORKERS (CHOL_THREADS - CHOL_THREADS / 4)   // the warps off warp 0's scheduler
+#define CHOL_MAX_ROWS (6 * MAX_C)
+#define STEP_THREADS 256
+#define SPIN_LIMIT_NS 2000000000ull
 #define LIST_BYTES 80        // gba_schur's shared memory a listed point: index, mask, BH
 #define DYN_SMEM (232448 - 1024)   // dynamic shared memory a CTA may take beside 1 KB of static
 
@@ -117,6 +145,12 @@ struct Out { float *R, *t, *X; uint8_t* inlier; float* cost; };
 __device__ __forceinline__ float dot3(float a0, float b0, float a1, float b1, float a2, float b2) {
     return __fmaf_rn(a2, b2, __fmaf_rn(a1, b1, a0 * b0));
 }
+
+// the reduced system's rows: 6C, padded with identity rows to a multiple of NB
+__host__ __device__ __forceinline__ int chol_rows(int C) { return (6 * C + NB - 1) / NB * NB; }
+
+// gba_chol's factor in shared memory: M + 1 rows of M + 1 floats, to a multiple of 4
+__host__ __device__ __forceinline__ int chol_a_floats(int M) { return ((M + 1) * (M + 1) + 3) & ~3; }
 
 __device__ __forceinline__ bool cam_free(const Prob& pb, int c) {
     return pb.cam_valid[c] && !pb.cam_fixed[c];
@@ -465,26 +499,38 @@ __global__ void __launch_bounds__(GRID_THREADS) gba_grid(Cam cm, Prob pb, Work w
     }
 }
 
-// ---- gba_schur: the Schur blocks of camera c's row for ladder value k
+// ---- gba_schur: the Schur blocks S_cd of camera c's row for ladder value k,
+// for the d of one group
 
 __global__ void __launch_bounds__(SCHUR_THREADS) gba_schur(Prob pb, Work wk, int cap) {
     constexpr int NW = SCHUR_THREADS / 32;
-    const int C = pb.C, P = pb.P, c = blockIdx.x, k = blockIdx.y;
+    const int C = pb.C, P = pb.P, c = blockIdx.x, k = blockIdx.y, d0 = blockIdx.z * SCHUR_DG;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    if (!cam_free(pb, c)) return;
+    if (!cam_free(pb, c) || d0 > c) return;
+    bool any = false;
+    for (int d = d0; d <= min(c, d0 + SCHUR_DG - 1); ++d) any |= cam_free(pb, d);
+    if (!any) return;
     extern __shared__ __align__(16) unsigned char sm[];
     int* list = reinterpret_cast<int*>(sm);                 // [cap] the points c sees, ascending
     unsigned* msk = reinterpret_cast<unsigned*>(list + cap);  // [cap] their camera masks
     float* BH = reinterpret_cast<float*>(msk + cap);         // [18][cap] B_pc Hpp_k^-1
     __shared__ int wcnt[NW];
 
-    // the points with bit c, in order: warp w ballots points [w * per, (w + 1) * per)
+    // the points with bit c, in order: warp w ballots points [w * per, (w + 1) * per),
+    // LB masks a lane loaded at once
+    constexpr int LB = 8;
     const int per = (P + NW - 1) / NW, s0 = min(P, warp * per), s1 = min(P, s0 + per);
     const unsigned bit_c = 1u << c;
     int cnt = 0;
-    for (int s = s0; s < s1; s += 32) {
-        const bool v = s + lane < s1 && (wk.mask[s + lane] & bit_c);
-        cnt += __popc(__ballot_sync(FULL, v));
+    for (int sb = s0; sb < s1; sb += 32 * LB) {
+        unsigned m[LB];
+#pragma unroll
+        for (int u = 0; u < LB; ++u) {
+            const int s = sb + 32 * u + lane;
+            m[u] = s < s1 ? wk.mask[s] : 0u;
+        }
+#pragma unroll
+        for (int u = 0; u < LB; ++u) cnt += __popc(__ballot_sync(FULL, (m[u] & bit_c) != 0u));
     }
     if (lane == 0) wcnt[warp] = cnt;
     __syncthreads();
@@ -493,20 +539,29 @@ __global__ void __launch_bounds__(SCHUR_THREADS) gba_schur(Prob pb, Work wk, int
         base += w < warp ? wcnt[w] : 0;
         total += wcnt[w];
     }
-    for (int s = s0; s < s1; s += 32) {
-        const unsigned m = s + lane < s1 ? wk.mask[s + lane] : 0u;
-        const bool v = (m & bit_c) != 0u;
-        const unsigned bal = __ballot_sync(FULL, v);
-        if (v) {
-            const int idx = base + __popc(bal & ((1u << lane) - 1u));
-            list[idx] = s + lane;
-            msk[idx] = m;
+    for (int sb = s0; sb < s1; sb += 32 * LB) {
+        unsigned m[LB];
+#pragma unroll
+        for (int u = 0; u < LB; ++u) {
+            const int s = sb + 32 * u + lane;
+            m[u] = s < s1 ? wk.mask[s] : 0u;
         }
-        base += __popc(bal);
+#pragma unroll
+        for (int u = 0; u < LB; ++u) {
+            const bool v = (m[u] & bit_c) != 0u;
+            const unsigned bal = __ballot_sync(FULL, v);
+            if (v) {
+                const int idx = base + __popc(bal & ((1u << lane) - 1u));
+                list[idx] = sb + 32 * u + lane;
+                msk[idx] = m[u];
+            }
+            base += __popc(bal);
+        }
     }
     __syncthreads();
     const float* Bc = wk.B + (size_t)c * 18 * P;
     const float* Hi = wk.Hinv + (size_t)k * 9 * P;
+#pragma unroll 2
     for (int idx = tid; idx < total; idx += SCHUR_THREADS) {
         const int p = list[idx];
         float b[18], h[9];
@@ -523,242 +578,577 @@ __global__ void __launch_bounds__(SCHUR_THREADS) gba_schur(Prob pb, Work wk, int
     }
     __syncthreads();
 
-    const float lk = wk.lam[0] * pb.ladder[k];
-    for (int d = warp; d <= c; d += NW) {
-        if (!cam_free(pb, d)) continue;
-        const bool diag = d == c;
-        const unsigned bit_d = 1u << d;
-        const float* Bd = wk.B + (size_t)d * 18 * P;
-        float acc[36], racc[6];
+    // warp w: d = d0 + w; each entry of S_cd (and of the rhs) is 32 lane chains (lane
+    // l: the listed points l, l + 32, .. that d sees too, in order; each lane skips to
+    // its own next such point, so a step of the warp is a term in every lane with one
+    // left), the B_pd (and gp) of the lane's next two points loaded ahead, then a
+    // butterfly
+    const int d = d0 + warp;
+    if (d > c || !cam_free(pb, d)) return;
+    const bool diag = d == c;
+    const unsigned bit_d = 1u << d;
+    const float* Bd = wk.B + (size_t)d * 18 * P;
+    float acc[36], racc[6];
 #pragma unroll
-        for (int e = 0; e < 36; ++e) acc[e] = 0.0f;
+    for (int e = 0; e < 36; ++e) acc[e] = 0.0f;
 #pragma unroll
-        for (int i = 0; i < 6; ++i) racc[i] = 0.0f;
-        for (int idx = lane; idx < total; idx += 32) {
-            if (!(msk[idx] & bit_d)) continue;
-            const int p = list[idx];
-            float bh[18], bd[18];
+    for (int i = 0; i < 6; ++i) racc[i] = 0.0f;
+    // this lane's next listed point that d sees, from idx on (total: none)
+    auto seen_from = [&](int i) {
+        while (i < total && !(msk[i] & bit_d)) i += 32;
+        return i < total ? i : total;
+    };
+    // B_pd (and gp) of listed point i, 0 past the list
+    auto fetch = [&](int i, float (&b)[18], float (&gg)[3]) {
+        const int p = i < total ? list[i] : 0;
 #pragma unroll
-            for (int q = 0; q < 18; ++q) {
-                bh[q] = BH[q * cap + idx];
-                bd[q] = Bd[(size_t)q * P + p];
-            }
+        for (int q = 0; q < 18; ++q) b[q] = i < total ? __ldg(Bd + (size_t)q * P + p) : 0.0f;
 #pragma unroll
-            for (int i = 0; i < 6; ++i)
+        for (int q = 0; q < 3; ++q) gg[q] = diag && i < total ? wk.gp[(size_t)q * P + p] : 0.0f;
+    };
+    // listed point i's terms
+    auto terms = [&](int i, const float (&bd)[18], const float (&g)[3]) {
+        float bh[18];
 #pragma unroll
-                for (int l = 0; l < 6; ++l)
-                    acc[6 * i + l] += (bh[3 * i] * bd[3 * l] + bh[3 * i + 1] * bd[3 * l + 1]) +
-                                      bh[3 * i + 2] * bd[3 * l + 2];
-            if (diag) {
-                const float g0 = wk.gp[p], g1 = wk.gp[(size_t)P + p], g2 = wk.gp[2 * (size_t)P + p];
+        for (int q = 0; q < 18; ++q) bh[q] = BH[q * cap + i];
 #pragma unroll
-                for (int i = 0; i < 6; ++i)
-                    racc[i] += (bh[3 * i] * g0 + bh[3 * i + 1] * g1) + bh[3 * i + 2] * g2;
-            }
-        }
+        for (int r = 0; r < 6; ++r)
 #pragma unroll
-        for (int e = 0; e < 36; ++e)
-            for (int o = 16; o > 0; o >>= 1) acc[e] += __shfl_xor_sync(FULL, acc[e], o);
+            for (int l = 0; l < 6; ++l)
+                acc[6 * r + l] += (bh[3 * r] * bd[3 * l] + bh[3 * r + 1] * bd[3 * l + 1]) +
+                                  bh[3 * r + 2] * bd[3 * l + 2];
         if (diag) {
 #pragma unroll
-            for (int i = 0; i < 6; ++i)
-                for (int o = 16; o > 0; o >>= 1) racc[i] += __shfl_xor_sync(FULL, racc[i], o);
+            for (int r = 0; r < 6; ++r)
+                racc[r] += (bh[3 * r] * g[0] + bh[3 * r + 1] * g[1]) + bh[3 * r + 2] * g[2];
         }
-        if (lane == 0) {
-            float* S = wk.S + ((size_t)(k * C + c) * C + d) * 36;
-            const float* Hc = wk.Hcc + 21 * c;
+    };
+    // two points ahead in flight, in three buffers taking turns (no copy waits for a load)
+    float b0[18], g0[3], b1[18], g1[3], b2[18], g2[3];
+    int ia = seen_from(lane), ib = seen_from(ia + 32);
+    fetch(ia, b0, g0);
+    fetch(ib, b1, g1);
+    while (ia < total) {
+        const int ic = seen_from(ib + 32);
+        fetch(ic, b2, g2);
+        terms(ia, b0, g0);
+        if (ib >= total) break;
+        const int id = seen_from(ic + 32);
+        fetch(id, b0, g0);
+        terms(ib, b1, g1);
+        if (ic >= total) break;
+        const int ie = seen_from(id + 32);
+        fetch(ie, b1, g1);
+        terms(ic, b2, g2);
+        ia = id;
+        ib = ie;
+    }
 #pragma unroll
-            for (int i = 0; i < 6; ++i)
+    for (int e = 0; e < 36; ++e)
+        for (int o = 16; o > 0; o >>= 1) acc[e] += __shfl_xor_sync(FULL, acc[e], o);
+    if (diag) {
 #pragma unroll
-                for (int l = 0; l < 6; ++l) {
-                    float hd = 0.0f;
-                    if (diag) {
-                        const float h = Hc[up6(min(i, l), max(i, l))];
-                        hd = i == l ? h + (lk * h + 1e-9f) : h;
-                    }
-                    S[6 * i + l] = diag ? hd - acc[6 * i + l] : -acc[6 * i + l];
+        for (int i = 0; i < 6; ++i)
+            for (int o = 16; o > 0; o >>= 1) racc[i] += __shfl_xor_sync(FULL, racc[i], o);
+    }
+    if (lane == 0) {
+        const float lk = wk.lam[0] * pb.ladder[k];
+        float* S = wk.S + ((size_t)(k * C + c) * C + d) * 36;
+        const float* Hc = wk.Hcc + 21 * c;
+#pragma unroll
+        for (int i = 0; i < 6; ++i)
+#pragma unroll
+            for (int l = 0; l < 6; ++l) {
+                float hd = 0.0f;
+                if (diag) {
+                    const float h = Hc[up6(min(i, l), max(i, l))];
+                    hd = i == l ? h + (lk * h + 1e-9f) : h;
                 }
-            if (diag) {
-                float* r = wk.rhs + (size_t)(k * C + c) * 6;
-#pragma unroll
-                for (int i = 0; i < 6; ++i) r[i] = -wk.gc[6 * c + i] + racc[i];
+                S[6 * i + l] = diag ? hd - acc[6 * i + l] : -acc[6 * i + l];
             }
+        if (diag) {
+            float* r = wk.rhs + (size_t)(k * C + c) * 6;
+#pragma unroll
+            for (int i = 0; i < 6; ++i) r[i] = -wk.gc[6 * c + i] + racc[i];
         }
     }
 }
 
-// ---- gba_chol: ladder value k's reduced system, its step, its try
+// ---- gba_chol: ladder value k's reduced system factored and solved
 
-__global__ void __launch_bounds__(CHOL_THREADS) gba_chol(Prob pb, Work wk, Out o) {
-    const int C = pb.C, P = pb.P, k = blockIdx.x;
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int n = 6 * C, nb = (n + NB - 1) / NB, np = nb * NB, lda = np + 1;
-    extern __shared__ __align__(16) float A[];   // [np][lda] lower triangle
-    float* v = A + (size_t)np * lda;             // [np] right-hand side, then the step
+// a / b correctly rounded; a zero dividend would take IEEE division's slow path (~4 x the
+// fast one on this card), and for a finite nonzero b the product a * b is the same signed
+// zero, so it takes that instead
+__device__ __forceinline__ float div_rn(float a, float b) {
+    if (a == 0.0f && b != 0.0f && fabsf(b) <= 3.402823466e38f) return a * b;
+    return a / b;
+}
+
+// a spin that outlasts SPIN_LIMIT_NS traps (a launch error) instead of holding the card
+__device__ __forceinline__ void spin_until(const volatile int* flag, int value) {
+    if (*flag >= value) return;
+    unsigned long long t0, t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+    while (*flag < value) {
+        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+        if (t - t0 > SPIN_LIMIT_NS) __trap();
+    }
+}
+
+// the workers' barrier: the warps off warp 0's scheduler (warps 4k share it)
+__device__ __forceinline__ void workers_sync() {
+    asm volatile("bar.sync 1, %0;" ::"r"(CHOL_WORKERS));
+}
+
+// the panel's terms on one T x T tile of the trailing matrix: rows i0 .. i0 + T - 1
+// (their entries below the diagonal, row M the right-hand side), columns q0 ..
+// q0 + T - 1; entry (i, q) -= L_i,m L_q,m for the panel's columns m ascending
+template <int T>
+__device__ __forceinline__ void tile_terms(float* A, const float* Pt, int lda, int pts, int M, int w,
+                                           int i0, int q0) {
+    float a[T][T];
+#pragma unroll
+    for (int r = 0; r < T; ++r)
+#pragma unroll
+        for (int s = 0; s < T; ++s)
+            a[r][s] = i0 + r <= M && q0 + s <= i0 + r ? A[(i0 + r) * lda + q0 + s] : 0.0f;
+#pragma unroll 4
+    for (int m = 0; m < w; ++m) {
+        float vi[T], vq[T];
+        if constexpr (T == 4) {
+            const float4 li = *reinterpret_cast<const float4*>(Pt + m * pts + i0);
+            const float4 lq = *reinterpret_cast<const float4*>(Pt + m * pts + q0);
+            vi[0] = li.x, vi[1] = li.y, vi[2] = li.z, vi[3] = li.w;
+            vq[0] = lq.x, vq[1] = lq.y, vq[2] = lq.z, vq[3] = lq.w;
+        } else {
+            static_assert(T == 2, "tiles of 2 or 4");
+            const float2 li = *reinterpret_cast<const float2*>(Pt + m * pts + i0);
+            const float2 lq = *reinterpret_cast<const float2*>(Pt + m * pts + q0);
+            vi[0] = li.x, vi[1] = li.y;
+            vq[0] = lq.x, vq[1] = lq.y;
+        }
+#pragma unroll
+        for (int r = 0; r < T; ++r)
+#pragma unroll
+            for (int s = 0; s < T; ++s) a[r][s] -= vi[r] * vq[s];
+    }
+#pragma unroll
+    for (int r = 0; r < T; ++r)
+#pragma unroll
+        for (int s = 0; s < T; ++s)
+            if (i0 + r <= M && q0 + s <= i0 + r) A[(i0 + r) * lda + q0 + s] = a[r][s];
+}
+
+// tile t (side T) of the trailing matrix below panel rows t0: tile rows I = 0 .. nQ - 1
+// hold tiles Q <= I, tile row nQ (row M) tiles Q < nQ, by rows: (t0 + T I, t0 + T Q)
+template <int T>
+__device__ __forceinline__ void tile_of(int t, int nQ, int t0, int& i0, int& q0) {
+    const int tri = nQ * (nQ + 1) / 2;
+    int I, Q;
+    if (t >= tri) {
+        I = nQ;
+        Q = t - tri;
+    } else {
+        I = (int)((sqrtf(8.0f * (float)t + 1.0f) - 1.0f) * 0.5f);
+        while (I * (I + 1) / 2 > t) --I;
+        while ((I + 1) * (I + 2) / 2 <= t) ++I;
+        Q = t - I * (I + 1) / 2;
+    }
+    i0 = t0 + T * I;
+    q0 = t0 + T * Q;
+}
+
+// The reduced system factored right-looking by 32-column panels with the forward solve
+// as the factor's last row, then L^T x = y by 16-row blocks, every entry's terms in the
+// first design's order (that design assembled the free cameras' S_cd lower triangles,
+// identity rows for the other cameras and the padding to Mf = a multiple of 16, the
+// right-hand side as row Mf; its terms ascending in k; its back solve by blocks from
+// the last, ascending inside a block, descending inside the row's own), each product
+// rounded before its subtraction, so every bit is that design's.
+//
+// The compact system: only the free cameras' rows.  Each term the first design takes
+// from an identity row or column is L_ik L_jk with one factor exactly +0 while the
+// factor and the forward solve stay finite (an identity row's entries left of its
+// diagonal start at +0 and take +0 terms; +0 - (+/-0) is +0), and x - (+0) is x for
+// every x, so leaving those terms out keeps every bit: a pivot fails in the compact
+// system exactly where it fails in the full one (the step all NaN either way), and
+// where the compact forward solve is finite the two factors and y agree on the free
+// rows while the full one's identity rows are exactly I and y 0 there.  Where y is not
+// finite (an identity row's 0 x inf or NaN term would spread it), the full system is
+// factored instead.  The back solve runs over all Mf rows either way, reading an
+// identity row's coefficients (1 on the diagonal, +0 elsewhere, y = +0) through the
+// row map, so its arithmetic, NaN and infinite steps included, is the first design's.
+//
+// Panel p's terms on the trailing matrix (rows and columns past the panel) are split by
+// what needs them: the next diagonal block (panel p + 1's rows and columns: warp 0
+// factors it next), the strip below it (panel p + 1's columns: the rows below need them
+// next) and the far part (every later column, needed a panel later).  Per panel p:
+//   warp 0: wait until block p is up to date (dready), factor it;
+//   workers, row warps: the rows below block p, four columns behind warp 0;
+//   workers, far warps at the same time: panel p - 1's far part (the panel's columns
+//       kept by the row warps in the other half of Pt);
+//   then all workers: panel p's terms on block p + 1 (then dready), on the strip.
+__global__ void __launch_bounds__(CHOL_THREADS) gba_chol(Prob pb, Work wk) {
+    const int C = pb.C, k = blockIdx.x, n = 6 * C, Mf = chol_rows(C);
+    const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+    extern __shared__ __align__(16) float A[];              // [M + 1][M + 1] lower factor, row M: y
     __shared__ uint8_t fr[MAX_C];
-    __shared__ int s_fail;
+    __shared__ short frow[CHOL_MAX_ROWS];                   // the system's row r: the step's row (-1: identity)
+    __shared__ short cmap[CHOL_MAX_ROWS];                   // the step's row i: the system's row (-1: identity)
+    __shared__ int s_fail, s_wide, s_nfree;
+    __shared__ volatile int dcol, dready, solved;           // published columns, ready panel, solved blocks
+    __shared__ int hready[CHOL_MAX_ROWS / NB];              // rows of a block with the helpers' terms
+    constexpr int NWC = CHOL_THREADS / 32, AU = CHOL_MAX_ROWS / 32;
     if (tid < C) fr[tid] = cam_free(pb, tid) ? 1 : 0;
-    if (tid == 0) s_fail = 0;
+    if (tid == 0) s_wide = 0;
     __syncthreads();
-
-    // assemble: S_cd for free c >= d, identity rows for the rest and the padding
+    if (tid == 0) {
+        int f = 0;
+        for (int c = 0; c < C; ++c) f += fr[c];
+        s_nfree = f;
+    }
     const float* S = wk.S + (size_t)k * C * C * 36;
-    for (int idx = tid; idx < np * np; idx += CHOL_THREADS) {
-        const int i = idx / np, j = idx % np;
-        if (j > i) continue;
-        float val = i == j ? 1.0f : 0.0f;
-        if (i < n && fr[i / 6] && fr[j / 6])
-            val = S[((size_t)(i / 6) * C + j / 6) * 36 + (i % 6) * 6 + (j % 6)];
-        A[i * lda + j] = val;
-    }
-    for (int i = tid; i < np; i += CHOL_THREADS)
-        v[i] = i < n && fr[i / 6] ? wk.rhs[(size_t)(k * C + i / 6) * 6 + i % 6] : 0.0f;
-    __syncthreads();
+    int M = 0, lda = 1;
+    // the compact system, then the full one where its forward solve is not finite
+    for (int wide = 0; wide < 2; ++wide) {
+        __syncthreads();
+        if (wide && !s_wide) break;
+        M = wide ? Mf : (6 * s_nfree + NB - 1) / NB * NB;
+        lda = M + 1;
+        const int pts = M + 4;
+        float* Pt = A + chol_a_floats(M);                   // [2][PW][pts] a panel's rows below, by column
+        float* Dt = Pt + 2 * PW * pts;                      // [PW][PW] the diagonal block's factor, by column
+        if (tid < CHOL_MAX_ROWS) {
+            // the step's row tid: its camera's rank among the free ones
+            const int c = tid / 6;
+            int rank = 0;
+            for (int d = 0; d < c && d < C; ++d) rank += fr[d];
+            const bool free_row = tid < n && fr[c];
+            if (wide) {
+                frow[tid] = tid < Mf && free_row ? tid : -1;
+                cmap[tid] = tid < Mf ? tid : -1;
+            } else {
+                cmap[tid] = free_row ? 6 * rank + tid % 6 : -1;
+                if (free_row) frow[6 * rank + tid % 6] = tid;
+                if (tid >= 6 * s_nfree) frow[tid] = -1;
+            }
+        }
+        if (tid < CHOL_MAX_ROWS / NB) hready[tid] = 0;
+        if (tid == 0) {
+            s_fail = 0;
+            dcol = 0;
+            dready = 0;
+            solved = 0;
+        }
+        for (int i = tid; i < 2 * PW * pts; i += CHOL_THREADS) Pt[i] = 0.0f;
+        __syncthreads();
 
-    // factor: A = L L^T by blocks of NB columns
-    for (int kb = 0; kb < nb; ++kb) {
-        const int k0 = kb * NB;
-        if (warp == 0) {
-            for (int j = 0; j < NB; ++j) {
-                float* Aj = A + (k0 + j) * lda + k0;
-                const float piv = Aj[j];
-                const float ljj = sqrtf(piv);
-                __syncwarp();
-                if (lane == 0) {
-                    if (!(piv > 0.0f)) s_fail = 1;
-                    Aj[j] = ljj;
+        // assemble: row r holds the step's row frow[r] (S_cd's entries of the free columns,
+        // c >= d), or an identity row; row M the rhs.  Each lane's columns' camera and
+        // offset taken once, a row's loads in flight together
+        int dof[AU];
+        bool fcol[AU];
+#pragma unroll
+        for (int u = 0; u < AU; ++u) {
+            const int j = lane + 32 * u, jf = j < M ? frow[j] : -1;
+            fcol[u] = jf >= 0;
+            dof[u] = jf >= 0 ? (jf / 6) * 36 + jf % 6 : 0;
+        }
+        for (int r = wid; r <= M; r += NWC) {
+            float v[AU];
+            if (r < M) {
+                const int rf = frow[r];
+                const int base = rf >= 0 ? ((rf / 6) * C) * 36 + (rf % 6) * 6 : 0;
+#pragma unroll
+                for (int u = 0; u < AU; ++u) {
+                    const int j = lane + 32 * u;
+                    v[u] = rf >= 0 && fcol[u] && j <= r ? S[(size_t)base + dof[u]] : (j == r ? 1.0f : 0.0f);
                 }
-                if (lane > j && lane < NB) A[(k0 + lane) * lda + k0 + j] /= ljj;
-                __syncwarp();
-                if (lane > j && lane < NB) {
-                    float* Ai = A + (k0 + lane) * lda + k0;
-                    const float lij = Ai[j];
-                    for (int m = j + 1; m <= lane; ++m) Ai[m] -= lij * A[(k0 + m) * lda + k0 + j];
+            } else {
+#pragma unroll
+                for (int u = 0; u < AU; ++u) {
+                    const int j = lane + 32 * u, jf = j < M ? frow[j] : -1;
+                    v[u] = jf >= 0 ? wk.rhs[(size_t)(k * C + jf / 6) * 6 + jf % 6] : 0.0f;
                 }
-                __syncwarp();
+            }
+#pragma unroll
+            for (int u = 0; u < AU; ++u) {
+                const int j = lane + 32 * u;
+                if (j < M && (j <= r || r == M)) A[r * lda + j] = v[u];
             }
         }
         __syncthreads();
-        const int r0 = k0 + NB, T = np - r0;
-        for (int r = tid; r < T; r += CHOL_THREADS) {
-            float* Ai = A + (r0 + r) * lda + k0;
-            float x[NB];
+
+        const int npan = (M + PW - 1) / PW;
+        if (wid == 0) {
+            // the diagonal blocks: lane x holds row p0 + x; column jj's pivot is shuffled
+            // to every lane, each takes its square root, the rows below divide and publish
+            // column jj (Dt, every four columns dcol), then entry (x, c), jj < c <= x,
+            // takes its term L_x,jj L_c,jj; identity past the panel's width w
+            bool bad = false;
+            for (int p = 0; p < npan; ++p) {
+                const int p0 = p * PW, w = min(PW, M - p0);
+                spin_until(&dready, p);
+                __threadfence_block();
+                float a[PW];
 #pragma unroll
-            for (int j = 0; j < NB; ++j) {
-                const float* Lj = A + (k0 + j) * lda + k0;
-                float s = Ai[j];
+                for (int c = 0; c < PW; ++c)
+                    a[c] = lane < w && c < w ? (c <= lane ? A[(p0 + lane) * lda + p0 + c] : 0.0f)
+                                             : (c == lane ? 1.0f : 0.0f);
+                float piv = __shfl_sync(FULL, a[0], 0);
 #pragma unroll
-                for (int m = 0; m < j; ++m) s -= x[m] * Lj[m];
-                x[j] = s / Lj[j];
-                Ai[j] = x[j];
+                for (int jj = 0; jj < PW; ++jj) {
+                    const float ljj = sqrtf(piv);
+                    bad |= jj < w && !(piv > 0.0f);
+                    // lanes above the diagonal take l = 0 (their scratch entries stay 0)
+                    const float q = div_rn(a[jj], ljj);
+                    const float l = lane == jj ? ljj : (lane > jj ? q : 0.0f);
+                    a[jj] = l;
+                    // the next pivot first: lane jj + 1's own term L_jj+1,jj^2 (the
+                    // product its update below subtracts, so the same bits)
+                    if (jj + 1 < PW) piv = __shfl_sync(FULL, a[jj + 1] - l * l, jj + 1);
+                    Dt[jj * PW + lane] = l;
+                    __syncwarp();
+                    if ((jj & 3) == 3) {
+                        __threadfence_block();
+                        dcol = p0 + jj + 1;
+                    }
+#pragma unroll
+                    for (int qq = (jj + 1) / 4; qq < PW / 4; ++qq) {
+                        const float4 l4 = reinterpret_cast<const float4*>(Dt + jj * PW)[qq];
+                        const float lv[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+                        for (int e = 0; e < 4; ++e)
+                            if (4 * qq + e > jj) a[4 * qq + e] -= l * lv[e];
+                    }
+                }
+                if (lane < w) {
+#pragma unroll
+                    for (int c = 0; c < PW; ++c)
+                        if (c <= lane) A[(p0 + lane) * lda + p0 + c] = a[c];
+                }
+            }
+            if (lane == 0 && bad) s_fail = 1;
+        } else if ((wid & 3) != 0) {
+            // the workers: row warps (the first half) and far warps
+            const int wt = 32 * (wid - 1 - (wid >> 2)) + lane;
+            const bool rows = wt < CHOL_WORKERS / 2;
+            for (int p = 0; p < npan; ++p) {
+                const int p0 = p * PW, w = min(PW, M - p0), t0 = p0 + w;
+                float* Pp = Pt + (p & 1) * PW * pts;
+                if (rows) {
+                    // the rows below block p (row M among them), a thread a row, four
+                    // columns behind warp 0: column jj's division, then its terms on the
+                    // later columns
+                    for (int i = t0 + wt; i <= M; i += CHOL_WORKERS / 2) {
+                        float a[PW];
+#pragma unroll
+                        for (int c = 0; c < PW; ++c) a[c] = c < w ? A[i * lda + p0 + c] : 0.0f;
+#pragma unroll
+                        for (int jj = 0; jj < PW; ++jj) {
+                            if ((jj & 3) == 0) {
+                                spin_until(&dcol, p0 + jj + 4);
+                                __threadfence_block();
+                            }
+                            const float l = div_rn(a[jj], Dt[jj * PW + jj]);
+                            a[jj] = l;
+#pragma unroll
+                            for (int qq = (jj + 1) / 4; qq < PW / 4; ++qq) {
+                                const float4 l4 = reinterpret_cast<const float4*>(Dt + jj * PW)[qq];
+                                const float lv[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+                                for (int e = 0; e < 4; ++e)
+                                    if (4 * qq + e > jj) a[4 * qq + e] -= l * lv[e];
+                            }
+                        }
+#pragma unroll
+                        for (int c = 0; c < PW; ++c)
+                            if (c < w) {
+                                A[i * lda + p0 + c] = a[c];
+                                Pp[c * pts + i] = a[c];
+                            }
+                    }
+                } else if (p > 0) {
+                    // panel p - 1's terms on its far part: the columns past block p
+                    const int q0p = p0 + PW;
+                    const int nF = max(0, (M - q0p) / 4);
+                    const float* Pq = Pt + ((p - 1) & 1) * PW * pts;
+                    const int TF = nF * (nF + 1) / 2 + nF;
+                    int i0, q0;
+                    for (int t = wt - CHOL_WORKERS / 2; t < TF; t += CHOL_WORKERS / 2) {
+                        tile_of<4>(t, nF, q0p, i0, q0);
+                        tile_terms<4>(A, Pq, lda, pts, M, PW, i0, q0);
+                    }
+                }
+                workers_sync();
+                if (t0 >= M) break;
+                // panel p's terms on block p + 1 (2 x 2 tiles: more threads on the
+                // critical path), then on the strip below it (panel p + 1's columns)
+                const int wn = min(PW, M - t0), dB = wn / 4, nQ = (M - t0) / 4;
+                const int TD2 = (wn / 2) * (wn / 2 + 1) / 2, TS = (nQ - dB + 1) * dB;
+                int i0, q0;
+                for (int t = wt; t < TD2; t += CHOL_WORKERS) {
+                    tile_of<2>(t, wn / 2, t0, i0, q0);
+                    tile_terms<2>(A, Pp, lda, pts, M, w, i0, q0);
+                }
+                workers_sync();
+                if (wt == 0) {
+                    __threadfence_block();
+                    dready = p + 1;
+                }
+                for (int t = wt; t < TS; t += CHOL_WORKERS)
+                    tile_terms<4>(A, Pp, lda, pts, M, w, t0 + 4 * (dB + t / dB), t0 + 4 * (t % dB));
+                workers_sync();
             }
         }
         __syncthreads();
-        for (int idx = tid; idx < T * T; idx += CHOL_THREADS) {
-            const int r = idx / T, q = idx % T;
-            if (q > r) continue;
-            const float* Li = A + (r0 + r) * lda + k0;
-            const float* Lq = A + (r0 + q) * lda + k0;
-            float s = A[(r0 + r) * lda + r0 + q];
-#pragma unroll
-            for (int m = 0; m < NB; ++m) s -= Li[m] * Lq[m];
-            A[(r0 + r) * lda + r0 + q] = s;
-        }
-        __syncthreads();
+        // the compact forward solve not finite (and no pivot failed): the full system
+        if (!wide && !s_fail)
+            for (int j = tid; j < M; j += CHOL_THREADS)
+                if (!isfinite(A[M * lda + j])) s_wide = 1;
     }
 
-    // L y = v, then L^T x = y, by blocks
-    for (int kb = 0; kb < nb; ++kb) {
-        const int k0 = kb * NB;
-        if (warp == 0) {
-            float vi = lane < NB ? v[k0 + lane] : 0.0f;
-            for (int j = 0; j < NB; ++j) {
-                const float yj = __shfl_sync(FULL, vi, j) / A[(k0 + j) * lda + k0 + j];
-                if (lane == j) vi = yj;
-                if (lane > j && lane < NB) vi -= A[(k0 + lane) * lda + k0 + j] * yj;
-            }
-            if (lane < NB) v[k0 + lane] = vi;
-        }
-        __syncthreads();
-        for (int i = k0 + NB + tid; i < np; i += CHOL_THREADS) {
-            float s = v[i];
+    // L^T x = y over the Mf rows by 16-row blocks from the last, row i's coefficients and
+    // y through cmap (an identity row where it has none): warp 0 carries the chain (block
+    // b + 1's terms on block b, then block b's own 16 steps; the next block's coefficients
+    // loaded ahead); each helper thread owns a row of the blocks below and takes each
+    // later block's terms as it is solved (blocks b + 2 and up), then hands its sum over
+    float* xs = A + chol_a_floats(CHOL_MAX_ROWS);            // [Mf] x
+    float* hv = xs + Mf;                                     // [Mf] the back solve's helper sums
+    auto L = [&](int r, int i) {                             // L_ri, r >= i (loads without branches)
+        const int rc = cmap[r], ic = cmap[i];
+        const float v = A[max(rc, 0) * lda + max(ic, 0)];
+        return rc >= 0 && ic >= 0 ? v : (r == i ? 1.0f : 0.0f);
+    };
+    auto y_of = [&](int i) {
+        const int ic = cmap[i];
+        const float v = A[M * lda + max(ic, 0)];
+        return ic >= 0 ? v : 0.0f;
+    };
+    const int nbk = Mf / NB;
+    if (wid == 0) {
+        const int lr = lane < NB ? lane : 0;
+        float cf[NB], dd[NB], tm[NB];
+        // block b's L(b0 + j, i), L(b0 + j, b0 + j) and L(b0 + 16 + j, i) for the lane's row
+        // i = b0 + lr, as L() gives them, the row map read once a row
+        auto coefficients = [&](int b) {
+            const int b0 = b * NB, ic = cmap[b0 + lr], icz = max(ic, 0);
 #pragma unroll
-            for (int m = 0; m < NB; ++m) s -= A[i * lda + k0 + m] * v[k0 + m];
-            v[i] = s;
-        }
-        __syncthreads();
-    }
-    for (int kb = nb - 1; kb >= 0; --kb) {
-        const int k0 = kb * NB;
-        if (warp == 0) {
-            float vi = lane < NB ? v[k0 + lane] : 0.0f;
+            for (int j = 0; j < NB; ++j) {
+                const int rc = cmap[b0 + j], rd = b + 1 < nbk ? cmap[b0 + NB + j] : -1;
+                const int rcz = max(rc, 0), rdz = max(rd, 0);
+                const float vc = A[rcz * lda + icz], vd = A[rcz * lda + rcz], vt = A[rdz * lda + icz];
+                cf[j] = rc >= 0 && ic >= 0 ? vc : (j == lr ? 1.0f : 0.0f);
+                dd[j] = rc >= 0 ? vd : 1.0f;
+                tm[j] = rd >= 0 && ic >= 0 ? vt : 0.0f;
+            }
+        };
+        coefficients(nbk - 1);
+        for (int b = nbk - 1; b >= 0; --b) {
+            const int b0 = b * NB, i = b0 + lr;
+            float acc;
+            if (b + 2 < nbk) {
+                spin_until(reinterpret_cast<volatile int*>(hready + b), NB);
+                __threadfence_block();
+                acc = hv[i];
+            } else {
+                acc = y_of(i);
+            }
+            if (b + 1 < nbk) {
+#pragma unroll
+                for (int m = 0; m < NB; ++m) acc -= tm[m] * xs[b0 + NB + m];
+            }
+#pragma unroll
             for (int j = NB - 1; j >= 0; --j) {
-                const float xj = __shfl_sync(FULL, vi, j) / A[(k0 + j) * lda + k0 + j];
-                if (lane == j) vi = xj;
-                if (lane < j) vi -= A[(k0 + j) * lda + k0 + lane] * xj;
+                const float xj = div_rn(__shfl_sync(FULL, acc, j), dd[j]);
+                acc = lane == j ? xj : (lane < j ? acc - cf[j] * xj : acc);
             }
-            if (lane < NB) v[k0 + lane] = vi;
+            if (lane < NB) xs[i] = acc;
+            __syncwarp();
+            __threadfence_block();
+            solved = nbk - b;
+            if (b > 0) coefficients(b - 1);
         }
-        __syncthreads();
-        for (int i = tid; i < k0; i += CHOL_THREADS) {
-            float s = v[i];
+    } else if ((wid & 3) != 0) {
+        const int i = 32 * (wid - 1 - (wid >> 2)) + lane;
+        if (i < Mf - 2 * NB) {
+            const int b = i / NB;
+            float acc = y_of(i);
+            for (int B = nbk - 1; B >= b + 2; --B) {
+                float cm[NB];
 #pragma unroll
-            for (int m = 0; m < NB; ++m) s -= A[(k0 + m) * lda + i] * v[k0 + m];
-            v[i] = s;
+                for (int m = 0; m < NB; ++m) cm[m] = L(B * NB + m, i);
+                spin_until(&solved, nbk - B);
+                __threadfence_block();
+#pragma unroll
+                for (int m = 0; m < NB; ++m) acc -= cm[m] * xs[B * NB + m];
+            }
+            hv[i] = acc;
+            __threadfence_block();
+            atomicAdd(hready + b, 1);
         }
-        __syncthreads();
     }
+    __syncthreads();
 
     // the step: NaN where the factorization failed, 0 on the cameras not free
     const bool failed = s_fail != 0;
-    for (int i = tid; i < n; i += CHOL_THREADS) {
-        v[i] = fr[i / 6] ? (failed ? __int_as_float(0x7fc00000) : v[i]) : 0.0f;
-        wk.dc[(size_t)k * n + i] = v[i];
-    }
-    __syncthreads();
-    if (tid < C) {
-        float Pc[12], out[12];
-#pragma unroll
-        for (int e = 0; e < 9; ++e) Pc[e] = o.R[9 * tid + e];
-#pragma unroll
-        for (int e = 0; e < 3; ++e) Pc[9 + e] = o.t[3 * tid + e];
-        se3_retract(v + 6 * tid, Pc, out);
-        float* Ra = wk.R_a + (size_t)(k * C + tid) * 9;
-        float* ta = wk.t_a + (size_t)(k * C + tid) * 3;
-#pragma unroll
-        for (int e = 0; e < 9; ++e) Ra[e] = out[e];
-#pragma unroll
-        for (int e = 0; e < 3; ++e) ta[e] = out[9 + e];
-    }
+    for (int i = tid; i < n; i += CHOL_THREADS)
+        wk.dc[(size_t)k * n + i] = fr[i / 6] ? (failed ? __int_as_float(0x7fc00000) : xs[i]) : 0.0f;
     if (tid == 0) wk.fail[k] = failed ? 1 : 0;
-    // each point's step dp = Hpp_k^-1 (-gp - sum_c B_pc^T dc_c), its try X + dp * valid
+}
+
+// ---- gba_step: each ladder value's try: the cameras retracted by their steps, each
+// point's step dp = Hpp_k^-1 (-gp - sum_c B_pc^T dc_c) and its try X + dp * valid
+
+__global__ void __launch_bounds__(STEP_THREADS) gba_step(Prob pb, Work wk, Out o) {
+    const int C = pb.C, P = pb.P, k = blockIdx.y, n = 6 * C, tid = threadIdx.x;
+    __shared__ float dcs[6 * MAX_C];
+    for (int i = tid; i < n; i += STEP_THREADS) dcs[i] = wk.dc[(size_t)k * n + i];
+    __syncthreads();
+    if (blockIdx.x == gridDim.x - 1) {
+        if (tid < C) {
+            float Pc[12], out[12];
+#pragma unroll
+            for (int e = 0; e < 9; ++e) Pc[e] = o.R[9 * tid + e];
+#pragma unroll
+            for (int e = 0; e < 3; ++e) Pc[9 + e] = o.t[3 * tid + e];
+            se3_retract(dcs + 6 * tid, Pc, out);
+            float* Ra = wk.R_a + (size_t)(k * C + tid) * 9;
+            float* ta = wk.t_a + (size_t)(k * C + tid) * 3;
+#pragma unroll
+            for (int e = 0; e < 9; ++e) Ra[e] = out[e];
+#pragma unroll
+            for (int e = 0; e < 3; ++e) ta[e] = out[9 + e];
+        }
+        return;
+    }
+    const int p = blockIdx.x * STEP_THREADS + tid;
+    if (p >= P) return;
     const float* Hi = wk.Hinv + (size_t)k * 9 * P;
     float* Xa = wk.X_a + (size_t)k * P * 3;
-    for (int p = tid; p < P; p += CHOL_THREADS) {
-        const unsigned m = wk.mask[p];
-        float bt[3] = {0.0f, 0.0f, 0.0f};
-        for (int c = 0; c < C; ++c) {
-            if (!(m & (1u << c))) continue;
-            const float* Bc = wk.B + (size_t)c * 18 * P + p;
-            const float* dc = v + 6 * c;
+    const unsigned m = wk.mask[p];
+    float bt[3] = {0.0f, 0.0f, 0.0f};
+    for (int c = 0; c < C; ++c) {
+        if (!(m & (1u << c))) continue;
+        const float* Bc = wk.B + (size_t)c * 18 * P + p;
+        const float* dc = dcs + 6 * c;
 #pragma unroll
-            for (int kk = 0; kk < 3; ++kk) {
-                float s = Bc[(size_t)kk * P] * dc[0];
+        for (int kk = 0; kk < 3; ++kk) {
+            float s = Bc[(size_t)kk * P] * dc[0];
 #pragma unroll
-                for (int i = 1; i < 6; ++i) s += Bc[(size_t)(3 * i + kk) * P] * dc[i];
-                bt[kk] += s;
-            }
+            for (int i = 1; i < 6; ++i) s += Bc[(size_t)(3 * i + kk) * P] * dc[i];
+            bt[kk] += s;
         }
-        float rr[3];
+    }
+    float rr[3];
 #pragma unroll
-        for (int j = 0; j < 3; ++j) rr[j] = -wk.gp[(size_t)j * P + p] - bt[j];
-        const float ptv = pb.pt_valid[p] ? 1.0f : 0.0f;
+    for (int j = 0; j < 3; ++j) rr[j] = -wk.gp[(size_t)j * P + p] - bt[j];
+    const float ptv = pb.pt_valid[p] ? 1.0f : 0.0f;
 #pragma unroll
-        for (int j = 0; j < 3; ++j) {
-            const float dp = dot3(Hi[(size_t)(3 * j) * P + p], rr[0], Hi[(size_t)(3 * j + 1) * P + p],
-                                  rr[1], Hi[(size_t)(3 * j + 2) * P + p], rr[2]);
-            Xa[3 * p + j] = o.X[3 * p + j] + dp * ptv;
-        }
+    for (int j = 0; j < 3; ++j) {
+        const float dp = dot3(Hi[(size_t)(3 * j) * P + p], rr[0], Hi[(size_t)(3 * j + 1) * P + p],
+                              rr[1], Hi[(size_t)(3 * j + 2) * P + p], rr[2]);
+        Xa[3 * p + j] = o.X[3 * p + j] + dp * ptv;
     }
 }
 
@@ -821,12 +1211,14 @@ extern "C" long long grid_ba_work_bytes(int C, int P) {
     return 4 * (long long)layout(C, P, nullptr, nullptr);
 }
 
-static size_t chol_smem(int C) {
-    const int np = (6 * C + NB - 1) / NB * NB;
-    return ((size_t)np * (np + 1) + np) * sizeof(float);
+// gba_chol's dynamic shared memory: the factor, two panels by column and the diagonal
+// block's factor at the full size, x and the helpers' sums inside the panels (204,816 bytes)
+static size_t chol_smem() {
+    const int M = CHOL_MAX_ROWS;
+    return ((size_t)chol_a_floats(M) + 2 * PW * (M + 4) + PW * PW + 2 * M) * sizeof(float);
 }
 
-// One solve: setup, `iters` x (LIN, Schur, Cholesky, TRIES), FINAL, on the
+// One solve: setup, `iters` x (LIN, Schur, Cholesky, step, TRIES), FINAL, on the
 // stream.  `work` holds grid_ba_work_bytes(C, P) bytes.  Returns a
 // cudaError_t (the first launch's error stops the rest).
 extern "C" int grid_ba_launch(float fx, float fy, float cx, float cy, float bf, const float* R0,
@@ -845,7 +1237,7 @@ extern "C" int grid_ba_launch(float fx, float fy, float cx, float cy, float bf, 
     layout(C, P, static_cast<float*>(work), &wk);
     const Out o = {R, t, X, inlier, cost};
     const int cap = N < P ? N : P;
-    const size_t schur_smem = (size_t)cap * LIST_BYTES, csmem = chol_smem(C);
+    const size_t schur_smem = (size_t)cap * LIST_BYTES, csmem = chol_smem();
     if (schur_smem > DYN_SMEM || csmem > DYN_SMEM) return (int)cudaErrorInvalidValue;
     // once a process, outside any stream capture's work: the most either kernel may take
     static bool attrs_set = false;
@@ -863,9 +1255,13 @@ extern "C" int grid_ba_launch(float fx, float fy, float cx, float cy, float bf, 
         gba_grid<<<C + (P + GRID_THREADS - 1) / GRID_THREADS, GRID_THREADS, 0, stream>>>(
             cm, pb, wk, o, LIN, lam0);
         if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-        gba_schur<<<dim3(C, 3), SCHUR_THREADS, schur_smem, stream>>>(pb, wk, cap);
+        gba_schur<<<dim3(C, 3, (C + SCHUR_DG - 1) / SCHUR_DG), SCHUR_THREADS, schur_smem, stream>>>(
+            pb, wk, cap);
         if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-        gba_chol<<<3, CHOL_THREADS, csmem, stream>>>(pb, wk, o);
+        gba_chol<<<3, CHOL_THREADS, csmem, stream>>>(pb, wk);
+        if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+        gba_step<<<dim3((P + STEP_THREADS - 1) / STEP_THREADS + 1, 3), STEP_THREADS, 0, stream>>>(
+            pb, wk, o);
         if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
         gba_grid<<<3 * C, GRID_THREADS, 0, stream>>>(cm, pb, wk, o, TRIES, lam0);
         if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;

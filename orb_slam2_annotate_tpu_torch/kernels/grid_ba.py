@@ -1,8 +1,8 @@
 """Kernel 12: local BA's grid LM (``ba_core.bundle_adjust_grid``).
 
 ``grid_ba_solve`` launches ``csrc/grid_ba.cu`` for CUDA tensors: one solve
-is 2 + 4 x iters launches of three kernels (setup; a linearization, the
-Schur blocks, the Cholesky with its retraction and point steps, the tries'
+is 2 + 5 x iters launches of four kernels (setup; a linearization, the
+Schur blocks, the Cholesky, the retraction and point steps, the tries'
 costs with the pick, each iteration; the inlier mask), on one workspace, with
 no host read.  For CPU tensors it runs the plain twin,
 ``ba_core.bundle_adjust_grid_plain``.  ``grid_ba_solve.launches`` counts
@@ -28,8 +28,8 @@ MAX_LIST = (SMEM_PER_CTA - SCHUR_STATIC) // LIST_BYTES   # min(N, P) a call may 
 
 
 def launches_per_solve(iters: int) -> int:
-    """Device kernels one solve launches: setup, four an iteration, the mask."""
-    return 2 + 4 * iters
+    """Device kernels one solve launches: setup, five an iteration, the mask."""
+    return 2 + 5 * iters
 
 
 @functools.cache

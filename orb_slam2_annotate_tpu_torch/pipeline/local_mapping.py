@@ -146,8 +146,8 @@ def create_new_mappoints(m: ms.MapState, cam: CameraModel, slot: int,
     Kc = cam.K(dev)
     P1 = Kc @ torch.cat([R1, t1[:, None]], dim=1)
     x1 = m.kf_xy[slot]
-    oct1 = m.kf_octave[slot].float()
-    s2_1 = SCALE ** (2.0 * oct1)
+    oct1 = m.kf_octave[slot]
+    s2_1 = ms.scale_power(oct1, SCALE, twice=True)
 
     # every neighbour in one matcher launch (kernel 3, B = n_neighbors)
     R2s, t2s = m.kf_R[nbrs], m.kf_t[nbrs]                                # [NB,3,3], [NB,3]
@@ -172,15 +172,15 @@ def create_new_mappoints(m: ms.MapState, cam: CameraModel, slot: int,
         xc2 = X @ R2.T + t2
         e1 = ((project(cam, xc1) - x1) ** 2).sum(1)
         e2 = ((project(cam, xc2) - x2) ** 2).sum(1)
-        oct2 = f2.octave[i, idc].float()
+        oct2 = f2.octave[i, idc]
         r1v, r2v = X - c1, X - c2
         d1, d2 = torch.linalg.norm(r1v, dim=1), torch.linalg.norm(r2v, dim=1)
         cosp = (r1v * r2v).sum(1) / torch.clamp_min(d1 * d2, 1e-9)
         ratio_d = d1 / torch.clamp_min(d2, 1e-9)
-        ratio_o = (SCALE ** oct1) / (SCALE ** oct2)
+        ratio_o = ms.scale_power(oct1, SCALE) / ms.scale_power(oct2, SCALE)
         scale_ok = (ratio_d < ratio_o * SCALE * 1.5) & (ratio_d * SCALE * 1.5 > ratio_o)
         good = ((idx >= 0) & torch.isfinite(X).all(1) & (xc1[:, 2] > 0) & (xc2[:, 2] > 0)
-                & (e1 < 5.991 * s2_1) & (e2 < 5.991 * (SCALE ** (2.0 * oct2)))
+                & (e1 < 5.991 * s2_1) & (e2 < 5.991 * ms.scale_power(oct2, SCALE, twice=True))
                 & (cosp < 0.9998) & scale_ok)
         goods.append(good)
         Xs.append(X)

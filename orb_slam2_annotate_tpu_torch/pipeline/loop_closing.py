@@ -269,7 +269,7 @@ def sim3_guided_match(cam: CameraModel, m: ms.MapState, slot: int, cand: int, s1
     y = torch.stack([s12 * (x2 @ R12.T) + t12, si * (x1 @ Ri.T) + ti])      # [2,N,3]
     src_maxd = torch.stack([s12 * g_maxd[1], si * g_maxd[0]])
     pred = ms.predict_octave(src_maxd, lie.norm3(y), top_oct)
-    radius = radius_scale * 7.5 * (1.2 ** pred.to(torch.float32))
+    radius = ms.scaled_radius(radius_scale * 7.5, pred)
     ok = torch.stack([has2, has1]) & (y[..., 2] > 0.05)
     dst = torch.tensor([slot, cand], device=dev)
     res = matching.match_gated(
@@ -305,7 +305,7 @@ def loop_projection_count(cam: CameraModel, m: ms.MapState, slot: int, cand: int
     MAXC = min(2048, P)
     _, cnd = pts.topk_points(m.mesh, okp.to(torch.int32), MAXC)
     c_pred, c_uv, c_ok, c_desc = pts.gather_rows(m.mesh, cnd, pred, uv, okp, m.mp_desc)
-    radius = 20.0 * (1.2 ** c_pred.to(torch.float32))
+    radius = ms.scaled_radius(20.0, c_pred)
     res = matching.match_gated(
         c_desc, m.kf_desc[slot], c_ok, m.kf_feat_valid[slot],
         (matching.TH_LOW + matching.TH_HIGH) // 2, 1.0,
@@ -527,7 +527,6 @@ def full_map_ba_problem(m: ms.MapState, anchor) -> BAProblem:
     feat_ok = m.kf_feat_valid & m.kf_valid[:, None]
     own, loc = pts.owned_rows(m.mesh, obs, feat_ok)
     e_valid = own & m.mp_valid[loc]
-    octv = m.kf_octave.reshape(-1).to(torch.float32)
     cam_fixed = torch.zeros(K, dtype=torch.bool, device=dev)
     cam_fixed[anchor] = True
     return BAProblem(
@@ -536,7 +535,7 @@ def full_map_ba_problem(m: ms.MapState, anchor) -> BAProblem:
         cam_idx=torch.arange(K, device=dev).repeat_interleave(N),
         pt_idx=torch.where(own, loc, torch.clamp(obs, 0, m.P_local - 1)).reshape(-1),
         uv=m.kf_xy.reshape(-1, 2),
-        ur=m.kf_ur.reshape(-1), inv_sigma2=1.0 / (1.2 ** (2.0 * octv)),
+        ur=m.kf_ur.reshape(-1), inv_sigma2=ms.inv_level_sigma2(m.kf_octave.reshape(-1)),
         edge_valid=e_valid.reshape(-1))
 
 

@@ -31,7 +31,7 @@ GAMMA_VEL = 1.0
 
 
 def inv_sigma2(octave: torch.Tensor) -> torch.Tensor:
-    return 1.0 / (SCALE ** (2.0 * octave.to(torch.float32)))
+    return ms.inv_level_sigma2(octave, SCALE)
 
 
 def _pose_obs_from_obs(m: MapState, frame: Frame, obs: torch.Tensor) -> pose_opt.PoseObs:
@@ -56,7 +56,7 @@ def track_with_motion_model(cam: CameraModel, m: MapState, frame: Frame, last_fr
     xc = mp_pos @ R_pred.T + t_pred
     uv = project(cam, xc)
     pvalid = has & (xc[:, 2] > 0.05) & in_image(cam, uv)
-    radius = th * (SCALE ** last_frame.octave.to(torch.float32))
+    radius = ms.scaled_radius(th, last_frame.octave, SCALE)
     res = matching.search_frame_to_frame(frame, last_frame, uv, pvalid, last_frame.octave, radius)
     src = torch.where(res.matched & has, last_obs, -1)
     obs = _scatter_max_ids(frame.xy.shape[0], torch.clamp_min(res.idx, 0),
@@ -141,7 +141,7 @@ def track_local_map(cam: CameraModel, m: MapState, frame: Frame, R, t, obs,
     cvalid, c_cos, c_oct, c_uv, c_desc = pts.gather_rows(mesh, cand, cand_mask, view_cos,
                                                           pred_oct, uv, m.mp_desc)
     r0 = torch.where(c_cos > 0.998, 2.5, 4.0)
-    radius = th * r0 * (SCALE ** c_oct.to(torch.float32))
+    radius = ms.scaled_radius(th * r0, c_oct, SCALE)
     res = matching.search_map_points(c_desc, cvalid, c_uv, c_oct, radius,
                                      frame, ratio=0.8, max_dist=matching.TH_HIGH)
     newmp = torch.where(res.matched, cand.to(torch.int32), -1)

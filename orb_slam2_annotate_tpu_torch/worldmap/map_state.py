@@ -301,10 +301,10 @@ def _geometry_from_table(m: MapState, pos, obs_kf, obs_ft, obs_mask):
     normal = normal / torch.clamp_min(torch.linalg.norm(normal, dim=-1, keepdim=True), 1e-9)
     ref_dist = torch.linalg.norm(pos - centers[:, 0], dim=-1)
     ref_oct = m.kf_octave[obs_kf[:, 0].long(), obs_ft[:, 0].long()]
-    scale = 1.2 ** ref_oct.to(torch.float32)
+    scale = scale_power(ref_oct)
     n_levels = 1 + torch.max(torch.where(m.kf_feat_valid, m.kf_octave, 0))
     max_dist = ref_dist * scale
-    min_dist = max_dist / (1.2 ** (n_levels - 1).to(torch.float32))
+    min_dist = max_dist / scale_power(n_levels - 1)
     return normal, 0.8 * min_dist, 1.2 * max_dist
 
 
@@ -383,6 +383,18 @@ def scale_power(octave: torch.Tensor, scale: float = 1.2, twice: bool = False) -
     base = torch.full((), float(torch.tensor(scale, dtype=torch.float32)), dtype=torch.float64,
                       device=dev)
     return (base ** k).float()[octave.long()]
+
+
+def scaled_radius(base, octave: torch.Tensor, scale: float = 1.2) -> torch.Tensor:
+    """A search radius at each octave: base * scale ** octave (base a number or
+    a tensor), the power from ``scale_power``."""
+    return base * scale_power(octave, scale)
+
+
+def inv_level_sigma2(octave: torch.Tensor, scale: float = 1.2) -> torch.Tensor:
+    """1 / sigma^2 of a keypoint at each octave: 1 / scale ** (2 octave), the
+    power from ``scale_power``."""
+    return 1.0 / scale_power(octave, scale, twice=True)
 
 
 def mp_observation_counts(m: MapState) -> torch.Tensor:

@@ -170,4 +170,4 @@ def test_wrapper_checks_raise():
     assert k12.grid_ba_solve.launches == n0
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
-    assert k12.launches_per_solve(4) == 18 and k12.launches_per_solve(6) == 26
+    assert k12.launches_per_solve(4) == 22 and k12.launches_per_solve(6) == 32

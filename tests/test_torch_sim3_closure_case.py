@@ -1,13 +1,14 @@
 """Kernel 8's twin (``kernels/sim3.sim3_lm_solve`` on CPU tensors) against
 the JAX package's ``optimize_sim3`` on a captured input: the closing
-attempt's second optimize_sim3 of chip_smoke.py's loop cell (phase 6) run
-with the six scale-power sites read through ``map_state.scale_power``
-(``tests/data/k8_closure_routed.pt``, sim3_lm_solve's arguments as
-``torch.save`` wrote them; chip_smoke.K8_CLOSURE_CASE).  Its LM normal
+attempt's second optimize_sim3 of chip_smoke.py's loop cell (phase 6),
+whose scale powers are read through ``map_state.scale_power`` as the tree
+reads them (``tests/data/k8_closure_routed.pt``, sim3_lm_solve's arguments
+as ``torch.save`` wrote them; chip_smoke.K8_CLOSURE_CASE).  Its LM normal
 matrix has a condition number near 9e6 at the solution, so float32 solves
-of it part on different devices; on the CPU the twin holds to JAX at
-test_torch_sim3.py's tolerances: the same count, masks apart on at most 1%
-of pairs, s, R, t within 1e-4.
+of it part on different devices (chip_smoke.py holds the kernel there by
+its robust cost); on the CPU the twin holds to JAX at test_torch_sim3.py's
+tolerances: the same count, masks apart on at most 1% of pairs, s, R, t
+within 1e-4.
 """
 
 import os
