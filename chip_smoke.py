@@ -825,10 +825,11 @@ def render_all(scene, cam, poses, h: int, w: int):
         return list(pool.map(lambda p: scene.render(cam, p[0], p[1], h=h, w=w), poses))
 
 
-def slice_setup():
+def slice_setup(n_render: int = N_FRAMES):
     """The smoke run's slice at ``bench.py``'s mono width: (camera, ground-truth
     poses, rendered uint8 frames, depth maps, slice config).  Frames are
-    rendered on the host by the port's numpy PlaneScene."""
+    rendered on the host by the port's numpy PlaneScene; only the first
+    `n_render` of them where fewer are asked for."""
     import numpy as np
 
     from orb_slam2_annotate_tpu_torch.geometry.camera import CameraModel
@@ -839,12 +840,141 @@ def slice_setup():
     scene = synthetic.PlaneScene(seed=1)
     poses = synthetic.orbit_trajectory(N_FRAMES, step=0.05)
     frames, depths = [], []
-    for img, dep in render_all(scene, cam, poses, 480, 640):
+    for img, dep in render_all(scene, cam, poses[:n_render], 480, 640):
         frames.append(np.clip(img, 0, 255).astype(np.uint8))
         depths.append(dep)
     cfg = mono_slice_config(n_features=1024, n_levels=8, max_kf=128, max_mp=16384,
                             max_frames_between_kf=6, init_min_matches=60)
     return cam, poses, frames, depths, cfg
+
+
+def k1_cases() -> dict:
+    """Kernel 1's inputs (phase 3, tools/k1_stages.py): {name: (f32 image
+    [H,W] in 0-255, n_levels, scale)}: the slice's frames 0 and 4 and frame
+    0's stereo right image (VGA, 8 levels), the loop cell's first frame
+    (QVGA, 4 levels), an integer image of flat blocks 0, 7, 8, 20 or 21
+    grey levels apart (FAST strengths exactly at both thresholds, plateaus,
+    NMS ties) and frame 4 cut to 250 x 333 (sides no multiple of the tile
+    or of 4)."""
+    import numpy as np
+
+    from orb_slam2_annotate_tpu_torch.geometry.camera import CameraModel
+    from orb_slam2_annotate_tpu_torch.io import synthetic
+    from orb_slam2_annotate_tpu_torch.pipeline import SlamConfig
+
+    cam = CameraModel.create(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480)
+    poses = synthetic.orbit_trajectory(N_FRAMES, step=0.05)
+    shift = np.array([BASELINE, 0.0, 0.0], np.float32)
+    views = [poses[0], poses[4], (poses[0][0], np.asarray(poses[0][1], np.float32) - shift)]
+    f32 = lambda img: np.clip(img, 0, 255).astype(np.uint8).astype(np.float32)
+    f0, f4, r0 = (f32(img) for img, _ in render_all(synthetic.PlaneScene(seed=1), cam, views, 480, 640))
+    qcam = CameraModel.create(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=320, height=240)
+    R, t = synthetic.circle_trajectory(LOOP_FRAMES, radius=1.8, turns=1.04)[0]
+    loop0 = f32(synthetic.RoomScene(seed=2).render(qcam, R, t, h=240, w=320)[0])
+    rng = np.random.default_rng(22)
+    steps = np.array([-21, -20, -8, -7, 0, 7, 8, 20, 21], np.float32)
+    plat = np.full((480, 640), 100.0, np.float32)
+    for _ in range(4000):
+        h, w = rng.integers(1, 12, 2)
+        y, x = rng.integers(0, 480 - h), rng.integers(0, 640 - w)
+        plat[y:y + h, x:x + w] = 100.0 + rng.choice(steps)
+    vga, qvga = SlamConfig().extractor, SlamConfig(n_features=512, n_levels=4).extractor
+    return {"slice frame 0": (f0, vga.n_levels, vga.scale),
+            "slice frame 4": (f4, vga.n_levels, vga.scale),
+            "stereo right image of frame 0": (r0, vga.n_levels, vga.scale),
+            "loop frame 0 (QVGA, 4 levels)": (loop0, qvga.n_levels, qvga.scale),
+            "plateaus, strengths at 7 and 20": (plat, vga.n_levels, vga.scale),
+            "frame 4 cut to 250 x 333": (np.ascontiguousarray(f4[:250, :333]), vga.n_levels,
+                                         vga.scale)}
+
+
+def k3a_cases(feats, poses, cam, cfg, dev, k3, gen) -> dict:
+    """Kernel 3's inputs (phase 3, tools/k3a_stages.py) from the slice's
+    frames 0-20 as extracted (`feats`), the gates made with `k3` (the
+    wrapper module of the tree under test): {name: (desc1, desc2, row_valid,
+    col_valid, gate, [(max_dist, ratio, mutual)] or None for the default
+    grid)}.  The main path's calls (window + octave band at B = 1, the
+    initialization window, the epipolar gate at B = 20, validity at B = 8,
+    a window at B = 2 and B = 11) and the edges: a dense mask, every row
+    invalid, N2 = 1000, N1 = 1, repeated rows against unique columns (tied
+    distances and column minima), every descriptor equal, desc1 off a 16-byte
+    boundary and a column exactly on a window's circle."""
+    import numpy as np
+    import torch
+
+    from orb_slam2_annotate_tpu_torch.ops import matching
+    from orb_slam2_annotate_tpu_torch.pipeline import local_mapping, tracking
+
+    cur = feats[4]
+    d1 = torch.cat([f.desc for f in feats[:4]])                       # 4096 "map points"
+    xy1 = torch.cat([f.xy for f in feats[:4]])
+    oc1 = torch.cat([f.octave for f in feats[:4]])
+    ok1 = torch.cat([f.valid for f in feats[:4]])
+    radius = (15.0 * 1.2 ** oc1.float()).contiguous()
+    win_4k = k3.WindowGate(xy1, radius, cur.xy, oc1, cur.octave, -1, 1)
+    win_1k = k3.WindowGate(xy1[3072:], radius[3072:], cur.xy, oc1[3072:], cur.octave, -1, 1)
+    mask_1k = k3.gate_mask(win_1k).contiguous()
+    f0 = feats[0]
+    stack = lambda name, fs=feats[1:21]: torch.stack([getattr(f, name) for f in fs]).contiguous()
+    R0, t0 = (torch.from_numpy(a).to(dev) for a in poses[0])
+    Rs = torch.stack([torch.from_numpy(poses[k][0]) for k in range(1, 21)]).to(dev)
+    ts = torch.stack([torch.from_numpy(poses[k][1]) for k in range(1, 21)]).to(dev)
+    F12 = local_mapping._fundamental_between(cam, R0, t0, Rs, ts).contiguous()
+    inv_s2 = tracking.inv_sigma2(torch.arange(cfg.n_levels, device=dev)).contiguous()
+    ex1 = torch.rand(1024, generator=gen, device=dev) < 0.2
+    ex2 = torch.rand(20, 1024, generator=gen, device=dev) < 0.2
+    epi = k3.EpipolarGate(F12, f0.xy, stack("xy"), stack("octave"), inv_s2)
+    d8 = torch.stack([f.desc for f in feats[5:13]])
+    v8 = torch.stack([f.valid for f in feats[5:13]])
+    fb = feats[5:16]                                                  # B = 11, as the fuse's
+    rep = lambda t, n: t[None].expand(n, *t.shape).contiguous()
+    win_11 = k3.WindowGate(rep(xy1[3072:], 11), rep(radius[3072:], 11), stack("xy", fb),
+                           rep(oc1[3072:], 11), stack("octave", fb), -1, 1)
+    win_2 = k3.WindowGate(rep(xy1[3072:], 2), 20.0, stack("xy", feats[4:6]))
+    win_1000 = k3.WindowGate(xy1[3072:], radius[3072:], cur.xy[:1000].contiguous(), oc1[3072:],
+                             cur.octave[:1000].contiguous(), -1, 1)
+    pool = cur.desc[:8]                                              # ties: rows repeat 8 descriptors
+    pick = torch.randint(0, 8, (1024,), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    cols = torch.cat([cur.desc[512:], pool, cur.desc[8:512]])[:1024].contiguous()
+    same = cur.desc[:1].expand(1024, -1).contiguous()
+    # desc1 4 bytes off a 16-byte boundary (the kernel stages such rows word by word)
+    off = torch.empty(1024 * 16 + 1, dtype=torch.int32, device=dev)[1:].view(1024, 16)
+    off.copy_(d1[3072:])
+    # one warp's 32 columns, the nearest exactly on the row's circle (radius 10
+    # about (100, 100)), the others a float step or more beyond
+    ring = 110.0 + torch.arange(32, device=dev, dtype=torch.float32) * float(np.spacing(np.float32(110)))
+    on_x = torch.stack([ring, torch.full_like(ring, 100.0)], 1)
+    at100 = torch.full((1, 2), 100.0, device=dev)
+    lo_hi = [(matching.TH_LOW, 0.75, False), (matching.TH_LOW, 0.75, True),
+             (matching.TH_LOW, 1.0, False), (matching.TH_LOW, 1.0, True)]
+    return {
+        "window+octave B=1 4096x1024": (d1, cur.desc, ok1, cur.valid, win_4k, None),
+        "window+octave B=1 1024x1024": (d1[3072:], cur.desc, ok1[3072:], cur.valid, win_1k, None),
+        "initialization window B=1": (f0.desc, cur.desc, f0.valid & (f0.octave == 0),
+                                      cur.valid & (cur.octave == 0),
+                                      k3.WindowGate(f0.xy, 100.0, cur.xy), [(matching.TH_LOW, 0.9, False)]),
+        "dense mask B=1 1024x1024": (d1[3072:], cur.desc, None, None, k3.MaskGate(mask_1k), None),
+        "epipolar B=20": (f0.desc, stack("desc"), f0.valid & ~ex1, stack("valid") & ~ex2, epi,
+                          [(matching.TH_LOW, 1.0, False), (matching.TH_LOW, 1.0, True)]),
+        "validity B=8 shared desc2": (d8, cur.desc, v8, cur.valid, None,
+                                      [(matching.TH_LOW, 0.75, False), (matching.TH_LOW, 0.75, True)]),
+        "window+octave B=11 1024x1024": (rep(d1[3072:], 11), stack("desc", fb), rep(ok1[3072:], 11),
+                                         stack("valid", fb), win_11, None),
+        "window B=2 1024x1024": (rep(d1[3072:], 2), stack("desc", feats[4:6]), None,
+                                 stack("valid", feats[4:6]), win_2, None),
+        "every row invalid": (d1[3072:], cur.desc, torch.zeros_like(ok1[3072:]), cur.valid, win_1k,
+                              None),
+        "N2 = 1000": (d1[3072:], cur.desc[:1000].contiguous(), ok1[3072:],
+                      cur.valid[:1000].contiguous(), win_1000, None),
+        "N1 = 1": (d1[3100:3101].contiguous(), cur.desc, None, cur.valid, None, lo_hi),
+        "ties: rows repeat 8 descriptors, each in one column": (pool[pick].contiguous(), cols, None,
+                                                               None, None, lo_hi),
+        "every descriptor equal": (same, same, None, None, None, lo_hi),
+        "desc1 off 16-byte alignment": (off, cur.desc, ok1[3072:], cur.valid, win_1k, None),
+        "window, the nearest column on the circle": (cur.desc[:1], cur.desc[:32].contiguous(), None, None,
+                                                     k3.WindowGate(at100, 10.0, on_x), lo_hi),
+    }
 
 
 def kidnap_setup(cam):
@@ -1927,6 +2057,12 @@ def grid_ba_synthetic(dev, seed: int = 12) -> dict:
             R, t, X, _, _ = k12.grid_ba_solve(cam, g, iters, robust, lam0, ladder)
             if not (torch.equal(R, g.R) and torch.equal(t, g.t) and torch.equal(X, g.points)):
                 fail("grid_ba: a solve whose every try is refused moved the state")
+    # fewer cameras than the slice's 32 (half of them free), the seeds of
+    # tools/k12_stages.py --against
+    for C, seed in ((5, 13), (11, 14), (16, 15)):
+        name = f"synthetic C {C}, N {GBA_CASE_SIZE[1]}, P {GBA_CASE_SIZE[2]}"
+        g = grid_on(cases["grid_problem"](seed, C, *GBA_CASE_SIZE[1:]), dev)
+        out[name] = grid_ba_check(name, cam, g, 4)
     grid_ba_require(out)
     return out
 
@@ -3706,30 +3842,36 @@ def main():
               f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes:.4g} B, {ops:.4g} ops, "
               f"{tc_ops:.4g} tensor-core ops) {extra or ''}")
 
-    # kernel 1: the whole pyramid of frame 0, all four stacks
+    # kernel 1: a frame's whole pyramid, all four stacks bit for bit the
+    # twin's (torch.equal, no tolerance) on every input of k1_cases
     fast_args = (cfg.th_fast_lo, cfg.th_fast_hi, cfg.margin)
+    names1 = ("pyr3", "pyr3_blur", "score", "is_hi")
+    cases1 = {}
+    for name, (img_np, n_lev, scale) in k1_cases().items():
+        img = torch.from_numpy(img_np).to(dev)
+        lt_c = pyramid.level_tables(*img.shape, n_lev, scale, dev)
+        got, ref = k1.fast_nms(img, lt_c, *fast_args), k1.fast_nms_frame_plain(img, lt_c, *fast_args)
+        torch.cuda.synchronize()
+        differ = [n for n, x, y in zip(names1, got, ref) if not torch.equal(x, y)]
+        if differ:
+            fail(f"fast_nms differs from its twin on {name} in {differ}: max abs err "
+                 f"{[float((x.float() - y.float()).abs().max()) for x, y in zip(got, ref)]}")
+        cases1[name] = {"shape": list(img.shape), "levels": n_lev,
+                        "kept": int((ref[2] > 0).sum()), "hi": int(ref[3].sum())}
+    print(f"fast_nms vs twin, all four stacks bit for bit: {json.dumps(cases1)}")
     image = torch.from_numpy(frames[0]).to(dev).float()
     lt = pyramid.level_tables(480, 640, cfg.n_levels, cfg.scale, dev)
     got1 = k1.fast_nms(image, lt, *fast_args)
-    ref1 = k1.fast_nms_frame_plain(image, lt, *fast_args)
-    torch.cuda.synchronize()
-    names1 = ("pyr3", "pyr3_blur", "score", "is_hi")
-    errs1 = {n: float((a.float() - b.float()).abs().max()) for n, a, b in zip(names1, got1, ref1)}
-    exact1 = all(torch.equal(a, b) for a, b in zip(got1, ref1))
-    if not exact1:
-        # the levels within 1e-4 (0-255 scale); the rest exact given the kernel's own levels
-        own = k1.detect_stack_plain(got1[0], lt, *fast_args)
-        if errs1["pyr3"] > 1e-4 or not all(torch.equal(a, b) for a, b in zip(got1[1:], own)):
-            fail(f"fast_nms differs from its frame-wide twin: {errs1}")
-    print(f"fast_nms vs frame-wide twin: bit-exact {exact1}, max abs err {json.dumps(errs1)}")
     H0, W0 = 480, 640
     pixels = sum(h * w for h, w in lt.shapes)
     resize_ops = sum(2 * (h * W0 * ty + h * w * tx)
                      for l, ((h, w), (ty, tx)) in enumerate(zip(lt.shapes, lt.taps)) if l > 0)
-    record("fast_nms", max(errs1.values()), time_ms(lambda: k1.fast_nms(image, lt, *fast_args)),
+    record("fast_nms", 0.0, time_ms(lambda: k1.fast_nms(image, lt, *fast_args)),
            time_ms(lambda: k1.fast_nms_frame_plain(image, lt, *fast_args), 10),
            4 * H0 * W0 + cfg.n_levels * H0 * W0 * (3 * 4 + 1),
-           resize_ops + (BLUR_OPS_PER_PIXEL + FAST_OPS_PER_PIXEL) * pixels, bit_exact=exact1,
+           resize_ops + (BLUR_OPS_PER_PIXEL + FAST_OPS_PER_PIXEL) * pixels, bit_exact=True,
+           cases=cases1, graph_us=graph_us(lambda: k1.fast_nms(image, lt, *fast_args)),
+           host_ns=round(host_ns(lambda: k1.fast_nms(image, lt, *fast_args)), 1),
            **device_kernels(lambda: k1.fast_nms(image, lt, *fast_args), 1))
 
     # kernel 2: a frame's selection, angles and descriptors from kernel 1's
@@ -3766,41 +3908,12 @@ def main():
            keypoints_exact=True, same_bin_fraction=frac2,
            **device_kernels(lambda: k2.orb_describe(*stacks, dt, tab), 2))
 
-    # kernel 3: every gate kind, integer outputs exactly equal to the twin
+    # kernel 3: every gate kind and the edge cases (k3a_cases), integer
+    # outputs exactly equal to the twin
     feats = [extractor.extract(torch.from_numpy(f).to(dev), tab, cfg) for f in frames[:21]]
     cur = feats[4]
-    d1 = torch.cat([f.desc for f in feats[:4]])                       # 4096 "map points"
-    xy1 = torch.cat([f.xy for f in feats[:4]])
-    oc1 = torch.cat([f.octave for f in feats[:4]])
-    ok1 = torch.cat([f.valid for f in feats[:4]])
-    radius = (15.0 * 1.2 ** oc1.float()).contiguous()
-    win_4k = k3.WindowGate(xy1, radius, cur.xy, oc1, cur.octave, -1, 1)
-    win_1k = k3.WindowGate(xy1[3072:], radius[3072:], cur.xy, oc1[3072:], cur.octave, -1, 1)
-    mask_1k = k3.gate_mask(win_1k).contiguous()
+    cases3 = k3a_cases(feats, poses, cam, cfg, dev, k3, gen)
     f0 = feats[0]
-    stack = lambda name: torch.stack([getattr(f, name) for f in feats[1:21]]).contiguous()
-    R0, t0 = (torch.from_numpy(a).to(dev) for a in poses[0])
-    Rs = torch.stack([torch.from_numpy(poses[k][0]) for k in range(1, 21)]).to(dev)
-    ts = torch.stack([torch.from_numpy(poses[k][1]) for k in range(1, 21)]).to(dev)
-    F12 = local_mapping._fundamental_between(cam, R0, t0, Rs, ts).contiguous()
-    inv_s2 = tracking.inv_sigma2(torch.arange(cfg.n_levels, device=dev)).contiguous()
-    ex1 = torch.rand(1024, generator=gen, device=dev) < 0.2
-    ex2 = torch.rand(20, 1024, generator=gen, device=dev) < 0.2
-    epi = k3.EpipolarGate(F12, f0.xy, stack("xy"), stack("octave"), inv_s2)
-    d8 = torch.stack([f.desc for f in feats[5:13]])
-    v8 = torch.stack([f.valid for f in feats[5:13]])
-    cases3 = {   # name: (desc1, desc2, row_valid, col_valid, gate, [(max_dist, ratio, mutual)])
-        "window+octave B=1 4096x1024": (d1, cur.desc, ok1, cur.valid, win_4k, None),
-        "window+octave B=1 1024x1024": (d1[3072:], cur.desc, ok1[3072:], cur.valid, win_1k, None),
-        "initialization window B=1": (f0.desc, cur.desc, f0.valid & (f0.octave == 0),
-                                      cur.valid & (cur.octave == 0),
-                                      k3.WindowGate(f0.xy, 100.0, cur.xy), [(matching.TH_LOW, 0.9, False)]),
-        "dense mask B=1 1024x1024": (d1[3072:], cur.desc, None, None, k3.MaskGate(mask_1k), None),
-        "epipolar B=20": (f0.desc, stack("desc"), f0.valid & ~ex1, stack("valid") & ~ex2, epi,
-                          [(matching.TH_LOW, 1.0, False), (matching.TH_LOW, 1.0, True)]),
-        "validity B=8 shared desc2": (d8, cur.desc, v8, cur.valid, None,
-                                      [(matching.TH_LOW, 0.75, False), (matching.TH_LOW, 0.75, True)]),
-    }
     default3 = [(mx, ratio, mutual) for mutual in (False, True)
                 for mx, ratio in ((matching.TH_HIGH, 0.9), (matching.TH_LOW, 1.0))]
     err3, n_matched3 = 0, {}
@@ -3843,7 +3956,22 @@ def main():
                       ("b8_shared", "validity B=8 shared desc2")):
         extra3[f"ms_{key}"] = match_ms(name)
         extra3[f"bound_ms_{key}"] = bound(*match_work(*cases3[name][:5]))[0]
+    # graph replays at each batch size of the main path, and the wrapper's
+    # host time by part at B = 1 (the arguments and checks, the two outputs,
+    # the whole call)
+    for key, name in (("b1", "window+octave B=1 4096x1024"), ("b2", "window B=2 1024x1024"),
+                      ("b8", "validity B=8 shared desc2"), ("b11", "window+octave B=11 1024x1024"),
+                      ("b20", "epipolar B=20")):
+        da, db, rva, cva, gate, _ = cases3[name]
+        extra3[f"graph_us_{key}"] = graph_us(
+            lambda: k3.hamming_match(da, db, rva, cva, matching.TH_HIGH, 0.8, False, gate))
     main3 = cases3["window+octave B=1 4096x1024"]
+    call3 = (*main3[:4], matching.TH_HIGH, 0.8, False, main3[4])
+    extra3["host_ns_b1"] = host_parts("hamming_match, B = 1", {
+        "args and checks": lambda: k3._match_args(*call3),
+        "two outputs": lambda: (torch.empty(4096, dtype=torch.int32, device=dev),
+                                torch.empty(4096, dtype=torch.int32, device=dev)),
+        "whole call": lambda: k3.hamming_match(*call3)})
     record("hamming_match", err3, match_ms("window+octave B=1 4096x1024"),
            time_ms(lambda: k3.hamming_match_plain(*main3[:4], matching.TH_HIGH, 0.8, False, main3[4]),
                    10),
@@ -5334,7 +5462,11 @@ def main():
         fail(f"double loser: the later merge pair's winner (point 2) was not kept: {core_checks}")
     # kernel 3 on the captured neighbour fuse's own launch (B = 11)
     a3, kw3 = k3_fuse["args"]
-    results["hamming_match"]["captured_fuse"] = {
+    got3, want3 = real_match(*a3, **kw3), k3.hamming_match_plain(*a3, **kw3)
+    if not (torch.equal(got3[0], want3[0]) and torch.equal(got3[1], want3[1])):
+        fail(f"hamming_match differs from its twin on the captured fuse launch "
+             f"({int((got3[0] != want3[0]).sum())} rows)")
+    results["hamming_match"]["captured_fuse"] = {"equal_to_twin": True,
         "B": a3[0].shape[0], "Q": a3[0].shape[1], "N": a3[1].shape[-2],
         "ms": time_ms(lambda: real_match(*a3, **kw3)),
         "graph_us": graph_us(lambda: real_match(*a3, **kw3))}

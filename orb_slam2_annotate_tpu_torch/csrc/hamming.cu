@@ -17,27 +17,50 @@
 // launches and host work decide the time: the design makes one launch per
 // call, however many problems the call batches.
 //
-// Design (a), one launch: grid (row tiles, B).  A CTA takes ROWS query rows
-// of one problem and streams that problem's desc2 through shared memory in
-// tiles of NT columns, double-buffered with 16-byte cp.async (chunks
-// XOR-swizzled so that the per-thread 64-byte column reads hit distinct
-// banks); each desc2 word is read from L2 once per CTA, not once per row.
-// Thread t owns column t of every tile: for each of the CTA's rows it
-// evaluates the gate, counts bits with __popc, keeps a running
-// (best, first index, second) per row in registers, and keeps the column's
-// minimum over the CTA's rows of the packed key (dist << 32 | row) in a
-// register, so there is one global atomicMin per column per CTA (and none
-// where no row of the CTA is gated in).  Warp shuffles and one shared-memory
-// step then merge the per-thread row states.  Finishing needs the column
-// minima of the whole problem, which every CTA of it contributes: the last
-// CTA of each problem to arrive (an atomic ticket taken after
-// __threadfence(), the threadFenceReduction pattern) applies the distance
-// gate, the ratio test and the column-min dedup or the mutual check to all
-// rows of that problem, then resets the problem's column keys and ticket for
-// the next call.  A cooperative launch with a grid-wide sync would need
-// every CTA resident at once, which B = 20 problems of 64-128 CTAs each
-// are not.  The workspace (column keys, row states, tickets) belongs to the
-// device and is reused by every call on the stream.
+// Design (a), one launch: grid (row blocks x column splits, B).  A CTA takes
+// MNT = 256 rows of one problem, a warp 32 of them (lane i row i), and one
+// split of at most CS_MAX columns (the wrapper's `cs`: 256, halved down to 64
+// while the grid would fill fewer than two CTAs an SM of the H100's 132).
+// The rows and the split's descriptors go to shared memory by cp.async (rows
+// padded to 20 words, so the 16-byte and fragment loads below hit distinct
+// banks), with each column's gate terms, popcount and validity; no load
+// waits on a validity flag.  A lane keeps its row's gate terms and running
+// (best, first index, second) in registers.  The warp walks the split in
+// chunks of 32 columns:
+//  - the gate first: lane i tests its row against the chunk's 32 columns
+//    (their terms read as broadcasts), a bit a column; the epipolar test in a
+//    branch-free pass, IEEE's division after it for the few quotients near
+//    the threshold;
+//  - a chunk that no lane gates is done;
+//  - the gated pairs' distances: where no lane has more than POPC_MAX of
+//    them, 16 XOR + __popc a pair from the staged rows; else 16
+//    mma.sync.m16n8k256.b1.and.popc for the warp's 32 rows x the chunk's 32
+//    columns (a b1 mma costs about what 8 pairs' popcounts do on this card),
+//    through a per-warp shared buffer so that lane i reads row i's, and d =
+//    popc(row) + popc(column) - 2 popc(row AND column), exact integers;
+//  - each lane merges its gated columns, from the chunk's column i on (so
+//    that where every pair is gated no two lanes update one column key at
+//    once), by (distance, then index), and lowers the column's key (d << 22
+//    | row) in shared memory with atomicMin.
+// So a pair costs the gate's few operations; distances, merges and key
+// updates follow the gated pairs.  The ungated columns of a split read
+// MAX_DIST: they enter a row's state as one term (MAX_DIST, the split's
+// first ungated column, MAX_DIST if there are two or more), counted, not
+// walked.  The CTA then lowers the global column keys (one atomicMin a
+// column it touched) and, where the row block has several splits, stores
+// its rows' 8-byte records; the last split of the row block to arrive (an
+// atomic ticket after __threadfence(), the threadFenceReduction pattern)
+// merges the others' records into its registers (all loads issued first),
+// applies the distance gate and the ratio test, writes the rows that fail
+// them as unmatched and appends the rest to the problem's candidates (a
+// warp's in one atomicAdd).  The last row block of the problem to arrive (a
+// second ticket) checks the candidates alone against the final column keys
+// (the column-min dedup or the mutual check), RPT a thread loaded ahead, and
+// resets the problem's keys, count and tickets for the next call.  A
+// cooperative launch with a grid-wide sync would need every CTA resident at
+// once, which B = 20 problems are not.  The workspace (column keys, records,
+// candidates, tickets) belongs to the device and is reused by every call on
+// the stream.
 //
 // Bit for bit as the plain torch version (kernels/hamming.py): best is the
 // first column on ties; second is the minimum over every other column
@@ -70,11 +93,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define NT 256
 #define WORDS 16
 #define MAX_DIST 512
-#define KEY_INIT (((unsigned long long)MAX_DIST) << 32)   // row 0 at MAX_DIST
-#define NO_DIST (MAX_DIST + 1)                              // "no column yet"
+#define NO_DIST (MAX_DIST + 1)                       // "no column yet"
+#define MW 8                                         // warps a CTA, 32 rows each
+#define MNT (MW * 32)                                // threads, and rows, a CTA
+#define CS_MAX 256                                   // columns a split (a CTA's shared memory)
+#define CSTR 20                                      // words a staged column: 16 + 4 of padding
+#define TSTR 17                                      // words a row of a warp's AND-popcounts
+#define ROW_BITS 22                                  // a row index in a column key
+#define KEY_INIT ((unsigned)MAX_DIST << ROW_BITS)    // row 0 at MAX_DIST
+#define AHEAD 16                                     // records a thread loads before it uses them
+#define RPT 4                                        // candidates a thread of the finish loads ahead
+#define POPC_MAX 6                                   // gated columns a lane may have in a chunk for popcounts
 
 enum { GATE_NONE = 0, GATE_WINDOW = 1, GATE_EPIPOLAR = 2, GATE_MASK = 3 };
 
@@ -96,10 +127,13 @@ struct MatchArgs {
     const uint8_t* mask; long long s_mask;
     int B, N1, N2, gate, max_dist, mutual;
     float ratio;
-    unsigned long long* colkey;   // [B,N2], KEY_INIT between calls
-    int* rowstate;                // [B,N1,3] best, first index, second
-    unsigned int* ticket;         // [B], 0 between calls
-    int* out;                     // [2,B,N1]: idx, then dist
+    int cs;                       // columns a split: a multiple of 32, at most CS_MAX
+    unsigned* colkey;             // [B,N2] d << ROW_BITS | row; KEY_INIT between calls
+    int2* rowstate;               // [B,S+1,N1] a split's (best | second << 16, first index);
+                                  // then the candidates (row | best << 22, first index)
+    unsigned* ticket;             // [B,RB+2] a row block's splits, the problem's row blocks,
+                                  // its candidates; 0 between calls
+    int* idx; int* dist;          // [B,N1] each
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -107,10 +141,7 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(s), "l"(gmem));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-// 16-byte chunk p (0-3) of tile column c lives at chunk c*4 + (p ^ ((c>>1)&3))
-__device__ __forceinline__ int chunk_slot(int c, int p) { return c * 4 + (p ^ ((c >> 1) & 3)); }
+__device__ __forceinline__ void cp_async_wait0() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
 // merge (b, i, s) into (best, idx, second): lower distance, then lower index wins
 __device__ __forceinline__ void merge(int& best, int& idx, int& second, int b, int i, int s) {
@@ -123,179 +154,372 @@ __device__ __forceinline__ void merge(int& best, int& idx, int& second, int b, i
     }
 }
 
-template <int ROWS>
-__global__ void __launch_bounds__(NT) hamming_match_fused(const MatchArgs a) {
-    __shared__ __align__(16) int4 tile[2][NT * 4];
-    __shared__ __align__(16) int q[ROWS][WORDS];
-    __shared__ float rg[ROWS][4];                 // per-row gate terms
-    __shared__ int ro[ROWS];                      // per-row predicted octave
-    __shared__ int rok[ROWS];                     // row valid
-    __shared__ int red[NT / 32][ROWS][3];
-    __shared__ int any_row, is_last;
+// D = popc(A AND B) + C for a 16x256 (row) by 256x8 (col) bit tile
+__device__ __forceinline__ void mma_and_popc(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                             unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-    const int b = blockIdx.y, r0 = blockIdx.x * ROWS, tid = threadIdx.x;
-    const int N1 = a.N1, N2 = a.N2;
-    const int nrows = min(ROWS, N1 - r0);
-    const int* d2 = a.d2 + (size_t)b * a.s_d2;
-
-    if (tid == 0) any_row = 0;
-    __syncthreads();
-    for (int k = tid; k < ROWS * WORDS; k += NT) {
-        const int r = k / WORDS, w = k % WORDS;
-        q[r][w] = r < nrows ? a.d1[(size_t)b * a.s_d1 + (size_t)(r0 + r) * WORDS + w] : 0;
+// a window pair's gate, in the plain version's order
+__device__ __forceinline__ bool window_pass(const float4 t, float px, float py, float r2, bool oct,
+                                            int olo, int ohi) {
+    const float dx = px - t.x, dy = py - t.y;
+    bool g = dx * dx + dy * dy <= r2;
+    if (oct) {
+        const int o2 = __float_as_int(t.z);
+        g = g && o2 >= olo && o2 <= ohi;
     }
-    if (tid < ROWS) {
-        const int r = tid, i = r0 + r;
-        int ok = r < nrows;
-        if (ok && a.rv) ok = a.rv[(size_t)b * a.s_rv + i] != 0;
-        rok[r] = ok;
-        if (ok) atomicOr(&any_row, 1);
-        float g0 = 0.f, g1 = 0.f, g2 = 0.f, g3 = 0.f;
-        int po = 0;
-        if (ok && a.gate == GATE_WINDOW) {
-            const float* p = a.pxy + (size_t)b * a.s_pxy + (size_t)i * 2;
-            const float r_ = a.rad ? a.rad[(size_t)b * a.s_rad + i] : a.rad_scalar;
-            g0 = p[0];
-            g1 = p[1];
-            g2 = r_ * r_;
-            if (a.use_oct) po = a.poct[(size_t)b * a.s_poct + i];
-        } else if (ok && a.gate == GATE_EPIPOLAR) {
-            const float* F = a.F + (size_t)b * a.s_F;
-            const float* p = a.xy1 + (size_t)b * a.s_xy1 + (size_t)i * 2;
-            const float x = p[0], y = p[1];
-            g0 = x * F[0] + y * F[3] + F[6];           // [x, y, 1] @ F12, term by term
-            g1 = x * F[1] + y * F[4] + F[7];
-            g2 = x * F[2] + y * F[5] + F[8];
-            g3 = fmaxf(g0 * g0 + g1 * g1, 1e-12f);
+    return g;
+}
+
+// 32 gate bits of a lane's row against a chunk's columns `ct` (bit c: column c)
+__device__ __forceinline__ unsigned window_bits(const float4* ct, float px, float py, float r2,
+                                                bool oct, int olo, int ohi) {
+    unsigned m = 0;
+#pragma unroll
+    for (int c = 0; c < 32; ++c) m |= (unsigned)window_pass(ct[c], px, py, r2, oct, olo, ohi) << c;
+    return m;
+}
+
+// the epipolar test v^2 / den < thr without its division where the quotient,
+// within three float32 roundings of v^2 x (1 / den), lies beyond 2^-20 of thr
+// (the column's t.z, t.w): a branch-free pass over the 32 columns, then
+// IEEE's division for the few near thr (or NaN)
+__device__ __forceinline__ unsigned epipolar_bits(const float4* ct, const float* thr, float g0,
+                                                  float g1, float g2, float den, float rden) {
+    unsigned m = 0, near = 0;
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+        const float4 t = ct[c];
+        const float v = g0 * t.x + g1 * t.y + g2;
+        const float qa = (v * v) * rden;
+        m |= (unsigned)(qa < t.z) << c;
+        near |= (unsigned)(!(qa < t.z) && !(qa > t.w)) << c;
+    }
+    while (near) {
+        const int c = __ffs(near) - 1;
+        near &= near - 1u;
+        const float4 t = ct[c];
+        const float v = g0 * t.x + g1 * t.y + g2;
+        m |= (unsigned)((v * v) / den < thr[c]) << c;
+    }
+    return m;
+}
+
+// merge a gated pair (d, column j) into a lane's state, by distance and then index
+__device__ __forceinline__ void take(int& best, int& bidx, int& second, int d, int j) {
+    if (d < best || (d == best && j < bidx)) { second = best; best = d; bidx = j; }
+    else second = min(second, d);
+}
+
+// the Hamming distance of a staged row and a staged column (16 popcounts)
+__device__ __forceinline__ int popc_dist(const uint4* x, const uint4* y) {
+    int d = 0;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+        const uint4 u = x[p], v = y[p];
+        d += __popc(u.x ^ v.x) + __popc(u.y ^ v.y) + __popc(u.z ^ v.z) + __popc(u.w ^ v.w);
+    }
+    return d;
+}
+
+// the kernel's dynamic shared memory, in bytes: rows and columns, the
+// columns' terms, popcounts and keys, the per-warp AND-popcounts, the
+// chunks' valid columns
+#define SMEM_MATCH (2 * CS_MAX * CSTR * 4 + CS_MAX * (16 + 4 + 4 + 4) + MW * 32 * TSTR * 4 + CS_MAX / 8)
+
+__global__ void __launch_bounds__(MNT, 3) hamming_match_fused(const MatchArgs a) {
+    static_assert(MNT == CS_MAX, "a thread stages a row and a column");
+    extern __shared__ __align__(16) unsigned char smem[];
+    unsigned* rdesc = reinterpret_cast<unsigned*>(smem);            // the CTA's rows [MNT][CSTR]
+    unsigned* cdesc = rdesc + MNT * CSTR;                           // the split's columns [CS_MAX][CSTR]
+    float4* cterm = reinterpret_cast<float4*>(cdesc + CS_MAX * CSTR);   // window: x2, y2, octave
+                                        // (bits); epipolar: x2, y2, thr (1 - 2^-20), thr (1 + 2^-20)
+    float* cthr = reinterpret_cast<float*>(cterm + CS_MAX);         // epipolar: thr
+    int* cpop = reinterpret_cast<int*>(cthr + CS_MAX);              // popc(column)
+    unsigned* ckey = reinterpret_cast<unsigned*>(cpop + CS_MAX);    // the CTA's column keys
+    unsigned* tand = ckey + CS_MAX;                                 // a warp's popc(row AND column)
+                                                                    // [MW][32 rows][TSTR]
+    unsigned* cvalid = tand + MW * 32 * TSTR;                       // a chunk's valid columns
+    __shared__ int is_last;
+
+    const int N1 = a.N1, N2 = a.N2, S = (N2 + a.cs - 1) / a.cs, RB = gridDim.x / S;
+    const int rb = blockIdx.x / S, split = blockIdx.x - rb * S, b = blockIdx.y;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g8 = lane >> 2, t4 = lane & 3;
+    const int c0 = split * a.cs, ncols = min(a.cs, N2 - c0);
+    const int r0 = rb * MNT, i = r0 + tid;         // the CTA's first row; this lane's row
+    const bool window = a.gate == GATE_WINDOW, spatial = window || a.gate == GATE_EPIPOLAR;
+
+    // (a) stage the CTA's rows and the split's columns by cp.async, and every
+    // gate term (the loads issued together: none waits on a validity flag)
+    {
+        const int* d1 = a.d1 + (size_t)b * a.s_d1 + (size_t)r0 * WORDS;
+        const int nrows = min(MNT, N1 - r0);
+        if (((uintptr_t)d1 & 15) == 0) {
+            for (int k = tid; k < nrows * 4; k += MNT)
+                cp_async16(&rdesc[(k >> 2) * CSTR + 4 * (k & 3)], d1 + (size_t)k * 4);
+        } else {                                    // desc1 need not be 16-byte aligned
+            for (int k = tid; k < nrows * WORDS; k += MNT)
+                rdesc[(k / WORDS) * CSTR + k % WORDS] = (unsigned)d1[k];
         }
-        rg[r][0] = g0; rg[r][1] = g1; rg[r][2] = g2; rg[r][3] = g3;
-        ro[r] = po;
-    }
-    __syncthreads();
-
-    int best[ROWS], bidx[ROWS], second[ROWS];
-    if (!any_row) {
-        // no row of this CTA is valid: every pair reads MAX_DIST, so each row's
-        // best is MAX_DIST at column 0 and its second MAX_DIST
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) { best[r] = MAX_DIST; bidx[r] = 0; second[r] = MAX_DIST; }
-    } else {
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) { best[r] = NO_DIST; bidx[r] = 0x7fffffff; second[r] = NO_DIST; }
-        const int ntiles = (N2 + NT - 1) / NT;
-        auto load_tile = [&](int t, int buf) {
-            for (int k = tid; k < NT * 4; k += NT) {
-                const int c = k >> 2, p = k & 3, j = t * NT + c;
-                if (j < N2) cp_async16(&tile[buf][chunk_slot(c, p)], d2 + (size_t)j * WORDS + p * 4);
-            }
-        };
-        load_tile(0, 0);
+        const int* d2 = a.d2 + (size_t)b * a.s_d2 + (size_t)c0 * WORDS;
+        for (int k = tid; k < ncols * 4; k += MNT)
+            cp_async16(&cdesc[(k >> 2) * CSTR + 4 * (k & 3)], d2 + (size_t)k * 4);
         cp_async_commit();
-        for (int t = 0; t < ntiles; ++t) {
-            if (t + 1 < ntiles) load_tile(t + 1, (t + 1) & 1);
-            cp_async_commit();
-            cp_async_wait1();
-            __syncthreads();
-            const int j = t * NT + tid;
-            if (j < N2) {
-                int c[WORDS];
-#pragma unroll
-                for (int p = 0; p < 4; ++p) {
-                    const int4 v = tile[t & 1][chunk_slot(tid, p)];
-                    c[4 * p] = v.x; c[4 * p + 1] = v.y; c[4 * p + 2] = v.z; c[4 * p + 3] = v.w;
-                }
-                const bool cok = a.cv ? a.cv[(size_t)b * a.s_cv + j] != 0 : true;
-                float x2 = 0.f, y2 = 0.f, thr = 0.f;
-                int o2 = 0;
-                if (a.gate == GATE_WINDOW || a.gate == GATE_EPIPOLAR) {
-                    const float* p = a.xy2 + (size_t)b * a.s_xy2 + (size_t)j * 2;
-                    x2 = p[0];
-                    y2 = p[1];
-                    if (a.gate == GATE_EPIPOLAR || a.use_oct) o2 = a.oct2[(size_t)b * a.s_oct2 + j];
-                    if (a.gate == GATE_EPIPOLAR) thr = 3.84f * (1.0f / a.isig2[o2]);
-                }
-                const uint8_t* mcol = a.gate == GATE_MASK
-                    ? a.mask + (size_t)b * a.s_mask + (size_t)r0 * N2 + j : nullptr;
-                unsigned long long ckey = KEY_INIT;
-#pragma unroll
-                for (int r = 0; r < ROWS; ++r) {
-                    bool g = rok[r] && cok;
-                    if (g) {
-                        if (a.gate == GATE_WINDOW) {
-                            const float dx = rg[r][0] - x2, dy = rg[r][1] - y2;
-                            g = dx * dx + dy * dy <= rg[r][2];
-                            if (a.use_oct) g = g && o2 >= ro[r] + a.lo && o2 <= ro[r] + a.hi;
-                        } else if (a.gate == GATE_EPIPOLAR) {
-                            const float v = rg[r][0] * x2 + rg[r][1] * y2 + rg[r][2];
-                            g = (v * v) / rg[r][3] < thr;
-                        } else if (a.gate == GATE_MASK) {
-                            g = mcol[(size_t)r * N2] != 0;
-                        }
-                    }
-                    int d = MAX_DIST;
-                    if (g) {
-                        d = 0;
-#pragma unroll
-                        for (int w = 0; w < WORDS; ++w) d += __popc((unsigned)(q[r][w] ^ c[w]));
-                        const unsigned long long key = (((unsigned long long)d) << 32) | (unsigned)(r0 + r);
-                        ckey = key < ckey ? key : ckey;
-                    }
-                    // this thread's columns arrive in increasing order
-                    if (d < best[r]) { second[r] = best[r]; best[r] = d; bidx[r] = j; }
-                    else second[r] = min(second[r], d);
-                }
-                if (ckey < KEY_INIT) atomicMin(&a.colkey[(size_t)b * N2 + j], ckey);
+        const int t = tid, j = c0 + t;
+        const bool has = t < ncols;
+        bool cok = has;
+        if (has && a.cv) cok = a.cv[(size_t)b * a.s_cv + j] != 0;
+        float4 ct = make_float4(0.f, 0.f, -INFINITY, -INFINITY);
+        float thr = 0.f;
+        if (has && spatial) {
+            const float* p = a.xy2 + (size_t)b * a.s_xy2 + (size_t)j * 2;
+            ct.x = p[0];
+            ct.y = p[1];
+            if (window) {
+                ct.z = __int_as_float(a.use_oct ? a.oct2[(size_t)b * a.s_oct2 + j] : 0);
+            } else {
+                thr = 3.84f * (1.0f / a.isig2[a.oct2[(size_t)b * a.s_oct2 + j]]);
+                const bool fast = thr > 1e-30f;
+                ct.z = fast ? thr * (1.0f - 0x1p-20f) : -INFINITY;
+                ct.w = fast ? thr * (1.0f + 0x1p-20f) : INFINITY;
             }
-            __syncthreads();   // the next iteration's load_tile refills this buffer
         }
+        cterm[t] = ct;
+        cthr[t] = thr;
+        ckey[t] = KEY_INIT;
+        const unsigned vm = __ballot_sync(0xffffffffu, cok);
+        if (lane == 0) cvalid[warp] = vm;
     }
-
-    // merge the per-thread row states: warp shuffles, then across warps
-    const int lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-        for (int o = 16; o > 0; o >>= 1) {
-            const int ob = __shfl_down_sync(0xffffffffu, best[r], o);
-            const int oi = __shfl_down_sync(0xffffffffu, bidx[r], o);
-            const int os = __shfl_down_sync(0xffffffffu, second[r], o);
-            merge(best[r], bidx[r], second[r], ob, oi, os);
+    // this lane's row: validity and gate terms
+    const bool inrow = i < N1;
+    bool rok = inrow;
+    if (inrow && a.rv) rok = a.rv[(size_t)b * a.s_rv + i] != 0;
+    float g0 = 0.f, g1 = 0.f, g2 = 0.f, g3 = 1.f, rden = 1.f;   // window: px, py, r * r
+    int olo = 0, ohi = 0;
+    const uint8_t* mrow = nullptr;
+    if (inrow && window) {
+        const float* p = a.pxy + (size_t)b * a.s_pxy + (size_t)i * 2;
+        const float r_ = a.rad ? a.rad[(size_t)b * a.s_rad + i] : a.rad_scalar;
+        g0 = p[0];
+        g1 = p[1];
+        g2 = r_ * r_;
+        if (a.use_oct) {
+            const int po = a.poct[(size_t)b * a.s_poct + i];
+            olo = po + a.lo;
+            ohi = po + a.hi;
         }
-        if (lane == 0) { red[warp][r][0] = best[r]; red[warp][r][1] = bidx[r]; red[warp][r][2] = second[r]; }
+    } else if (inrow && a.gate == GATE_EPIPOLAR) {
+        const float* F = a.F + (size_t)b * a.s_F;
+        const float* p = a.xy1 + (size_t)b * a.s_xy1 + (size_t)i * 2;
+        const float x = p[0], y = p[1];
+        g0 = x * F[0] + y * F[3] + F[6];           // [x, y, 1] @ F12, term by term
+        g1 = x * F[1] + y * F[4] + F[7];
+        g2 = x * F[2] + y * F[5] + F[8];
+        g3 = fmaxf(g0 * g0 + g1 * g1, 1e-12f);
+        rden = __frcp_rn(g3);
+    } else if (inrow && a.gate == GATE_MASK) {
+        mrow = a.mask + (size_t)b * a.s_mask + (size_t)i * N2 + c0;
+    }
+    cp_async_wait0();
+    __syncthreads();
+    const uint4* myrow = reinterpret_cast<const uint4*>(&rdesc[tid * CSTR]);
+    int pr = 0;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+        const uint4 v = myrow[p];
+        pr += __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+    }
+    if (tid < ncols) {
+        const uint4* col = reinterpret_cast<const uint4*>(&cdesc[tid * CSTR]);
+        int pc = 0;
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+            const uint4 v = col[p];
+            pc += __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+        }
+        cpop[tid] = pc;
     }
     __syncthreads();
-    if (tid < nrows) {
-        int bb = red[0][tid][0], bi = red[0][tid][1], bs = red[0][tid][2];
-        for (int w = 1; w < NT / 32; ++w) merge(bb, bi, bs, red[w][tid][0], red[w][tid][1], red[w][tid][2]);
-        int* st = a.rowstate + ((size_t)b * N1 + r0 + tid) * 3;
-        st[0] = bb;
-        st[1] = bi;
-        st[2] = min(bs, MAX_DIST);   // the plain version's second: MAX_DIST if no other column
-    }
 
-    // the last CTA of problem b finishes all its rows
+    // (b) the walk: a warp's rows against 32 columns at a time, each chunk's
+    // gate bits, then its gated pairs
+    int best = NO_DIST, bidx = 0x7fffffff, second = NO_DIST;
+    int ngated = 0, u = -1;                       // gated columns; the first ungated one
+    const bool wany = __any_sync(0xffffffffu, rok);
+    const int nchunks = (ncols + 31) >> 5;
+    unsigned* tw = tand + warp * 32 * TSTR;
+    for (int k = 0; k < nchunks; ++k) {
+        const int cb = 32 * k;
+        const unsigned exist = ncols - cb >= 32 ? 0xffffffffu : (1u << (ncols - cb)) - 1u;
+        unsigned m = 0;
+        if (wany) {
+            if (window) {
+                if (rok) m = window_bits(cterm + cb, g0, g1, g2, a.use_oct, olo, ohi);
+            } else if (a.gate == GATE_EPIPOLAR) {
+                if (rok) m = epipolar_bits(cterm + cb, cthr + cb, g0, g1, g2, g3, rden);
+            } else if (a.gate == GATE_MASK) {
+                if (rok)
+                    for (int c = 0; c < 32 && cb + c < ncols; ++c) m |= (unsigned)(mrow[cb + c] != 0) << c;
+            } else {
+                m = rok ? 0xffffffffu : 0u;
+            }
+            m &= cvalid[k];
+        }
+        ngated += __popc(m);
+        if (u < 0 && (exist & ~m)) u = c0 + cb + __ffs(exist & ~m) - 1;
+        // the most gated columns a lane has here: few, each pair's 16
+        // popcounts; more, the chunk's popc(row AND column) on the tensor cores
+        const int most = __reduce_max_sync(0xffffffffu, __popc(m));
+        if (most == 0) continue;
+        const bool tc = most > POPC_MAX;
+        if (tc) {
+            int acc[2][4][4];
+#pragma unroll
+            for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+                for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[mb][nb][e] = 0;
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {
+                // A: lane (g, t) holds words t and t + 4 of this k-step of
+                // rows g and g + 8 of each 16-row block
+                unsigned af[2][4];
+#pragma unroll
+                for (int mb = 0; mb < 2; ++mb) {
+                    const unsigned* lo = &rdesc[(warp * 32 + 16 * mb + g8) * CSTR + 8 * s + t4];
+                    af[mb][0] = lo[0]; af[mb][1] = lo[8 * CSTR]; af[mb][2] = lo[4]; af[mb][3] = lo[8 * CSTR + 4];
+                }
+#pragma unroll
+                for (int nb = 0; nb < 4; ++nb) {
+                    const unsigned* col = &cdesc[(cb + 8 * nb + g8) * CSTR + 8 * s + t4];
+#pragma unroll
+                    for (int mb = 0; mb < 2; ++mb) mma_and_popc(acc[mb][nb], af[mb], col[0], col[4]);
+                }
+            }
+            __syncwarp();                       // the previous chunk's reads are done
+#pragma unroll
+            for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+                for (int nb = 0; nb < 4; ++nb) {
+                    const int r = 16 * mb + g8, cp = 4 * nb + t4;
+                    tw[r * TSTR + cp] = (unsigned)acc[mb][nb][0] | ((unsigned)acc[mb][nb][1] << 16);
+                    tw[(r + 8) * TSTR + cp] = (unsigned)acc[mb][nb][2] | ((unsigned)acc[mb][nb][3] << 16);
+                }
+            __syncwarp();
+        }
+        // this lane's gated columns from column `lane` of the chunk on (no
+        // two lanes on one column key at once where every pair is gated)
+        unsigned mr = __funnelshift_r(m, m, lane);
+        while (mr) {
+            const int c = (__ffs(mr) - 1 + lane) & 31;
+            mr &= mr - 1u;
+            int d;
+            if (tc) {
+                const unsigned w = tw[lane * TSTR + (c >> 1)];
+                d = pr + cpop[cb + c] - 2 * (int)((w >> (16 * (c & 1))) & 0xffffu);
+            } else {
+                d = popc_dist(myrow, reinterpret_cast<const uint4*>(&cdesc[(cb + c) * CSTR]));
+            }
+            take(best, bidx, second, d, c0 + cb + c);
+            atomicMin(&ckey[cb + c], ((unsigned)d << ROW_BITS) | (unsigned)i);
+        }
+    }
+    // the split's ungated columns, each at MAX_DIST
+    const int nun = ncols - ngated;
+    if (nun > 0) merge(best, bidx, second, MAX_DIST, u, nun >= 2 ? MAX_DIST : NO_DIST);
+
+    // (c) the column keys this CTA lowered; the split's row records
+    __syncthreads();
+    if (tid < ncols && ckey[tid] < KEY_INIT) atomicMin(&a.colkey[(size_t)b * N2 + c0 + tid], ckey[tid]);
+    int2* recs = a.rowstate + (size_t)b * (S + 1) * N1;    // [S + 1][N1]: the splits', candidates
+    if (S > 1 && inrow) recs[(size_t)split * N1 + i] = make_int2(best | (second << 16), bidx);
+
+    // (d) the last split of the row block merges the others' records
+    unsigned* tk = a.ticket + (size_t)b * (RB + 2);       // row blocks', the problem's, candidates
     __threadfence();
     __syncthreads();
-    if (tid == 0) is_last = atomicAdd(&a.ticket[b], 1u) == gridDim.x - 1;
+    if (tid == 0) is_last = S == 1 || atomicAdd(&tk[rb], 1u) == (unsigned)(S - 1);
     __syncthreads();
     if (!is_last) return;
     __threadfence();
-    int* idx_out = a.out + (size_t)b * N1;
-    int* dist_out = a.out + (size_t)a.B * N1 + (size_t)b * N1;
-    for (int i = tid; i < N1; i += NT) {
-        const int* st = a.rowstate + ((size_t)b * N1 + i) * 3;
-        const int bb = __ldcg(st), j = __ldcg(st + 1), bs = __ldcg(st + 2);
-        bool ok = bb <= a.max_dist && (float)bb < a.ratio * (float)bs;
-        if (ok) {
-            const unsigned long long key = __ldcg(&a.colkey[(size_t)b * N2 + j]);
-            if (a.mutual) ok = (int)(key & 0xffffffffull) == i;
-            else ok = bb <= (int)(key >> 32);
+    if (S > 1 && inrow) {
+        for (int s0 = 0; s0 < S; s0 += AHEAD) {
+            int2 r[AHEAD];
+#pragma unroll
+            for (int k = 0; k < AHEAD; ++k) {
+                const int s = s0 + k;
+                r[k] = s < S && s != split ? __ldcg(recs + (size_t)s * N1 + i)
+                                           : make_int2(NO_DIST | (NO_DIST << 16), 0x7fffffff);
+            }
+#pragma unroll
+            for (int k = 0; k < AHEAD; ++k) merge(best, bidx, second, r[k].x & 0xffff, r[k].y, r[k].x >> 16);
         }
-        idx_out[i] = ok ? j : -1;
-        dist_out[i] = ok ? bb : MAX_DIST;
+    }
+    // the distance gate and the ratio test (the plain version's second:
+    // MAX_DIST where no other column is); a row that fails is unmatched now,
+    // one that passes joins the problem's candidates
+    int* idx_out = a.idx + (size_t)b * N1;
+    int* dist_out = a.dist + (size_t)b * N1;
+    const bool cand = inrow && best <= a.max_dist && (float)best < a.ratio * (float)min(second, MAX_DIST);
+    if (inrow && !cand) {
+        idx_out[i] = -1;
+        dist_out[i] = MAX_DIST;
+    }
+    const unsigned bal = __ballot_sync(0xffffffffu, cand);
+    unsigned at = 0;
+    if (lane == 0 && bal) at = atomicAdd(&tk[RB + 1], (unsigned)__popc(bal));
+    at = __shfl_sync(0xffffffffu, at, 0);
+    int2* cands = recs + (size_t)S * N1;
+    if (cand) cands[at + __popc(bal & ((1u << lane) - 1u))] =
+        make_int2((int)((unsigned)i | ((unsigned)best << ROW_BITS)), bidx);
+
+    // (e) the last row block of the problem checks the candidates against the
+    // final column keys: the column-min dedup or the mutual check
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+        if (S > 1) tk[rb] = 0u;
+        is_last = atomicAdd(&tk[RB], 1u) == (unsigned)(RB - 1);
     }
     __syncthreads();
-    for (int j = tid; j < N2; j += NT) a.colkey[(size_t)b * N2 + j] = KEY_INIT;
-    if (tid == 0) a.ticket[b] = 0u;
+    if (!is_last) return;
+    __threadfence();
+    const unsigned* keys = a.colkey + (size_t)b * N2;
+    const int n = (int)__ldcg(&tk[RB + 1]);
+    for (int base = 0; base < n; base += RPT * MNT) {
+        int2 e[RPT];
+        unsigned key[RPT];
+#pragma unroll
+        for (int k = 0; k < RPT; ++k) {
+            const int q = base + k * MNT + tid;
+            e[k] = q < n ? __ldcg(cands + q) : make_int2(0, -1);
+        }
+#pragma unroll
+        for (int k = 0; k < RPT; ++k) key[k] = e[k].y >= 0 ? __ldcg(keys + e[k].y) : KEY_INIT;
+#pragma unroll
+        for (int k = 0; k < RPT; ++k) {
+            if (e[k].y < 0) continue;
+            const int r = (int)((unsigned)e[k].x & ((1u << ROW_BITS) - 1u));
+            const int bb = (int)((unsigned)e[k].x >> ROW_BITS);
+            const bool m = a.mutual ? (int)(key[k] & ((1u << ROW_BITS) - 1u)) == r
+                                    : bb <= (int)(key[k] >> ROW_BITS);
+            idx_out[r] = m ? e[k].y : -1;
+            dist_out[r] = m ? bb : MAX_DIST;
+        }
+    }
+    // (f) reset the problem's column keys, count and ticket
+    __syncthreads();
+    for (int j = tid; j < N2; j += MNT) a.colkey[(size_t)b * N2 + j] = KEY_INIT;
+    if (tid == 0) {
+        tk[RB] = 0u;
+        tk[RB + 1] = 0u;
+    }
 }
 
 #define DD_WARPS 4
@@ -306,16 +530,6 @@ __global__ void __launch_bounds__(NT) hamming_match_fused(const MatchArgs a) {
                           // the distances, share one buffer of 32 x 36 words
 #define BIG 2048          // the reference's sentinel, > any distance
 #define MED_BITS 10       // distances are 0..512 < 2^10
-
-// D = popc(A AND B) + C for a 16x256 (row) by 256x8 (col) bit tile
-__device__ __forceinline__ void mma_and_popc(int (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                             unsigned b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __global__ void __launch_bounds__(DD_NT) distinctive_descriptors_kernel(
     const int* __restrict__ kf_desc, int K, int N, const int* __restrict__ obs_kf,
@@ -432,18 +646,18 @@ __global__ void __launch_bounds__(DD_NT) distinctive_descriptors_kernel(
     if (lane == 0) out_best[q] = bi;
 }
 
-// Rows per CTA: 16 where that still gives at least two CTAs per SM of the
-// H100's 132, else 8 (more CTAs, each re-reading desc2 from L2).
 extern "C" int hamming_match_launch(const MatchArgs* a, cudaStream_t stream) {
     if (a->B == 0 || a->N1 == 0) return (int)cudaGetLastError();
-    const long long ctas16 = (long long)((a->N1 + 15) / 16) * a->B;
-    if (ctas16 >= 264) {
-        dim3 grid((a->N1 + 15) / 16, a->B);
-        hamming_match_fused<16><<<grid, NT, 0, stream>>>(*a);
-    } else {
-        dim3 grid((a->N1 + 7) / 8, a->B);
-        hamming_match_fused<8><<<grid, NT, 0, stream>>>(*a);
+    if (a->cs <= 0 || a->cs > CS_MAX || a->cs % 32) return (int)cudaErrorInvalidValue;
+    const int S = (a->N2 + a->cs - 1) / a->cs, RB = (a->N1 + MNT - 1) / MNT;
+    static bool attr = false;
+    if (!attr) {
+        const cudaError_t e = cudaFuncSetAttribute(hamming_match_fused,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MATCH);
+        if (e != cudaSuccess) return (int)e;
+        attr = true;
     }
+    hamming_match_fused<<<dim3(RB * S, a->B), MNT, SMEM_MATCH, stream>>>(*a);
     return (int)cudaGetLastError();
 }
 

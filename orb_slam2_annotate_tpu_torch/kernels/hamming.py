@@ -175,8 +175,8 @@ class _MatchArgs(ctypes.Structure):
                 ("mask", _P), ("s_mask", _LL),
                 ("B", ctypes.c_int), ("N1", ctypes.c_int), ("N2", ctypes.c_int),
                 ("gate", ctypes.c_int), ("max_dist", ctypes.c_int), ("mutual", ctypes.c_int),
-                ("ratio", ctypes.c_float),
-                ("colkey", _P), ("rowstate", _P), ("ticket", _P), ("out", _P)]
+                ("ratio", ctypes.c_float), ("cs", ctypes.c_int),
+                ("colkey", _P), ("rowstate", _P), ("ticket", _P), ("idx", _P), ("dist", _P)]
 
 
 @functools.cache
@@ -191,39 +191,123 @@ def _fns():
     return match, dd
 
 
-_WORKSPACE: dict = {}   # device -> (colkey [>= B*N2] i64, rowstate [>= B*N1*3] i32, ticket [>= B] i32)
-_KEY_INIT = MAX_DIST << 32
+_WORKSPACE: dict = {}   # device -> (colkey [>= B*N2], records [>= 2*B*(S+1)*N1], tickets [>= B*(RB+2)]) i32
+_KEY_INIT = (MAX_DIST << 22) - (1 << 32)    # the bits of MAX_DIST << 22 as an int32
+_ROWS_A_CTA, _CS_MAX, _SMS = 256, 256, 132   # csrc/hamming.cu MNT, CS_MAX; the H100's SMs
 
 
-def _workspace(dev, B: int, N1: int, N2: int):
+@functools.lru_cache(maxsize=64)
+def _split(B: int, N1: int, N2: int):
+    """(columns a split, splits, row blocks): 256 columns, halved down to 64
+    while the grid would fill fewer than two CTAs an SM."""
+    rb = -(-N1 // _ROWS_A_CTA)
+    cs = _CS_MAX
+    while cs > 64 and rb * B * -(-N2 // cs) < 2 * _SMS:
+        cs //= 2
+    return cs, -(-N2 // cs), rb
+
+
+def _workspace(dev, n2: int, nrec: int, ntk: int):
     """The device's matcher workspace, grown to fit.  Between calls the column
-    keys hold KEY_INIT and the tickets 0: the kernel's finishing CTAs restore
-    both, and calls on one stream run in order."""
+    keys hold KEY_INIT (MAX_DIST << 22, row 0) and the tickets 0: the
+    kernel's finishing CTAs restore both, and calls on one stream run in
+    order."""
     ws = _WORKSPACE.get(dev)
-    if ws is None or ws[0].numel() < B * N2 or ws[1].numel() < 3 * B * N1 or ws[2].numel() < B:
-        n2 = max(B * N2, 0 if ws is None else ws[0].numel())
-        n1 = max(3 * B * N1, 0 if ws is None else ws[1].numel())
-        nb = max(B, 0 if ws is None else ws[2].numel())
-        ws = (torch.full((n2,), _KEY_INIT, dtype=torch.int64, device=dev),
-              torch.empty((n1,), dtype=torch.int32, device=dev),
-              torch.zeros((nb,), dtype=torch.int32, device=dev))
+    if ws is None or ws[0].numel() < n2 or ws[1].numel() < nrec or ws[2].numel() < ntk:
+        if ws is not None:
+            n2, nrec, ntk = (max(n, w.numel()) for n, w in zip((n2, nrec, ntk), ws))
+        ws = (torch.full((n2,), _KEY_INIT, dtype=torch.int32, device=dev),
+              torch.empty((nrec,), dtype=torch.int32, device=dev),
+              torch.zeros((ntk,), dtype=torch.int32, device=dev))
         _WORKSPACE[dev] = ws
     return ws
 
 
-def _arg(t, name: str, dtype, tail: tuple, dev):
+def _arg(t, name: str, dtype, tail: tuple, dev, inner: int):
     """(pointer, batch stride, batch size or 0 if shared) of a kernel input
-    of shape [*tail] (shared) or [B, *tail]."""
+    of shape [*tail] (shared) or [B, *tail], `inner` the product of `tail`.
+    One fused test passes a good tensor; the separate ones run only to say
+    what failed."""
+    if t.dtype is dtype and t.is_contiguous() and t.device == dev:
+        shape = t.shape
+        if shape == tail:
+            return t.data_ptr(), 0, 0
+        if len(shape) == len(tail) + 1 and shape[1:] == tail:
+            return t.data_ptr(), inner, shape[0]
     if t.dtype != dtype or t.device != dev or not t.is_contiguous():
         raise ValueError(f"hamming_match: {name} must be a contiguous {dtype} tensor on {dev}, "
                          f"got {t.dtype} on {t.device}")
-    shape = t.shape
-    if shape[len(shape) - len(tail):] != tail or len(shape) - len(tail) not in (0, 1):
-        raise ValueError(f"hamming_match: {name} of shape {tuple(shape)}, expected "
-                         f"[B,]{list(tail)}")
-    if len(shape) == len(tail):
-        return t.data_ptr(), 0, 0
-    return t.data_ptr(), t.stride(0), shape[0]
+    raise ValueError(f"hamming_match: {name} of shape {tuple(t.shape)}, expected [B,]{list(tail)}")
+
+
+_F32, _I32, _U8 = torch.float32, torch.int32, torch.bool
+
+
+def _match_args(desc1, desc2, row_valid, col_valid, max_dist: int, ratio: float, mutual: bool,
+                gate):
+    """The kernel's arguments for CUDA tensors, checked, the workspace grown
+    to fit, the outputs not yet set: (args, batch size or 0 if no input has
+    a batch dimension)."""
+    dev = desc1.device
+    N1, N2 = desc1.shape[-2], desc2.shape[-2]
+    if N2 == 0:
+        raise ValueError("hamming_match: desc2 has no rows")
+    if desc2.data_ptr() % 16:
+        raise ValueError("hamming_match: desc2 must be 16-byte aligned (cp.async)")
+    a = _MatchArgs()
+    a.d1, a.s_d1, B1 = _arg(desc1, "d1", _I32, (N1, DESC_WORDS), dev, N1 * DESC_WORDS)
+    a.d2, a.s_d2, B2 = _arg(desc2, "d2", _I32, (N2, DESC_WORDS), dev, N2 * DESC_WORDS)
+    batch = [B1, B2]
+    if row_valid is not None:
+        a.rv, a.s_rv, bs = _arg(row_valid, "rv", _U8, (N1,), dev, N1)
+        batch.append(bs)
+    if col_valid is not None:
+        a.cv, a.s_cv, bs = _arg(col_valid, "cv", _U8, (N2,), dev, N2)
+        batch.append(bs)
+    if gate is None:
+        a.gate = GATE_NONE
+    elif isinstance(gate, WindowGate):
+        a.gate = GATE_WINDOW
+        a.pxy, a.s_pxy, bs = _arg(gate.proj_xy, "pxy", _F32, (N1, 2), dev, 2 * N1)
+        batch.append(bs)
+        if torch.is_tensor(gate.radius):
+            a.rad, a.s_rad, bs = _arg(gate.radius, "rad", _F32, (N1,), dev, N1)
+            batch.append(bs)
+        else:
+            a.rad_scalar = float(gate.radius)
+        a.xy2, a.s_xy2, bs = _arg(gate.xy2, "xy2", _F32, (N2, 2), dev, 2 * N2)
+        batch.append(bs)
+        if gate.pred_octave is not None:
+            a.use_oct, a.lo, a.hi = 1, int(gate.lo), int(gate.hi)
+            a.poct, a.s_poct, bs = _arg(gate.pred_octave, "poct", _I32, (N1,), dev, N1)
+            a.oct2, a.s_oct2, bs2 = _arg(gate.octave2, "oct2", _I32, (N2,), dev, N2)
+            batch += [bs, bs2]
+    elif isinstance(gate, EpipolarGate):
+        a.gate = GATE_EPIPOLAR
+        a.F, a.s_F, bs = _arg(gate.F12, "F", _F32, (3, 3), dev, 9)
+        a.xy1, a.s_xy1, bs1 = _arg(gate.xy1, "xy1", _F32, (N1, 2), dev, 2 * N1)
+        a.xy2, a.s_xy2, bs2 = _arg(gate.xy2, "xy2", _F32, (N2, 2), dev, 2 * N2)
+        a.oct2, a.s_oct2, bs3 = _arg(gate.octave2, "oct2", _I32, (N2,), dev, N2)
+        a.isig2 = _arg(gate.inv_sigma2, "inv_sigma2", _F32, tuple(gate.inv_sigma2.shape), dev, 0)[0]
+        batch += [bs, bs1, bs2, bs3]
+    elif isinstance(gate, MaskGate):
+        a.gate = GATE_MASK
+        a.mask, a.s_mask, bs = _arg(gate.mask, "mask", _U8, (N1, N2), dev, N1 * N2)
+        batch.append(bs)
+    else:
+        raise TypeError(f"hamming_match: unknown gate {type(gate).__name__}")
+    B = max(batch)
+    if B and any(n and n != B for n in batch):
+        raise ValueError(f"hamming_match: batch sizes differ: {[n for n in batch if n]}")
+    nb = B or 1
+    if N1 >= 1 << 22:
+        raise ValueError(f"hamming_match: {N1} rows; the column keys hold a row in 22 bits")
+    cs, S, rb = _split(nb, N1, N2)
+    colkey, rowstate, ticket = _workspace(dev, nb * N2, 2 * nb * (S + 1) * N1, nb * (rb + 2))
+    a.B, a.N1, a.N2, a.cs = nb, N1, N2, cs
+    a.max_dist, a.ratio, a.mutual = int(max_dist), float(ratio), int(bool(mutual))
+    a.colkey, a.rowstate, a.ticket = colkey.data_ptr(), rowstate.data_ptr(), ticket.data_ptr()
+    return a, B
 
 
 def hamming_match(desc1, desc2, row_valid, col_valid, max_dist: int, ratio: float,
@@ -232,69 +316,15 @@ def hamming_match(desc1, desc2, row_valid, col_valid, max_dist: int, ratio: floa
     if not desc1.is_cuda:
         return hamming_match_plain(desc1, desc2, row_valid, col_valid, max_dist, ratio, mutual,
                                    gate)
+    a, B = _match_args(desc1, desc2, row_valid, col_valid, max_dist, ratio, mutual, gate)
     dev = desc1.device
-    N1, N2 = desc1.shape[-2], desc2.shape[-2]
-    if N2 == 0:
-        raise ValueError("hamming_match: desc2 has no rows")
-    a = _MatchArgs()
-    f32, i32, u8 = torch.float32, torch.int32, torch.bool
-    batch = []
-
-    def put(field, t, dtype, tail):
-        ptr, stride, bsz = _arg(t, field, dtype, tail, dev)
-        setattr(a, field, ptr)
-        if bsz:
-            batch.append(bsz)
-        return stride
-
-    a.s_d1 = put("d1", desc1, i32, (N1, DESC_WORDS))
-    if desc2.data_ptr() % 16:
-        raise ValueError("hamming_match: desc2 must be 16-byte aligned (cp.async)")
-    a.s_d2 = put("d2", desc2, i32, (N2, DESC_WORDS))
-    if row_valid is not None:
-        a.s_rv = put("rv", row_valid, u8, (N1,))
-    if col_valid is not None:
-        a.s_cv = put("cv", col_valid, u8, (N2,))
-    if gate is None:
-        a.gate = GATE_NONE
-    elif isinstance(gate, WindowGate):
-        a.gate = GATE_WINDOW
-        a.s_pxy = put("pxy", gate.proj_xy, f32, (N1, 2))
-        if torch.is_tensor(gate.radius):
-            a.s_rad = put("rad", gate.radius, f32, (N1,))
-        else:
-            a.rad_scalar = float(gate.radius)
-        a.s_xy2 = put("xy2", gate.xy2, f32, (N2, 2))
-        if gate.pred_octave is not None:
-            a.use_oct, a.lo, a.hi = 1, int(gate.lo), int(gate.hi)
-            a.s_poct = put("poct", gate.pred_octave, i32, (N1,))
-            a.s_oct2 = put("oct2", gate.octave2, i32, (N2,))
-    elif isinstance(gate, EpipolarGate):
-        a.gate = GATE_EPIPOLAR
-        a.s_F = put("F", gate.F12, f32, (3, 3))
-        a.s_xy1 = put("xy1", gate.xy1, f32, (N1, 2))
-        a.s_xy2 = put("xy2", gate.xy2, f32, (N2, 2))
-        a.s_oct2 = put("oct2", gate.octave2, i32, (N2,))
-        _arg(gate.inv_sigma2, "inv_sigma2", f32, tuple(gate.inv_sigma2.shape), dev)
-        a.isig2 = gate.inv_sigma2.data_ptr()
-    elif isinstance(gate, MaskGate):
-        a.gate = GATE_MASK
-        a.s_mask = put("mask", gate.mask, u8, (N1, N2))
-    else:
-        raise TypeError(f"hamming_match: unknown gate {type(gate).__name__}")
-    B = batch[0] if batch else 1
-    if any(n != B for n in batch):
-        raise ValueError(f"hamming_match: batch sizes differ: {batch}")
-    out = torch.empty((2, B, N1), dtype=i32, device=dev)
-    colkey, rowstate, ticket = _workspace(dev, B, N1, N2)
-    a.B, a.N1, a.N2 = B, N1, N2
-    a.max_dist, a.ratio, a.mutual = int(max_dist), float(ratio), int(bool(mutual))
-    a.colkey, a.rowstate, a.ticket = colkey.data_ptr(), rowstate.data_ptr(), ticket.data_ptr()
-    a.out = out.data_ptr()
-    match, _ = _fns()
-    _build.check_launch(match(ctypes.byref(a), _build.stream_ptr(dev)), "hamming_match")
+    shape = (B, a.N1) if B else (a.N1,)
+    idx = torch.empty(shape, dtype=_I32, device=dev)
+    dist = torch.empty(shape, dtype=_I32, device=dev)
+    a.idx, a.dist = idx.data_ptr(), dist.data_ptr()
+    _build.check_launch(_fns()[0](ctypes.byref(a), _build.stream_ptr(dev)), "hamming_match")
     hamming_match.launches += 1
-    return (out[0], out[1]) if batch else (out[0, 0], out[1, 0])
+    return idx, dist
 
 
 def distinctive_descriptors(kf_desc, obs_kf, obs_ft, obs_cnt):
